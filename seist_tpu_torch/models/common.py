@@ -1,0 +1,186 @@
+"""Shared building blocks (channels-last ``(N, L, C)``, torch).
+
+Counterparts of ``seist_tpu/models/common.py``: ``auto_pad_1d`` with the
+reference's asymmetric 'same' padding, ceil-mode pooling (the avg divisor
+is the count of valid elements), ``interpolate_linear``
+(``align_corners=False``), ``make_divisible``, exact-erf ``gelu``,
+BatchNorm with eps 1e-5, ``global_avg_pool`` and ``DropPath``.
+
+Activations stay channels-last at every public function, as in the JAX
+package; convolutions transpose to ``(N, C, L)`` around ``F.conv1d``.
+Only inference is ported: BatchNorm uses its running statistics and
+``DropPath`` is the identity in eval; both raise in training mode, which
+arrives with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+#: torch BatchNorm1d's epsilon, as ``seist_tpu/models/common.py:498``.
+BN_EPSILON = 1e-5
+#: Std of the truncated-normal weight init (``seist_tpu/models/common.py:30``).
+INIT_STD = 0.02
+
+_TRAINING_SLICE = "training is not ported yet (it arrives with the training slice)"
+
+
+# --------------------------------------------------------------------- padding
+def auto_pad_amount(length: int, kernel_size: int, stride: int = 1) -> Tuple[int, int]:
+    """'same'-style asymmetric padding so L_out = ceil(L/stride)."""
+    if kernel_size < stride:
+        raise ValueError(
+            f"`kernel_size` must be >= `stride`, got {kernel_size}, {stride}"
+        )
+    pds = (stride - (length % stride)) % stride + kernel_size - stride
+    return pds // 2, pds - pds // 2
+
+
+def auto_pad_1d(
+    x: torch.Tensor, kernel_size: int, stride: int = 1, padding_value: float = 0.0
+) -> torch.Tensor:
+    """Pad the length axis (-2) of an (N, L, C) tensor."""
+    lp, rp = auto_pad_amount(x.shape[-2], kernel_size, stride)
+    return F.pad(x, (0, 0, lp, rp), value=padding_value)
+
+
+# --------------------------------------------------------------------- pooling
+def ceil_len(length: int, stride: int) -> int:
+    return -(-length // stride)
+
+
+def _windows(x: torch.Tensor, kernel_size: int, fill: float) -> torch.Tensor:
+    """(N, L, C) -> (N, ceil(L/k), k, C), the ragged last window filled."""
+    n, length, c = x.shape
+    n_out = ceil_len(length, kernel_size)
+    x = F.pad(x, (0, 0, 0, n_out * kernel_size - length), value=fill)
+    return x.reshape(n, n_out, kernel_size, c)
+
+
+def max_pool_1d_ceil(x: torch.Tensor, kernel_size: int) -> torch.Tensor:
+    """MaxPool1d(k, ceil_mode=True): stride k, ragged window padded with -inf."""
+    return _windows(x, kernel_size, float("-inf")).amax(dim=2)
+
+
+def avg_pool_1d_ceil(x: torch.Tensor, kernel_size: int) -> torch.Tensor:
+    """AvgPool1d(k, ceil_mode=True): the ragged last window divides by the
+    count of its valid elements."""
+    length = x.shape[-2]
+    sums = _windows(x, kernel_size, 0.0).sum(dim=2)
+    n_out = sums.shape[1]
+    counts = torch.full((n_out,), float(kernel_size), dtype=x.dtype, device=x.device)
+    counts[-1] = float(length - (n_out - 1) * kernel_size)
+    return sums / counts[None, :, None]
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """AdaptiveAvgPool1d(1) + flatten: (N, L, C) -> (N, C)."""
+    return x.mean(dim=-2)
+
+
+# ---------------------------------------------------------------- interpolate
+def interpolate_linear(x: torch.Tensor, out_size: int) -> torch.Tensor:
+    """F.interpolate(mode='linear', align_corners=False) on (N, L, C).
+
+    Source index ``(dst + 0.5) * L_in/L_out - 0.5`` clamped to [0, L_in-1],
+    blending the two nearest samples; computed in float32 as the JAX
+    package computes it (``F.interpolate`` rounds the source index
+    differently, by up to 4e-6 at L_in = 64). The JAX package's
+    gather-free path for integer factors is a TPU lowering of the same
+    formula."""
+    l_in = x.shape[-2]
+    if l_in == out_size:
+        return x
+    dst = torch.arange(out_size, dtype=torch.float32, device=x.device)
+    src = ((dst + 0.5) * (l_in / out_size) - 0.5).clamp(0.0, l_in - 1)
+    lo = torch.floor(src).long()
+    hi = torch.clamp(lo + 1, max=l_in - 1)
+    w = (src - lo.float())[None, :, None].to(x.dtype)
+    return x.index_select(1, lo) * (1.0 - w) + x.index_select(1, hi) * w
+
+
+# --------------------------------------------------------------------- helpers
+def make_divisible(v: int, divisor: int) -> int:
+    """Channel rounding (ref seist.py:51-60)."""
+    new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU, torch ``nn.GELU()``."""
+    return F.gelu(x)
+
+
+# --------------------------------------------------------------------- modules
+class Conv1d(nn.Module):
+    """Channels-last conv1d: (N, L, Cin) -> (N, L_out, Cout), VALID padding.
+    ``groups`` > 1 covers the depthwise and grouped convs of the JAX
+    package (their lowering choices are XLA's and are not ported)."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: int,
+        stride: int = 1,
+        groups: int = 1,
+        bias: bool = False,
+    ):
+        super().__init__()
+        if in_channels % groups or out_channels % groups:
+            raise ValueError(
+                f"channels {in_channels}->{out_channels} not divisible by "
+                f"{groups} groups"
+            )
+        self.stride = stride
+        self.groups = groups
+        # Values come from models/api.py::init_weights or a state_dict.
+        self.weight = nn.Parameter(
+            torch.zeros(out_channels, in_channels // groups, kernel_size)
+        )
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv1d(
+            x.transpose(1, 2), self.weight, self.bias, self.stride, 0, 1, self.groups
+        )
+        return y.transpose(1, 2)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the channel axis of (N, L, C) in eval: torch
+    ``BatchNorm1d`` semantics with eps 1e-5, statistics in fp32."""
+
+    def __init__(self, features: int, eps: float = BN_EPSILON):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(f"BatchNorm: {_TRAINING_SLICE}")
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = (x.float() - self.running_mean) * inv + self.bias
+        return y.to(x.dtype)
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth; the identity in eval."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.rate > 0.0:
+            raise NotImplementedError(f"DropPath: {_TRAINING_SLICE}")
+        return x
