@@ -8,25 +8,33 @@ BatchNorm with eps 1e-5, ``global_avg_pool`` and ``DropPath``.
 
 Activations stay channels-last at every public function, as in the JAX
 package; convolutions transpose to ``(N, C, L)`` around ``F.conv1d``.
-Only inference is ported: BatchNorm uses its running statistics and
-``DropPath`` is the identity in eval; both raise in training mode, which
-arrives with the training slice.
+
+Training mode: BatchNorm normalises with the batch statistics and
+updates its running ones (``BatchNorm1dParity``); ``Dropout`` and
+``DropPath`` draw their uniforms from the explicit generator of a
+:class:`RandomSource` that the model's owner attaches before a train-mode
+forward (``F.dropout`` would read the global RNG). DropPath can instead
+consume injected uniform rows in call order, as
+``seist_tpu/models/common.py::droppath_mask_injection`` does.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 #: torch BatchNorm1d's epsilon, as ``seist_tpu/models/common.py:498``.
 BN_EPSILON = 1e-5
+#: Running-statistics momentum in the flax convention (new = m*old +
+#: (1-m)*batch), torch's 0.1 (``seist_tpu/models/common.py:497``).
+BN_MOMENTUM = 0.9
 #: Std of the truncated-normal weight init (``seist_tpu/models/common.py:30``).
 INIT_STD = 0.02
-
-_TRAINING_SLICE = "training is not ported yet (it arrives with the training slice)"
 
 
 # --------------------------------------------------------------------- padding
@@ -153,9 +161,83 @@ class Conv1d(nn.Module):
         return y.transpose(1, 2)
 
 
+class RandomSource:
+    """The randomness of train-mode forwards.
+
+    ``generator`` draws the element-dropout and DropPath uniforms on the
+    activations' device. ``seed_generator`` is a CPU generator that draws
+    the attention-dropout seeds: the seed is a host integer handed to the
+    kernel, so drawing it costs no device sync, and a step on the card and
+    the same step on the CPU use the same attention masks.
+    :meth:`inject_droppath` routes DropPath to given uniform rows instead,
+    one row per train-mode call with a positive rate, in call order.
+    """
+
+    def __init__(
+        self,
+        generator: Optional[torch.Generator] = None,
+        seed_generator: Optional[torch.Generator] = None,
+    ):
+        self.generator = generator
+        self.seed_generator = seed_generator
+        self.droppath_uniforms: Optional[torch.Tensor] = None
+        self.droppath_calls = 0
+
+    @classmethod
+    def from_seed(cls, seed: int, device) -> "RandomSource":
+        """Both generators seeded from one integer (the device one on
+        ``device``)."""
+        words = np.random.SeedSequence(int(seed)).generate_state(2, np.uint64)
+        gen = torch.Generator(device=device).manual_seed(int(words[0]))
+        return cls(gen, torch.Generator().manual_seed(int(words[1])))
+
+    def inject_droppath(self, uniforms) -> None:
+        """Every later DropPath call consumes the next row of ``uniforms``
+        (max_calls, batch); :attr:`droppath_calls` counts the rows used."""
+        self.droppath_uniforms = torch.as_tensor(uniforms, dtype=torch.float32)
+        self.droppath_calls = 0
+
+    def uniform(self, shape, device) -> torch.Tensor:
+        if self.generator is None:
+            raise RuntimeError("this RandomSource has no generator for dropout")
+        return torch.rand(shape, generator=self.generator, device=device)
+
+    def attention_seed(self) -> int:
+        """An int32 seed in [0, 2^31 - 1), as ``jax.random.randint(key,
+        (1,), 0, iinfo(int32).max)`` draws it (``seist.py:545-551``)."""
+        if self.seed_generator is None:
+            raise RuntimeError("this RandomSource has no seed generator")
+        return int(torch.randint(0, 2**31 - 1, (1,), generator=self.seed_generator))
+
+
+def need_source(module: nn.Module) -> RandomSource:
+    """The RandomSource attached to ``module``; raises when there is none."""
+    src = getattr(module, "random", None)
+    if src is None:
+        raise RuntimeError(
+            f"{type(module).__name__} in training mode needs a RandomSource: "
+            "call set_random_source(model, source) before the forward"
+        )
+    return src
+
+
+def set_random_source(model: nn.Module, source: Optional[RandomSource]) -> None:
+    """Attach ``source`` to every module of ``model`` that draws randomness
+    in training mode (anything with a ``random`` attribute)."""
+    for m in model.modules():
+        if hasattr(m, "random"):
+            m.random = source
+
+
 class BatchNorm(nn.Module):
-    """BatchNorm over the channel axis of (N, L, C) in eval: torch
-    ``BatchNorm1d`` semantics with eps 1e-5, statistics in fp32."""
+    """BatchNorm over the channel axis of (N, L, C), torch ``BatchNorm1d``
+    semantics with eps 1e-5, statistics in fp32.
+
+    Training mode (``BatchNorm1dParity``): normalise with the biased
+    variance over (N, L), update the running variance with the unbiased
+    one (n = N*L), momentum 0.9 in the flax convention (torch's 0.1). The
+    running statistics are updated in place, as torch's BatchNorm does;
+    the train step restores them when it skips an update."""
 
     def __init__(self, features: int, eps: float = BN_EPSILON):
         super().__init__()
@@ -166,21 +248,61 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
         if self.training:
-            raise NotImplementedError(f"BatchNorm: {_TRAINING_SLICE}")
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean) * inv + self.bias
+            dims = tuple(range(x.dim() - 1))
+            mean = xf.mean(dims)
+            var = (xf.square().mean(dims) - mean.square()).clamp_min(0.0)
+            n = math.prod(x.shape[:-1])
+            with torch.no_grad():
+                unbiased = var * (n / max(n - 1, 1))
+                m = BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean) * inv + self.bias
         return y.to(x.dtype)
 
 
-class DropPath(nn.Module):
-    """Per-sample stochastic depth; the identity in eval."""
+class Dropout(nn.Module):
+    """Element dropout (flax ``nn.Dropout``): keep with probability
+    1 - rate, scale the kept by 1/(1 - rate); the identity in eval."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.random: Optional[RandomSource] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError(f"DropPath: {_TRAINING_SLICE}")
-        return x
+        if not self.training or self.rate <= 0.0:
+            return x
+        keep = 1.0 - self.rate
+        u = need_source(self).uniform(x.shape, x.device)
+        return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (timm DropPath, ``scale_by_keep``); the
+    identity in eval or at rate 0. One uniform per sample, from the
+    source's generator or its injected rows."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.random: Optional[RandomSource] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate <= 0.0:
+            return x
+        src = need_source(self)
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        if src.droppath_uniforms is not None:
+            u = src.droppath_uniforms[src.droppath_calls].to(x.device)
+            src.droppath_calls += 1
+        else:
+            u = src.uniform((x.shape[0],), x.device)
+        mask = (u < keep).reshape(shape)
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -14,6 +14,11 @@ one ``state_dict`` key; only the leaf names and layouts change:
 
 A leaf no rule maps raises. Loading the result with
 ``load_state_dict(strict=True)`` checks names and shapes against the model.
+
+:func:`train_state_from_optax` carries a whole JAX ``TrainState`` across:
+parameters and ``batch_stats`` as above, and optax Adam's ``mu`` / ``nu``
+through the same layout rule as the parameter each belongs to, into a
+``torch.optim.Adam`` state whose step is optax's ``count``.
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _leaves(variables.get("params", {})):
         key, value = _convert_param(path, np.asarray(arr, dtype=np.float32))
-        out[key] = torch.from_numpy(np.ascontiguousarray(value))
+        out[key] = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
     for path, arr in _leaves(variables.get("batch_stats", {})):
         if path[-1] not in _STATS:
             raise KeyError(f"no rule maps batch_stats '{'/'.join(path)}'")
@@ -70,3 +75,42 @@ def save_torch_weights(variables: Mapping[str, Any], path: str) -> None:
     """``torch.save`` the converted ``state_dict``: the ``.pt`` file that
     ``serve --model NAME=WEIGHTS.pt`` loads."""
     torch.save(state_dict_from_flax(variables), path)
+
+
+def train_state_from_optax(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    variables: Mapping[str, Any],
+    mu: Mapping[str, Any],
+    nu: Mapping[str, Any],
+    count: int,
+) -> int:
+    """Load a JAX ``TrainState`` into ``model`` and its ``torch.optim.Adam``
+    (or AdamW) ``optimizer``, which must be built over
+    ``model.parameters()``: ``variables`` = ``{"params", "batch_stats"}``,
+    ``mu`` / ``nu`` the Adam moments (trees shaped like ``params``),
+    ``count`` the applied-update count. Returns ``count``: the train
+    state's step, from which the schedule continues."""
+    model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    moments = {}
+    for tree, slot in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+        for path, arr in _leaves(tree):
+            key, value = _convert_param(path, np.asarray(arr, dtype=np.float32))
+            moments.setdefault(key, {})[slot] = torch.from_numpy(
+                np.array(value, dtype=np.float32, order="C"))
+    names = [name for name, _ in model.named_parameters()]
+    if set(names) != set(moments):
+        raise KeyError(
+            f"optimizer moments do not match the parameters: "
+            f"{sorted(set(names) ^ set(moments))[:5]}"
+        )
+    sd = optimizer.state_dict()
+    if len(sd["param_groups"]) != 1 or len(sd["param_groups"][0]["params"]) != len(names):
+        raise ValueError("the optimizer must hold exactly model.parameters(), one group")
+    step = torch.tensor(float(count))
+    sd["state"] = {
+        i: {"step": step.clone(), **moments[name]}
+        for i, name in enumerate(names)
+    }
+    optimizer.load_state_dict(sd)
+    return int(count)

@@ -9,10 +9,13 @@ depthwise-separable convs port the literal 'paths' math (in_proj ->
 depthwise -> pconv). The JAX package's XLA lowerings of the same math
 ('composed', 'merged', 'fused', SEIST_*_IMPL) are not ported.
 
-Only inference is ported (training arrives with its slice): dropout and
-stochastic depth are the identity in eval, and attention runs at rate 0
-through ``fused_pooled_attention`` — the hand-written CUDA kernel on the
-card. Sequence-parallel ring attention waits for the multi-GPU slice.
+Attention runs through ``fused_pooled_attention``: the hand-written CUDA
+kernels on the card, forward and backward. In training mode (``train()``)
+the model applies MLP, key and output-projection dropout, DropPath and
+post-softmax attention dropout, drawn from the :class:`RandomSource`
+attached with :func:`common.set_random_source`; the attention seed is
+drawn per call from its CPU generator. Stage rematerialisation
+(``use_checkpoint``) and sequence-parallel ring attention are not ported.
 
 15 registered variants: seist_{s,m,l}_{dpk,pmp,emg,baz,dis}.
 """
@@ -30,6 +33,7 @@ from seist_tpu_torch.models import common
 from seist_tpu_torch.models.common import (
     BatchNorm,
     Conv1d,
+    Dropout,
     DropPath,
     auto_pad_1d,
     ceil_len,
@@ -58,16 +62,18 @@ class LocalAwareAggregationBlock(nn.Module):
 
 
 class MLP(nn.Module):
-    """1x1-conv feedforward (ref seist.py:99-121); dropout is eval identity."""
+    """1x1-conv feedforward with output dropout (ref seist.py:99-121)."""
 
-    def __init__(self, in_dim: int, out_dim: int, mlp_ratio: float, bias: bool):
+    def __init__(self, in_dim: int, out_dim: int, mlp_ratio: float, bias: bool,
+                 drop_rate: float = 0.0):
         super().__init__()
         ffwd = int(in_dim * mlp_ratio)
         self.lin0 = nn.Linear(in_dim, ffwd, bias=bias)
         self.lin1 = nn.Linear(ffwd, out_dim, bias=bias)
+        self.drop = Dropout(drop_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.lin1(gelu(self.lin0(x)))
+        return self.drop(self.lin1(gelu(self.lin0(x))))
 
 
 class DSConvNormAct(nn.Module):
@@ -113,14 +119,14 @@ class GroupConvBlock(nn.Module):
     """Grouped conv + MLP, both with residual DropPath (ref seist.py:198-256)."""
 
     def __init__(self, io_dim: int, groups: int, kernel_size: int, path_drop_rate: float,
-                 mlp_ratio: float, mlp_bias: bool):
+                 mlp_ratio: float, mlp_bias: bool, mlp_drop_rate: float = 0.0):
         super().__init__()
         self.kernel_size = kernel_size
         self.conv = Conv1d(io_dim, io_dim, kernel_size, groups=groups)
         self.norm0 = BatchNorm(io_dim)
         self.proj = nn.Linear(io_dim, io_dim, bias=False)
         self.norm1 = BatchNorm(io_dim)
-        self.mlp = MLP(io_dim, io_dim, mlp_ratio, mlp_bias)
+        self.mlp = MLP(io_dim, io_dim, mlp_ratio, mlp_bias, mlp_drop_rate)
         self.drop_path = DropPath(path_drop_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -135,7 +141,8 @@ class MultiScaleMixedConv(nn.Module):
     (ref seist.py:259-318)."""
 
     def __init__(self, in_dim: int, io_dim: int, groups: int, kernel_sizes: Sequence[int],
-                 path_drop_rate: float, mlp_ratio: float, mlp_bias: bool):
+                 path_drop_rate: float, mlp_ratio: float, mlp_bias: bool,
+                 mlp_drop_rate: float = 0.0):
         super().__init__()
         group_size = io_dim // groups
         dims: List[int] = []
@@ -151,7 +158,7 @@ class MultiScaleMixedConv(nn.Module):
             self.add_module(
                 f"conv{i}",
                 GroupConvBlock(dim, dim // group_size, kernel_size, path_drop_rate,
-                               mlp_ratio, mlp_bias),
+                               mlp_ratio, mlp_bias, mlp_drop_rate),
             )
         self.npath = len(kernel_sizes)
         self.out_dim = sum(dims)
@@ -167,12 +174,21 @@ class MultiScaleMixedConv(nn.Module):
 
 class AttentionBlock(nn.Module):
     """MHA with K/V from a pooled sequence: full-length Q attends to L/r
-    keys, cost L x (L/r) (ref seist.py:321-393)."""
+    keys, cost L x (L/r) (ref seist.py:321-393). In training mode: key
+    dropout, post-softmax probability dropout inside the kernel (its int32
+    seed drawn per call from the source's CPU generator) and output
+    projection dropout."""
 
-    def __init__(self, io_dim: int, head_dim: int, qkv_bias: bool, attn_aggr_ratio: int):
+    def __init__(self, io_dim: int, head_dim: int, qkv_bias: bool, attn_aggr_ratio: int,
+                 attn_drop_rate: float = 0.0, key_drop_rate: float = 0.0,
+                 proj_drop_rate: float = 0.0):
         super().__init__()
         self.num_heads = io_dim // head_dim
         self.attn_aggr_ratio = attn_aggr_ratio
+        self.attn_drop_rate = attn_drop_rate
+        self.random = None  # the RandomSource of train-mode forwards
+        self.key_drop = Dropout(key_drop_rate)
+        self.proj_drop = Dropout(proj_drop_rate)
         self.q_proj = nn.Linear(io_dim, io_dim, bias=qkv_bias)
         if attn_aggr_ratio > 1:
             self.aggr = LocalAwareAggregationBlock(io_dim, io_dim, attn_aggr_ratio)
@@ -189,11 +205,14 @@ class AttentionBlock(nn.Module):
         if self.attn_aggr_ratio > 1:
             x = self.norm(self.aggr(x))
         m = x.shape[1]
-        k = self.k_proj(x).view(n, m, heads, e)
+        k = self.key_drop(self.k_proj(x).view(n, m, heads, e))
         v = self.v_proj(x).view(n, m, heads, e)
-        # Eval: no probability dropout (rate 0) and no key dropout.
-        out = fused_pooled_attention(q, k, v, 1.0 / math.sqrt(e))
-        return self.out_proj(out.reshape(n, length, c))
+        rate = self.attn_drop_rate if self.training else 0.0
+        seed = common.need_source(self).attention_seed() if rate > 0.0 else 0
+        out = fused_pooled_attention(
+            q, k, v, 1.0 / math.sqrt(e), dropout_rate=rate, dropout_seed=seed
+        )
+        return self.proj_drop(self.out_proj(out.reshape(n, length, c)))
 
 
 def _attn_out_dim(io_dim: int, attn_ratio: float, head_dim: int) -> int:
@@ -208,7 +227,8 @@ class MultiPathTransformerLayer(nn.Module):
 
     def __init__(self, in_dim: int, io_dim: int, path_drop_rate: float, attn_aggr_ratio: int,
                  attn_ratio: float, head_dim: int, qkv_bias: bool, mlp_ratio: float,
-                 mlp_bias: bool):
+                 mlp_bias: bool, attn_drop_rate: float = 0.0, key_drop_rate: float = 0.0,
+                 attn_out_drop_rate: float = 0.0, mlp_drop_rate: float = 0.0):
         super().__init__()
         attn_out_dim = _attn_out_dim(io_dim, attn_ratio, head_dim)
         conv_out_dim = max(io_dim - attn_out_dim, 0)
@@ -217,17 +237,18 @@ class MultiPathTransformerLayer(nn.Module):
         if self.has_attn:
             self.attn_proj = nn.Linear(in_dim, attn_out_dim, bias=False)
             self.norm0 = BatchNorm(attn_out_dim)
-            self.attention = AttentionBlock(attn_out_dim, head_dim, qkv_bias, attn_aggr_ratio)
+            self.attention = AttentionBlock(attn_out_dim, head_dim, qkv_bias, attn_aggr_ratio,
+                                            attn_drop_rate, key_drop_rate, attn_out_drop_rate)
             self.attn_drop_path = DropPath(path_drop_rate * attn_ratio)
         if self.has_conv:
             self.conv_proj = nn.Linear(in_dim, conv_out_dim, bias=False)
             self.norm1 = BatchNorm(conv_out_dim)
             self.gconv = GroupConvBlock(conv_out_dim, conv_out_dim // head_dim, 3,
-                                        path_drop_rate, mlp_ratio, mlp_bias)
+                                        path_drop_rate, mlp_ratio, mlp_bias, mlp_drop_rate)
             self.conv_drop_path = DropPath(path_drop_rate * (1 - attn_ratio))
         cat_dim = attn_out_dim + conv_out_dim
         self.norm2 = BatchNorm(cat_dim)
-        self.mlp = MLP(cat_dim, io_dim, mlp_ratio, mlp_bias)
+        self.mlp = MLP(cat_dim, io_dim, mlp_ratio, mlp_bias, mlp_drop_rate)
         self.drop_path = DropPath(path_drop_rate)
         self.out_dim = cat_dim
 
@@ -326,6 +347,7 @@ class SeisTConfig:
     mlp_ratio: float = 2.0
     qkv_bias: bool = True
     mlp_bias: bool = True
+    use_checkpoint: bool = False
     head_type: str = "dpk"  # dpk | cls | reg
     head_out_channels: int = 3
     head_num_classes: int = 2
@@ -340,6 +362,13 @@ class SeismogramTransformer(nn.Module):
     def __init__(self, cfg: SeisTConfig):
         super().__init__()
         self.cfg = cfg
+        if cfg.use_checkpoint:
+            raise NotImplementedError(
+                "use_checkpoint (per-stage rematerialisation, nn.remat in the "
+                "JAX package) is not ported: torch.utils.checkpoint does not "
+                "replay the explicit dropout generators; it is queued in "
+                "ROADMAP.md"
+            )
         if not (len(cfg.stem_channels) == len(cfg.stem_kernel_sizes) == len(cfg.stem_strides)):
             raise ValueError("stem_* lengths differ")
         n_stages = len(cfg.layer_blocks)
@@ -374,11 +403,13 @@ class SeismogramTransformer(nn.Module):
                     block = MultiPathTransformerLayer(
                         ch, lc, pdpr, cfg.attn_aggr_ratios[i], cfg.attn_ratio,
                         cfg.head_dims[i], cfg.qkv_bias, cfg.mlp_ratio, cfg.mlp_bias,
+                        cfg.attn_drop_rate, cfg.key_drop_rate, cfg.other_drop_rate,
+                        cfg.mlp_drop_rate,
                     )
                 else:
                     block = MultiScaleMixedConv(
                         ch, lc, lc // cfg.head_dims[i], cfg.msmc_kernel_sizes, pdpr,
-                        cfg.mlp_ratio, cfg.mlp_bias,
+                        cfg.mlp_ratio, cfg.mlp_bias, cfg.mlp_drop_rate,
                     )
                 self.add_module(f"stage{i}_block{j}", block)
                 names.append(f"stage{i}_block{j}")
@@ -421,6 +452,54 @@ class SeismogramTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.backbone(x), x.shape[-2])
+
+    def zero_grad_parameters(self) -> List[str]:
+        """Names of the parameters whose train-mode gradient is zero in exact
+        arithmetic under this model's drop rates, so that a computed value
+        is rounding noise (parity checks exempt them by name and assert
+        them ~0). A per-channel constant added to a tensor that reaches a
+        BatchNorm only through pooling, bias-free projections or
+        concatenation is removed by the batch mean, unless a DropPath or an
+        element dropout on the way scales it per sample or per element; a
+        shift of every key of a row is removed by the softmax. Also listed:
+        the scale of the BatchNorm that feeds the attention's BatchNorm
+        directly, which the second one normalises away but for its eps, so
+        its gradient is ~1e-7 of the largest and fp32 cannot resolve it."""
+        names = [f"stem{len(self.cfg.stem_channels) - 1}.norm.bias"]
+        last = self.stage_blocks[-1][-1]
+        for i, blocks in enumerate(self.stage_blocks):
+            names.append(f"stage{i}_aggr.norm.bias")
+            for b in blocks:
+                blk = getattr(self, b)
+                if isinstance(blk, MultiScaleMixedConv):
+                    if b != last:
+                        names.append(f"{b}.out_norm.bias")
+                    for j in range(blk.npath):
+                        gc = getattr(blk, f"conv{j}")
+                        if gc.mlp.drop.rate == 0 and gc.drop_path.rate == 0:
+                            names.append(f"{b}.conv{j}.mlp.lin1.bias")
+                    continue
+                if blk.has_attn:
+                    att = blk.attention
+                    if att.key_drop.rate == 0 and att.k_proj.bias is not None:
+                        names.append(f"{b}.attention.k_proj.bias")
+                    if att.attn_aggr_ratio > 1:
+                        names += [f"{b}.attention.aggr.norm.bias",
+                                  f"{b}.attention.aggr.norm.weight"]
+                    if (att.proj_drop.rate == 0 and blk.attn_drop_path.rate == 0
+                            and att.out_proj.bias is not None):
+                        names.append(f"{b}.attention.out_proj.bias")
+                if blk.has_conv:
+                    gc = blk.gconv
+                    if gc.mlp.drop.rate == 0 and gc.drop_path.rate == 0 and (
+                            blk.conv_drop_path.rate == 0):
+                        names.append(f"{b}.gconv.mlp.lin1.bias")
+                if b != last and blk.mlp.drop.rate == 0 and blk.drop_path.rate == 0:
+                    names.append(f"{b}.mlp.lin1.bias")
+        if self.cfg.head_type == "dpk":
+            names += [f"out_head.conv{i}.bias" for i in range(len(self.out_head.kernel_sizes))]
+        params = dict(self.named_parameters())
+        return [n for n in names if n in params]
 
     def attention_shapes(self, in_samples: int) -> List[Tuple[int, int, int, int]]:
         """(L, M, H, E) of every attention launch of one forward at

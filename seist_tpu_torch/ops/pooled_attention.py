@@ -1,11 +1,16 @@
-"""Pooled-KV multi-head attention: the plain version and the kernel wrapper.
+"""Pooled-KV multi-head attention: plain versions, kernel wrappers and
+the autograd function that joins them.
 
 Counterpart of ``seist_tpu/ops/pallas_attention.py``. SeisT attends a
 full-length query to keys/values pooled by ``attn_aggr_ratio``, so scores
-are (L x M) with M = L/r. ``fused_pooled_attention`` launches the
-hand-written CUDA kernel (``csrc/pooled_attention_fwd.cu``, built and
-bound by ``ops/_kernels.py``) on CUDA tensors; it takes the plain version
-only for tensors that lie on the CPU.
+are (L x M) with M = L/r. ``fused_pooled_attention`` is a
+``torch.autograd.Function`` whose forward launches the hand-written CUDA
+kernel ``csrc/pooled_attention_fwd.cu`` and whose backward launches
+``csrc/pooled_attention_bwd.cu`` (both built and bound by
+``ops/_kernels.py``) on CUDA tensors; each takes its plain version only
+for tensors that lie on the CPU. As in the JAX package's custom VJP, the
+forward saves q, k, v and the seed, and the backward recomputes the
+probabilities and the dropout mask from them.
 
 Post-softmax dropout draws its uniforms from the counter hash of the JAX
 package (``_mix_to_uniform`` / ``_uniform01``): murmur3's finalizer over
@@ -18,13 +23,15 @@ logical); the kernel computes it in uint32. Both reproduce JAX's bits.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-#: Launches of the CUDA kernel since import (or since a caller reset it).
-#: Incremented in :func:`fused_pooled_attention` right where it launches.
+#: Launches of the forward kernel since import (or since a caller reset
+#: it). Incremented in :func:`_forward` right where it launches.
 launches = 0
+#: Launches of the backward kernel, incremented in :func:`_backward`.
+bwd_launches = 0
 
 _M32 = 0xFFFFFFFF
 E_MAX = 64  # largest head width the kernel takes (csrc/pooled_attention_fwd.cu)
@@ -85,6 +92,43 @@ def pooled_attention_plain(
     return torch.einsum("nhlm,nmhe->nlhe", p, v).to(dtype)
 
 
+def pooled_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    g: torch.Tensor,
+    scale: float,
+    dropout_rate: float = 0.0,
+    dropout_seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The math of ``_bwd_kernel``: (dq, dk, dv) for the upstream gradient
+    ``g`` (N, L, H, E) of :func:`pooled_attention_plain`'s output.
+
+    Recomputes P, applies the forward's dropout mask to P (for dV) and to
+    dPd = g v^T, then the softmax VJP ``dS = P (dP - rowsum(dP P))``. fp32
+    throughout; the outputs take the input dtype."""
+    dtype = q.dtype
+    q, k, v, g = q.float(), k.float(), v.float(), g.float()
+    s = torch.einsum("nlhe,nmhe->nhlm", q * scale, k)
+    p = torch.softmax(s, dim=-1)
+    dpd = torch.einsum("nlhe,nmhe->nhlm", g, v)
+    if dropout_rate > 0.0:
+        n, h, l, m = p.shape
+        pid = torch.arange(n * h, device=q.device)
+        u = _uniform01(dropout_seed, pid, l, m, device=q.device)
+        keep = u.reshape(n, h, l, m) >= torch.tensor(dropout_rate, dtype=torch.float32)
+        inv_keep = 1.0 / (1.0 - dropout_rate)
+        pd = torch.where(keep, p * inv_keep, 0.0)
+        dp = torch.where(keep, dpd * inv_keep, 0.0)
+    else:
+        pd, dp = p, dpd
+    dv = torch.einsum("nhlm,nlhe->nmhe", pd, g)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("nhlm,nmhe->nlhe", ds, k) * scale
+    dk = torch.einsum("nhlm,nlhe->nmhe", ds, q) * scale
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
+
+
 def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (N, L, H, E) / (N, M, H, E)")
@@ -111,6 +155,56 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> N
         raise ValueError("L and M must be >= 1")
 
 
+def _forward(q, k, v, scale, rate, seed) -> torch.Tensor:
+    """K1 on CUDA tensors, the plain version on CPU tensors."""
+    global launches
+    if q.device.type == "cpu":
+        return pooled_attention_plain(q, k, v, scale, rate, seed)
+    _check_kernel_inputs(q, k, v)
+    from seist_tpu_torch.ops import _kernels
+
+    o = torch.empty_like(q)
+    _kernels.pooled_attention_fwd(q, k, v, o, scale, rate, seed)
+    launches += 1
+    return o
+
+
+def _backward(q, k, v, g, scale, rate, seed):
+    """K2 on CUDA tensors, the plain version on CPU tensors. The upstream
+    gradient arrives strided from the reshape and ``out_proj`` backward:
+    it is made contiguous here, since the kernel reads the (N, L, H*E)
+    layout."""
+    global bwd_launches
+    if q.device.type == "cpu":
+        return pooled_attention_bwd_plain(q, k, v, g, scale, rate, seed)
+    g = g.to(q.dtype).contiguous()
+    _check_kernel_inputs(q, k, v)
+    if g.shape != q.shape or g.device != q.device:
+        raise ValueError(f"g {tuple(g.shape)} on {g.device} must match q {tuple(q.shape)}")
+    from seist_tpu_torch.ops import _kernels
+
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _kernels.pooled_attention_bwd(q, k, v, g, dq, dk, dv, scale, rate, seed)
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class _PooledAttention(torch.autograd.Function):
+    """Forward K1, backward K2; the residuals are q, k, v and the seed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, rate: float, seed: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.rate, ctx.seed = scale, rate, seed
+        return _forward(q, k, v, scale, rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, g, ctx.scale, ctx.rate, ctx.seed)
+        return dq, dk, dv, None, None, None
+
+
 def fused_pooled_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -120,30 +214,15 @@ def fused_pooled_attention(
     dropout_rate: float = 0.0,
     dropout_seed: int = 0,
 ) -> torch.Tensor:
-    """Attention for ``q (N, L, H, E)``, ``k/v (N, M, H, E)``.
+    """Attention for ``q (N, L, H, E)``, ``k/v (N, M, H, E)``, differentiable
+    in q, k and v.
 
-    On CUDA tensors: the hand-written kernel, or an exception. On CPU
-    tensors: :func:`pooled_attention_plain`. ``dropout_rate`` > 0 applies
-    post-softmax probability dropout from the counter hash seeded by the
-    int32 ``dropout_seed``.
+    On CUDA tensors: the hand-written kernels (forward, and backward when
+    a gradient is asked for), or an exception. On CPU tensors: the plain
+    versions. ``dropout_rate`` > 0 applies post-softmax probability
+    dropout from the counter hash seeded by the int32 ``dropout_seed``.
     """
-    global launches
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
-    if q.device.type == "cpu":
-        return pooled_attention_plain(q, k, v, scale, dropout_rate, dropout_seed)
-    if torch.is_grad_enabled() and (
-        q.requires_grad or k.requires_grad or v.requires_grad
-    ):
-        raise NotImplementedError(
-            "the attention backward kernel (K2) is not ported yet; it "
-            "arrives with the training slice"
-        )
-    _check_kernel_inputs(q, k, v)
-    from seist_tpu_torch.ops import _kernels
-
-    o = torch.empty_like(q)
-    _kernels.pooled_attention_fwd(q, k, v, o, scale, dropout_rate, dropout_seed)
-    launches += 1
-    return o
+    return _PooledAttention.apply(q, k, v, float(scale), float(dropout_rate), int(dropout_seed))

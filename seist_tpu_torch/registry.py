@@ -48,9 +48,14 @@ class Registry:
         return len(self._factories)
 
 
-# Populated by importing seist_tpu_torch.models.
+# Populated by importing seist_tpu_torch.models / seist_tpu_torch.data.
 MODELS = Registry("model")
+DATASETS = Registry("dataset")
 
 
 def register_model(fn=None, *, name: Optional[str] = None):
     return MODELS.register(fn, name=name)
+
+
+def register_dataset(fn=None, *, name: Optional[str] = None):
+    return DATASETS.register(fn, name=name)

@@ -2,10 +2,10 @@
 port's copy of ``seist_tpu/taskspec.py``, SeisT family only).
 
 Data layout convention, as in the JAX package: waveforms are channels-last
-``(N, L, C)`` and dense outputs are ``(N, L, C)``. Loss factories arrive
-with the training slice; the results transforms of the other model
-families are kept here, rewritten in torch, so those families port onto
-one table.
+``(N, L, C)`` and dense outputs are ``(N, L, C)``. Each SeisT row carries
+its loss factory (``seist_tpu/taskspec.py:231-264``); the results
+transforms of the other model families are kept here, rewritten in torch,
+so those families port onto one table.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+
+from seist_tpu_torch.models import losses
 
 SOFT = "soft"
 VALUE = "value"
@@ -126,6 +128,8 @@ class TaskSpec:
     labels: Tuple[IOName, ...]
     eval: Tuple[str, ...]
     outputs_transform_for_results: Optional[Callable] = None
+    #: Zero-arg factory of ``loss(preds, targets) -> scalar`` (models/losses.py).
+    loss: Optional[Callable] = None
 
     def matches(self, model_name: str) -> bool:
         return bool(re.findall(self.pattern, model_name))
@@ -134,11 +138,13 @@ class TaskSpec:
 _ZNE = (("z", "n", "e"),)
 
 TASK_SPECS: Tuple[TaskSpec, ...] = (
-    TaskSpec("seist_.*?_dpk.*", _ZNE, (("det", "ppk", "spk"),), ("det", "ppk", "spk")),
-    TaskSpec("seist_.*?_pmp", _ZNE, ("pmp",), ("pmp",)),
-    TaskSpec("seist_.*?_emg", _ZNE, ("emg",), ("emg",)),
-    TaskSpec("seist_.*?_baz", _ZNE, ("baz",), ("baz",)),
-    TaskSpec("seist_.*?_dis", _ZNE, ("dis",), ("dis",)),
+    TaskSpec("seist_.*?_dpk.*", _ZNE, (("det", "ppk", "spk"),), ("det", "ppk", "spk"),
+             loss=lambda: losses.BCELoss(weight=[0.5, 1.0, 1.0])),
+    TaskSpec("seist_.*?_pmp", _ZNE, ("pmp",), ("pmp",),
+             loss=lambda: losses.CELoss(weight=[1.0, 1.0])),
+    TaskSpec("seist_.*?_emg", _ZNE, ("emg",), ("emg",), loss=losses.HuberLoss),
+    TaskSpec("seist_.*?_baz", _ZNE, ("baz",), ("baz",), loss=losses.HuberLoss),
+    TaskSpec("seist_.*?_dis", _ZNE, ("dis",), ("dis",), loss=losses.HuberLoss),
 )
 
 
@@ -168,3 +174,15 @@ def get_num_inchannels(model_name: str) -> int:
         if isinstance(inp, (tuple, list)) and IO_ITEMS[inp[0]].kind == SOFT:
             return len(inp)
     raise ValueError(f"Incorrect input channels for model '{model_name}': {spec.inputs}")
+
+
+def get_num_classes(name: str) -> int:
+    item = IO_ITEMS[name]
+    if item.kind != ONEHOT:
+        raise ValueError(f"io-item '{name}' is '{item.kind}', not onehot")
+    return int(item.num_classes)
+
+
+def make_loss(model_name: str):
+    """Instantiate the loss for a model."""
+    return get_task_spec(model_name).loss()

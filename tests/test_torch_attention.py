@@ -80,9 +80,14 @@ def test_wrapper_uses_plain_only_for_cpu_tensors():
     # A tensor on any other device is the kernel's or an error, never plain.
     with pytest.raises(ValueError, match="CUDA device"):
         tpa.fused_pooled_attention(q.to("meta"), k.to("meta"), v.to("meta"))
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="CUDA device"):
         tpa.fused_pooled_attention(q.to("meta").requires_grad_(), k.to("meta"), v.to("meta"))
-    assert tpa.launches == before
+    # A gradient through CPU tensors runs the plain backward: no launch.
+    bwd_before = tpa.bwd_launches
+    qg = q.clone().requires_grad_()
+    tpa.fused_pooled_attention(qg, k, v).sum().backward()
+    assert qg.grad is not None and torch.isfinite(qg.grad).all()
+    assert tpa.launches == before and tpa.bwd_launches == bwd_before
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

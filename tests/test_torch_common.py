@@ -69,8 +69,13 @@ def test_batchnorm_eval_matches_parity_bn():
         got = bn(torch.from_numpy(x))
     assert bn.eps == jc.BN_EPSILON
     _close(got, want)
-    with pytest.raises(NotImplementedError):
-        bn.train()(torch.from_numpy(x))
+    # Train mode: batch statistics, and the running ones updated in place.
+    want, mutated = jc.BatchNorm1dParity(use_running_average=False).apply(
+        {"params": params, "batch_stats": stats}, x, mutable=["batch_stats"])
+    got = bn.train()(torch.from_numpy(x))
+    _close(got.detach(), want, atol=1e-5)
+    _close(bn.running_mean, mutated["batch_stats"]["mean"])
+    _close(bn.running_var, mutated["batch_stats"]["var"])
 
 
 def test_gelu_is_exact_erf():
@@ -89,8 +94,18 @@ def test_global_avg_pool_and_droppath():
     dp = tc.DropPath(0.3).eval()
     xt = torch.from_numpy(x)
     assert dp(xt) is xt
-    with pytest.raises(NotImplementedError):
-        dp.train()(xt)
+    # Train mode with injected uniforms: the JAX package's DropPath on the
+    # same rows drops the same samples.
+    u = np.array([[0.1, 0.9], [0.8, 0.2]], np.float32)
+    src = tc.RandomSource()
+    src.inject_droppath(u)
+    dp.train().random = src
+    got = [dp(xt), dp(xt)]
+    with jc.droppath_mask_injection(jnp.asarray(u)):
+        want = [jc.DropPath(0.3).apply({}, x, True) for _ in range(2)]
+    assert src.droppath_calls == 2
+    for g, w in zip(got, want):
+        _close(g, w)
 
 
 @pytest.mark.parametrize("groups,k,s", [(1, 5, 1), (4, 3, 1), (8, 7, 2)])

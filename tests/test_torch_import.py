@@ -1,5 +1,6 @@
 """The port stands alone: seist_tpu_torch imports neither jax, flax nor
-seist_tpu, and its entry points do not fall back to the CPU silently."""
+seist_tpu, nor pandas or h5py (the machine with the card has neither), and
+its entry points do not fall back to the CPU silently."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "seist_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "seist_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "seist_tpu", "pandas", "h5py")
 
 
 def _modules():
@@ -70,6 +71,19 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         build_service([("seist_s_dpk", "")], window=256)
     entry = load_model_entry("seist_s_dpk", window=256, device="cpu")
     assert entry.device.type == "cpu"
+
+
+def test_train_entry_needs_cuda_unless_cpu_is_asked_for(tmp_path):
+    from seist_tpu_torch import cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    args = ["--model-name", "seist_s_dpk", "--dataset-name", "synthetic",
+            "--synthetic-events", "20", "--in-samples", "256", "--batch-size", "8",
+            "--steps", "1", "--log-base", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(args)
+    assert cli.get_args(args + ["--device", "cpu"]).device == "cpu"
 
 
 def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path):
