@@ -8,15 +8,21 @@ non-zero before the last line):
 
 1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
 2. build both attention kernels from ``seist_tpu_torch/csrc`` with nvcc,
-   one process per source, started together;
-3. hold the forward kernel (K1) against its plain PyTorch version on the
-   card: at the five attention shapes of one ``seist_l_dpk`` forward at
-   window 8192 (batch 8) in fp32 and bf16, at ragged shapes, at M = 1024,
-   and with dropout at rate 0.1, where the zero pattern must be identical;
-4. hold the backward kernel (K2) against its plain version at the five
-   shapes of a batch-64 train step in fp32 and bf16 at dropout rates 0 and
-   0.3, at ragged L and M, M over one tile and E = 64, and the autograd
-   function against ``torch.autograd.grad`` through the plain forward;
+   one process per source, started together, and print each kernel's
+   registers and spills (``-Xptxas -v``), failing when an instantiation
+   for E <= 32 spills;
+3. hold the forward kernel (K1) and its row statistics (lse) against the
+   plain PyTorch version on the card: at the five attention shapes of one
+   ``seist_l_dpk`` forward at window 8192 (batch 8) in fp32 and bf16, at
+   ragged shapes, at M = 1024, and with dropout at rate 0.1, where the zero
+   pattern must be identical;
+4. hold the backward kernel (K2), fed K1's (o, lse), against its plain
+   version from the same (o, lse), and the chain against the
+   recompute-everything reference, at the five shapes of a batch-64 train
+   step in fp32 and bf16 at dropout rates 0 and 0.3, at ragged L and M, M
+   over one tile and E = 64, with two calls giving the same bits; and the
+   autograd function against ``torch.autograd.grad`` through the plain
+   forward;
 5. serve ``seist_l_dpk`` at window 8192 with seeded weights through the
    port's server, answer concurrent ``/predict`` requests with the plain
    versions patched to raise, count K1's launches over exactly that run
@@ -33,9 +39,10 @@ non-zero before the last line):
    running statistics agree within the repo's train-mode parity limits;
 8. time both kernels, their plain versions and PyTorch's
    ``scaled_dot_product_attention`` (forward and backward; a yardstick
-   only: the port never calls it) at each shape, the model's forward per
-   batch bucket, and the train step at batch 64 and 256 with its peak
-   memory; profile a batch-8 forward and a batch-64 train step.
+   only: the port never calls it) at each shape in device ms, beside two
+   bounds (fp32 on the CUDA cores, 3xTF32 on the tensor cores), the model's
+   forward per batch bucket, and the train step at batch 64 and 256 with
+   its peak memory; profile a batch-8 forward and a batch-64 train step.
 
 It prints one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -90,6 +97,7 @@ TRAIN_ARGS = ["--model-name", MODEL, "--dataset-name", "synthetic", "--synthetic
 TRAIN_STEPS, VAL_BATCHES = 6, 1
 
 FP32_TOL = 1e-5  # fp32 max abs error, kernel vs plain: summation order only
+LSE_TOL = 1e-5  # K1's row statistics, fp32 in both types
 # bf16: both sides compute in fp32 and round the output to bf16; a 1e-7
 # difference can flip one rounding, so the limit is one bf16 ulp
 # (2^-7 relative) at |o| < 2, the range of a softmax-weighted average of
@@ -113,16 +121,20 @@ GRAD_REL = 5e-3
 ZERO_REL = 1e-6
 BN_RTOL, BN_ATOL = 1e-4, 1e-5
 
-# Published peaks of one H100 SXM (NVIDIA data sheet, dense): the kernel
-# computes in fp32 on the CUDA cores.
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense). The bound
+# reported per kernel is the type's: fp32 inputs at the CUDA cores' fp32
+# rate, bf16 at the tensor cores' bf16 rate.
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_BF16_S = 989e12
+# TF32 on the tensor cores; K1 and K2 take three TF32 products per fp32
+# product (3xTF32), so their tensor-core bound is 3 x operations over this.
+PEAK_TF32_S = 495e12
 
 
-def ptxas_summary(log: str) -> List[str]:
-    """``kernel<type,EP>:registers/spill-store-bytes`` per compiled kernel,
-    from nvcc's ``-Xptxas -v`` output."""
+def ptxas_summary(log: str) -> List[Tuple[str, int, int]]:
+    """``(kernel<type,EP>, registers, spill-store bytes)`` per compiled
+    kernel, from nvcc's ``-Xptxas -v`` output."""
     out, cur, spill = [], None, 0
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
@@ -134,13 +146,25 @@ def ptxas_summary(log: str) -> List[str]:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and cur:
-            kind = re.search(r"(bwd_rows|bwd_keys|bwd_reduce|fwd)_kernel", cur)
+            kind = re.search(r"(fwd_kernel|bwd_kernel|reduce_slabs)", cur)
             ep = re.search(r"Li(\d+)E", cur)
-            out.append(f"{kind.group(1) if kind else cur[:24]}"
-                       f"<{'bf16' if 'bfloat16' in cur else 'f32'}"
-                       f"{',' + ep.group(1) if ep else ''}>:{m.group(1)}/{spill}")
+            out.append((f"{kind.group(1) if kind else cur[:24]}"
+                        f"<{'bf16' if 'bfloat16' in cur else 'f32'}"
+                        f"{',' + ep.group(1) if ep else ''}>", int(m.group(1)), spill))
             cur, spill = None, 0
     return out
+
+
+def check_spills(name: str, log: str) -> None:
+    """Print registers/spill-store bytes per kernel; fail when a K1 or K2
+    instantiation for E <= 32 spills."""
+    rows = ptxas_summary(log)
+    print(f"[build] {name}: ptxas registers/spill bytes: "
+          f"{' '.join(f'{k}:{r}/{sp}' for k, r, sp in rows)}", flush=True)
+    for kern, _, spill in rows:
+        ep = re.search(r",(\d+)>", kern)
+        if spill and ep and int(ep.group(1)) <= 32:
+            fail(f"{kern} spills {spill} bytes of registers")
 
 
 def fail(msg: str) -> None:
@@ -165,16 +189,18 @@ def qkv(n: int, l: int, m: int, h: int, e: int, dtype, seed: int, dev):
     return [t.to(dev, dtype) for t in (q, k, v)]
 
 
-def kernel(q, k, v, rate=0.0, seed=0):
-    """One launch through the wrapper, not counted against the main path."""
+def kernel(q, k, v, rate=0.0, seed=0, with_lse=False):
+    """One K1 launch through the wrapper, not counted against the main path:
+    o, or (o, lse) with the row statistics."""
     launches = pa.launches
-    o = pa.fused_pooled_attention(q, k, v, dropout_rate=rate, dropout_seed=seed)
+    o, lse = pa._forward(q, k, v, 1.0 / math.sqrt(q.shape[-1]), rate, seed, with_lse)
     pa.launches = launches
-    return o
+    return (o, lse) if with_lse else o
 
 
-def plain(q, k, v, rate=0.0, seed=0):
-    return pa.pooled_attention_plain(q, k, v, 1.0 / math.sqrt(q.shape[-1]), rate, seed)
+def plain(q, k, v, rate=0.0, seed=0, with_lse=False):
+    return pa.pooled_attention_plain(q, k, v, 1.0 / math.sqrt(q.shape[-1]), rate, seed,
+                                     return_lse=with_lse)
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -188,11 +214,15 @@ def check_kernel(shapes: List[Tuple[int, int, int, int]], dev) -> Dict[str, floa
         for name, dtype, tol in (("fp32", torch.float32, FP32_TOL),
                                  ("bf16", torch.bfloat16, BF16_TOL)):
             q, k, v = qkv(BATCH, l, m, h, e, dtype, 100 + i, dev)
-            err = max_err(kernel(q, k, v), plain(q, k, v))
+            (o, lse), (o_p, lse_p) = kernel(q, k, v, with_lse=True), plain(q, k, v, with_lse=True)
+            err, lse_err = max_err(o, o_p), max_err(lse, lse_p)
             print(f"[check] N={BATCH} L={l} M={m} H={h} E={e} {name}: "
-                  f"max_abs_err {err:.3e} (limit {tol:.1e})", flush=True)
-            if not err <= tol:
+                  f"max_abs_err {err:.3e} (limit {tol:.1e}), lse {lse_err:.3e} "
+                  f"(limit {LSE_TOL:.0e})", flush=True)
+            if not (err <= tol and lse_err <= LSE_TOL):
                 fail(f"kernel disagrees with plain at {(l, m, h, e)} {name}")
+            if not torch.equal(kernel(q, k, v), o):
+                fail("K1's output changes when it also writes the row statistics")
             errs[name] = max(errs[name], err)
         q, k, v = qkv(BATCH, l, m, h, e, torch.float32, 200 + i, dev)
         err = max_err(kernel(q, k, v, 0.1, 1234), plain(q, k, v, 0.1, 1234))
@@ -202,10 +232,11 @@ def check_kernel(shapes: List[Tuple[int, int, int, int]], dev) -> Dict[str, floa
             fail(f"kernel with dropout disagrees with plain at {(l, m, h, e)}")
     for n, l, m, h, e in ((2, 1000, 125, 3, 8), (2, 1000, 125, 2, 20), (1, 8192, 1024, 3, 8)):
         q, k, v = qkv(n, l, m, h, e, torch.float32, 300 + l + m, dev)
-        err = max_err(kernel(q, k, v), plain(q, k, v))
+        (o, lse), (o_p, lse_p) = kernel(q, k, v, with_lse=True), plain(q, k, v, with_lse=True)
+        err, lse_err = max_err(o, o_p), max_err(lse, lse_p)
         print(f"[check] N={n} L={l} M={m} H={h} E={e} fp32: max_abs_err {err:.3e} "
-              f"(limit {FP32_TOL:.1e})", flush=True)
-        if not err <= FP32_TOL:
+              f"(limit {FP32_TOL:.1e}), lse {lse_err:.3e}", flush=True)
+        if not (err <= FP32_TOL and lse_err <= LSE_TOL):
             fail(f"kernel disagrees with plain at ragged/long {(n, l, m, h, e)}")
     # Zero pattern: with v_h the identity (M <= E), O_h is the dropped
     # probability matrix itself, so its zeros are the dropout mask.
@@ -362,16 +393,17 @@ def qkvg(n: int, l: int, m: int, h: int, e: int, dtype, seed: int, dev):
     return q, k, v, g.to(dev, dtype)
 
 
-def kernel_bwd(q, k, v, g, rate=0.0, seed=0):
-    """One backward launch, not counted against the main path."""
+def kernel_bwd(q, k, v, g, o, lse, rate=0.0, seed=0):
+    """One K2 launch from K1's (o, lse), not counted against the main path."""
     launches = pa.bwd_launches
-    out = pa._backward(q, k, v, g, 1.0 / math.sqrt(q.shape[-1]), rate, seed)
+    out = pa._backward(q, k, v, g, o, lse, 1.0 / math.sqrt(q.shape[-1]), rate, seed)
     pa.bwd_launches = launches
     return out
 
 
-def plain_bwd(q, k, v, g, rate=0.0, seed=0):
-    return pa.pooled_attention_bwd_plain(q, k, v, g, 1.0 / math.sqrt(q.shape[-1]), rate, seed)
+def plain_bwd(q, k, v, g, o, lse, rate=0.0, seed=0):
+    return pa.pooled_attention_bwd_plain(q, k, v, g, o, lse, 1.0 / math.sqrt(q.shape[-1]),
+                                         rate, seed)
 
 
 def bwd_err(got, want) -> float:
@@ -391,14 +423,23 @@ def check_kernel_bwd(shapes, dev) -> float:
                                  ("bf16", torch.bfloat16, BWD_BF16_TOL)):
             for rate in (0.0, 0.3):
                 q, k, v, g = qkvg(n, l, m, h, e, dtype, 600 + i, dev)
-                got = kernel_bwd(q, k, v, g, rate, 4321)
-                want = plain_bwd(q, k, v, g, rate, 4321)
+                o, lse = kernel(q, k, v, rate, 4321, with_lse=True)
+                got = kernel_bwd(q, k, v, g, o, lse, rate, 4321)
+                want = plain_bwd(q, k, v, g, o, lse, rate, 4321)
                 err = bwd_err(got, want)
+                # The whole chain, K1's (o, lse) then K2, against the
+                # recompute-everything reference (fp32: bf16 rounds o).
+                ref_err = bwd_err(got, pa.pooled_attention_bwd_reference(
+                    q, k, v, g, 1.0 / math.sqrt(e), rate, 4321)) if dtype == torch.float32 else 0.0
+                ref = f"; vs the recompute reference {ref_err:.3e}" if ref_err else ""
                 print(f"[check-bwd] N={n} L={l} M={m} H={h} E={e} {name} rate {rate}: "
-                      f"rel err {err:.3e} (limit {tol:.1e})", flush=True)
-                if not err <= tol:
+                      f"rel err {err:.3e} (limit {tol:.1e}){ref}", flush=True)
+                if not (err <= tol and ref_err <= tol):
                     fail(f"backward kernel disagrees with plain at {(n, l, m, h, e)} "
                          f"{name} rate {rate}")
+                if not all(torch.equal(a, b) for a, b in zip(
+                        got, kernel_bwd(q, k, v, g, o, lse, rate, 4321))):
+                    fail(f"two K2 calls gave different bits at {(n, l, m, h, e)}")
                 if dtype == torch.float32:
                     worst = max([worst] + [max_err(a, b) for a, b in zip(got, want)])
     # The autograd function (K1 forward, K2 backward) against autograd
@@ -592,12 +633,14 @@ def time_ms(fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n, l, m, h, e, itemsize, peak_ops) -> Tuple[float, float]:
-    """(bytes_ms, ops_ms): q, k, v read once and o written once; 4*N*L*M*H*E
-    operations (a multiply-add each for QK^T and PV)."""
+def bound(n, l, m, h, e, itemsize, peak_ops) -> Tuple[float, float, float]:
+    """(bytes_ms, ops_ms, tc_ms): q, k, v read once and o written once;
+    4*N*L*M*H*E operations (a multiply-add each for QK^T and PV) at the
+    type's peak, and in 3xTF32 on the tensor cores."""
     nbytes = itemsize * n * h * e * (2 * l + 2 * m)
     ops = 4 * n * l * m * h * e
-    return nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops * 1e3
+    return (nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops * 1e3,
+            3 * ops / PEAK_TF32_S * 1e3)
 
 
 def time_shapes(shapes, dev) -> List[dict]:
@@ -615,18 +658,21 @@ def time_shapes(shapes, dev) -> List[dict]:
             for key, fn in fns.items():
                 row[key] = device_ms(fn)
                 row["call_" + key] = time_ms(fn, 200 if key != "plain_ms" else 50)
-            row["bytes_ms"], row["ops_ms"] = bound(BATCH, l, m, h, e, q.element_size(), peak)
+            row["bytes_ms"], row["ops_ms"], row["tc_ms"] = bound(BATCH, l, m, h, e,
+                                                                 q.element_size(), peak)
             rows.append(row)
     return rows
 
 
-def bound_bwd(n, l, m, h, e, itemsize) -> Tuple[float, float]:
-    """(bytes_ms, ops_ms) of K2: q, k, v, g read once and dq, dk, dv
-    written once; 10*N*L*M*H*E operations (a multiply-add each for QK^T
-    recomputed, dPd, dV, dQ and dK) on the fp32 CUDA cores."""
-    nbytes = itemsize * n * h * e * (3 * l + 4 * m)
+def bound_bwd(n, l, m, h, e, itemsize) -> Tuple[float, float, float]:
+    """(bytes_ms, ops_ms, tc_ms) of K2: q, k, v, g, o and lse read once and
+    dq, dk, dv written once; 10*N*L*M*H*E operations (a multiply-add each
+    for QK^T, dPd, dV, dQ and dK) on the fp32 CUDA cores, and in 3xTF32 on
+    the tensor cores."""
+    nbytes = itemsize * n * h * e * (4 * l + 4 * m) + 4 * n * h * l
     ops = 10 * n * l * m * h * e
-    return nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
+    return (nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3,
+            3 * ops / PEAK_TF32_S * 1e3)
 
 
 def time_bwd_shapes(shapes, dev) -> List[dict]:
@@ -635,19 +681,20 @@ def time_bwd_shapes(shapes, dev) -> List[dict]:
     rows = []
     for i, (l, m, h, e) in enumerate(shapes):
         q, k, v, g = qkvg(TRAIN_BATCH, l, m, h, e, torch.float32, 800 + i, dev)
+        o, lse = kernel(q, k, v, 0.3, 5, with_lse=True)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         scale = 1.0 / math.sqrt(e)
         ot = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
         gt = g.transpose(1, 2)
-        fns = {"ms": lambda: kernel_bwd(q, k, v, g, 0.3, 5),
-               "plain_ms": lambda: plain_bwd(q, k, v, g, 0.3, 5),
+        fns = {"ms": lambda: kernel_bwd(q, k, v, g, o, lse, 0.3, 5),
+               "plain_ms": lambda: plain_bwd(q, k, v, g, o, lse, 0.3, 5),
                "library_ms": lambda: torch.autograd.grad(ot, (qt, kt, vt), gt,
                                                          retain_graph=True)}
         row = {"L": l, "M": m, "H": h, "E": e}
         for key, fn in fns.items():
             row[key] = device_ms(fn)
             row["call_" + key] = time_ms(fn, 100 if key != "plain_ms" else 20)
-        row["bytes_ms"], row["ops_ms"] = bound_bwd(TRAIN_BATCH, l, m, h, e, 4)
+        row["bytes_ms"], row["ops_ms"], row["tc_ms"] = bound_bwd(TRAIN_BATCH, l, m, h, e, 4)
         rows.append(row)
     return rows
 
@@ -764,8 +811,8 @@ def main() -> int:
     _kernels.build_all((KERNEL, KERNEL_BWD))
     for name in (KERNEL, KERNEL_BWD):
         print(f"[build] {name}: {_kernels.BUILD_SECONDS[name]:.2f} s "
-              f"({_kernels.library_path(name).name}); ptxas registers/spill bytes: "
-              f"{' '.join(ptxas_summary(_kernels.BUILD_LOGS.get(name, '')))}", flush=True)
+              f"({_kernels.library_path(name).name})", flush=True)
+        check_spills(name, _kernels.BUILD_LOGS.get(name, ""))
     print(f"[build] both, in parallel: {time.perf_counter() - t0:.2f} s", flush=True)
 
     torch.backends.cudnn.allow_tf32 = False
@@ -791,7 +838,9 @@ def main() -> int:
               f"{r['call_ms']:.4f}, plain {r['call_plain_ms']:.4f}, sdpa "
               f"{r['call_library_ms']:.4f}; bound "
               f"{max(r['bytes_ms'], r['ops_ms']):.5f} ms (bytes {r['bytes_ms']:.5f}, "
-              f"ops {r['ops_ms']:.5f})", flush=True)
+              f"ops {r['ops_ms']:.5f}); 3xTF32 tensor-core bound "
+              f"{max(r['bytes_ms'], r['tc_ms']):.5f} ms; kernel "
+              f"{'<=' if r['ms'] <= r['library_ms'] else '>'} sdpa", flush=True)
     bwd_rows = time_bwd_shapes(shapes, dev)
     for r in bwd_rows:
         print(f"[time-bwd] {name_power} | N={TRAIN_BATCH} L={r['L']} M={r['M']} H={r['H']} "
@@ -800,7 +849,9 @@ def main() -> int:
               f"call: kernel {r['call_ms']:.4f}, plain {r['call_plain_ms']:.4f}, sdpa "
               f"backward {r['call_library_ms']:.4f}; "
               f"bound {max(r['bytes_ms'], r['ops_ms']):.5f} ms (bytes {r['bytes_ms']:.5f}, "
-              f"ops {r['ops_ms']:.5f})", flush=True)
+              f"ops {r['ops_ms']:.5f}); 3xTF32 tensor-core bound "
+              f"{max(r['bytes_ms'], r['tc_ms']):.5f} ms; kernel "
+              f"{'<=' if r['ms'] <= r['library_ms'] else '>'} sdpa backward", flush=True)
     fwd = time_forward(served["entry"])
     for b, ms in fwd.items():
         print(f"[time] {name_power} | {MODEL} window {WINDOW} forward b{b}: {ms:.3f} ms",
@@ -844,6 +895,16 @@ def main() -> int:
     b_ops = sum(r["ops_ms"] for r in bwd_rows)
     print(f"[paths] serve: K1 {served_launches} launches; train: K1 {trained['launches']}, "
           f"K2 {trained['bwd_launches']} launches", flush=True)
+    for label, rs, b_ms, o_ms in (("K1 five fp32 b8 launches", fp32, bytes_ms, ops_ms),
+                                  ("K2 five fp32 b64 launches", bwd_rows, b_bytes, b_ops)):
+        tc_ms = sum(r["tc_ms"] for r in rs)
+        print(f"[sum] {name_power} | {label}: device ms kernel "
+              f"{sum(r['ms'] for r in rs):.4f}, plain {sum(r['plain_ms'] for r in rs):.4f}, "
+              f"sdpa {sum(r['library_ms'] for r in rs):.4f}; bound {max(b_ms, o_ms):.5f} "
+              f"(bytes {b_ms:.5f}, fp32 ops {o_ms:.5f}), 3xTF32 tensor-core bound "
+              f"{max(b_ms, tc_ms):.5f}; kernel <= sdpa at "
+              f"{sum(r['ms'] <= r['library_ms'] for r in rs)} of {len(rs)} shapes",
+              flush=True)
     print(json.dumps({"kernels": [{
         "name": KERNEL,
         "route": "cuda",

@@ -1,392 +1,440 @@
-// Pooled-KV multi-head attention backward, with the forward's post-softmax
-// dropout, for Hopper (sm_90a).
+// Pooled-KV multi-head attention backward (K2), with the forward's
+// post-softmax dropout, for Hopper (sm_90a).
 //
 // Replaces seist_tpu/ops/pallas_attention.py::_bwd_kernel (reached through
 // _fused_bwd -> _call_fused -> pl.pallas_call). For every batch element b
-// and head h, from the forward's residuals q, k, v, the seed and the
-// upstream gradient g:
-//   P   = softmax((q_h * scale) k_h^T)                  (L x M, recomputed)
+// and head h, from q, k, v, the forward's output o and row statistics lse
+// (csrc/pooled_attention_fwd.cu), the seed and the upstream gradient g:
+//   P   = exp((q_h scale) k_h^T - lse)                 (L x M)
 //   Pd  = dropout(P),  dPd = g_h v_h^T,  dP = dropout(dPd)  (the same mask)
-//   dV  = Pd^T g_h
-//   dS  = P (dP - rowsum(dP P))
-//   dQ  = dS k_h * scale,   dK = dS^T q_h * scale
-// q, g and dq are (N, L, H*E), k, v, dk and dv are (N, M, H*E), contiguous,
-// in float32 or bfloat16; arithmetic is fp32 and the outputs take the input
-// type. The dropout mask is the forward's bit for bit: the counter hash of
-// element pid*(L*M) + row*M + col, pid = b*H + h, wrapped mod 2^32, kept
-// where u >= rate and scaled by 1/(1 - rate).
+//   D   = rowsum(dP * P) = rowsum(g_h * o_h)
+//   dV  = Pd^T g_h,  dS = P (dP - D)
+//   dQ  = dS k_h scale,  dK = dS^T q_h scale
+// D = rowsum(g o) holds with dropout too: both sides equal
+// sum_j Pd_ij (g_i . v_j). q, g, o and dq are (N, L, H*E), k, v, dk and dv
+// are (N, M, H*E), contiguous, float32 or bfloat16; lse is fp32 (N*H, L);
+// arithmetic is fp32 and the outputs take the input type. The dropout mask
+// is the forward's bit for bit: the counter hash of element
+// pid*(L*M) + row*M + col, pid = b*H + h, wrapped mod 2^32.
 //
-// What bounds it. One call reads q, k, v, g and writes dq, dk, dv:
-// itemsize*N*H*E*(3L + 4M) bytes, over 3.35 TB/s. It does 10*N*H*L*M*E
-// operations (a multiply-add each for QK^T recomputed, dPd, dV, dQ and dK),
-// over 67 TFLOP/s in fp32 on the CUDA cores. At the shapes of seist_l_dpk's
-// train step (L = 128..1024, M = 128, E = 8..32) the operations bound it, by
-// 2-5x over the bytes. What would cost most is materialising the (N, H, L, M)
-// probabilities and their gradients in device memory, as the plain version
-// does; this design never writes them, and recomputes instead:
-//   * dQ is a sum over keys, dK and dV are sums over query rows. The TPU
-//     kernel held a whole (b, h) in VMEM and reduced in place; here blocks
-//     run in parallel, and a reduction across blocks would need atomics,
-//     whose order changes from run to run. So three launches, no atomics:
-//   1. rows: one thread owns one query row (its q, g and dq in registers;
-//      k and v tiles of 64 keys staged in shared memory, read straight from
-//      the strided head slice, as the forward kernel does). A first walk
-//      over the keys builds the softmax max and sum online and, in the same
-//      walk, D = rowsum(dP P) (rescaled with the running max like the sum);
-//      a second walk forms dS and accumulates dQ. The row's max, 1/sum and
-//      D go to a small (N*H, L, 3) scratch buffer.
-//   2. keys: one thread owns one key (its k, v, dk, dv in registers); tiles
-//      of 64 query rows (q, g and the row statistics) are staged in shared
-//      memory and every thread reads the same row, a broadcast. To fill the
-//      card when N*H*M/64 blocks are few, the rows are split into S
-//      contiguous ranges (S from the wrapper, ops/_kernels.py), each block
-//      writing fp32 partial sums to scratch.
-//   3. reduce: sums the S partials in a fixed order and writes dk, dv in the
-//      input type and layout. The result does not change from run to run.
-// Tensor cores (wgmma), TMA and fusing passes 1 and 2 are later work. At
-// E = 64 pass 2 holds 4*64 floats per thread and spills; seist's heads are
-// at most 32 wide.
+// What bounds it. A call reads q, k, v, g, o and lse and writes dq, dk, dv:
+// itemsize*N*H*E*(4L + 4M) + 4*N*H*L bytes. Its products (QK^T, g V^T, dV,
+// dK, dQ) are 10*N*H*L*M*E operations: on the CUDA cores in fp32 they bind
+// (0.09 ms for a batch-64 seist_l_dpk step); in 3xTF32 on the tensor cores
+// they take 0.037 ms, and then one exp and about 11 integer operations of
+// the hash per (row, key) pair, and the instructions that feed the tensor
+// cores, weigh as much. The design:
+//   * one pass over the row-key pairs: with lse from the forward, P needs no
+//     statistics walk, and D is one E-wide dot product per row (the row
+//     tile's prologue), so each pair's score, g.v, exp and hash are
+//     computed once;
+//   * a block owns a tile of 128 keys of one (b, h) (on the main path all of
+//     M) in shared memory, 8 warps of 16 keys each, and walks row tiles of
+//     32 rows (q, g, o, lse) through a cp.async double buffer. Per row tile a
+//     warp computes S^T = K Q^T and dPd^T = V G^T on tensor cores (mma.sync
+//     m16n8k8, 3xTF32 as in attention_common.cuh; bf16 inputs are widened
+//     to fp32 in shared memory), forms Pd and dS in registers, and adds
+//     Pd^T G and dS^T Q to dV and dK in registers (the score fragments are
+//     the A operands as they are; each row tile's products go to a fresh
+//     fragment first, since the tensor cores truncate when they add to an
+//     fp32 accumulator). From E = 16 on a row tile is worked in two halves
+//     of 16 rows, so that with dK and dV everything fits in 128 registers
+//     and two blocks share an SM without spilling. dS^T goes to shared
+//     memory; then dQ = dS K for the row tile: each 16 x 8 output tile is
+//     summed over the keys by one warp, or by 2-4 warps each over a part
+//     of the keys (E <= 16, so that every warp works), the parts then added
+//     in a fixed order;
+//   * no atomics: when M spans several key tiles, each writes its dQ part
+//     to fp32 scratch and a reduce launch sums them in tile order; when the
+//     rows are split into ranges to balance the SMs (ops/_kernels.py::
+//     bwd_plan, from the device's SM count), dK and dV parts are summed the
+//     same way, both in one launch. The result does not change from run to
+//     run.
 //
 // Built by seist_tpu_torch/ops/_kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through ctypes; the C function returns cudaGetLastError()
 // after each launch, and the first error stops it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
+namespace seist {
 namespace {
 
-constexpr int kRows = 128;  // pass 1: query rows (threads) per block
-constexpr int kTileM = 64;  // pass 1: keys staged per tile
-constexpr int kKeys = 64;   // pass 2: keys (threads) per block
-constexpr int kTileL = 64;  // pass 2: query rows staged per tile
-constexpr int kReduceThreads = 256;
+constexpr int kBwdThreads = kBwdWarps * 32;
+constexpr int kDThreads = kBwdThreads / kBwdRowTile;  // threads per row computing D
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+template <int EP>
+struct BwdSmem {
+  static constexpr int S = EP + 4;                  // row stride, floats
+  static constexpr int R = kBwdRowTile;
+  static constexpr int DS = R + 8;                  // dS^T row stride (a key's row)
+  static constexpr int QT = (R / 16) * (EP / 8);    // 16 x 8 tiles of a row tile's dQ
+  static constexpr int KP = QT >= kBwdWarps ? 1 : kBwdWarps / QT;  // key parts per tile
+  static constexpr int kStage = 3 * R * S + 2 * R;  // q, g, o, lse, D
+  static constexpr int kFloats =
+      2 * kKeyTile * S + 2 * kStage + kKeyTile * DS + (KP > 1 ? KP * R * EP : 0);
+};
 
-__device__ __forceinline__ float uniform01(uint32_t x, uint32_t seed_mix) {
-  x ^= seed_mix;
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return (float)(x >> 8) * (1.0f / 16777216.0f);
+// acc (16 keys x EP) += X^T Y for X the warp's (16 keys x R rows) score
+// fragments x and Y the row tile's (R x EP) rows y in shared memory: the
+// fragments are the A operands as they are (depth slot t is row 2t, slot
+// t + 4 row 2t + 1), summed in a fresh fragment, then added with rounding.
+template <int KS, int RN, int S>
+__device__ __forceinline__ void accumulate_t(float (&acc)[KS][4], const float (&x)[RN][4],
+                                             const float* y, int gq, int t) {
+  float part[KS][4];
+#pragma unroll
+  for (int e = 0; e < KS; ++e) part[e][0] = part[e][1] = part[e][2] = part[e][3] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < RN; ++j) {
+    const float af[4] = {x[j][0], x[j][2], x[j][1], x[j][3]};
+    uint32_t ah[4], al[4];
+    split(af, ah, al);
+    const float* yr = y + (j * 8 + 2 * t) * S + gq;
+#pragma unroll
+    for (int e = 0; e < KS; ++e) {
+      const float bf[2] = {yr[e * 8], yr[S + e * 8]};
+      uint32_t bh[2], bl[2];
+      split(bf, bh, bl);
+      mma3(part[e], ah, al, bh, bl);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < KS; ++e) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[e][i] += part[e][i];
+  }
 }
 
-// Pass 1. EP: head width rounded up to a power of two (register arrays need
-// a compile-time size); lanes e >= E hold zeros.
+// Two blocks an SM for E <= 32 (at most 128 registers a thread).
 template <typename T, int EP>
-__global__ void __launch_bounds__(kRows) bwd_rows_kernel(
+__global__ void __launch_bounds__(kBwdThreads, EP <= 32 ? 2 : 1) bwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ g, T* __restrict__ dq, float* __restrict__ stats,
-    int L, int M, int H, int E, float scale, float rate, float out_scale,
-    uint32_t lm, uint32_t seed_mix) {
-  __shared__ float ks[kTileM][EP];
-  __shared__ float vs[kTileM][EP];
+    const T* __restrict__ g, const T* __restrict__ o, const float* __restrict__ lse,
+    T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+    float* __restrict__ dq_part, float* __restrict__ dk_part, float* __restrict__ dv_part,
+    int N, int L, int M, int H, int E, int ktiles, int rows_per_split, float scale,
+    float rate, float out_scale, uint32_t lm, uint32_t seed_mix, bool vec) {
+  using Sm = BwdSmem<EP>;
+  constexpr int S = Sm::S, R = Sm::R, DS = Sm::DS, QT = Sm::QT, KP = Sm::KP;
+  constexpr int KS = EP / 8, RN = R / 8;
+  constexpr int HN = EP >= 16 ? RN / 2 : RN;  // 8-row blocks of a piece
+  extern __shared__ float smem[];
+  float* ks = smem;
+  float* vs = ks + kKeyTile * S;
+  float* stages = vs + kKeyTile * S;
+  float* dss = stages + 2 * Sm::kStage;  // dS^T: [key][row]
+  float* qpart = dss + kKeyTile * DS;     // dQ key parts: [part][row][col]
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int row = blockIdx.x * kRows + threadIdx.x;
-  const bool active = row < L;
+  const int NH = N * H;
+  const int kt = blockIdx.x % ktiles, rest = blockIdx.x / ktiles;
+  const int bh = rest % NH, split_id = rest / NH;
+  const int b = bh / H, h = bh - b * H;
+  const int k0 = kt * kKeyTile, kvalid = min(kKeyTile, M - k0);
+  const int r_begin = split_id * rows_per_split;
+  const int r_end = min(L, r_begin + rows_per_split);
+  const int nrt = (r_end - r_begin + R - 1) / R;
   const size_t he = (size_t)H * E;
-
-  float qr[EP], gr[EP], acc[EP];
-  const size_t roff = ((size_t)b * L + (active ? row : 0)) * he + (size_t)h * E;
-#pragma unroll
-  for (int e = 0; e < EP; ++e) {
-    qr[e] = (active && e < E) ? to_f32(q[roff + e]) * scale : 0.0f;
-    gr[e] = (active && e < E) ? to_f32(g[roff + e]) : 0.0f;
-    acc[e] = 0.0f;
-  }
-  const uint32_t ctr0 = (uint32_t)bh * lm + (uint32_t)row * (uint32_t)M;
+  const T* qb = q + (size_t)b * L * he + (size_t)h * E;
+  const T* gb = g + (size_t)b * L * he + (size_t)h * E;
+  const T* ob = o + (size_t)b * L * he + (size_t)h * E;
   const T* kb = k + (size_t)b * M * he + (size_t)h * E;
   const T* vb = v + (size_t)b * M * he + (size_t)h * E;
 
-  // Walk 1: softmax max and sum, and dsum = sum_j e^(s_j - max) dP_j, online.
-  float mx = -INFINITY, sum = 0.0f, dsum = 0.0f;
-  for (int m0 = 0; m0 < M; m0 += kTileM) {
-    const int tm = min(kTileM, M - m0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < kTileM * EP; i += kRows) {
-      const int r = i / EP;
-      const int e = i - r * EP;
-      const bool in = r < tm && e < E;
-      const size_t off = (size_t)(m0 + r) * he + e;
-      ks[r][e] = in ? to_f32(kb[off]) : 0.0f;
-      vs[r][e] = in ? to_f32(vb[off]) : 0.0f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int kw = warp * 16;  // the warp's first key in the tile
+  const bool keys_here = kw < kvalid;
+  const float scale2 = scale * kLog2e;  // scores in log2 units
+  auto write_dq = [&](int row, int col, float x) {
+    const size_t idx = ((size_t)b * L + row) * he + (size_t)h * E + col;
+    if (dq_part == nullptr) {
+      store(dq + idx, x * scale);
+    } else {
+      dq_part[(size_t)kt * N * L * he + idx] = x * scale;
     }
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < tm; ++j) {
-      float s = 0.0f;
-#pragma unroll
-      for (int e = 0; e < EP; ++e) s = fmaf(qr[e], ks[j][e], s);
-      if (s > mx) {
-        const float corr = expf(mx - s);
-        sum *= corr;
-        dsum *= corr;
-        mx = s;
-      }
-      const float p = expf(s - mx);
-      sum += p;
-      if (rate > 0.0f && uniform01(ctr0 + (uint32_t)(m0 + j), seed_mix) < rate) {
-        continue;  // dropped: dP_j = 0
-      }
-      float gv = 0.0f;
-#pragma unroll
-      for (int e = 0; e < EP; ++e) gv = fmaf(gr[e], vs[j][e], gv);
-      dsum = fmaf(p, gv, dsum);
-    }
-  }
-  const float inv = 1.0f / sum;
-  const float dterm = dsum * inv * out_scale;  // D = rowsum(dP P)
+  };
 
-  // Walk 2: dS_j = P_j (dP_j - D), dQ += dS_j k_j.
-  for (int m0 = 0; m0 < M; m0 += kTileM) {
-    const int tm = min(kTileM, M - m0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kTileM * EP; i += kRows) {
-      const int r = i / EP;
-      const int e = i - r * EP;
-      const bool in = r < tm && e < E;
-      const size_t off = (size_t)(m0 + r) * he + e;
-      ks[r][e] = in ? to_f32(kb[off]) : 0.0f;
-      vs[r][e] = in ? to_f32(vb[off]) : 0.0f;
+  auto stage = [&](int it) {
+    float* st = stages + (it & 1) * Sm::kStage;
+    const int r0 = r_begin + it * R, rv = min(R, r_end - r0);
+    stage_rows(st, qb, r0, R, rv, E, EP, S, he, vec);
+    stage_rows(st + R * S, gb, r0, R, rv, E, EP, S, he, vec);
+    stage_rows(st + 2 * R * S, ob, r0, R, rv, E, EP, S, he, vec);
+    float* ls = st + 3 * R * S;
+    for (int i = threadIdx.x; i < R; i += kBwdThreads) {  // log2 units; P = 0 off the range
+      ls[i] = i < rv ? lse[(size_t)bh * L + r0 + i] * kLog2e : INFINITY;
+    }
+    cp_async_commit();
+  };
+  stage_rows(ks, kb, k0, kKeyTile, kvalid, E, EP, S, he, vec);
+  stage_rows(vs, vb, k0, kKeyTile, kvalid, E, EP, S, he, vec);
+  stage(0);  // commits the K and V copies with the first row tile
+
+  float dka[KS][4], dva[KS][4];
+#pragma unroll
+  for (int e = 0; e < KS; ++e) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dka[e][i] = dva[e][i] = 0.0f;
+  }
+
+  for (int it = 0; it < nrt; ++it) {
+    if (it + 1 < nrt) {
+      stage(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < tm; ++j) {
-      float s = 0.0f;
+    float* qs = stages + (it & 1) * Sm::kStage;
+    const float* gs = qs + R * S;
+    const float* os = gs + R * S;
+    const float* ls = os + R * S;
+    float* dm = qs + 3 * R * S + R;  // D, beside lse
+    const int r0 = r_begin + it * R;
+
+    {  // D = rowsum(g o): kDThreads threads a row, a fixed order
+      const int r = threadIdx.x / kDThreads, part = threadIdx.x % kDThreads;
+      float d = 0.0f;
+      for (int e = part; e < EP; e += kDThreads) d = fmaf(gs[r * S + e], os[r * S + e], d);
 #pragma unroll
-      for (int e = 0; e < EP; ++e) s = fmaf(qr[e], ks[j][e], s);
-      const float p = expf(s - mx) * inv;
-      float dp = 0.0f;
-      if (!(rate > 0.0f &&
-            uniform01(ctr0 + (uint32_t)(m0 + j), seed_mix) < rate)) {
-        float gv = 0.0f;
+      for (int w = 1; w < kDThreads; w <<= 1) d += __shfl_xor_sync(0xffffffffu, d, w);
+      if (part == 0) dm[r] = d;
+    }
+    __syncthreads();
+
+    if (keys_here) {
+      // The row tile in pieces of HN 8-row blocks: two pieces of 16 rows
+      // from E = 16 on, which keeps the score fragments in 128 registers
+      // beside dK and dV.
+#pragma unroll 1
+      for (int r8 = 0; r8 < RN; r8 += HN) {
+        // S^T = K Q^T and dPd^T = V G^T: the warp's 16 keys x 8*HN rows.
+        float sT[HN][4], pT[HN][4];
 #pragma unroll
-        for (int e = 0; e < EP; ++e) gv = fmaf(gr[e], vs[j][e], gv);
-        dp = gv * out_scale;
+        for (int n = 0; n < HN; ++n) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) sT[n][i] = pT[n][i] = 0.0f;
+        }
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          const float* kr = ks + (kw + gq) * S + kk * 8 + t;
+          const float* vr = vs + (kw + gq) * S + kk * 8 + t;
+          const float ka[4] = {kr[0], kr[8 * S], kr[4], kr[8 * S + 4]};
+          const float va[4] = {vr[0], vr[8 * S], vr[4], vr[8 * S + 4]};
+          uint32_t kh[4], kl[4], vh[4], vl[4];
+          split(ka, kh, kl);
+          split(va, vh, vl);
+#pragma unroll
+          for (int n = 0; n < HN; ++n) {
+            const float* qr = qs + ((r8 + n) * 8 + gq) * S + kk * 8 + t;
+            const float* gr = gs + ((r8 + n) * 8 + gq) * S + kk * 8 + t;
+            const float qf[2] = {qr[0], qr[4]}, gf[2] = {gr[0], gr[4]};
+            uint32_t qh[2], ql[2], gh[2], gl[2];
+            split(qf, qh, ql);
+            split(gf, gh, gl);
+            mma3(sT[n], kh, kl, qh, ql);
+            mma3(pT[n], vh, vl, gh, gl);
+          }
+        }
+        // Pd and dS in place of the score fragments; dS to shared memory.
+#pragma unroll
+        for (int n = 0; n < HN; ++n) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = kw + gq + (i >> 1) * 8, row = (r8 + n) * 8 + 2 * t + (i & 1);
+            const float p = key < kvalid ? exp2f(fmaf(sT[n][i], scale2, -ls[row])) : 0.0f;
+            const bool keep =
+                !(rate > 0.0f &&
+                  uniform01((uint32_t)bh * lm + (uint32_t)(r0 + row) * (uint32_t)M +
+                                (uint32_t)(k0 + key),
+                            seed_mix) < rate);
+            const float ds = p * ((keep ? pT[n][i] * out_scale : 0.0f) - dm[row]);
+            sT[n][i] = keep ? p * out_scale : 0.0f;
+            pT[n][i] = ds;
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {  // rows 2t, 2t+1 of keys gq, gq + 8
+            *reinterpret_cast<float2*>(dss + (kw + gq + r * 8) * DS + (r8 + n) * 8 + 2 * t) =
+                make_float2(pT[n][2 * r], pT[n][2 * r + 1]);
+          }
+        }
+        // dV += Pd^T G, then dK += dS^T Q (G's and Q's rows read at 2t,
+        // 2t+1), each into a fresh fragment: the tensor cores truncate when
+        // they add to an fp32 accumulator, so dva and dka take one rounded
+        // add per piece.
+        accumulate_t<KS, HN, S>(dva, sT, gs + r8 * 8 * S, gq, t);
+        accumulate_t<KS, HN, S>(dka, pT, qs + r8 * 8 * S, gq, t);
       }
-      const float ds = p * (dp - dterm);
+    } else {
+      for (int i = lane; i < 16 * R; i += 32) dss[(kw + i / R) * DS + i % R] = 0.0f;
+    }
+    __syncthreads();
+
+    // dQ = dS K for the row tile: QT output tiles of 16 x 8, each summed
+    // over the tile's keys by KP warps (one key part each), the parts then
+    // added in part order.
+    for (int task = warp; task < QT * KP; task += kBwdWarps) {
+      const int ot = task % QT, kp = task / QT;
+      const int mt = ot / KS, nt = ot - mt * KS;
+      const int kb0 = kp * (kKeyTile / KP), kb1 = min(kvalid, kb0 + kKeyTile / KP);
+      float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int kk = kb0; kk < kb1; kk += 8) {
+        const float* ar = dss + (kk + t) * DS + mt * 16 + gq;
+        const float* br = ks + (kk + t) * S + nt * 8 + gq;
+        const float af[4] = {ar[0], ar[8], ar[4 * DS], ar[4 * DS + 8]};
+        const float bf[2] = {br[0], br[4 * S]};
+        uint32_t ah[4], al[4], bh2[2], bl2[2];
+        split(af, ah, al);
+        split(bf, bh2, bl2);
+        mma3(c, ah, al, bh2, bl2);
+      }
 #pragma unroll
-      for (int e = 0; e < EP; ++e) acc[e] = fmaf(ds, ks[j][e], acc[e]);
+      for (int i = 0; i < 4; ++i) {
+        const int row = mt * 16 + gq + (i >> 1) * 8, col = nt * 8 + 2 * t + (i & 1);
+        if constexpr (KP > 1) {
+          qpart[(kp * R + row) * EP + col] = c[i];
+        } else if (r0 + row < r_end && col < E) {
+          write_dq(r0 + row, col, c[i]);
+        }
+      }
+    }
+    if constexpr (KP > 1) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < R * EP; i += kBwdThreads) {
+        const int row = i / EP, col = i - row * EP;
+        if (r0 + row >= r_end || col >= E) continue;
+        float sum = qpart[i];
+#pragma unroll
+        for (int p = 1; p < KP; ++p) sum += qpart[p * R * EP + i];
+        write_dq(r0 + row, col, sum);
+      }
+    }
+    __syncthreads();  // the stage and dS buffers are reused
+  }
+
+  if (!keys_here) return;
+#pragma unroll
+  for (int e = 0; e < KS; ++e) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = kw + gq + (i >> 1) * 8, col = e * 8 + 2 * t + (i & 1);
+      if (key < kvalid && col < E) {
+        const size_t idx = ((size_t)b * M + k0 + key) * he + (size_t)h * E + col;
+        if (dk_part == nullptr) {
+          store(dk + idx, dka[e][i] * scale);
+          store(dv + idx, dva[e][i]);
+        } else {
+          const size_t off = (size_t)split_id * N * M * he + idx;
+          dk_part[off] = dka[e][i] * scale;
+          dv_part[off] = dva[e][i];
+        }
+      }
     }
   }
-  if (!active) return;
-  T* dqrow = dq + roff;
-#pragma unroll
-  for (int e = 0; e < EP; ++e) {
-    if (e < E) store(dqrow + e, acc[e] * scale);
-  }
-  float* st = stats + ((size_t)bh * L + row) * 3;
-  st[0] = mx;
-  st[1] = inv;
-  st[2] = dterm;
 }
 
-// Pass 2: partial dK, dV of the keys of one block over the rows of one split.
-template <typename T, int EP>
-__global__ void __launch_bounds__(kKeys) bwd_keys_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ g, const float* __restrict__ stats,
-    float* __restrict__ part, int L, int M, int H, int E, int NH,
-    int rows_per_split, float scale, float rate, float out_scale, uint32_t lm,
-    uint32_t seed_mix) {
-  __shared__ float qs[kTileL][EP];
-  __shared__ float gs[kTileL][EP];
-  __shared__ float ss[kTileL][3];
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int key = blockIdx.x * kKeys + threadIdx.x;
-  const bool active = key < M;
-  const int split = blockIdx.z;
-  const int r0 = split * rows_per_split;
-  const int r1 = min(L, r0 + rows_per_split);
-  const size_t he = (size_t)H * E;
-
-  float kr[EP], vr[EP], dk[EP], dv[EP];
-  const size_t koff = ((size_t)b * M + (active ? key : 0)) * he + (size_t)h * E;
-#pragma unroll
-  for (int e = 0; e < EP; ++e) {
-    kr[e] = (active && e < E) ? to_f32(k[koff + e]) : 0.0f;
-    vr[e] = (active && e < E) ? to_f32(v[koff + e]) : 0.0f;
-    dk[e] = 0.0f;
-    dv[e] = 0.0f;
-  }
-  const T* qb = q + (size_t)b * L * he + (size_t)h * E;
-  const T* gb = g + (size_t)b * L * he + (size_t)h * E;
-  const float* sb = stats + (size_t)bh * L * 3;
-  const uint32_t ctr_key = (uint32_t)bh * lm + (uint32_t)key;
-
-  for (int i0 = r0; i0 < r1; i0 += kTileL) {
-    const int tl = min(kTileL, r1 - i0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < kTileL * EP; i += kKeys) {
-      const int r = i / EP;
-      const int e = i - r * EP;
-      const bool in = r < tl && e < E;
-      const size_t off = (size_t)(i0 + r) * he + e;
-      qs[r][e] = in ? to_f32(qb[off]) : 0.0f;
-      gs[r][e] = in ? to_f32(gb[off]) : 0.0f;
-    }
-    for (int i = threadIdx.x; i < kTileL * 3; i += kKeys) {
-      const int r = i / 3;
-      ss[r][i - r * 3] = r < tl ? sb[(size_t)(i0 + r) * 3 + (i - r * 3)] : 0.0f;
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int t = 0; t < tl; ++t) {
-      float s = 0.0f;
-#pragma unroll
-      for (int e = 0; e < EP; ++e) s = fmaf(qs[t][e], kr[e], s);
-      const float p = expf(s * scale - ss[t][0]) * ss[t][1];
-      float gv = 0.0f;
-#pragma unroll
-      for (int e = 0; e < EP; ++e) gv = fmaf(gs[t][e], vr[e], gv);
-      float pd = p, dp = gv;
-      if (rate > 0.0f) {
-        const bool keep = uniform01(ctr_key + (uint32_t)(i0 + t) * (uint32_t)M,
-                                    seed_mix) >= rate;
-        pd = keep ? p * out_scale : 0.0f;
-        dp = keep ? gv * out_scale : 0.0f;
-      }
-      const float ds = p * (dp - ss[t][2]);
-#pragma unroll
-      for (int e = 0; e < EP; ++e) {
-        dv[e] = fmaf(pd, gs[t][e], dv[e]);
-        dk[e] = fmaf(ds, qs[t][e], dk[e]);
-      }
-    }
-  }
-  if (!active) return;
-  float* out = part + (((size_t)split * NH + bh) * M + key) * 2 * E;
-#pragma unroll
-  for (int e = 0; e < EP; ++e) {
-    if (e < E) {
-      out[e] = dk[e] * scale;
-      out[E + e] = dv[e];
-    }
-  }
-}
-
-// Pass 3: dk, dv = sum over the S splits, in split order.
+// Sums the slabs of one or two fp32 part arrays into their outputs.
 template <typename T>
-__global__ void __launch_bounds__(kReduceThreads) bwd_reduce_kernel(
-    const float* __restrict__ part, T* __restrict__ dk, T* __restrict__ dv,
-    int S, int NH, int M, int H, int E) {
-  const size_t per_split = (size_t)NH * M * 2 * E;
-  const size_t idx = (size_t)blockIdx.x * kReduceThreads + threadIdx.x;
-  if (idx >= per_split) return;
-  float acc = 0.0f;
-  for (int s = 0; s < S; ++s) acc += part[(size_t)s * per_split + idx];
-  const int c = (int)(idx % (2 * E));
-  const size_t bj = idx / (2 * E);  // bh * M + key
-  const int key = (int)(bj % M);
-  const int bh = (int)(bj / M);
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const size_t off = ((size_t)b * M + key) * H * E + (size_t)h * E;
-  if (c < E) {
-    store(dk + off + c, acc);
-  } else {
-    store(dv + off + (c - E), acc);
-  }
+cudaError_t reduce(const float* part0, void* out0, const float* part1, void* out1, int slabs,
+                   size_t n, cudaStream_t stream) {
+  const dim3 grid((unsigned)((n + kReduceThreads - 1) / kReduceThreads), part1 ? 2 : 1);
+  reduce_slabs<T><<<grid, kReduceThreads, 0, stream>>>(
+      part0, static_cast<T*>(out0), part1, static_cast<T*>(out1), slabs, n);
+  return cudaGetLastError();
 }
 
 template <typename T, int EP>
-cudaError_t launch_ep(const void* q, const void* k, const void* v,
-                      const void* g, void* dq, void* dk, void* dv, float* stats,
-                      float* part, int n, int l, int m, int heads, int e,
-                      int splits, float scale, float rate, float out_scale,
-                      uint32_t lm, uint32_t seed_mix, cudaStream_t stream) {
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* gp = static_cast<const T*>(g);
-  const int nh = n * heads;
-  bwd_rows_kernel<T, EP><<<dim3((l + kRows - 1) / kRows, nh), kRows, 0, stream>>>(
-      qp, kp, vp, gp, static_cast<T*>(dq), stats, l, m, heads, e, scale, rate,
-      out_scale, lm, seed_mix);
-  cudaError_t err = cudaGetLastError();
+cudaError_t launch_ep(const void* q, const void* k, const void* v, const void* g,
+                      const void* o, const float* lse, void* dq, void* dk, void* dv,
+                      float* dq_part, float* dk_part, float* dv_part, int n, int l, int m,
+                      int heads, int e, int splits, int rows_per_split, float scale,
+                      float rate, float out_scale, uint32_t lm, uint32_t seed_mix,
+                      cudaStream_t stream) {
+  const int ktiles = (m + kKeyTile - 1) / kKeyTile;
+  const long long blocks = (long long)ktiles * n * heads * splits;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const bool vec = vec_rows<T>(e, {q, k, v, g, o});
+  cudaError_t err = allow_smem<bwd_kernel<T, EP>>();
   if (err != cudaSuccess) return err;
-  const int rows_per_split = (l + splits - 1) / splits;
-  bwd_keys_kernel<T, EP>
-      <<<dim3((m + kKeys - 1) / kKeys, nh, splits), kKeys, 0, stream>>>(
-          qp, kp, vp, gp, stats, part, l, m, heads, e, nh, rows_per_split,
-          scale, rate, out_scale, lm, seed_mix);
+  bwd_kernel<T, EP><<<(unsigned)blocks, kBwdThreads,
+                      BwdSmem<EP>::kFloats * (int)sizeof(float), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(g), static_cast<const T*>(o), lse, static_cast<T*>(dq),
+      static_cast<T*>(dk), static_cast<T*>(dv), ktiles > 1 ? dq_part : nullptr,
+      splits > 1 ? dk_part : nullptr, splits > 1 ? dv_part : nullptr, n, l, m, heads, e,
+      ktiles, rows_per_split, scale, rate, out_scale, lm, seed_mix, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t total = (size_t)nh * m * 2 * e;
-  bwd_reduce_kernel<T><<<(unsigned)((total + kReduceThreads - 1) / kReduceThreads),
-                         kReduceThreads, 0, stream>>>(
-      part, static_cast<T*>(dk), static_cast<T*>(dv), splits, nh, m, heads, e);
-  return cudaGetLastError();
+  if (ktiles > 1) {
+    err = reduce<T>(dq_part, dq, nullptr, nullptr, ktiles, (size_t)n * l * heads * e, stream);
+    if (err != cudaSuccess) return err;
+  }
+  if (splits > 1) {
+    err = reduce<T>(dk_part, dk, dv_part, dv, splits, (size_t)n * m * heads * e, stream);
+  }
+  return err;
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
-                   void* dq, void* dk, void* dv, float* stats, float* part,
-                   int n, int l, int m, int heads, int e, int splits,
-                   float scale, float rate, float out_scale, uint32_t lm,
-                   uint32_t seed_mix, cudaStream_t stream) {
-#define SEIST_LAUNCH(EP)                                                      \
-  return launch_ep<T, EP>(q, k, v, g, dq, dk, dv, stats, part, n, l, m,       \
-                          heads, e, splits, scale, rate, out_scale, lm,       \
-                          seed_mix, stream)
-  if (e <= 8) {
-    SEIST_LAUNCH(8);
-  } else if (e <= 16) {
-    SEIST_LAUNCH(16);
-  } else if (e <= 32) {
-    SEIST_LAUNCH(32);
-  } else if (e <= 64) {
-    SEIST_LAUNCH(64);
-  }
+                   const void* o, const float* lse, void* dq, void* dk, void* dv,
+                   float* dq_part, float* dk_part, float* dv_part, int n, int l, int m,
+                   int heads, int e, int splits, int rows_per_split, float scale, float rate,
+                   float out_scale, uint32_t lm, uint32_t seed_mix, cudaStream_t stream) {
+#define SEIST_LAUNCH(EP)                                                                  \
+  return launch_ep<T, EP>(q, k, v, g, o, lse, dq, dk, dv, dq_part, dk_part, dv_part, n, \
+                          l, m, heads, e, splits, rows_per_split, scale, rate,            \
+                          out_scale, lm, seed_mix, stream)
+  if (e <= 8) SEIST_LAUNCH(8);
+  if (e <= 16) SEIST_LAUNCH(16);
+  if (e <= 32) SEIST_LAUNCH(32);
+  if (e <= 64) SEIST_LAUNCH(64);
 #undef SEIST_LAUNCH
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
+}  // namespace seist
 
-// dtype: 0 = float32, 1 = bfloat16. stats: fp32 scratch of N*H*L*3 floats;
-// part: fp32 scratch of splits*N*H*M*2*E floats. lm = (L*M) mod 2^32, seed =
-// the int32 dropout seed's bits, out_scale = 1/(1 - rate) (1 when rate == 0).
+// dtype: 0 = float32, 1 = bfloat16. lse: the forward's fp32 (N*H, L) row
+// statistics. The rows are split into `splits` ranges of rows_per_split (a
+// multiple of the 32-row tile). Scratch, fp32, used only when needed:
+// dq_part holds ceil(M/128) slabs of N*L*H*E (when M > 128), dk_part and
+// dv_part `splits` slabs of N*M*H*E each (when splits > 1). lm = (L*M) mod
+// 2^32, seed = the int32 dropout seed's bits, out_scale = 1/(1 - rate)
+// (1 when rate == 0).
 extern "C" int pooled_attention_bwd(const void* q, const void* k, const void* v,
-                                    const void* g, void* dq, void* dk, void* dv,
-                                    void* stats, void* part, int n, int l,
-                                    int m, int heads, int e, int splits,
-                                    int dtype, float scale, float rate,
-                                    float out_scale, unsigned int lm,
-                                    unsigned int seed, void* stream) {
+                                    const void* g, const void* o, const void* lse,
+                                    void* dq, void* dk, void* dv, void* dq_part,
+                                    void* dk_part, void* dv_part, int n, int l, int m,
+                                    int heads, int e, int dtype, int splits,
+                                    int rows_per_split, float scale, float rate,
+                                    float out_scale, unsigned int lm, unsigned int seed,
+                                    void* stream) {
   if (n < 1 || l < 1 || m < 1 || heads < 1 || e < 1 || splits < 1 ||
-      n * heads > 65535 || splits > 65535) {
+      rows_per_split < 1 || rows_per_split % seist::kBwdRowTile != 0 ||
+      (long long)splits * rows_per_split < l ||
+      (long long)(splits - 1) * rows_per_split >= l) {
     return (int)cudaErrorInvalidValue;
   }
   const uint32_t seed_mix = (uint32_t)seed * 0x9E3779B9u;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* st = static_cast<float*>(stats);
-  float* pt = static_cast<float*>(part);
-  cudaError_t err;
+  const float* ls = static_cast<const float*>(lse);
+  float* qp = static_cast<float*>(dq_part);
+  float* kp = static_cast<float*>(dk_part);
+  float* vp = static_cast<float*>(dv_part);
   if (dtype == 0) {
-    err = launch<float>(q, k, v, g, dq, dk, dv, st, pt, n, l, m, heads, e,
-                        splits, scale, rate, out_scale, lm, seed_mix, s);
-  } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(q, k, v, g, dq, dk, dv, st, pt, n, l, m, heads,
-                                e, splits, scale, rate, out_scale, lm, seed_mix,
-                                s);
-  } else {
-    err = cudaErrorInvalidValue;
+    return (int)seist::launch<float>(q, k, v, g, o, ls, dq, dk, dv, qp, kp, vp, n, l, m,
+                                     heads, e, splits, rows_per_split, scale, rate,
+                                     out_scale, lm, seed_mix, s);
   }
-  return (int)err;
+  if (dtype == 1) {
+    return (int)seist::launch<__nv_bfloat16>(q, k, v, g, o, ls, dq, dk, dv, qp, kp, vp, n,
+                                             l, m, heads, e, splits, rows_per_split, scale,
+                                             rate, out_scale, lm, seed_mix, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

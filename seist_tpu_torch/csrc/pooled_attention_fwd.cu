@@ -1,194 +1,337 @@
-// Pooled-KV multi-head attention forward, with post-softmax dropout, for
-// Hopper (sm_90a).
+// Pooled-KV multi-head attention forward (K1), with post-softmax dropout,
+// for Hopper (sm_90a).
 //
 // Replaces seist_tpu/ops/pallas_attention.py::_fwd_kernel (reached through
-// _call_fused -> pl.pallas_call). For every batch element b and head h:
+// _fused -> _call_fused -> pl.pallas_call). For every batch element b and
+// head h:
 //   P = softmax((q_h * scale) k_h^T)          (L x M, fp32)
 //   P = where(u >= rate, P / (1 - rate), 0)   (only when rate > 0)
 //   O_h = P v_h                               (written into head h's slice)
+//   lse = max + log(sum) of each row of the scaled scores (only when asked:
+//         the backward, csrc/pooled_attention_bwd.cu, reads it)
 // q is (N, L, H*E), k and v are (N, M, H*E), o is (N, L, H*E), all
-// contiguous, in float32 or bfloat16; arithmetic is fp32 throughout and
-// the output takes the input type.
+// contiguous, in float32 or bfloat16; arithmetic is fp32 throughout and the
+// output takes the input type. lse is fp32 (N*H, L).
 //
-// What bounds it. At the serving shapes (L = 128..1024, M = 128, H = 3,
-// E = 8..32, N <= 8) one launch moves under 2 MB and does ~1e8 flops: it
-// is bound by the fp32 arithmetic of QK^T and PV and, below that, by
-// launch latency. What would cost most is writing the (N, H, L, M)
-// probabilities to device memory, as the plain version does; the design
-// never does:
-//   * one thread owns one query row: its scaled q row, the E accumulators,
-//     the running max and the running sum live in registers;
-//   * a block of 128 rows of one (b, h) stages k_h and v_h for a tile of
-//     64 keys in shared memory, read straight from the strided head slice
-//     of (N, M, H*E) (no head transpose); every thread reads the same key,
-//     so the reads are broadcasts without bank conflicts;
-//   * the softmax is online over the key tiles, so any M works (window
-//     8192 gives M = 128, window 65536 gives M = 1024), and ragged L and M
-//     are masked.
-// Dropout is applied after the normalization in the reference, so the
-// running sum counts every key while the accumulators skip dropped ones:
+// What bounds it. At seist_l_dpk's shapes (L = 128..1024, M = 128, H = 3,
+// E = 8..32, N = 1..8 serving) a launch moves under 2 MB and does 4*N*H*L*M*E
+// operations: in fp32 on the CUDA cores the operations bind (1.5 us at
+// L = 1024, N = 8), in 3xTF32 on the tensor cores the bytes, and below both
+// the few microseconds a launch costs, so what decides is latency: enough
+// independent warps, and no serial chain inside one. What would cost most
+// is writing the (N, H, L, M) probabilities to device memory, as the plain
+// version does; this kernel never does. Its design:
+//   * tensor cores: a warp owns 16 query rows of one (b, h) and computes
+//     S = (q scale) K^T and O = P V with mma.sync m16n8k8 in 3xTF32
+//     (attention_common.cuh), which keeps fp32-level error; bf16 inputs are
+//     widened to fp32 in shared memory and take the same path. E is padded
+//     with zeros to a power of two >= 8 (EP), so every width 1..64 runs;
+//   * no serial chain per key: the warp keeps the scores of 64 keys in
+//     registers (32 floats a thread), takes row max and sum by shuffles in
+//     each quad of lanes, and rescales its accumulators once per 64 keys
+//     (online softmax); the score fragment is the A operand of P V as it
+//     is, with V's rows read in the matching order. P V of a chunk goes to
+//     a fresh fragment added to the running one with rounding: the tensor
+//     cores truncate when they add to an fp32 accumulator, and over M = 1024
+//     keys that bias alone broke the 1e-5 limit;
+//   * filling the card: blocks of up to 4 warps, on a 1-D grid; when the
+//     16-row groups are fewer than two per SM (batch 8 at L = 128, or any
+//     batch-1 forward), two warps share a row group, each over half of the
+//     key chunks, and merge (max, sum, O) in shared memory in a fixed order.
+//     ops/_kernels.py::fwd_plan chooses from the device's SM count;
+//   * staging: K and V tiles of 128 keys go to shared memory with cp.async
+//     in 16-byte vectors (fp32) or 8-byte loads widened to fp32 (bf16) when
+//     E % 4 == 0, scalar loads otherwise, double-buffered when M spans more
+//     than one tile. Rows are EP + 4 floats apart, so the fragment reads hit
+//     32 different banks.
+// Dropout is applied after the normalisation in the reference, so the row
+// sum counts every key while P V skips dropped ones:
 // O = (sum_kept e^(s - max) v) / (sum_all e^(s - max)) / (1 - rate).
-// Tensor cores (wgmma) and TMA are later work.
-//
 // The dropout uniform is the JAX package's counter hash (murmur3's
-// finalizer over pid*(L*M) + row*M + col, pid = b*H + h), computed in
-// uint32 so its bits equal JAX's int32 arithmetic.
+// finalizer over pid*(L*M) + row*M + col, pid = b*H + h) in uint32, so its
+// bits equal JAX's int32 arithmetic; each accumulator element takes the
+// counter of its own (row, col).
 //
 // Built by seist_tpu_torch/ops/_kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through ctypes; the C function returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
+namespace seist {
 namespace {
 
-constexpr int kRows = 128;  // query rows (threads) per block
-constexpr int kTileM = 64;  // keys staged in shared memory per tile
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float uniform01(uint32_t x, uint32_t seed_mix) {
-  x ^= seed_mix;
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return (float)(x >> 8) * (1.0f / 16777216.0f);
-}
-
-// EP: head width rounded up to a power of two (register arrays need a
-// compile-time size); lanes e >= E hold zeros.
+// A block is row_warps x ksplit warps. Warp w owns query rows
+// (w / ksplit) * 16 .. + 15 of the block's row tile and the chunks of 64
+// keys numbered w % ksplit modulo ksplit. With ksplit = 2 the two warps of
+// a row group merge their (max, sum, O) in shared memory at the end, in a
+// fixed order.
 template <typename T, int EP>
-__global__ void __launch_bounds__(kRows) pooled_attention_fwd_kernel(
+__global__ void __launch_bounds__(128) fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int L, int M, int H, int E, float scale, float rate,
-    float out_scale, uint32_t lm, uint32_t seed_mix) {
-  __shared__ float ks[kTileM][EP];
-  __shared__ float vs[kTileM][EP];
+    T* __restrict__ o, float* __restrict__ lse, int L, int M, int H, int E,
+    int row_tiles, int ksplit, float scale, float rate, float out_scale, uint32_t lm,
+    uint32_t seed_mix, bool vec) {
+  constexpr int S = EP + 4;         // shared-memory row stride, floats
+  constexpr int KS = EP / 8;        // MMA depth steps over E
+  constexpr int NT = kFwdChunk / 8;  // 8-key column blocks of a chunk
+  extern __shared__ float smem[];
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int row = blockIdx.x * kRows + threadIdx.x;
-  const bool active = row < L;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row_warps = (blockDim.x >> 5) / ksplit;
+  const int part = warp % ksplit, rw = warp / ksplit;
+  const int rt = blockIdx.x % row_tiles, bh = blockIdx.x / row_tiles;
+  const int b = bh / H, h = bh - b * H;
+  const int row0 = (rt * row_warps + rw) * kWarpRows;
   const size_t he = (size_t)H * E;
-
-  float qr[EP], acc[EP];
-  const T* qrow = q + ((size_t)b * L + (active ? row : 0)) * he + (size_t)h * E;
-#pragma unroll
-  for (int e = 0; e < EP; ++e) {
-    qr[e] = (active && e < E) ? to_f32(qrow[e]) * scale : 0.0f;
-    acc[e] = 0.0f;
-  }
-  float mx = -INFINITY;
-  float sum = 0.0f;
-  // Counter of element (row, 0) of slice pid = bh, wrapped mod 2^32.
-  const uint32_t ctr0 = (uint32_t)bh * lm + (uint32_t)row * (uint32_t)M;
-
+  const T* qb = q + (size_t)b * L * he + (size_t)h * E;
   const T* kb = k + (size_t)b * M * he + (size_t)h * E;
   const T* vb = v + (size_t)b * M * he + (size_t)h * E;
-  for (int m0 = 0; m0 < M; m0 += kTileM) {
-    const int tm = min(kTileM, M - m0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < kTileM * EP; i += kRows) {
-      const int r = i / EP;
-      const int e = i - r * EP;
-      const bool in = r < tm && e < E;
-      const size_t off = (size_t)(m0 + r) * he + e;
-      ks[r][e] = in ? to_f32(kb[off]) : 0.0f;
-      vs[r][e] = in ? to_f32(vb[off]) : 0.0f;
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < tm; ++j) {
-      float s = 0.0f;
+  const int ntiles = (M + kKeyTile - 1) / kKeyTile;
+
+  // The warp's 16 scaled q rows as split A fragments.
+  uint32_t qh[KS][4], ql[KS][4];
 #pragma unroll
-      for (int e = 0; e < EP; ++e) s = fmaf(qr[e], ks[j][e], s);
-      if (s > mx) {  // rescale what was accumulated against the old max
-        const float corr = expf(mx - s);
-        sum *= corr;
+  for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
-        for (int e = 0; e < EP; ++e) acc[e] *= corr;
-        mx = s;
-      }
-      const float p = expf(s - mx);
-      sum += p;
-      if (rate > 0.0f &&
-          uniform01(ctr0 + (uint32_t)(m0 + j), seed_mix) < rate) {
-        continue;  // dropped after the softmax: counted in sum, not in acc
-      }
-#pragma unroll
-      for (int e = 0; e < EP; ++e) acc[e] = fmaf(p, vs[j][e], acc[e]);
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + g + (i & 1) * 8, c = kk * 8 + t + (i >> 1) * 4;
+      const float x = (r < L && c < E) ? to_f32(qb[(size_t)r * he + c]) * scale : 0.0f;
+      split(x, qh[kk][i], ql[kk][i]);
     }
   }
-  if (!active) return;
-  const float inv = out_scale / sum;
-  T* orow = o + ((size_t)b * L + row) * he + (size_t)h * E;
+  float acc[KS][4];
 #pragma unroll
-  for (int e = 0; e < EP; ++e) {
-    if (e < E) store(orow + e, acc[e] * inv);
+  for (int kk = 0; kk < KS; ++kk) acc[kk][0] = acc[kk][1] = acc[kk][2] = acc[kk][3] = 0.0f;
+  float mrun[2] = {-INFINITY, -INFINITY}, lrun[2] = {0.0f, 0.0f};  // rows g, g + 8
+  const uint32_t ctr[2] = {(uint32_t)bh * lm + (uint32_t)(row0 + g) * (uint32_t)M,
+                           (uint32_t)bh * lm + (uint32_t)(row0 + g + 8) * (uint32_t)M};
+
+  auto stage = [&](int tile) {
+    float* ks = smem + (tile & 1) * 2 * kKeyTile * S;
+    const int m0 = tile * kKeyTile, valid = min(kKeyTile, M - m0);
+    stage_rows(ks, kb, m0, kKeyTile, valid, E, EP, S, he, vec);
+    stage_rows(ks + kKeyTile * S, vb, m0, kKeyTile, valid, E, EP, S, he, vec);
+    cp_async_commit();
+  };
+  stage(0);
+  for (int tile = 0; tile < ntiles; ++tile) {
+    if (tile + 1 < ntiles) {
+      stage(tile + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* tk = smem + (tile & 1) * 2 * kKeyTile * S;
+    const int tile_keys = min(kKeyTile, M - tile * kKeyTile);
+    for (int c0 = part * kFwdChunk; c0 < tile_keys; c0 += ksplit * kFwdChunk) {
+      const float* ks = tk + c0 * S;
+      const float* vs = tk + (kKeyTile + c0) * S;
+      const int m0 = tile * kKeyTile + c0, valid = min(kFwdChunk, tile_keys - c0);
+
+      // S = (q scale) K^T for the chunk, in registers.
+      float s[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+        if (n * 8 >= valid) continue;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          const float* kr = ks + (n * 8 + g) * S + kk * 8 + t;
+          const float bf[2] = {kr[0], kr[4]};
+          uint32_t bhi[2], blo[2];
+          split(bf, bhi, blo);
+          mma3(s[n], qh[kk], ql[kk], bhi, blo);
+        }
+      }
+      // Row max over the chunk (quad shuffles), one rescale per chunk.
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (n * 8 + 2 * t + (i & 1) >= valid) s[n][i] = -INFINITY;
+          mx[i >> 1] = fmaxf(mx[i >> 1], s[n][i]);
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(mrun[r], mx[r]);
+        corr[r] = expf(mrun[r] - m_new);
+        mrun[r] = m_new;
+        lrun[r] *= corr[r];
+      }
+      // P = e^(s - max): every key in the row sum, kept keys in P V.
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float p = expf(s[n][i] - mrun[i >> 1]);
+          lrun[i >> 1] += p;
+          if (rate > 0.0f &&
+              uniform01(ctr[i >> 1] + (uint32_t)(m0 + n * 8 + 2 * t + (i & 1)), seed_mix) <
+                  rate) {
+            p = 0.0f;
+          }
+          s[n][i] = p;
+        }
+      }
+      // P V into a fresh fragment: the tensor cores truncate when they add
+      // to an fp32 accumulator, so long chains of adds are kept off acc,
+      // which takes one rounded add per chunk.
+      float pv[KS][4];
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) pv[kk][0] = pv[kk][1] = pv[kk][2] = pv[kk][3] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j * 8 >= valid) continue;
+        const float af[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+        uint32_t ahi[4], alo[4];
+        split(af, ahi, alo);
+        const float* vr = vs + (j * 8 + 2 * t) * S + g;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          const float bf[2] = {vr[kk * 8], vr[S + kk * 8]};
+          uint32_t bhi[2], blo[2];
+          split(bf, bhi, blo);
+          mma3(pv[kk], ahi, alo, bhi, blo);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[kk][i] = fmaf(acc[kk][i], corr[i >> 1], pv[kk][i]);
+      }
+    }
+    __syncthreads();  // this tile's buffer is refilled two tiles on
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lrun[r] += __shfl_xor_sync(0xffffffffu, lrun[r], 1);
+    lrun[r] += __shfl_xor_sync(0xffffffffu, lrun[r], 2);
+  }
+  if (ksplit == 2) {  // merge the key halves: part 1 hands its state to part 0
+    constexpr int W = KS * 4 + 4;
+    float* xs = smem + (rw * 32 + lane) * W;  // the K/V tiles are no longer read
+    if (part == 1) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) xs[kk * 4 + i] = acc[kk][i];
+      }
+      xs[KS * 4] = mrun[0];
+      xs[KS * 4 + 1] = mrun[1];
+      xs[KS * 4 + 2] = lrun[0];
+      xs[KS * 4 + 3] = lrun[1];
+    }
+    __syncthreads();
+    if (part == 1) return;
+    float a0[2], a1[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m1 = xs[KS * 4 + r], m_new = fmaxf(mrun[r], m1);
+      a0[r] = expf(mrun[r] - m_new);
+      a1[r] = expf(m1 - m_new);
+      lrun[r] = lrun[r] * a0[r] + xs[KS * 4 + 2 + r] * a1[r];
+      mrun[r] = m_new;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[kk][i] = acc[kk][i] * a0[i >> 1] + xs[kk * 4 + i] * a1[i >> 1];
+      }
+    }
+  }
+  const float inv[2] = {out_scale / lrun[0], out_scale / lrun[1]};
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + g + (i >> 1) * 8, c = kk * 8 + 2 * t + (i & 1);
+      if (r < L && c < E) store(o + ((size_t)b * L + r) * he + (size_t)h * E + c,
+                                acc[kk][i] * inv[i >> 1]);
+    }
+  }
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + g + r * 8;
+      if (row < L) lse[(size_t)bh * L + row] = mrun[r] + logf(lrun[r]);
+    }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int n,
-                   int l, int m, int heads, int e, float scale, float rate,
-                   float out_scale, uint32_t lm, uint32_t seed_mix,
-                   cudaStream_t stream) {
-  const dim3 grid((l + kRows - 1) / kRows, n * heads);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(o);
-#define SEIST_LAUNCH(EP)                                                    \
-  pooled_attention_fwd_kernel<T, EP><<<grid, kRows, 0, stream>>>(           \
-      qp, kp, vp, op, l, m, heads, e, scale, rate, out_scale, lm, seed_mix)
-  if (e <= 8) {
-    SEIST_LAUNCH(8);
-  } else if (e <= 16) {
-    SEIST_LAUNCH(16);
-  } else if (e <= 32) {
-    SEIST_LAUNCH(32);
-  } else if (e <= 64) {
-    SEIST_LAUNCH(64);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-#undef SEIST_LAUNCH
+template <typename T, int EP>
+cudaError_t launch_ep(const void* q, const void* k, const void* v, void* o, float* lse,
+                      int n, int l, int m, int heads, int e, int row_warps, int ksplit,
+                      float scale, float rate, float out_scale, uint32_t lm,
+                      uint32_t seed_mix, cudaStream_t stream) {
+  const int row_tiles = (l + kWarpRows * row_warps - 1) / (kWarpRows * row_warps);
+  const long long blocks = (long long)row_tiles * n * heads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int stages = m > kKeyTile ? 2 : 1;
+  const int smem = stages * 2 * kKeyTile * (EP + 4) * (int)sizeof(float);
+  const bool vec = vec_rows<T>(e, {k, v});
+  const cudaError_t err = allow_smem<fwd_kernel<T, EP>>();
+  if (err != cudaSuccess) return err;
+  fwd_kernel<T, EP><<<(unsigned)blocks, 32 * row_warps * ksplit, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, l, m, heads, e, row_tiles, ksplit, scale, rate, out_scale,
+      lm, seed_mix, vec);
   return cudaGetLastError();
 }
 
-}  // namespace
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   int n, int l, int m, int heads, int e, int row_warps, int ksplit,
+                   float scale, float rate, float out_scale, uint32_t lm, uint32_t seed_mix,
+                   cudaStream_t stream) {
+#define SEIST_LAUNCH(EP)                                                               \
+  return launch_ep<T, EP>(q, k, v, o, lse, n, l, m, heads, e, row_warps, ksplit, scale, \
+                          rate, out_scale, lm, seed_mix, stream)
+  if (e <= 8) SEIST_LAUNCH(8);
+  if (e <= 16) SEIST_LAUNCH(16);
+  if (e <= 32) SEIST_LAUNCH(32);
+  if (e <= 64) SEIST_LAUNCH(64);
+#undef SEIST_LAUNCH
+  return cudaErrorInvalidValue;
+}
 
-// dtype: 0 = float32, 1 = bfloat16. lm = (L*M) mod 2^32, seed = the int32
-// dropout seed's bits, out_scale = 1/(1 - rate) (1 when rate == 0).
-extern "C" int pooled_attention_fwd(const void* q, const void* k,
-                                    const void* v, void* o, int n, int l,
-                                    int m, int heads, int e, int dtype,
-                                    float scale, float rate, float out_scale,
-                                    unsigned int lm, unsigned int seed,
+}  // namespace
+}  // namespace seist
+
+// dtype: 0 = float32, 1 = bfloat16. lse: fp32 (N*H, L) or null (no row
+// statistics written). A block has row_warps x ksplit warps (at most 4):
+// row_warps groups of 16 rows, each over ksplit (1 or 2) key halves.
+// lm = (L*M) mod 2^32, seed = the int32 dropout seed's bits, out_scale =
+// 1/(1 - rate) (1 when rate == 0).
+extern "C" int pooled_attention_fwd(const void* q, const void* k, const void* v,
+                                    void* o, void* lse, int n, int l, int m, int heads,
+                                    int e, int dtype, int row_warps, int ksplit,
+                                    float scale, float rate,
+                                    float out_scale, unsigned int lm, unsigned int seed,
                                     void* stream) {
-  if (n < 1 || l < 1 || m < 1 || heads < 1 || e < 1 || n * heads > 65535) {
+  if (n < 1 || l < 1 || m < 1 || heads < 1 || e < 1 || !(ksplit == 1 || ksplit == 2) ||
+      !(row_warps == 1 || row_warps == 2 || row_warps == 4) || row_warps * ksplit > 4) {
     return (int)cudaErrorInvalidValue;
   }
   const uint32_t seed_mix = (uint32_t)seed * 0x9E3779B9u;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+  float* ls = static_cast<float*>(lse);
   if (dtype == 0) {
-    err = launch<float>(q, k, v, o, n, l, m, heads, e, scale, rate, out_scale,
-                        lm, seed_mix, s);
-  } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(q, k, v, o, n, l, m, heads, e, scale, rate,
-                                out_scale, lm, seed_mix, s);
-  } else {
-    err = cudaErrorInvalidValue;
+    return (int)seist::launch<float>(q, k, v, o, ls, n, l, m, heads, e, row_warps, ksplit,
+                                     scale, rate, out_scale, lm, seed_mix, s);
   }
-  return (int)err;
+  if (dtype == 1) {
+    return (int)seist::launch<__nv_bfloat16>(q, k, v, o, ls, n, l, m, heads, e, row_warps,
+                                             ksplit, scale, rate, out_scale, lm, seed_mix, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -19,7 +19,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -35,11 +35,12 @@ NVCC_FLAGS = (
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 #: C signature of each source's entry point (all return a cudaError_t as int).
 _ARGTYPES = {
-    # q, k, v, o, n, l, m, heads, e, dtype, scale, rate, out_scale, lm, seed, stream
-    "pooled_attention_fwd": [_P] * 4 + [_I] * 6 + [_F] * 3 + [_U] * 2 + [_P],
-    # q, k, v, g, dq, dk, dv, stats, part, n, l, m, heads, e, splits, dtype,
-    # scale, rate, out_scale, lm, seed, stream
-    "pooled_attention_bwd": [_P] * 9 + [_I] * 7 + [_F] * 3 + [_U] * 2 + [_P],
+    # q, k, v, o, lse, n, l, m, heads, e, dtype, row_warps, ksplit, scale, rate,
+    # out_scale, lm, seed, stream
+    "pooled_attention_fwd": [_P] * 5 + [_I] * 8 + [_F] * 3 + [_U] * 2 + [_P],
+    # q, k, v, g, o, lse, dq, dk, dv, dq_part, dk_part, dv_part, n, l, m, heads,
+    # e, dtype, splits, rows_per_split, scale, rate, out_scale, lm, seed, stream
+    "pooled_attention_bwd": [_P] * 12 + [_I] * 8 + [_F] * 3 + [_U] * 2 + [_P],
 }
 
 _LOCK = threading.Lock()  # guards _NAME_LOCKS
@@ -66,8 +67,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives: keyed by its hash."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    """Where the library of ``csrc/<name>.cu`` lives: keyed by the hash of
+    the source and of the headers beside it."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -126,49 +131,101 @@ def build_all(names=tuple(_ARGTYPES)) -> None:
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# Tile constants of csrc/attention_common.cuh (kKeyTile, kWarpRows,
+# kFwdChunk, kBwdRowTile); tests/test_torch_attention_tiles.py keeps them
+# equal.
+KEY_TILE = 128
+WARP_ROWS = 16
+FWD_CHUNK = 64
+BWD_ROW_TILE = 32
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of ``device``: what a launch must fill."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def fwd_plan(n: int, l: int, m: int, h: int, sms: int) -> Tuple[int, int]:
+    """(row_warps, ksplit) of K1's blocks. Each of row_warps groups of 16
+    query rows is worked by ksplit warps, each over its share of the key
+    chunks: 2 when the 16-row groups number fewer than two per SM and M
+    spans two chunks. row_warps is the most (of 4, 2, 1 at most 4 warps a
+    block) that still gives every SM a block."""
+    groups = -(-l // WARP_ROWS) * n * h
+    ksplit = 2 if m > FWD_CHUNK and groups < 2 * sms else 1
+    for row_warps in (4 // ksplit, 2 // ksplit):
+        if row_warps and -(-l // (WARP_ROWS * row_warps)) * n * h >= sms:
+            return row_warps, ksplit
+    return 1, ksplit
+
+
+def bwd_plan(n: int, l: int, m: int, h: int, sms: int) -> Tuple[int, int]:
+    """(splits, rows_per_split) of K2: a block owns a key tile of one (b, h)
+    and a range of rows, in whole 32-row tiles. The split count minimises
+    the busiest SM's work: the blocks it runs, ceil(blocks * splits / sms),
+    times each block's row tiles plus two (a block's fixed cost: staging K
+    and V, writing dK and dV and, when split, summing the parts, measured on
+    an H100 at about two row tiles'); the fewest splits win a tie."""
+    blocks = -(-m // KEY_TILE) * n * h
+    tiles = -(-l // BWD_ROW_TILE)
+    best = None
+    for want in range(1, tiles + 1):
+        per = -(-tiles // want)  # row tiles of a range
+        splits = -(-tiles // per)
+        cost = -(-blocks * splits // sms) * (per + 2)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per * BWD_ROW_TILE)
+    return best[1], best[2]
+
+
+def bwd_scratch(n: int, l: int, m: int, h: int, e: int, splits: int) -> Tuple[int, int]:
+    """fp32 scratch of K2 in elements: (dq parts, dk parts = dv parts). dQ
+    parts exist only when M spans several key tiles, dK/dV parts only when
+    the rows are split."""
+    ktiles = -(-m // KEY_TILE)
+    dq_part = ktiles * n * l * h * e if ktiles > 1 else 0
+    dkv_part = splits * n * m * h * e if splits > 1 else 0
+    return dq_part, dkv_part
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _out_scale(rate: float) -> float:
+    return 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
+
+
 def pooled_attention_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     o: torch.Tensor,
+    lse: Optional[torch.Tensor],
     scale: float,
     rate: float,
     seed: int,
 ) -> None:
-    """Launch the kernel on the current stream: q/o (N, L, H, E), k/v
-    (N, M, H, E), checked by the caller (ops/pooled_attention.py)."""
+    """Launch K1 on the current stream: q/o (N, L, H, E), k/v (N, M, H, E),
+    checked by the caller (ops/pooled_attention.py); ``lse`` fp32 (N, H, L)
+    receives the row statistics, or is None."""
     lib = build("pooled_attention_fwd")
     n, l, h, e = q.shape
     m = k.shape[1]
+    row_warps, ksplit = fwd_plan(n, l, m, h, sm_count(q.device))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.pooled_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        n, l, m, h, e, _DTYPES[q.dtype],
-        float(scale), float(rate),
-        1.0 / (1.0 - rate) if rate > 0.0 else 1.0,
+        None if lse is None else lse.data_ptr(),
+        n, l, m, h, e, _DTYPES[q.dtype], row_warps, ksplit,
+        float(scale), float(rate), _out_scale(rate),
         (l * m) & 0xFFFFFFFF, int(seed) & 0xFFFFFFFF, stream,
     )
     if err != 0:
         raise RuntimeError(
             f"pooled_attention_fwd launch failed: CUDA error {err} "
-            f"(q {tuple(q.shape)} {q.dtype}, M={m})"
+            f"(q {tuple(q.shape)} {q.dtype}, M={m}, blocks of {row_warps}x{ksplit} warps)"
         )
-
-
-#: Keys (threads) per block of the backward's key pass
-#: (``kKeys`` in csrc/pooled_attention_bwd.cu), and the row tile.
-BWD_KEYS_PER_BLOCK = 64
-BWD_ROW_TILE = 64
-#: Blocks the key pass aims for: 8 of 64 threads on each of 132 SMs.
-BWD_TARGET_BLOCKS = 8 * 132
-
-
-def bwd_row_splits(n: int, l: int, m: int, h: int) -> int:
-    """How many contiguous row ranges the backward's key pass splits L
-    into: enough blocks to fill the card, never a range under one tile."""
-    blocks = -(-m // BWD_KEYS_PER_BLOCK) * n * h
-    want = max(1, -(-BWD_TARGET_BLOCKS // blocks))
-    return min(want, -(-l // BWD_ROW_TILE))
 
 
 def pooled_attention_bwd(
@@ -176,6 +233,8 @@ def pooled_attention_bwd(
     k: torch.Tensor,
     v: torch.Tensor,
     g: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
     dq: torch.Tensor,
     dk: torch.Tensor,
     dv: torch.Tensor,
@@ -183,23 +242,24 @@ def pooled_attention_bwd(
     rate: float,
     seed: int,
 ) -> None:
-    """Launch the backward on the current stream: q/g/dq (N, L, H, E),
-    k/v/dk/dv (N, M, H, E), checked by the caller. Allocates the kernel's
-    fp32 scratch (row statistics and the key pass's partial sums)."""
+    """Launch K2 on the current stream: q/g/o/dq (N, L, H, E), k/v/dk/dv
+    (N, M, H, E), lse fp32 (N, H, L), checked by the caller. Allocates the
+    fp32 scratch that :func:`bwd_scratch` sizes (none on the main path)."""
     lib = build("pooled_attention_bwd")
     n, l, h, e = q.shape
     m = k.shape[1]
-    splits = bwd_row_splits(n, l, m, h)
-    stats = torch.empty(n * h * l * 3, dtype=torch.float32, device=q.device)
-    part = torch.empty(splits * n * h * m * 2 * e, dtype=torch.float32, device=q.device)
+    splits, rows = bwd_plan(n, l, m, h, sm_count(q.device))
+    dq_n, dkv_n = bwd_scratch(n, l, m, h, e, splits)
+    dq_part, dk_part, dv_part = (
+        torch.empty(c, dtype=torch.float32, device=q.device) if c else None
+        for c in (dq_n, dkv_n, dkv_n))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.pooled_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        stats.data_ptr(), part.data_ptr(),
-        n, l, m, h, e, splits, _DTYPES[q.dtype],
-        float(scale), float(rate),
-        1.0 / (1.0 - rate) if rate > 0.0 else 1.0,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _ptr(dq_part), _ptr(dk_part), _ptr(dv_part),
+        n, l, m, h, e, _DTYPES[q.dtype], splits, rows,
+        float(scale), float(rate), _out_scale(rate),
         (l * m) & 0xFFFFFFFF, int(seed) & 0xFFFFFFFF, stream,
     )
     if err != 0:

@@ -8,9 +8,10 @@ are (L x M) with M = L/r. ``fused_pooled_attention`` is a
 kernel ``csrc/pooled_attention_fwd.cu`` and whose backward launches
 ``csrc/pooled_attention_bwd.cu`` (both built and bound by
 ``ops/_kernels.py``) on CUDA tensors; each takes its plain version only
-for tensors that lie on the CPU. As in the JAX package's custom VJP, the
-forward saves q, k, v and the seed, and the backward recomputes the
-probabilities and the dropout mask from them.
+for tensors that lie on the CPU. The forward also writes each row's
+log-sum-exp when a gradient will be needed, and saves it with q, k, v, its
+output and the seed; the backward rebuilds the probabilities from it in
+one pass, and the dropout mask from the seed.
 
 Post-softmax dropout draws its uniforms from the counter hash of the JAX
 package (``_mix_to_uniform`` / ``_uniform01``): murmur3's finalizer over
@@ -68,6 +69,22 @@ def _uniform01(
     return _mix_to_uniform(x, seed)
 
 
+def _keep_mask(seed: int, n: int, h: int, l: int, m: int, rate: float, device) -> torch.Tensor:
+    """(N, H, L, M) dropout keep mask: the counter hash's u >= rate."""
+    pid = torch.arange(n * h, device=device)
+    u = _uniform01(seed, pid, l, m, device=device)
+    return u.reshape(n, h, l, m) >= torch.tensor(rate, dtype=torch.float32)
+
+
+def _drop_both(p: torch.Tensor, dpd: torch.Tensor, rate: float, seed: int):
+    """The forward's dropout applied to P (for dV) and to dPd = g v^T."""
+    if rate <= 0.0:
+        return p, dpd
+    keep = _keep_mask(seed, *p.shape, rate, p.device)
+    inv_keep = 1.0 / (1.0 - rate)
+    return torch.where(keep, p * inv_keep, 0.0), torch.where(keep, dpd * inv_keep, 0.0)
+
+
 def pooled_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -75,24 +92,59 @@ def pooled_attention_plain(
     scale: float,
     dropout_rate: float = 0.0,
     dropout_seed: int = 0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """The math of ``_einsum_attention``: q (N, L, H, E), k/v (N, M, H, E).
 
-    Computes in fp32 and returns the input dtype, as the kernel does."""
+    Computes in fp32 and returns the input dtype, as the kernel does. With
+    ``return_lse`` also the fp32 (N, H, L) log-sum-exp of the scaled scores
+    (K1's row statistics, which the backward reads)."""
     dtype = q.dtype
     q, k, v = q.float(), k.float(), v.float()
     s = torch.einsum("nlhe,nmhe->nhlm", q * scale, k)
     p = torch.softmax(s, dim=-1)
     if dropout_rate > 0.0:
-        n, h, l, m = p.shape
-        pid = torch.arange(n * h, device=q.device)
-        u = _uniform01(dropout_seed, pid, l, m, device=q.device)
-        keep = u.reshape(n, h, l, m) >= torch.tensor(dropout_rate, dtype=torch.float32)
+        keep = _keep_mask(dropout_seed, *p.shape, dropout_rate, q.device)
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
-    return torch.einsum("nhlm,nmhe->nlhe", p, v).to(dtype)
+    o = torch.einsum("nhlm,nmhe->nlhe", p, v).to(dtype)
+    return (o, torch.logsumexp(s, dim=-1)) if return_lse else o
 
 
 def pooled_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    g: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    scale: float,
+    dropout_rate: float = 0.0,
+    dropout_seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's function: (dq, dk, dv) for the upstream gradient ``g``
+    (N, L, H, E) of the forward's output ``o``, from its row statistics
+    ``lse`` (N, H, L), as the kernel computes them.
+
+    P = exp(s - lse) needs no softmax walk, and D = rowsum(dP P) is
+    rowsum(g o): with dropout both equal sum_j Pd_ij (g_i . v_j). The
+    forward's dropout mask applies to P (for dV) and to dPd = g v^T; then
+    ``dS = P (dP - D)``. fp32 throughout; the outputs take the input
+    dtype."""
+    dtype = q.dtype
+    q, k, v, g, o = q.float(), k.float(), v.float(), g.float(), o.float()
+    s = torch.einsum("nlhe,nmhe->nhlm", q * scale, k)
+    p = torch.exp(s - lse.float().unsqueeze(-1))
+    dpd = torch.einsum("nlhe,nmhe->nhlm", g, v)
+    pd, dp = _drop_both(p, dpd, dropout_rate, dropout_seed)
+    d = (g * o).sum(dim=-1).permute(0, 2, 1).unsqueeze(-1)  # (N, H, L, 1)
+    dv = torch.einsum("nhlm,nlhe->nmhe", pd, g)
+    ds = p * (dp - d)
+    dq = torch.einsum("nhlm,nmhe->nlhe", ds, k) * scale
+    dk = torch.einsum("nhlm,nlhe->nmhe", ds, q) * scale
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
+
+
+def pooled_attention_bwd_reference(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
@@ -101,27 +153,15 @@ def pooled_attention_bwd_plain(
     dropout_rate: float = 0.0,
     dropout_seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The math of ``_bwd_kernel``: (dq, dk, dv) for the upstream gradient
-    ``g`` (N, L, H, E) of :func:`pooled_attention_plain`'s output.
-
-    Recomputes P, applies the forward's dropout mask to P (for dV) and to
-    dPd = g v^T, then the softmax VJP ``dS = P (dP - rowsum(dP P))``. fp32
-    throughout; the outputs take the input dtype."""
+    """The math of the JAX package's ``_bwd_kernel``, which recomputes
+    everything from q, k, v: the softmax, and D = rowsum(dP P). The parity
+    reference for :func:`pooled_attention_bwd_plain`."""
     dtype = q.dtype
     q, k, v, g = q.float(), k.float(), v.float(), g.float()
     s = torch.einsum("nlhe,nmhe->nhlm", q * scale, k)
     p = torch.softmax(s, dim=-1)
     dpd = torch.einsum("nlhe,nmhe->nhlm", g, v)
-    if dropout_rate > 0.0:
-        n, h, l, m = p.shape
-        pid = torch.arange(n * h, device=q.device)
-        u = _uniform01(dropout_seed, pid, l, m, device=q.device)
-        keep = u.reshape(n, h, l, m) >= torch.tensor(dropout_rate, dtype=torch.float32)
-        inv_keep = 1.0 / (1.0 - dropout_rate)
-        pd = torch.where(keep, p * inv_keep, 0.0)
-        dp = torch.where(keep, dpd * inv_keep, 0.0)
-    else:
-        pd, dp = p, dpd
+    pd, dp = _drop_both(p, dpd, dropout_rate, dropout_seed)
     dv = torch.einsum("nhlm,nlhe->nmhe", pd, g)
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
     dq = torch.einsum("nhlm,nmhe->nlhe", ds, k) * scale
@@ -149,59 +189,73 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> N
         raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
     if not 1 <= e <= E_MAX:
         raise ValueError(f"head width E={e} outside the kernel's 1..{E_MAX}")
-    if n * h > 65535:
-        raise ValueError(f"N*H={n * h} exceeds the kernel grid's 65535")
     if min(q.shape[1], k.shape[1]) < 1:
         raise ValueError("L and M must be >= 1")
 
 
-def _forward(q, k, v, scale, rate, seed) -> torch.Tensor:
-    """K1 on CUDA tensors, the plain version on CPU tensors."""
+def _forward(q, k, v, scale, rate, seed, with_lse: bool):
+    """K1 on CUDA tensors, the plain version on CPU tensors: o, and the
+    fp32 (N, H, L) row statistics when ``with_lse`` (else None)."""
     global launches
     if q.device.type == "cpu":
-        return pooled_attention_plain(q, k, v, scale, rate, seed)
+        if with_lse:
+            return pooled_attention_plain(q, k, v, scale, rate, seed, return_lse=True)
+        return pooled_attention_plain(q, k, v, scale, rate, seed), None
     _check_kernel_inputs(q, k, v)
     from seist_tpu_torch.ops import _kernels
 
     o = torch.empty_like(q)
-    _kernels.pooled_attention_fwd(q, k, v, o, scale, rate, seed)
+    n, l, h, _ = q.shape
+    lse = torch.empty(n, h, l, dtype=torch.float32, device=q.device) if with_lse else None
+    _kernels.pooled_attention_fwd(q, k, v, o, lse, scale, rate, seed)
     launches += 1
-    return o
+    return o, lse
 
 
-def _backward(q, k, v, g, scale, rate, seed):
+def _backward(q, k, v, g, o, lse, scale, rate, seed):
     """K2 on CUDA tensors, the plain version on CPU tensors. The upstream
     gradient arrives strided from the reshape and ``out_proj`` backward:
     it is made contiguous here, since the kernel reads the (N, L, H*E)
     layout."""
     global bwd_launches
     if q.device.type == "cpu":
-        return pooled_attention_bwd_plain(q, k, v, g, scale, rate, seed)
+        return pooled_attention_bwd_plain(q, k, v, g, o, lse, scale, rate, seed)
     g = g.to(q.dtype).contiguous()
     _check_kernel_inputs(q, k, v)
-    if g.shape != q.shape or g.device != q.device:
-        raise ValueError(f"g {tuple(g.shape)} on {g.device} must match q {tuple(q.shape)}")
+    n, l, h, _ = q.shape
+    for name, t in (("g", g), ("o", o)):
+        if t.shape != q.shape or t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on {t.device} must "
+                             f"match q {tuple(q.shape)} {q.dtype}")
+    if (lse.shape != (n, h, l) or lse.dtype != torch.float32 or lse.device != q.device
+            or not (o.is_contiguous() and lse.is_contiguous())):
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype} must be contiguous fp32 "
+                         f"({n}, {h}, {l}) beside a contiguous o")
     from seist_tpu_torch.ops import _kernels
 
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _kernels.pooled_attention_bwd(q, k, v, g, dq, dk, dv, scale, rate, seed)
+    _kernels.pooled_attention_bwd(q, k, v, g, o, lse, dq, dk, dv, scale, rate, seed)
     bwd_launches += 1
     return dq, dk, dv
 
 
 class _PooledAttention(torch.autograd.Function):
-    """Forward K1, backward K2; the residuals are q, k, v and the seed."""
+    """Forward K1, backward K2. The residuals are q, k, v, the output o and
+    its row statistics lse (written by K1 only when a gradient will be
+    asked for), and the seed. Saving o costs no memory: ``out_proj``
+    already saves a view of the same storage."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float, rate: float, seed: int):
-        ctx.save_for_backward(q, k, v)
+        o, lse = _forward(q, k, v, scale, rate, seed, any(ctx.needs_input_grad[:3]))
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale, ctx.rate, ctx.seed = scale, rate, seed
-        return _forward(q, k, v, scale, rate, seed)
+        return o
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = _backward(q, k, v, g, ctx.scale, ctx.rate, ctx.seed)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, g, o, lse, ctx.scale, ctx.rate, ctx.seed)
         return dq, dk, dv, None, None, None
 
 

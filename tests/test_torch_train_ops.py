@@ -1,8 +1,9 @@
 """The training slice's building blocks against the JAX package on the CPU.
 
-* K2's plain version against ``jax.vjp`` of the Pallas kernel (interpret
-  mode), with an explicit seed, at dropout 0 and 0.2: atol 1e-5 (fp32, the
-  same formula, other summation order).
+* K2's plain version (from the forward's o and lse) and the
+  recompute-everything reference against ``jax.vjp`` of the Pallas kernel
+  (interpret mode), with an explicit seed, at dropout 0 and 0.2: atol 1e-5
+  (fp32, the same formula, other summation order).
 * The autograd function on CPU tensors against autograd through the plain
   forward: atol 1e-6.
 * Train-mode BatchNorm and its running statistics against
@@ -55,10 +56,12 @@ def test_bwd_plain_matches_jax_vjp_of_pallas_kernel(n, l, m, h, e, rate):
 
     _, vjp = jax.vjp(f, q, k, v)
     want = vjp(jnp.asarray(g))
-    got = tpa.pooled_attention_bwd_plain(
-        *(torch.from_numpy(t) for t in (q, k, v, g)), scale, rate, seed)
-    for a, b in zip(got, want):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-5)
+    tq, tk, tv, tg = (torch.from_numpy(t) for t in (q, k, v, g))
+    o, lse = tpa.pooled_attention_plain(tq, tk, tv, scale, rate, seed, return_lse=True)
+    for got in (tpa.pooled_attention_bwd_reference(tq, tk, tv, tg, scale, rate, seed),
+                tpa.pooled_attention_bwd_plain(tq, tk, tv, tg, o, lse, scale, rate, seed)):
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.3])
