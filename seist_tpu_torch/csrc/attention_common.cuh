@@ -19,7 +19,10 @@
 // 3xTF32: TF32 keeps 10 mantissa bits, too few for the 1e-5 limit against
 // the fp32 plain versions. Each fp32 operand x is split into hi = tf32(x)
 // and lo = tf32(x - hi), and a*b is summed as lo_a*hi_b + hi_a*lo_b +
-// hi_a*hi_b (the small terms first), which keeps fp32-level error.
+// hi_a*hi_b (the small terms first), which keeps fp32-level error. A value
+// widened from bf16 (8 mantissa bits) is exact in TF32: its lo part is zero,
+// so with bf16 inputs a kernel may leave such an operand unsplit and the
+// products with its lo part out (split<true>, mma3<ExactA, ExactB>).
 
 #pragma once
 
@@ -68,11 +71,19 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = tf32(x - __uint_as_float(hi));
 }
 
-template <int N>
+// Exact: every x is exact in TF32 (widened from bf16), so hi = x, lo = 0.
+template <bool Exact = false, int N>
 __device__ __forceinline__ void split(const float (&x)[N], uint32_t (&hi)[N],
                                       uint32_t (&lo)[N]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) split(x[i], hi[i], lo[i]);
+  for (int i = 0; i < N; ++i) {
+    if constexpr (Exact) {
+      hi[i] = __float_as_uint(x[i]);
+      lo[i] = 0u;
+    } else {
+      split(x[i], hi[i], lo[i]);
+    }
+  }
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -84,12 +95,14 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// d += a*b in 3xTF32 from split operands.
+// d += a*b in 3xTF32 from split operands, without the products of an
+// operand whose lo part is zero (ExactA, ExactB): adding them adds zeros.
+template <bool ExactA = false, bool ExactB = false>
 __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
                                      const uint32_t (&al)[4], const uint32_t (&bh)[2],
                                      const uint32_t (&bl)[2]) {
-  mma_tf32(d, al, bh);
-  mma_tf32(d, ah, bl);
+  if constexpr (!ExactA) mma_tf32(d, al, bh);
+  if constexpr (!ExactB) mma_tf32(d, ah, bl);
   mma_tf32(d, ah, bh);
 }
 

@@ -33,7 +33,10 @@
 //     32 rows (q, g, o, lse) through a cp.async double buffer. Per row tile a
 //     warp computes S^T = K Q^T and dPd^T = V G^T on tensor cores (mma.sync
 //     m16n8k8, 3xTF32 as in attention_common.cuh; bf16 inputs are widened
-//     to fp32 in shared memory), forms Pd and dS in registers, and adds
+//     to fp32 in shared memory, where q, g, k and v are exact in TF32, so
+//     S^T and dPd^T take one TF32 product each; dV, dK and dQ keep three,
+//     as leaving out their zero products made the E = 32 instantiation
+//     spill), forms Pd and dS in registers, and adds
 //     Pd^T G and dS^T Q to dV and dK in registers (the score fragments are
 //     the A operands as they are; each row tile's products go to a fresh
 //     fragment first, since the tensor cores truncate when they add to an
@@ -121,6 +124,7 @@ __global__ void __launch_bounds__(kBwdThreads, EP <= 32 ? 2 : 1) bwd_kernel(
   constexpr int S = Sm::S, R = Sm::R, DS = Sm::DS, QT = Sm::QT, KP = Sm::KP;
   constexpr int KS = EP / 8, RN = R / 8;
   constexpr int HN = EP >= 16 ? RN / 2 : RN;  // 8-row blocks of a piece
+  constexpr bool kExact = sizeof(T) == 2;  // bf16: q, g, k and v are exact in TF32
   extern __shared__ float smem[];
   float* ks = smem;
   float* vs = ks + kKeyTile * S;
@@ -225,18 +229,18 @@ __global__ void __launch_bounds__(kBwdThreads, EP <= 32 ? 2 : 1) bwd_kernel(
           const float ka[4] = {kr[0], kr[8 * S], kr[4], kr[8 * S + 4]};
           const float va[4] = {vr[0], vr[8 * S], vr[4], vr[8 * S + 4]};
           uint32_t kh[4], kl[4], vh[4], vl[4];
-          split(ka, kh, kl);
-          split(va, vh, vl);
+          split<kExact>(ka, kh, kl);
+          split<kExact>(va, vh, vl);
 #pragma unroll
           for (int n = 0; n < HN; ++n) {
             const float* qr = qs + ((r8 + n) * 8 + gq) * S + kk * 8 + t;
             const float* gr = gs + ((r8 + n) * 8 + gq) * S + kk * 8 + t;
             const float qf[2] = {qr[0], qr[4]}, gf[2] = {gr[0], gr[4]};
             uint32_t qh[2], ql[2], gh[2], gl[2];
-            split(qf, qh, ql);
-            split(gf, gh, gl);
-            mma3(sT[n], kh, kl, qh, ql);
-            mma3(pT[n], vh, vl, gh, gl);
+            split<kExact>(qf, qh, ql);
+            split<kExact>(gf, gh, gl);
+            mma3<kExact, kExact>(sT[n], kh, kl, qh, ql);
+            mma3<kExact, kExact>(pT[n], vh, vl, gh, gl);
           }
         }
         // Pd and dS in place of the score fragments; dS to shared memory.

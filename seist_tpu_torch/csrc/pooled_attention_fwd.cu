@@ -24,7 +24,9 @@
 //   * tensor cores: a warp owns 16 query rows of one (b, h) and computes
 //     S = (q scale) K^T and O = P V with mma.sync m16n8k8 in 3xTF32
 //     (attention_common.cuh), which keeps fp32-level error; bf16 inputs are
-//     widened to fp32 in shared memory and take the same path. E is padded
+//     widened to fp32 in shared memory and take the same path, where K and
+//     V, exact in TF32, are not split: two TF32 products, not three (q is
+//     scaled and P computed, so both are split). E is padded
 //     with zeros to a power of two >= 8 (EP), so every width 1..64 runs;
 //   * no serial chain per key: the warp keeps the scores of 64 keys in
 //     registers (32 floats a thread), takes row max and sum by shuffles in
@@ -75,6 +77,7 @@ __global__ void __launch_bounds__(128) fwd_kernel(
   constexpr int S = EP + 4;         // shared-memory row stride, floats
   constexpr int KS = EP / 8;        // MMA depth steps over E
   constexpr int NT = kFwdChunk / 8;  // 8-key column blocks of a chunk
+  constexpr bool kExact = sizeof(T) == 2;  // bf16: K and V are exact in TF32
   extern __shared__ float smem[];
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -142,8 +145,8 @@ __global__ void __launch_bounds__(128) fwd_kernel(
           const float* kr = ks + (n * 8 + g) * S + kk * 8 + t;
           const float bf[2] = {kr[0], kr[4]};
           uint32_t bhi[2], blo[2];
-          split(bf, bhi, blo);
-          mma3(s[n], qh[kk], ql[kk], bhi, blo);
+          split<kExact>(bf, bhi, blo);
+          mma3<false, kExact>(s[n], qh[kk], ql[kk], bhi, blo);
         }
       }
       // Row max over the chunk (quad shuffles), one rescale per chunk.
@@ -198,8 +201,8 @@ __global__ void __launch_bounds__(128) fwd_kernel(
         for (int kk = 0; kk < KS; ++kk) {
           const float bf[2] = {vr[kk * 8], vr[S + kk * 8]};
           uint32_t bhi[2], blo[2];
-          split(bf, bhi, blo);
-          mma3(pv[kk], ahi, alo, bhi, blo);
+          split<kExact>(bf, bhi, blo);
+          mma3<false, kExact>(pv[kk], ahi, alo, bhi, blo);
         }
       }
 #pragma unroll
