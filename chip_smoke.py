@@ -28,11 +28,24 @@ non-zero before the last line):
    versions patched to raise, count K1's launches over exactly that run
    (5 per forward), and hold one response against the same trace run
    through the port on the CPU;
-6. train ``seist_l_dpk`` at window 8192, batch 64, through the entry of
-   ``python -m seist_tpu_torch train`` on the synthetic dataset for one
-   epoch, with both plain versions patched to raise: K1 launches 5 per
-   train step and val batch, K2 5 per train step; the losses are finite,
-   the parameters change, and the best checkpoint serves one trace;
+6. ``train_test``: train ``seist_l_dpk`` at window 8192, batch 64, through
+   the entry of ``python -m seist_tpu_torch train --mode train_test`` on the
+   synthetic dataset for one epoch with an interval save every 3 steps,
+   then test the best checkpoint, with both plain versions patched to
+   raise: K1 launches 5 per train step, val batch and test batch, K2 5 per
+   train step; the losses are finite, the parameters change, the test
+   metrics JSON and the results CSV (one row per test event) are written,
+   the interval checkpoint ``model_3.pt`` / ``state_3.pt`` exists and the
+   best checkpoint serves one trace;
+   6b. resume: ``--mode train --checkpoint .../model_3.pt`` into the same
+   run, plain versions patched to raise: a mid-epoch resume from batch 3
+   that runs steps 4-6 (losses within rtol 1e-4 of phase 6's: the card's
+   cuDNN backward promises no bits) and the val batch, ending at update 6;
+   6c. bf16: ``--mode train_test --dtype bf16``, plain versions patched to
+   raise: the bf16 instantiations of K1 and K2 take every launch, losses and
+   metrics are finite, parameters change and stay fp32 with Adam's moments
+   and the BatchNorm statistics, and a bf16 eval forward of phase 6's best
+   weights lies within 0.05 of the fp32 one on the test batch;
 7. one train step of ``seist_l_dpk`` (batch 4, attention dropout 0.3, the
    other drop rates 0) on the card and on the CPU from the same weights,
    batch and attention seeds: loss, every gradient leaf and the BatchNorm
@@ -43,9 +56,10 @@ non-zero before the last line):
    bound (bytes, or operations at the faster of fp32 on the CUDA cores and
    3xTF32 on the tensor cores, both printed), the model's
    forward per batch bucket, and the train step at batch 64 and 256 with
-   its peak memory; profile a batch-8 forward and a batch-64 train step;
-   time K1 with and without two warps sharing a row group where its
-   planner shares them.
+   its peak memory, in fp32 and bf16; K2 in bf16 per shape beside SDPA's
+   bf16 backward and its bound at the bf16 tensor-core rate; profile a
+   batch-8 forward and a batch-64 train step in fp32 and bf16; time K1 with
+   and without two warps sharing a row group where its planner shares them.
 
 It prints one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -54,7 +68,9 @@ Without a CUDA device it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import csv
 import json
+import logging
 import math
 import os
 import re
@@ -82,7 +98,10 @@ from seist_tpu_torch.serve.pool import decode_outputs, load_model_entry
 from seist_tpu_torch.serve.protocol import PredictOptions
 from seist_tpu_torch.train.optim import build_optimizer
 from seist_tpu_torch.train.schedule import constant
-from seist_tpu_torch.train.step import TrainState, make_train_step
+from seist_tpu_torch.train import worker
+from seist_tpu_torch.train.checkpoint import state_path_for
+from seist_tpu_torch.train.step import TrainState, make_eval_step, make_train_step, move_batch
+from seist_tpu_torch.utils.logger import logger
 
 MODEL = "seist_l_dpk"
 WINDOW = 8192
@@ -93,11 +112,14 @@ SEED = 0
 KERNEL = "pooled_attention_fwd"
 KERNEL_BWD = "pooled_attention_bwd"
 # The train run: 256 synthetic events -> 204 train (x2 by augmentation ->
-# 6 batches of 64) and 25 val (1 padded batch).
+# 6 batches of 64), 25 val (1 padded batch) and 27 test (1 padded batch).
 TRAIN_ARGS = ["--model-name", MODEL, "--dataset-name", "synthetic", "--synthetic-events",
               "256", "--in-samples", str(WINDOW), "--batch-size", str(TRAIN_BATCH),
               "--epochs", "1", "--seed", str(SEED), "--device", "cuda"]
-TRAIN_STEPS, VAL_BATCHES = 6, 1
+TRAIN_STEPS, VAL_BATCHES, TEST_BATCHES, TEST_EVENTS = 6, 1, 1, 27
+SAVE_EVERY = 3  # the interval save the resume phase starts from
+RESUME_RTOL = 1e-4  # resumed vs uninterrupted step losses on the card
+BF16_OUT_TOL = 0.05  # bf16 vs fp32 eval outputs, the JAX package's limit (tests/test_train.py)
 
 FP32_TOL = 1e-5  # fp32 max abs error, kernel vs plain: summation order only
 LSE_TOL = 1e-5  # K1's row statistics, fp32 in both types
@@ -471,52 +493,176 @@ def check_kernel_bwd(shapes, dev) -> float:
 
 
 # ------------------------------------------------------------- phase 6
-def train_phase(log_base: str, n_shapes: int) -> dict:
-    """Train through the CLI entry with both plain versions patched to
-    raise; count both kernels over exactly that run."""
+def run_entry(argv: List[str]) -> Tuple[str, Dict[str, int], float, List[str]]:
+    """``cli.main(argv)`` with both plain versions patched to raise: the
+    best checkpoint, both kernels' launches (and those of their bf16
+    instantiations) over exactly that run, its wall seconds and its log."""
     real = pa.pooled_attention_plain, pa.pooled_attention_bwd_plain
 
     def off_path(*a, **k):
-        raise AssertionError("a plain attention version was reached on the train path")
+        raise AssertionError("a plain attention version was reached on the main path")
 
+    lines: List[str] = []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    logger.addHandler(handler)
     pa.pooled_attention_plain = pa.pooled_attention_bwd_plain = off_path
-    pa.launches = pa.bwd_launches = 0
+    pa.launches = pa.bwd_launches = pa.bf16_launches = pa.bf16_bwd_launches = 0
     t0 = time.perf_counter()
-    best = cli.main(TRAIN_ARGS + ["--log-base", log_base])
+    best = cli.main(argv)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches, bwd_launches = pa.launches, pa.bwd_launches
+    counts = {"K1": pa.launches, "K2": pa.bwd_launches, "K1_bf16": pa.bf16_launches,
+              "K2_bf16": pa.bf16_bwd_launches}
     pa.pooled_attention_plain, pa.pooled_attention_bwd_plain = real
+    logger.removeHandler(handler)
+    return best, counts, wall_s, lines
 
+
+def check_launches(counts: Dict[str, int], n_shapes: int, forwards: int, steps: int) -> None:
+    if counts["K1"] != n_shapes * forwards or counts["K2"] != n_shapes * steps:
+        fail(f"K1 launches {counts['K1']} != {n_shapes} x {forwards} or K2 launches "
+             f"{counts['K2']} != {n_shapes} x {steps}")
+
+
+def changed_params(trained: Dict[str, torch.Tensor]) -> Tuple[int, int]:
+    init = api.create_model(MODEL, in_samples=WINDOW, seed=SEED).state_dict()
+    params = [k for k in init if not k.endswith(("running_mean", "running_var"))]
+    return sum(not torch.equal(trained[k], init[k]) for k in params), len(params)
+
+
+def test_outputs(log_dir: str) -> dict:
+    """The test run's metrics JSON and results CSV, checked."""
+    with open(os.path.join(log_dir, "test_metrics_synthetic.json")) as f:
+        payload = json.load(f)
+    with open(os.path.join(log_dir, "test_results_synthetic_test.csv"), newline="") as f:
+        rows = list(csv.reader(f))
+    values = [v for m in payload["metrics"].values() for v in m.values()]
+    print(f"[test] loss {payload['loss']:.6f}; metrics {json.dumps(payload['metrics'])}; CSV "
+          f"{len(rows) - 1} rows, columns {rows[0][1:]}", flush=True)
+    if (set(payload["metrics"]) != {"det", "ppk", "spk"} or not np.isfinite(payload["loss"])
+            or not np.isfinite(values).all() or len(rows) - 1 != TEST_EVENTS):
+        fail(f"test outputs: {payload}, {len(rows) - 1} CSV rows (want {TEST_EVENTS})")
+    return payload
+
+
+def train_test_phase(log_base: str, n_shapes: int) -> dict:
+    """Train one epoch and test, through the CLI entry (phase 6)."""
+    best, counts, wall_s, _ = run_entry(TRAIN_ARGS + [
+        "--mode", "train_test", "--save-interval-steps", str(SAVE_EVERY), "--log-base", log_base])
     log_dir = os.path.dirname(os.path.dirname(best))
     losses = np.load(os.path.join(log_dir, "train_losses.npy"))
     val = np.load(os.path.join(log_dir, "val_losses.npy"))
-    print(f"[train] {MODEL} window {WINDOW} batch {TRAIN_BATCH}: {len(losses)} steps, "
-          f"losses {[round(float(x), 5) for x in losses]}, val {val.tolist()}, "
-          f"K1 launches {launches}, K2 launches {bwd_launches}, wall {wall_s:.1f} s",
-          flush=True)
+    print(f"[train_test] {MODEL} window {WINDOW} batch {TRAIN_BATCH}: {len(losses)} steps, "
+          f"losses {[round(float(x), 5) for x in losses]}, val {val.tolist()}, K1 launches "
+          f"{counts['K1']}, K2 launches {counts['K2']}, wall {wall_s:.1f} s", flush=True)
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all() or not np.isfinite(val).all():
         fail(f"train losses: {losses}, val {val}")
-    if (launches != n_shapes * (TRAIN_STEPS + VAL_BATCHES)
-            or bwd_launches != n_shapes * TRAIN_STEPS):
-        fail(f"K1 launches {launches} != {n_shapes} x {TRAIN_STEPS + VAL_BATCHES} or K2 "
-             f"launches {bwd_launches} != {n_shapes} x {TRAIN_STEPS}")
+    check_launches(counts, n_shapes, TRAIN_STEPS + VAL_BATCHES + TEST_BATCHES, TRAIN_STEPS)
+    payload = test_outputs(log_dir)
+    interval = [os.path.join(log_dir, "checkpoints", f"{kind}_{SAVE_EVERY}.pt")
+                for kind in ("model", "state")]
+    if not all(os.path.exists(p) for p in interval):
+        fail(f"the interval checkpoint is missing: {interval}")
     trained = torch.load(best, map_location="cpu", weights_only=True)
-    init = api.create_model(MODEL, in_samples=WINDOW, seed=SEED).state_dict()
-    params = [k for k in init if not k.endswith(("running_mean", "running_var"))]
-    changed = sum(not torch.equal(trained[k], init[k]) for k in params)
-    print(f"[train] {changed}/{len(params)} parameter tensors changed; best checkpoint "
-          f"{os.path.relpath(best)}", flush=True)
-    if changed < 0.9 * len(params) or not all(torch.isfinite(t).all() for t in trained.values()):
+    changed, n_params = changed_params(trained)
+    print(f"[train_test] {changed}/{n_params} parameter tensors changed; best checkpoint "
+          f"{os.path.relpath(best)}; interval checkpoint {os.path.basename(interval[0])} and "
+          f"{os.path.basename(interval[1])} written", flush=True)
+    if changed < 0.9 * n_params or not all(torch.isfinite(t).all() for t in trained.values()):
         fail("training did not change the parameters, or made them non-finite")
     entry = load_model_entry(MODEL, best, window=WINDOW, device="cuda")
     x = normalize(traces(1)[0].T, "std", axis=0).astype(np.float32)[None]
     out = entry.run(x)
     res = decode_outputs(entry, out, PredictOptions.from_dict({}))
-    print(f"[train] the best checkpoint serves: {json.dumps(res)[:200]}", flush=True)
+    print(f"[train_test] the best checkpoint serves: {json.dumps(res)[:200]}", flush=True)
     if not bool(torch.isfinite(out).all()) or res.get("task") != "picking":
         fail("the trained checkpoint does not serve")
-    return {"launches": launches, "bwd_launches": bwd_launches, "wall_s": wall_s}
+    return {"counts": counts, "wall_s": wall_s, "log_dir": log_dir, "best": best,
+            "losses": losses, "test_loss": payload["loss"]}
+
+
+def resume_phase(run: dict, n_shapes: int) -> dict:
+    """Resume phase 6's run from its interval checkpoint (phase 6b)."""
+    log_dir = run["log_dir"]
+    ckpt = os.path.join(log_dir, "checkpoints", f"model_{SAVE_EVERY}.pt")
+    _, counts, wall_s, lines = run_entry(TRAIN_ARGS + ["--mode", "train", "--checkpoint", ckpt])
+    losses = np.load(os.path.join(log_dir, "train_losses.npy"))
+    want = run["losses"][SAVE_EVERY:]
+    record = torch.load(os.path.join(log_dir, "checkpoints", f"state_{TRAIN_STEPS}.pt"),
+                        map_location="cpu", weights_only=True)
+    resumed = [line for line in lines if line.startswith("Mid-epoch resume")]
+    rel = float(np.max(np.abs(losses - want) / np.abs(want))) if len(losses) == len(want) else -1
+    print(f"[resume] {resumed}; steps {SAVE_EVERY + 1}-{TRAIN_STEPS} losses "
+          f"{[round(float(x), 6) for x in losses]} vs uninterrupted "
+          f"{[round(float(x), 6) for x in want]} (max rel {rel:.2e}, limit {RESUME_RTOL:.0e}); "
+          f"update count {record['step']}; K1 launches {counts['K1']}, K2 launches "
+          f"{counts['K2']}, wall {wall_s:.1f} s", flush=True)
+    if resumed != [f"Mid-epoch resume: epoch 0 from batch {SAVE_EVERY}"]:
+        fail(f"no mid-epoch resume from batch {SAVE_EVERY} in the log")
+    if not 0 <= rel <= RESUME_RTOL or record["step"] != TRAIN_STEPS:
+        fail("the resumed run does not continue the uninterrupted one")
+    check_launches(counts, n_shapes, TRAIN_STEPS - SAVE_EVERY + VAL_BATCHES,
+                   TRAIN_STEPS - SAVE_EVERY)
+    return {"counts": counts, "wall_s": wall_s, "max_rel": rel}
+
+
+def test_batch(dev):
+    """The test split's one (padded) batch: inputs, targets, mask."""
+    args = cli.get_args(TRAIN_ARGS)
+    loader = worker._build_loader(args, taskspec.get_task_spec(MODEL), "test")
+    (batch,) = list(loader)
+    loader.close()
+    return (move_batch(batch.inputs, dev), move_batch(batch.loss_targets, dev),
+            torch.from_numpy(batch.mask).to(dev))
+
+
+def bf16_phase(log_base: str, n_shapes: int, fp32_best: str, dev) -> dict:
+    """``train_test`` in bf16 through the CLI entry (phase 6c)."""
+    best, counts, wall_s, _ = run_entry(TRAIN_ARGS + [
+        "--mode", "train_test", "--dtype", "bf16", "--log-base", log_base])
+    log_dir = os.path.dirname(os.path.dirname(best))
+    losses = np.load(os.path.join(log_dir, "train_losses.npy"))
+    val = np.load(os.path.join(log_dir, "val_losses.npy"))
+    print(f"[bf16] {MODEL} window {WINDOW} batch {TRAIN_BATCH} --dtype bf16: losses "
+          f"{[round(float(x), 5) for x in losses]}, val {val.tolist()}; K1 launches "
+          f"{counts['K1']} (bf16 {counts['K1_bf16']}), K2 launches {counts['K2']} (bf16 "
+          f"{counts['K2_bf16']}), wall {wall_s:.1f} s", flush=True)
+    check_launches(counts, n_shapes, TRAIN_STEPS + VAL_BATCHES + TEST_BATCHES, TRAIN_STEPS)
+    if counts["K1_bf16"] != counts["K1"] or counts["K2_bf16"] != counts["K2"]:
+        fail("a launch of the bf16 run was not the kernels' bf16 instantiation")
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all() or not np.isfinite(val).all():
+        fail(f"bf16 train losses: {losses}, val {val}")
+    test_outputs(log_dir)
+    trained = torch.load(best, map_location="cpu", weights_only=True)
+    record = torch.load(state_path_for(best), map_location="cpu", weights_only=True)
+    moments = [t for st in record["optimizer"]["state"].values()
+               for key, t in st.items() if key in ("exp_avg", "exp_avg_sq")]
+    changed, n_params = changed_params(trained)
+    fp32 = all(t.dtype == torch.float32 for t in list(trained.values()) + moments)
+    print(f"[bf16] {changed}/{n_params} parameter tensors changed; parameters, BatchNorm "
+          f"statistics and {len(moments)} Adam moments all fp32: {fp32}", flush=True)
+    if changed < 0.9 * n_params or not fp32:
+        fail("bf16 training left parameters unchanged or the master state not fp32")
+
+    # A bf16 eval forward of phase 6's best weights against the fp32 one.
+    model = api.create_model(MODEL, in_samples=WINDOW, seed=SEED)
+    model.load_state_dict(torch.load(fp32_best, map_location="cpu", weights_only=True))
+    state = TrainState(model.to(dev))
+    x, y, mask = test_batch(dev)
+    loss_fn = taskspec.make_loss(MODEL)
+    before = pa.launches, pa.bf16_launches
+    l32, o32 = make_eval_step(loss_fn)(state, x, y, mask)
+    l16, o16 = make_eval_step(loss_fn, compute_dtype="bf16")(state, x, y, mask)
+    pa.launches, pa.bf16_launches = before
+    valid = int(mask.sum())
+    err = max_err(o16[:valid], o32[:valid])
+    print(f"[bf16] eval forward of the fp32 run's best weights on the test batch ({valid} "
+          f"events): bf16 vs fp32 outputs max abs {err:.3e} (limit {BF16_OUT_TOL}); loss "
+          f"{float(l16):.6f} vs {float(l32):.6f}; outputs {o16.dtype}", flush=True)
+    if not err <= BF16_OUT_TOL or o16.dtype != torch.float32:
+        fail("the bf16 eval forward is too far from the fp32 one")
+    return {"counts": counts, "wall_s": wall_s, "eval_err": err}
 
 
 # ------------------------------------------------------------- phase 7
@@ -680,23 +826,26 @@ def time_shapes(shapes, dev) -> List[dict]:
     return rows
 
 
-def bound_bwd(n, l, m, h, e, itemsize) -> Tuple[float, float, float]:
-    """(bytes_ms, ops_ms, tc_ms) of K2: q, k, v, g, o and lse read once and
-    dq, dk, dv written once; 10*N*L*M*H*E operations (a multiply-add each
-    for QK^T, dPd, dV, dQ and dK) on the fp32 CUDA cores, and in 3xTF32 on
-    the tensor cores."""
+def bound_bwd(n, l, m, h, e, itemsize, peak_ops=PEAK_FP32_S) -> Tuple[float, float, float]:
+    """(bytes_ms, ops_ms, tc_ms) of K2: q, k, v, g, o (``itemsize`` bytes
+    each) and the fp32 lse read once and dq, dk, dv written once;
+    10*N*L*M*H*E operations (a multiply-add each for QK^T, dPd, dV, dQ and
+    dK) at the type's peak (the fp32 CUDA cores, or the bf16 tensor cores),
+    and in 3xTF32 on the tensor cores."""
     nbytes = itemsize * n * h * e * (4 * l + 4 * m) + 4 * n * h * l
     ops = 10 * n * l * m * h * e
-    return (nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3,
+    return (nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops * 1e3,
             3 * ops / PEAK_TF32_S * 1e3)
 
 
-def time_bwd_shapes(shapes, dev) -> List[dict]:
+def time_bwd_shapes(shapes, dev, dtype=torch.float32) -> List[dict]:
     """K2, its plain version and the backward of
-    ``F.scaled_dot_product_attention`` (rate 0) at the train step's shapes."""
+    ``F.scaled_dot_product_attention`` (rate 0) at the train step's shapes,
+    on ``dtype`` inputs."""
     rows = []
+    peak = PEAK_BF16_S if dtype == torch.bfloat16 else PEAK_FP32_S
     for i, (l, m, h, e) in enumerate(shapes):
-        q, k, v, g = qkvg(TRAIN_BATCH, l, m, h, e, torch.float32, 800 + i, dev)
+        q, k, v, g = qkvg(TRAIN_BATCH, l, m, h, e, dtype, 800 + i, dev)
         o, lse = kernel(q, k, v, 0.3, 5, with_lse=True)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         scale = 1.0 / math.sqrt(e)
@@ -710,7 +859,8 @@ def time_bwd_shapes(shapes, dev) -> List[dict]:
         for key, fn in fns.items():
             row[key] = device_ms(fn)
             row["call_" + key] = time_ms(fn, 100 if key != "plain_ms" else 20)
-        row["bytes_ms"], row["ops_ms"], row["tc_ms"] = bound_bwd(TRAIN_BATCH, l, m, h, e, 4)
+        row["bytes_ms"], row["ops_ms"], row["tc_ms"] = bound_bwd(
+            TRAIN_BATCH, l, m, h, e, q.element_size(), peak)
         rows.append(row)
     return rows
 
@@ -745,15 +895,16 @@ def time_ksplit(shapes, dev) -> List[dict]:
     return rows
 
 
-def time_train_step(weights: str, batch: int, steps: int = 5) -> dict:
+def time_train_step(weights: str, batch: int, steps: int = 5, dtype: str = "fp32") -> dict:
     """Forward, backward and update of seist_l_dpk (its drop rates 0.3) at
-    ``batch``: host wall time per step over ``steps`` steps after two warm
-    ones, each step ending in the guard's host read; peak memory."""
+    ``batch`` in the compute ``dtype``: host wall time per step over
+    ``steps`` steps after two warm ones, each step ending in the guard's
+    host read; peak memory."""
     model = api.create_model(MODEL, in_samples=WINDOW, seed=SEED)
     model.load_state_dict(torch.load(weights, map_location="cpu", weights_only=True))
     model.cuda()
     state = TrainState(model, build_optimizer("adam", model.parameters()), constant(1e-4))
-    step = make_train_step(taskspec.make_loss(MODEL))
+    step = make_train_step(taskspec.make_loss(MODEL), compute_dtype=dtype)
     g = torch.Generator().manual_seed(batch)
     x = torch.randn(batch, WINDOW, 3, generator=g).cuda()
     y = torch.rand(batch, WINDOW, 3, generator=g).cuda()
@@ -871,7 +1022,11 @@ def main() -> int:
     weights = os.path.join(str(_kernels.BUILD_DIR), f"{MODEL}_seed{SEED}.pt")
     seeded_weights(weights)
     served = serve_phase(weights, len(shapes))
-    trained = train_phase(os.path.join(str(_kernels.BUILD_DIR), "train_logs"), len(shapes))
+    logs = os.path.join(str(_kernels.BUILD_DIR), "train_logs")
+    trained = train_test_phase(logs, len(shapes))
+    resumed = resume_phase(trained, len(shapes))
+    bf16 = bf16_phase(logs, len(shapes), trained["best"], dev)
+    paths = (trained, resumed, bf16)
     gpu_vs_cpu_step(weights)
 
     ones = torch.ones(1024, device=dev)
@@ -887,17 +1042,20 @@ def main() -> int:
               f"{r['bytes_ms']:.5f}; ops at the {r['dtype']} peak {r['ops_ms']:.5f}, in "
               f"3xTF32 on the tensor cores {r['tc_ms']:.5f}); kernel "
               f"{'<=' if r['ms'] <= r['library_ms'] else '>'} sdpa", flush=True)
-    bwd_rows = time_bwd_shapes(shapes, dev)
-    for r in bwd_rows:
-        b_ms, b_by = bound_of(r["bytes_ms"], r["ops_ms"], r["tc_ms"])
-        print(f"[time-bwd] {name_power} | N={TRAIN_BATCH} L={r['L']} M={r['M']} H={r['H']} "
-              f"E={r['E']} fp32 rate 0.3: device ms: kernel {r['ms']:.4f}, plain "
-              f"{r['plain_ms']:.4f}, sdpa backward (rate 0) {r['library_ms']:.4f}; per "
-              f"call: kernel {r['call_ms']:.4f}, plain {r['call_plain_ms']:.4f}, sdpa "
-              f"backward {r['call_library_ms']:.4f}; bound {b_ms:.5f} ms by {b_by} (bytes "
-              f"{r['bytes_ms']:.5f}; ops on the fp32 CUDA cores {r['ops_ms']:.5f}, in "
-              f"3xTF32 on the tensor cores {r['tc_ms']:.5f}); kernel "
-              f"{'<=' if r['ms'] <= r['library_ms'] else '>'} sdpa backward", flush=True)
+    bwd_rows = {}
+    for name, dtype, ops_at in (("fp32", torch.float32, "on the fp32 CUDA cores"),
+                                ("bf16", torch.bfloat16, "at the bf16 tensor-core peak")):
+        bwd_rows[name] = time_bwd_shapes(shapes, dev, dtype)
+        for r in bwd_rows[name]:
+            b_ms, b_by = bound_of(r["bytes_ms"], r["ops_ms"], r["tc_ms"])
+            print(f"[time-bwd] {name_power} | N={TRAIN_BATCH} L={r['L']} M={r['M']} "
+                  f"H={r['H']} E={r['E']} {name} rate 0.3: device ms: kernel {r['ms']:.4f}, "
+                  f"plain {r['plain_ms']:.4f}, sdpa backward (rate 0) {r['library_ms']:.4f}; "
+                  f"per call: kernel {r['call_ms']:.4f}, plain {r['call_plain_ms']:.4f}, sdpa "
+                  f"backward {r['call_library_ms']:.4f}; bound {b_ms:.5f} ms by {b_by} (bytes "
+                  f"{r['bytes_ms']:.5f}; ops {ops_at} {r['ops_ms']:.5f}, in 3xTF32 on the "
+                  f"tensor cores {r['tc_ms']:.5f}); kernel "
+                  f"{'<=' if r['ms'] <= r['library_ms'] else '>'} sdpa backward", flush=True)
     for r in time_ksplit(shapes, dev):
         print(f"[time-ksplit] {name_power} | K1 N={r['N']} L={r['L']} M={r['M']} H={r['H']} "
               f"E={r['E']} fp32: device ms with (row_warps, ksplit) {r['plan']}: "
@@ -922,36 +1080,46 @@ def main() -> int:
     served_launches = served["launches"]
     del served
 
-    for batch in (TRAIN_BATCH, 256):
-        run = time_train_step(weights, batch)
-        print(f"[time] {name_power} | {MODEL} window {WINDOW} train step b{batch} "
-              f"(forward, backward, Adam update, guard): {run['ms']:.2f} ms, peak memory "
-              f"{run['peak_gib']:.2f} GiB", flush=True)
-        if batch == TRAIN_BATCH:
-            tp = profile_train_step(run)
-            print(f"[profile] {name_power} | {MODEL} train step b{batch}: wall "
-                  f"{tp['wall_ms_per_step']:.2f} ms/step, device busy "
-                  f"{tp['device_busy_ms_per_step']:.2f} ms, idle share "
-                  f"{tp['device_idle_share']:.3f}, {tp['kernels_per_step']:.0f} "
-                  f"kernels/step", flush=True)
-            for key, ms, count in tp["top"]:
-                print(f"[profile]   {ms:.3f} ms/step in {count} launches: {key}", flush=True)
-        del run
-        torch.cuda.empty_cache()
+    for dtype in ("fp32", "bf16"):
+        for batch in (TRAIN_BATCH, 256):
+            run = time_train_step(weights, batch, dtype=dtype)
+            print(f"[time] {name_power} | {MODEL} window {WINDOW} train step b{batch} {dtype} "
+                  f"(forward, backward, Adam update, guard): {run['ms']:.2f} ms, peak memory "
+                  f"{run['peak_gib']:.2f} GiB", flush=True)
+            if batch == TRAIN_BATCH:
+                tp = profile_train_step(run)
+                print(f"[profile] {name_power} | {MODEL} train step b{batch} {dtype}: wall "
+                      f"{tp['wall_ms_per_step']:.2f} ms/step, device busy "
+                      f"{tp['device_busy_ms_per_step']:.2f} ms, idle share "
+                      f"{tp['device_idle_share']:.3f}, {tp['kernels_per_step']:.0f} "
+                      f"kernels/step", flush=True)
+                for key, ms, count in tp["top"]:
+                    print(f"[profile]   {ms:.3f} ms/step in {count} launches: {key}",
+                          flush=True)
+            del run
+            torch.cuda.empty_cache()
 
     fp32 = [r for r in rows if r["dtype"] == "fp32"]  # the serving path is fp32
-    print(f"[paths] serve: K1 {served_launches} launches; train: K1 {trained['launches']}, "
-          f"K2 {trained['bwd_launches']} launches", flush=True)
+    launches = {k: served_launches * (k == "K1") + sum(p["counts"][k] for p in paths)
+                for k in ("K1", "K2")}
+    print(f"[paths] serve: K1 {served_launches} launches; train_test: K1 "
+          f"{trained['counts']['K1']}, K2 {trained['counts']['K2']}; resume: K1 "
+          f"{resumed['counts']['K1']}, K2 {resumed['counts']['K2']}; bf16 train_test: K1 "
+          f"{bf16['counts']['K1_bf16']}, K2 {bf16['counts']['K2_bf16']} (bf16 "
+          f"instantiations); all paths: K1 {launches['K1']}, K2 {launches['K2']}", flush=True)
     bounds = {}
-    for kid, label, rs in (("K1", "five fp32 b8 launches", fp32),
-                           ("K2", "five fp32 b64 launches", bwd_rows)):
+    for kid, label, rs, ops_at in (
+            ("K1", "five fp32 b8 launches", fp32, "on the fp32 CUDA cores"),
+            ("K2", "five fp32 b64 launches", bwd_rows["fp32"], "on the fp32 CUDA cores"),
+            ("K2-bf16", "five bf16 b64 launches", bwd_rows["bf16"],
+             "at the bf16 tensor-core peak")):
         b_ms, o_ms, tc_ms = (sum(r[key] for r in rs) for key in ("bytes_ms", "ops_ms", "tc_ms"))
         bounds[kid] = bound_of(b_ms, o_ms, tc_ms)
         print(f"[sum] {name_power} | {kid} {label}: device ms kernel "
               f"{sum(r['ms'] for r in rs):.4f}, plain {sum(r['plain_ms'] for r in rs):.4f}, "
               f"sdpa {sum(r['library_ms'] for r in rs):.4f}; bound {bounds[kid][0]:.5f} by "
-              f"{bounds[kid][1]} (bytes {b_ms:.5f}; ops on the fp32 CUDA cores {o_ms:.5f}, "
-              f"in 3xTF32 on the tensor cores {tc_ms:.5f}); kernel <= sdpa at "
+              f"{bounds[kid][1]} (bytes {b_ms:.5f}; ops {ops_at} {o_ms:.5f}, in 3xTF32 on "
+              f"the tensor cores {tc_ms:.5f}); kernel <= sdpa at "
               f"{sum(r['ms'] <= r['library_ms'] for r in rs)} of {len(rs)} shapes",
               flush=True)
     print(json.dumps({"kernels": [{
@@ -959,7 +1127,7 @@ def main() -> int:
         "route": "cuda",
         "source": "seist_tpu_torch/csrc/pooled_attention_fwd.cu",
         "replaces": "seist_tpu/ops/pallas_attention.py:137",
-        "launches": served_launches + trained["launches"],
+        "launches": launches["K1"],
         "max_abs_err": errs["fp32"],
         "ms": sum(r["ms"] for r in fp32),
         "plain_ms": sum(r["plain_ms"] for r in fp32),
@@ -971,13 +1139,13 @@ def main() -> int:
         "route": "cuda",
         "source": "seist_tpu_torch/csrc/pooled_attention_bwd.cu",
         "replaces": "seist_tpu/ops/pallas_attention.py:155",
-        "launches": trained["bwd_launches"],
+        "launches": launches["K2"],
         "max_abs_err": bwd_abs,
-        "ms": sum(r["ms"] for r in bwd_rows),
-        "plain_ms": sum(r["plain_ms"] for r in bwd_rows),
+        "ms": sum(r["ms"] for r in bwd_rows["fp32"]),
+        "plain_ms": sum(r["plain_ms"] for r in bwd_rows["fp32"]),
         "bound_ms": bounds["K2"][0],
         "bound_by": bounds["K2"][1],
-        "library_ms": sum(r["library_ms"] for r in bwd_rows),
+        "library_ms": sum(r["library_ms"] for r in bwd_rows["fp32"]),
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

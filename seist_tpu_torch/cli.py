@@ -1,11 +1,18 @@
-"""``python -m seist_tpu_torch train ...``: the port's training command line.
+"""``python -m seist_tpu_torch train ...``: the port's training and test
+command line.
 
 Flag names and defaults are the JAX CLI's (``seist_tpu/cli.py``) for what
 the port runs, plus ``--device`` (default ``cuda``; it raises without a
-card unless ``--device cpu`` is given). A flag of the JAX CLI whose
-non-default value the port does not run yet raises and names
-``ROADMAP.md``; flags of the telemetry plane and the fault-tolerance
-machinery are not accepted at all.
+card unless ``--device cpu`` is given). ``--mode`` is ``train``, ``test``
+or ``train_test`` (the default): after training, the test run takes the
+best checkpoint. With ``--checkpoint`` the log directory is that
+checkpoint's run directory, and a train run resumes from it. A flag of the
+JAX CLI whose non-default value the port does not run yet raises and names
+``ROADMAP.md``: ``--grad-accum-steps``, ``--steps-per-call`` > 1,
+``--device-aug``, ``--seq-shards``, ``--loader-processes``,
+``--mixture-temperature`` and every dataset but ``synthetic``. Flags of
+the telemetry plane, preemption and the data-plane guard are not accepted
+at all.
 """
 
 from __future__ import annotations
@@ -17,15 +24,13 @@ from typing import List, Optional
 
 #: JAX-CLI flags the port accepts only at the value it runs: dest -> value.
 _UNPORTED = {
-    "checkpoint": "",
-    "dtype": "fp32",
     "grad_accum_steps": 1,
     "device_aug": "off",
     "seq_shards": 1,
     "loader_processes": 0,
     "mixture_temperature": 0.0,
-    "save_interval_steps": 0,
 }
+_MODES = ("train", "test", "train_test")
 
 
 def bool_(x) -> bool:
@@ -37,15 +42,18 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         prog="python -m seist_tpu_torch train",
         description="seist_tpu_torch model training (one card)",
     )
-    ap.add_argument("--mode", default="train", type=str,
-                    help="train (test and train_test are not ported yet)")
+    ap.add_argument("--mode", default="train_test", type=str,
+                    help="train/test/train_test (default: 'train_test')")
     ap.add_argument("--device", default="cuda", type=str, help="cuda (default) or cpu")
 
     # Model
     ap.add_argument("--model-name", default="seist_m_dpk", type=str)
-    ap.add_argument("--checkpoint", default="", type=str)
+    ap.add_argument("--checkpoint", default="", type=str,
+                    help="model_<step>.pt: resume (train) or the weights to test")
     ap.add_argument("--seq-shards", default=1, type=int, dest="seq_shards")
-    ap.add_argument("--dtype", default="fp32", type=str, choices=["fp32", "bf16"])
+    ap.add_argument("--dtype", default="fp32", type=str, choices=["fp32", "bf16"],
+                    help="compute dtype of the train/eval steps: bf16 keeps fp32 "
+                    "parameters, optimizer state, BatchNorm statistics and loss")
     ap.add_argument("--loader-processes", default=0, type=int, dest="loader_processes")
     ap.add_argument("--steps-per-call", default=0, type=int, dest="steps_per_call")
     ap.add_argument("--grad-accum-steps", default=1, type=int, dest="grad_accum_steps")
@@ -57,6 +65,9 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     # Logs
     ap.add_argument("--log-base", default="./logs", type=str)
     ap.add_argument("--log-step", default=4, type=int)
+
+    # Save results
+    ap.add_argument("--save-test-results", default=True, type=bool_)
 
     # Dataset
     ap.add_argument("--data", default="", type=str, help="path to dataset")
@@ -109,8 +120,14 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--optim", default="Adam", type=str)
     ap.add_argument("--momentum", default=0.9, type=float)
     ap.add_argument("--weight_decay", default=0.0, type=float)
-    ap.add_argument("--save-interval-steps", default=0, type=int, dest="save_interval_steps")
+    ap.add_argument("--save-interval-steps", default=0, type=int, dest="save_interval_steps",
+                    help="checkpoint every N batches (0 = best-val checkpoints only)")
+    ap.add_argument("--keep-checkpoints", default=3, type=int, dest="keep_checkpoints",
+                    help="retention: the last K step checkpoints plus the best-val one")
     ap.add_argument("--bad-step-guard", default=True, type=bool_, dest="bad_step_guard")
+    ap.add_argument("--max-bad-steps", default=3, type=int, dest="max_bad_steps",
+                    help="consecutive guard-skipped updates before rolling back to the "
+                    "last checkpoint; 0 disables rollback")
     ap.add_argument("--use-lr-scheduler", default=True, type=bool_)
     ap.add_argument("--lr-scheduler-mode", default="exp_range", type=str,
                     help="'triangular', 'triangular2' or 'exp_range'")
@@ -120,6 +137,16 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="<1 means ratio of total steps")
     ap.add_argument("--down-steps", default=3000, type=float,
                     help="<1 means ratio of total steps")
+
+    # Val/Test
+    ap.add_argument("--time-threshold", default=0.1, type=float,
+                    help="pick residual threshold (seconds)")
+    ap.add_argument("--min-peak-dist", default=1.0, type=float,
+                    help="minimum peak distance (seconds)")
+    ap.add_argument("--ppk-threshold", default=0.3, type=float)
+    ap.add_argument("--spk-threshold", default=0.3, type=float)
+    ap.add_argument("--det-threshold", default=0.5, type=float)
+    ap.add_argument("--max-detect-event-num", default=1, type=int)
 
     ap.add_argument("--synthetic-events", default=0, type=int,
                     help="synthetic dataset size (0 = default)")
@@ -131,6 +158,8 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     args.log_base = os.path.abspath(args.log_base)
     if args.data:
         args.data = os.path.abspath(args.data)
+    if args.checkpoint:
+        args.checkpoint = os.path.abspath(args.checkpoint)
     args.dataset_kwargs = None
     if args.dataset_name == "synthetic" and args.synthetic_events:
         args.dataset_kwargs = {"num_events": args.synthetic_events}
@@ -145,8 +174,8 @@ def _refuse_unported(args: argparse.Namespace) -> None:
     ]
     if args.steps_per_call > 1:
         bad.append(f"--steps-per-call {args.steps_per_call}")
-    if args.mode != "train":
-        bad.append(f"--mode {args.mode!r}")
+    if args.mode not in _MODES:
+        raise ValueError(f"`mode` must be 'train', 'test' or 'train_test', got '{args.mode}'")
     if args.dataset_name != "synthetic":
         bad.append(f"--dataset-name {args.dataset_name!r}")
     if bad:
@@ -155,22 +184,38 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         )
 
 
+def run_dir_of(checkpoint: str) -> str:
+    """The run directory of ``<run>/checkpoints/model_<step>.pt``; for a
+    weights file outside a ``checkpoints`` directory, its own directory."""
+    parent = os.path.dirname(checkpoint)
+    if os.path.basename(parent) == "checkpoints":
+        return os.path.dirname(parent)
+    return parent
+
+
 def main(argv: Optional[List[str]] = None) -> str:
-    """Parse, set up the run's log directory, train; returns the best
-    checkpoint's path."""
+    """Parse, set up the log directory, then train and/or test. Returns
+    the best checkpoint's weights path (the tested one for ``--mode
+    test``)."""
     import seist_tpu_torch
-    from seist_tpu_torch.train.worker import train_worker
+    from seist_tpu_torch.train.worker import test_worker, train_worker
     from seist_tpu_torch.utils.logger import logger
 
     args = get_args(argv)
     seist_tpu_torch.load_all()
-    args.log_dir = os.path.join(
-        args.log_base,
-        f"{time.strftime('%Y%m%d-%H%M%S')}_{args.model_name}_{args.dataset_name}",
+    args.log_dir = (
+        run_dir_of(args.checkpoint) if args.checkpoint else os.path.join(
+            args.log_base,
+            f"{time.strftime('%Y%m%d-%H%M%S')}_{args.model_name}_{args.dataset_name}",
+        )
     )
     os.makedirs(args.log_dir, exist_ok=True)
     logger.info(f"pid: {os.getpid()} log dir: {args.log_dir}")
     logger.info("\n" + "\n".join(f"  {k}: {v}" for k, v in sorted(vars(args).items())))
-    best = train_worker(args)
-    logger.info(f"best checkpoint: {best}")
-    return best
+    mode = args.mode.split("_")
+    if "train" in mode:
+        args.checkpoint = train_worker(args)
+        logger.info(f"best checkpoint: {args.checkpoint}")
+    if "test" in mode:
+        test_worker(args)
+    return args.checkpoint

@@ -11,7 +11,8 @@ The port's copy of the host path of ``seist_tpu/data/pipeline.py``:
 * :func:`epoch_indices` — the seeded per-epoch permutation.
 * :class:`Loader` — thread-pool batch assembly with fixed shapes:
   ``drop_last`` on train; eval pads the final batch and zeroes ``mask``
-  on the padding rows.
+  on the padding rows; :meth:`Loader.set_start_batch` begins an epoch
+  mid-way for a resumed run.
 
 Not ported: the data-plane guard (retry/quarantine, fault injection),
 process-pool workers, host sharding, mixture sampling and the
@@ -100,6 +101,12 @@ class SeismicDataset:
             **preprocessor_kwargs,
         )
 
+    def sampling_rate(self) -> int:
+        return self._dataset.sampling_rate()
+
+    def name(self) -> str:
+        return f"{self._dataset.name()}_{self._mode}"
+
     def set_epoch(self, epoch: int) -> None:
         """Advance the per-sample RNG stream."""
         self._epoch = int(epoch)
@@ -185,11 +192,21 @@ class Loader:
         self.num_workers = max(1, num_workers)
         self.seed = seed
         self.epoch = 0
+        self._start_batch = 0
         self._pool: Optional[ThreadPoolExecutor] = None
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = int(epoch)
         self.dataset.set_epoch(epoch)
+
+    def set_start_batch(self, start_batch: int) -> None:
+        """Begin the NEXT ``__iter__`` at batch ``start_batch`` instead of 0
+        (one-shot; later epochs start at 0). The order is a pure function of
+        (seed, epoch), so a resumed run consumes exactly the batches an
+        uninterrupted one would have; the skipped ones are never assembled."""
+        if start_batch < 0:
+            raise ValueError(f"start_batch must be >= 0, got {start_batch}")
+        self._start_batch = int(start_batch)
 
     def close(self) -> None:
         """Release the worker pool; the loader stays usable."""
@@ -227,7 +244,8 @@ class Loader:
 
     def __iter__(self) -> Iterator[Batch]:
         indices = self._indices()
-        for b in range(len(self)):
+        start, self._start_batch = self._start_batch, 0  # one-shot
+        for b in range(start, len(self)):
             chunk = indices[b * self.batch_size : (b + 1) * self.batch_size]
             pad = self.batch_size - len(chunk)
             if pad:

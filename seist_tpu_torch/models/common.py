@@ -10,7 +10,8 @@ Activations stay channels-last at every public function, as in the JAX
 package; convolutions transpose to ``(N, C, L)`` around ``F.conv1d``.
 
 Training mode: BatchNorm normalises with the batch statistics and
-updates its running ones (``BatchNorm1dParity``); ``Dropout`` and
+updates its running ones (``BatchNorm1dParity``), both in fp32 under any
+precision policy; ``Dropout`` and
 ``DropPath`` draw their uniforms from the explicit generator of a
 :class:`RandomSource` that the model's owner attaches before a train-mode
 forward (``F.dropout`` would read the global RNG). DropPath can instead
@@ -27,6 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from seist_tpu_torch.train.precision import policy_dtype
 
 #: torch BatchNorm1d's epsilon, as ``seist_tpu/models/common.py:498``.
 BN_EPSILON = 1e-5
@@ -237,7 +240,10 @@ class BatchNorm(nn.Module):
     variance over (N, L), update the running variance with the unbiased
     one (n = N*L), momentum 0.9 in the flax convention (torch's 0.1). The
     running statistics are updated in place, as torch's BatchNorm does;
-    the train step restores them when it skips an update."""
+    the train step restores them when it skips an update. Under a bf16
+    precision policy (``train/precision.py``) only the output is cast
+    down: the fp32 statistics would otherwise promote every activation
+    after it back to fp32."""
 
     def __init__(self, features: int, eps: float = BN_EPSILON):
         super().__init__()
@@ -263,7 +269,7 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean) * inv + self.bias
-        return y.to(x.dtype)
+        return y.to(policy_dtype() or x.dtype)
 
 
 class Dropout(nn.Module):

@@ -19,10 +19,15 @@ A leaf no rule maps raises. Loading the result with
 parameters and ``batch_stats`` as above, and optax Adam's ``mu`` / ``nu``
 through the same layout rule as the parameter each belongs to, into a
 ``torch.optim.Adam`` state whose step is optax's ``count``.
+:func:`save_torch_train_state` writes such a state, with the JAX
+checkpoint's resume meta, as the port's checkpoint pair
+(``train/checkpoint.py``), from which ``train --checkpoint`` resumes at the
+same data position and update count.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
@@ -114,3 +119,54 @@ def train_state_from_optax(
     }
     optimizer.load_state_dict(sd)
     return int(count)
+
+
+def _adam_state(opt_state: Any) -> Any:
+    """The node of an optax state tree that holds Adam's ``mu`` and ``nu``
+    (``ScaleByAdamState``), found by its fields, so optax is not needed."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for node in opt_state:
+            found = _adam_state(node)
+            if found is not None:
+                return found
+    return None
+
+
+def save_torch_train_state(
+    state: Any, meta: Mapping[str, Any], run_dir: str, step: int, *, model_name: str
+) -> str:
+    """Write a JAX train state as the port's checkpoint ``step`` in
+    ``run_dir/checkpoints``; returns the weights path to pass to
+    ``train --checkpoint``.
+
+    ``state`` is ``jax.device_get`` of the JAX package's ``TrainState``:
+    its ``params``, ``batch_stats`` and ``opt_state`` as numpy. The
+    optimizer must be Adam, whose ``mu``, ``nu`` and ``count`` are found in
+    ``opt_state``. ``meta`` is the JAX checkpoint's
+    resume meta (``seist_tpu/train/checkpoint.py::_RESUME_META``), whose
+    data position and batch geometry the port's resume reads."""
+    from seist_tpu_torch.models import api
+    from seist_tpu_torch.train.checkpoint import CheckpointManager
+    from seist_tpu_torch.train.optim import build_optimizer
+    from seist_tpu_torch.train.step import TrainState
+
+    adam = _adam_state(state.opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (mu, nu) in opt_state: only Adam states convert")
+    model = api.create_model(model_name)
+    optimizer = build_optimizer("adam", model.parameters())
+    variables = {"params": state.params, "batch_stats": state.batch_stats}
+    count = train_state_from_optax(model, optimizer, variables, adam.mu, adam.nu, int(adam.count))
+    return CheckpointManager(os.path.join(run_dir, "checkpoints")).save(
+        int(step),
+        TrainState(model, optimizer, step=count),
+        epoch=int(meta["epoch"]),
+        data_epoch=int(meta["data_epoch"]),
+        data_batch_offset=int(meta["data_batch_offset"]),
+        seed=int(meta["seed"]),
+        steps_per_epoch=int(meta["steps_per_epoch"]),
+        batch_size=int(meta["batch_size"]),
+        loss=float(meta["loss"]),
+    )

@@ -17,6 +17,13 @@ attached with :func:`common.set_random_source`; the attention seed is
 drawn per call from its CPU generator. Stage rematerialisation
 (``use_checkpoint``) and sequence-parallel ring attention are not ported.
 
+Under the bf16 precision policy (``train/precision.py``) every tensor the
+forward creates takes the activation's dtype (pooling counts, pad fills,
+interpolation weights, dropout zeros) and BatchNorm casts its output to
+the policy dtype, so q, k and v reach the attention kernels as bf16 and
+no fp32 tensor promotes the products after it (``tests/
+test_torch_precision.py`` counts the bf16 share of the product FLOPs).
+
 15 registered variants: seist_{s,m,l}_{dpk,pmp,emg,baz,dis}.
 """
 

@@ -33,6 +33,10 @@ import torch
 launches = 0
 #: Launches of the backward kernel, incremented in :func:`_backward`.
 bwd_launches = 0
+#: The launches of each kernel's bf16 instantiation, counted beside the
+#: totals above (the bf16 precision policy's share of them).
+bf16_launches = 0
+bf16_bwd_launches = 0
 
 _M32 = 0xFFFFFFFF
 E_MAX = 64  # largest head width the kernel takes (csrc/pooled_attention_fwd.cu)
@@ -196,7 +200,7 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> N
 def _forward(q, k, v, scale, rate, seed, with_lse: bool):
     """K1 on CUDA tensors, the plain version on CPU tensors: o, and the
     fp32 (N, H, L) row statistics when ``with_lse`` (else None)."""
-    global launches
+    global launches, bf16_launches
     if q.device.type == "cpu":
         if with_lse:
             return pooled_attention_plain(q, k, v, scale, rate, seed, return_lse=True)
@@ -209,6 +213,8 @@ def _forward(q, k, v, scale, rate, seed, with_lse: bool):
     lse = torch.empty(n, h, l, dtype=torch.float32, device=q.device) if with_lse else None
     _kernels.pooled_attention_fwd(q, k, v, o, lse, scale, rate, seed)
     launches += 1
+    if q.dtype == torch.bfloat16:
+        bf16_launches += 1
     return o, lse
 
 
@@ -217,7 +223,7 @@ def _backward(q, k, v, g, o, lse, scale, rate, seed):
     gradient arrives strided from the reshape and ``out_proj`` backward:
     it is made contiguous here, since the kernel reads the (N, L, H*E)
     layout."""
-    global bwd_launches
+    global bwd_launches, bf16_bwd_launches
     if q.device.type == "cpu":
         return pooled_attention_bwd_plain(q, k, v, g, o, lse, scale, rate, seed)
     g = g.to(q.dtype).contiguous()
@@ -236,6 +242,8 @@ def _backward(q, k, v, g, o, lse, scale, rate, seed):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _kernels.pooled_attention_bwd(q, k, v, g, o, lse, dq, dk, dv, scale, rate, seed)
     bwd_launches += 1
+    if q.dtype == torch.bfloat16:
+        bf16_bwd_launches += 1
     return dq, dk, dv
 
 

@@ -89,8 +89,20 @@ IO_ITEMS: Dict[str, IOItem] = {
 }
 
 
+def get_io_items(kind: Optional[str] = None) -> List[str]:
+    if kind is None:
+        return list(IO_ITEMS)
+    return [k for k, v in IO_ITEMS.items() if v.kind == kind]
+
+
 def get_kind(name: str) -> str:
     return IO_ITEMS[name].kind
+
+
+def get_metrics(name: str) -> List[str]:
+    if name not in IO_ITEMS:
+        raise KeyError(f"Unknown io-item '{name}', supported: {list(IO_ITEMS)}")
+    return list(IO_ITEMS[name].metrics)
 
 
 IOName = Union[str, Tuple[str, ...]]

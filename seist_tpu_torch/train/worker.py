@@ -1,26 +1,43 @@
-"""The training run on one card (counterpart of the single-device path of
-``seist_tpu/train/worker.py::train_worker``).
+"""The training and test runs on one card (counterpart of the
+single-device paths of ``seist_tpu/train/worker.py::train_worker`` and
+``test_worker``).
 
 Per epoch: the seeded train loader feeds the guarded train step (loss
-logged every ``--log-step`` steps), then the validation loader feeds the
-masked eval step; a lower val loss writes the model's ``state_dict`` as
-``checkpoints/model_<step>.pt`` under the run's log directory — the file
-``serve --model NAME=WEIGHTS.pt`` loads — and ``--patience`` epochs
-without improvement stop the run. ``--steps > 0`` overrides ``--epochs``
-with the whole epochs that cover it, as the JAX package does.
+logged every ``--log-step`` steps), then :func:`validate` runs the masked
+eval step over the validation split, decodes each batch's outputs and
+accumulates the per-task metrics (logged as ``[val] <model> <task>:
+...``). A lower val loss writes a checkpoint (``train/checkpoint.py``:
+``checkpoints/model_<step>.pt``, the weights ``serve`` and ``--mode test``
+load, beside ``state_<step>.pt``); ``--patience`` epochs without
+improvement stop the run. ``--steps > 0`` overrides ``--epochs`` with the
+whole epochs that cover it, as the JAX package does.
 
-Not ported: validation metrics and ``--mode test``, rollback after
-repeated guard skips, resume from a checkpoint, interval and preemption
-saves, and the telemetry plane. The guard only skips.
+Fault tolerance: ``--save-interval-steps N`` checkpoints every N batches;
+``--checkpoint`` resumes from one at its exact data position (mid-epoch
+too), refusing a mid-epoch resume under another seed or batch geometry;
+after ``--max-bad-steps`` consecutive updates skipped by the guard the run
+rolls back to the latest checkpoint, or raises when there is none. The
+port's step is eager, so the guard's verdict is read at once (the JAX
+package reads it a few steps late).
+
+:func:`test_worker` loads ``--checkpoint``'s weights, runs
+:func:`validate` over the test split and writes
+``test_results_<split>.csv`` and ``test_metrics_<dataset>.json`` to the
+run's log directory without overwriting earlier ones.
+
+Not ported: the scanned multi-step, accumulation and device-augmentation
+step variants, SIGTERM preemption, the data-plane watchdog, train-time
+metrics and the telemetry plane (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import queue
 import threading
 import time
-from typing import Any, Iterable, Iterator, List
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +45,11 @@ import torch
 from seist_tpu_torch import taskspec
 from seist_tpu_torch.data import pipeline
 from seist_tpu_torch.models import api
+from seist_tpu_torch.ops.metrics import Metrics
+from seist_tpu_torch.ops.postprocess import process_outputs
+from seist_tpu_torch.ops.results import ResultSaver
 from seist_tpu_torch.serve.pool import resolve_device
+from seist_tpu_torch.train.checkpoint import CheckpointManager, load_checkpoint, load_weights
 from seist_tpu_torch.train.optim import build_optimizer
 from seist_tpu_torch.train.schedule import build_cyclic_schedule, constant
 from seist_tpu_torch.train.step import (
@@ -39,6 +60,7 @@ from seist_tpu_torch.train.step import (
     step_random_source,
 )
 from seist_tpu_torch.utils.logger import logger
+from seist_tpu_torch.utils.misc import get_safe_path
 
 
 def _build_loader(args: Any, spec: taskspec.TaskSpec, mode: str) -> pipeline.Loader:
@@ -126,27 +148,96 @@ def _prefetch(batches: Iterable, depth: int = 2) -> Iterator:
         t.join(timeout=30)
 
 
-def validate(state: TrainState, eval_step, loader: pipeline.Loader, device) -> float:
-    """Mean val loss over the real (unpadded) samples."""
+def _make_metrics(args: Any, tasks: List[str], fs: int) -> Dict[str, Metrics]:
+    return {
+        task: Metrics(
+            task=task,
+            metric_names=taskspec.get_metrics(task),
+            sampling_rate=fs,
+            time_threshold=args.time_threshold,
+            num_samples=args.in_samples,
+        )
+        for task in tasks
+    }
+
+
+def _postprocess_batch(args: Any, spec: taskspec.TaskSpec, outputs, fs: int):
+    if spec.outputs_transform_for_results is not None:
+        outputs = spec.outputs_transform_for_results(outputs)
+    return process_outputs(
+        outputs,
+        spec.labels,
+        sampling_rate=fs,
+        ppk_threshold=args.ppk_threshold,
+        spk_threshold=args.spk_threshold,
+        det_threshold=args.det_threshold,
+        min_peak_dist=args.min_peak_dist,
+        max_detect_event_num=args.max_detect_event_num,
+    )
+
+
+def validate(
+    args: Any,
+    state: TrainState,
+    eval_step,
+    spec: taskspec.TaskSpec,
+    loader: pipeline.Loader,
+    device: torch.device,
+    *,
+    testing: bool = False,
+    save_results: bool = False,
+) -> Tuple[float, Dict[str, Metrics]]:
+    """Mean loss over the real (unpadded) samples and the per-task metrics
+    of the decoded outputs, trimmed to those samples; at test time,
+    optionally the results CSV in ``args.log_dir``."""
+    tasks = list(spec.eval)
+    fs = loader.dataset.sampling_rate()
+    metrics = _make_metrics(args, tasks, fs)
+    saver = ResultSaver(item_names=tasks) if save_results else None
     total, count = 0.0, 0
-    for batch in loader:
+    for batch in _prefetch(loader):
         mask = torch.from_numpy(batch.mask).to(device)
-        loss, _ = eval_step(
+        loss, outputs = eval_step(
             state, move_batch(batch.inputs, device), move_batch(batch.loss_targets, device), mask
         )
         valid = int(batch.mask.sum())
-        total += float(loss) * max(valid, 1)
+        total += float(loss) * max(valid, 1)  # one host read per batch, as the JAX package
         count += max(valid, 1)
-    return total / max(count, 1)
+        results = _postprocess_batch(args, spec, outputs, fs)
+        for task, m in metrics.items():
+            prd = results[task][:valid]
+            m.compute(batch.metrics_targets[task][:valid], prd if prd.dim() >= 2 else prd[:, None])
+        if saver is not None:
+            metas = [json.loads(m) for m in batch.meta[:valid]]
+            meta_cols = {k: [m[k] for m in metas] for k in metas[0]} if metas else {}
+            saver.append(
+                meta_cols,
+                {t: batch.metrics_targets[t][:valid] for t in tasks},
+                {t: results[t][:valid] for t in tasks},
+            )
+    if saver is not None:
+        out_csv = get_safe_path(
+            os.path.join(args.log_dir, f"test_results_{loader.dataset.name()}.csv")
+        )
+        saver.save_as_csv(out_csv)
+        logger.info(f"Test results saved: {out_csv}")
+    phase = "test" if testing else "val"
+    for task, m in metrics.items():
+        logger.info(f"[{phase}] {args.model_name} {task}: {m}")
+    return total / max(count, 1), metrics
+
+
+def _disable_tf32(device: torch.device) -> None:
+    if device.type == "cuda":
+        # fp32 products stay fp32: cuDNN convolutions default to TF32.
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def train_worker(args: Any) -> str:
-    """The full run; returns the best checkpoint's path."""
+    """The full run; returns the best checkpoint's weights path."""
     device = resolve_device(args.device)
-    if device.type == "cuda":
-        # fp32 training: cuDNN convolutions default to TF32.
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    _disable_tf32(device)
     spec = taskspec.get_task_spec(args.model_name)
     loss_fn = spec.loss()
 
@@ -165,7 +256,7 @@ def train_worker(args: Any) -> str:
         args.model_name, in_channels=in_channels, in_samples=args.in_samples, seed=args.seed
     ).to(device)
     n_params = sum(p.numel() for p in model.parameters())
-    logger.info(f"{args.model_name} params: {n_params:,} on {device}")
+    logger.info(f"{args.model_name} params: {n_params:,} on {device}, compute {args.dtype}")
     if args.use_lr_scheduler:
         schedule = build_cyclic_schedule(
             base_lr=args.base_lr,
@@ -181,20 +272,87 @@ def train_worker(args: Any) -> str:
         args.optim, model.parameters(), weight_decay=args.weight_decay, momentum=args.momentum
     )
     state = TrainState(model, optimizer, schedule)
-    train_step = make_train_step(loss_fn, guard=args.bad_step_guard)
-    eval_step = make_eval_step(loss_fn)
+    train_step = make_train_step(loss_fn, guard=args.bad_step_guard, compute_dtype=args.dtype)
+    eval_step = make_eval_step(loss_fn, compute_dtype=args.dtype)
 
-    ckpt_dir = os.path.join(args.log_dir, "checkpoints")
-    os.makedirs(ckpt_dir, exist_ok=True)
+    ckpt_mgr = CheckpointManager(
+        os.path.join(args.log_dir, "checkpoints"), keep_last=args.keep_checkpoints
+    )
     best_loss, best_path, patience = float("inf"), "", 0
+    start_epoch, start_batch = args.start_epoch, 0
+    if args.checkpoint:
+        record = load_checkpoint(args.checkpoint, state)
+        meta = record["meta"]
+        start_epoch, start_batch = int(meta["data_epoch"]), int(meta["data_batch_offset"])
+        if start_batch >= steps_per_epoch:
+            start_epoch, start_batch = start_epoch + 1, 0
+        # The offset is expressed in the saving run's (seed, batch geometry):
+        # resuming mid-epoch under another would replay some samples and
+        # skip others. (The JAX package reads a saved 0 as "not recorded",
+        # so it lets a run saved with seed 0 resume under any seed; the
+        # port's checkpoints always record all three.)
+        for field, current in (
+            ("seed", int(args.seed)),
+            ("steps_per_epoch", steps_per_epoch),
+            ("batch_size", int(args.batch_size)),
+        ):
+            saved = int(meta[field])
+            if saved == current:
+                continue
+            if start_batch > 0:
+                raise ValueError(
+                    f"{field} {current} does not match the checkpoint's {field} {saved}; "
+                    f"a mid-epoch resume (batch offset {start_batch}) would replay/skip "
+                    f"data. Relaunch with the original {field}."
+                )
+            logger.warning(
+                f"{field} {current} differs from the checkpoint's {saved}: epoch "
+                "boundaries/shuffles will not match the original run"
+            )
+        best_loss, patience = float(record["best_loss"]), int(record["patience"])
+        if ckpt_mgr.best_step is not None:
+            best_path = ckpt_mgr.step_path(ckpt_mgr.best_step)
+        logger.info(
+            f"Resumed from {args.checkpoint} (epoch {start_epoch}, batch offset "
+            f"{start_batch}, loss {float(meta['loss']):.4f}, update step {state.step})"
+        )
+        resume_at = start_epoch * steps_per_epoch + start_batch
+        ahead = [s for s in ckpt_mgr.all_steps() if s > resume_at]
+        if ahead:
+            logger.warning(
+                f"Checkpoint dir has steps {ahead} ahead of the resume position "
+                f"({resume_at}); this run's saves at those steps replace them"
+            )
+
+    save_every = int(args.save_interval_steps)
+    max_bad = int(args.max_bad_steps)
+
+    def save(gstep: int, epoch: int, batches_done: int, val_loss: Optional[float] = None) -> str:
+        """Checkpoint at global batch ``gstep``; the data position saved is
+        the NEXT batch to consume."""
+        if batches_done >= steps_per_epoch:
+            d_epoch, d_off = epoch + 1, 0
+        else:
+            d_epoch, d_off = epoch, batches_done
+        return ckpt_mgr.save(
+            gstep, state, epoch=epoch, data_epoch=d_epoch, data_batch_offset=d_off,
+            seed=args.seed, steps_per_epoch=steps_per_epoch, batch_size=int(args.batch_size),
+            val_loss=val_loss, best_loss=best_loss, patience=patience,
+        )
+
     train_losses: List[float] = []
     val_losses: List[float] = []
-    skipped = 0
-    for epoch in range(args.start_epoch, epochs):
+    skipped, bad_run = 0, 0
+    for epoch in range(start_epoch, epochs):
         t_epoch = time.perf_counter()
         train_loader.set_epoch(epoch)
+        skip = start_batch if epoch == start_epoch else 0
+        if skip:
+            train_loader.set_start_batch(skip)
+            logger.info(f"Mid-epoch resume: epoch {epoch} from batch {skip}")
         epoch_losses: List[torch.Tensor] = []
-        for step, batch in enumerate(_prefetch(train_loader)):
+        for step, batch in enumerate(_prefetch(train_loader), start=skip):
+            gstep = epoch * steps_per_epoch + step
             rng = step_random_source(args.seed, epoch, state.step, device)
             loss, _, diag = train_step(
                 state,
@@ -203,29 +361,46 @@ def train_worker(args: Any) -> str:
                 rng,
             )
             epoch_losses.append(loss)
-            if diag and not diag["applied"]:
-                skipped += 1
-                logger.warning(
-                    f"Bad-update guard skipped step {epoch * steps_per_epoch + step} "
-                    f"(loss {float(loss):.4e}, grad-norm {diag['grad_norm']:.4e})"
-                )
+            if diag:
+                if diag["applied"]:
+                    bad_run = 0
+                else:
+                    skipped, bad_run = skipped + 1, bad_run + 1
+                    logger.warning(
+                        f"Bad-update guard skipped step {gstep} (loss {float(loss):.4e}, "
+                        f"grad-norm {diag['grad_norm']:.4e}; consecutive run: {bad_run})"
+                    )
+                if max_bad and bad_run >= max_bad:
+                    step_r = ckpt_mgr.latest_step()
+                    if step_r is None:
+                        raise RuntimeError(
+                            f"{bad_run} consecutive non-finite updates and no checkpoint to "
+                            "roll back to — aborting (enable --save-interval-steps for "
+                            "rollback coverage)"
+                        )
+                    logger.warning(
+                        f"Bad-update guard: {bad_run} consecutive non-finite updates; "
+                        f"rolling back to checkpoint step {step_r}"
+                    )
+                    ckpt_mgr.restore(state, step_r)
+                    bad_run = 0
+            if save_every and (step + 1) % save_every == 0:
+                save(gstep + 1, epoch, step + 1)
             if step % args.log_step == 0:
                 logger.info(
                     f"{args.model_name}_train epoch {epoch} step {step}/{steps_per_epoch} "
                     f"loss {float(loss):.4e} lr {schedule(max(state.step - 1, 0)):.3e}"
                 )
-        losses = [float(x) for x in torch.stack(epoch_losses).cpu()]
+        losses = [float(x) for x in torch.stack(epoch_losses).cpu()] if epoch_losses else []
         train_losses.extend(losses)
         finite = [x for x in losses if np.isfinite(x)]
         epoch_train_loss = float(np.mean(finite)) if finite else 0.0
 
-        val_loss = validate(state, eval_step, val_loader, device)
+        val_loss, _ = validate(args, state, eval_step, spec, val_loader, device)
         val_losses.append(val_loss)
         if val_loss < best_loss:
             best_loss, patience = val_loss, 0
-            best_path = os.path.join(ckpt_dir, f"model_{state.step}.pt")
-            sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-            torch.save(sd, best_path)
+            best_path = save((epoch + 1) * steps_per_epoch, epoch, steps_per_epoch, val_loss)
             logger.info(f"Best val loss {val_loss:.4e}: saved {best_path}")
         else:
             patience += 1
@@ -247,3 +422,36 @@ def train_worker(args: Any) -> str:
     val_loader.close()
     return best_path
 
+
+def test_worker(args: Any) -> float:
+    """Test ``--checkpoint``'s weights on the held-out split; writes the
+    results CSV (with ``--save-test-results``) and the metrics JSON to
+    ``args.log_dir``; returns the test loss."""
+    if not args.checkpoint:
+        raise ValueError("test mode requires --checkpoint")
+    device = resolve_device(args.device)
+    _disable_tf32(device)
+    spec = taskspec.get_task_spec(args.model_name)
+    loss_fn = spec.loss()
+    test_loader = _build_loader(args, spec, "test")
+    in_channels = taskspec.get_num_inchannels(args.model_name)
+    model = api.create_model(args.model_name, in_channels=in_channels,
+                             in_samples=args.in_samples, seed=args.seed)
+    model.load_state_dict(load_weights(args.checkpoint), strict=True)
+    logger.info(f"Loaded checkpoint: {args.checkpoint}")
+    state = TrainState(model.to(device))
+    eval_step = make_eval_step(loss_fn, compute_dtype=args.dtype)
+    loss, metrics = validate(args, state, eval_step, spec, test_loader, device,
+                             testing=True, save_results=args.save_test_results)
+    payload = {
+        "model": args.model_name,
+        "dataset": args.dataset_name,
+        "loss": float(loss),
+        "metrics": {task: m.get_metrics(m.metric_names()) for task, m in metrics.items()},
+    }
+    out_json = get_safe_path(os.path.join(args.log_dir, f"test_metrics_{args.dataset_name}.json"))
+    with open(out_json, "w") as f:
+        json.dump(payload, f, indent=1)
+    logger.info(f"Test metrics saved: {out_json}")
+    test_loader.close()
+    return loss

@@ -240,11 +240,13 @@ def test_use_checkpoint_and_unported_flags_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tapi.create_model(MODEL, in_samples=WINDOW, use_checkpoint=True)
     base = ["--dataset-name", "synthetic"]
-    for extra in (["--dtype", "bf16"], ["--grad-accum-steps", "2"], ["--steps-per-call", "4"],
-                  ["--device-aug", "step"], ["--seq-shards", "2"], ["--checkpoint", "x"],
-                  ["--mode", "train_test"]):
+    for extra in (["--grad-accum-steps", "2"], ["--steps-per-call", "4"],
+                  ["--device-aug", "step"], ["--seq-shards", "2"],
+                  ["--loader-processes", "2"], ["--mixture-temperature", "1.0"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             cli.get_args(base + extra)
+    with pytest.raises(ValueError, match="train_test"):
+        cli.get_args(base + ["--mode", "serve"])
     with pytest.raises(NotImplementedError, match="dataset-name"):
         cli.get_args([])  # the JAX CLI's default dataset is not ported
     assert cli.get_args(base + ["--steps-per-call", "1"]).device == "cuda"
@@ -264,7 +266,7 @@ def test_cli_trains_two_steps_on_cpu_and_serve_loads_the_checkpoint(tmp_path):
     (run,) = tmp_path.iterdir()
     losses = np.load(run / "train_losses.npy")
     assert losses.shape == (2,) and np.isfinite(losses).all()
-    (ckpt,) = (run / "checkpoints").iterdir()
+    (ckpt,) = (run / "checkpoints").glob("model_*.pt")
     assert ckpt.name == "model_2.pt"
     entry = load_model_entry(MODEL, str(ckpt), window=WINDOW, device="cpu")
     out = entry.run(np.zeros((1, WINDOW, 3), np.float32))
