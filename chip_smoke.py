@@ -59,7 +59,11 @@ non-zero before the last line):
    its peak memory, in fp32 and bf16; K2 in bf16 per shape beside SDPA's
    bf16 backward and its bound at the bf16 tensor-core rate; profile a
    batch-8 forward and a batch-64 train step in fp32 and bf16; time K1 with
-   and without two warps sharing a row group where its planner shares them.
+   and without two warps sharing a row group where its planner shares them;
+   the train Loader's waveforms/s at window 8192 with augmentation on over
+   2048 synthetic events, on the synthetic dataset and its float32, bfloat16
+   and int8 packs, at batch 64 and 500, with 8 threads and with 4 processes,
+   beside the fp32 train step's consumption at b64 and b256.
 
 It prints one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -68,12 +72,15 @@ Without a CUDA device it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import csv
+import io
 import json
 import logging
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -87,6 +94,7 @@ import torch
 import torch.nn.functional as F
 
 from seist_tpu_torch import cli, taskspec
+from seist_tpu_torch import pack as pack_cli
 from seist_tpu_torch.data import pipeline
 from seist_tpu_torch.data.preprocess import normalize
 from seist_tpu_torch.models import api
@@ -99,7 +107,11 @@ from seist_tpu_torch.serve.protocol import PredictOptions
 from seist_tpu_torch.train.optim import build_optimizer
 from seist_tpu_torch.train.schedule import constant
 from seist_tpu_torch.train import worker
-from seist_tpu_torch.train.checkpoint import state_path_for
+from seist_tpu_torch.train.checkpoint import (
+    PREEMPT_EXIT_CODE,
+    find_newest_checkpoint,
+    state_path_for,
+)
 from seist_tpu_torch.train.step import TrainState, make_eval_step, make_train_step, move_batch
 from seist_tpu_torch.utils.logger import logger
 
@@ -493,10 +505,13 @@ def check_kernel_bwd(shapes, dev) -> float:
 
 
 # ------------------------------------------------------------- phase 6
-def run_entry(argv: List[str]) -> Tuple[str, Dict[str, int], float, List[str]]:
+def run_entry(argv: List[str],
+              expect_exit: int = 0) -> Tuple[str, Dict[str, int], float, List[str]]:
     """``cli.main(argv)`` with both plain versions patched to raise: the
     best checkpoint, both kernels' launches (and those of their bf16
-    instantiations) over exactly that run, its wall seconds and its log."""
+    instantiations) over exactly that run, its wall seconds and its log.
+    With ``expect_exit``, the run must end in ``SystemExit(expect_exit)``
+    (and the checkpoint is ""); any other exit is fatal."""
     real = pa.pooled_attention_plain, pa.pooled_attention_bwd_plain
 
     def off_path(*a, **k):
@@ -509,13 +524,19 @@ def run_entry(argv: List[str]) -> Tuple[str, Dict[str, int], float, List[str]]:
     pa.pooled_attention_plain = pa.pooled_attention_bwd_plain = off_path
     pa.launches = pa.bwd_launches = pa.bf16_launches = pa.bf16_bwd_launches = 0
     t0 = time.perf_counter()
-    best = cli.main(argv)
+    try:
+        best, code = cli.main(argv), 0
+    except SystemExit as e:
+        best, code = "", e.code
+    finally:
+        pa.pooled_attention_plain, pa.pooled_attention_bwd_plain = real
+        logger.removeHandler(handler)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
+    if code != expect_exit:
+        fail(f"the train entry exited with {code!r}, expected {expect_exit}")
     counts = {"K1": pa.launches, "K2": pa.bwd_launches, "K1_bf16": pa.bf16_launches,
               "K2_bf16": pa.bf16_bwd_launches}
-    pa.pooled_attention_plain, pa.pooled_attention_bwd_plain = real
-    logger.removeHandler(handler)
     return best, counts, wall_s, lines
 
 
@@ -663,6 +684,119 @@ def bf16_phase(log_base: str, n_shapes: int, fp32_best: str, dev) -> dict:
     if not err <= BF16_OUT_TOL or o16.dtype != torch.float32:
         fail("the bf16 eval forward is too far from the fp32 one")
     return {"counts": counts, "wall_s": wall_s, "eval_err": err}
+
+
+# ------------------------------------------------------------- phases 6d, 6e
+def pack_entry(out: str, dtype: str, events: int = 256, shard_mb: float = 8.0,
+               workers: int = 4) -> dict:
+    """``python -m seist_tpu_torch pack`` of the synthetic dataset (trace
+    12000, the size phase 6 trains on) into ``out``: its JSON verdict."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = pack_cli.main(["--dataset", "synthetic", "--dataset-kwargs",
+                            json.dumps({"num_events": events}), "--out", out, "--dtype", dtype,
+                            "--shard-mb", str(shard_mb), "--workers", str(workers),
+                            "--no-resume"])
+    verdict = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"[pack] {dtype}: {events} events -> {verdict['shards']} shards, "
+          f"{verdict['on_disk_bytes']} bytes ({verdict['bytes_vs_fp32']} of float32), "
+          f"{verdict['wall_s']} s with {workers} pack processes", flush=True)
+    if rc != 0 or verdict["samples"] != events or verdict["dtype"] != dtype:
+        fail(f"pack {dtype}: rc {rc}, {verdict}")
+    return verdict
+
+
+def packed_args(data: str) -> List[str]:
+    """Phase 6's train arguments on a pack instead of the synthetic dataset."""
+    args = list(TRAIN_ARGS)
+    i = args.index("--synthetic-events")
+    del args[i:i + 2]
+    args[args.index("synthetic")] = "packed"
+    return args + ["--data", data]
+
+
+def max_rel(got: np.ndarray, want: np.ndarray) -> float:
+    if len(got) != len(want):
+        fail(f"{len(got)} losses against {len(want)}")
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def packed_phase(log_base: str, n_shapes: int, run: dict) -> dict:
+    """Pack phase 6's events and train on the packs (phase 6d)."""
+    packs = os.path.join(str(_kernels.BUILD_DIR), "packs")
+    f32, i8 = os.path.join(packs, "f32_256"), os.path.join(packs, "i8_256")
+    if pack_entry(f32, "float32")["shards"] < 2:
+        fail("the float32 pack has one shard: --shard-mb 8 must give more")
+    pack_entry(i8, "int8")
+    best, counts, wall_s, _ = run_entry(packed_args(f32) + [
+        "--mode", "train_test", "--save-interval-steps", str(SAVE_EVERY), "--log-base", log_base])
+    log_dir = os.path.dirname(os.path.dirname(best))
+    losses = np.load(os.path.join(log_dir, "train_losses.npy"))
+    rel = max_rel(losses, run["losses"])
+    with open(os.path.join(log_dir, "test_metrics_packed.json")) as f:
+        plane = json.load(f)["data_plane"]
+    faults = {k: v for k, v in plane["counters"].items() if k != "reads"}
+    print(f"[packed] train_test on the float32 pack: losses {[round(float(x), 6) for x in losses]}"
+          f" vs phase 6 on the synthetic dataset: max rel {rel:.2e} (limit {RESUME_RTOL:.0e}); "
+          f"K1 launches {counts['K1']}, K2 launches {counts['K2']}, wall {wall_s:.1f} s; "
+          f"data_plane {json.dumps(plane['counters'])}, quarantined "
+          f"{plane['quarantine']['quarantined']}", flush=True)
+    check_launches(counts, n_shapes, TRAIN_STEPS + VAL_BATCHES + TEST_BATCHES, TRAIN_STEPS)
+    if not rel <= RESUME_RTOL:
+        fail("losses on the float32 pack differ from phase 6's on the same events")
+    if any(faults.values()) or plane["quarantine"]["quarantined"] or not plane["counters"]["reads"]:
+        fail(f"the data plane saw faults on a clean pack: {plane}")
+    best8, counts8, wall8, _ = run_entry(packed_args(i8) + ["--mode", "train",
+                                                            "--log-base", log_base])
+    losses8 = np.load(os.path.join(os.path.dirname(os.path.dirname(best8)), "train_losses.npy"))
+    print(f"[packed] one epoch on the int8 pack: losses {[round(float(x), 6) for x in losses8]} "
+          f"beside float32's {[round(float(x), 6) for x in losses]}; K1 launches "
+          f"{counts8['K1']}, K2 launches {counts8['K2']}, wall {wall8:.1f} s", flush=True)
+    check_launches(counts8, n_shapes, TRAIN_STEPS + VAL_BATCHES, TRAIN_STEPS)
+    if len(losses8) != TRAIN_STEPS or not np.isfinite(losses8).all():
+        fail(f"int8 pack losses: {losses8}")
+    return {"counts": counts, "counts_i8": counts8, "max_rel": rel, "f32": f32, "wall_s": wall_s}
+
+
+def preempt_phase(n_shapes: int, run: dict, data: str) -> dict:
+    """SIGTERM at step 3 of a train run on the float32 pack, then the
+    resume from the newest checkpoint (phase 6e)."""
+    log_base = os.path.join(str(_kernels.BUILD_DIR), "preempt_logs")
+    shutil.rmtree(log_base, ignore_errors=True)
+    os.environ["SEIST_FAULT_SIGTERM_STEP"] = str(SAVE_EVERY)
+    try:
+        _, counts, wall_s, lines = run_entry(packed_args(data) + ["--mode", "train",
+                                                                   "--log-base", log_base],
+                                             expect_exit=PREEMPT_EXIT_CODE)
+    finally:
+        del os.environ["SEIST_FAULT_SIGTERM_STEP"]
+    ckpt = find_newest_checkpoint(log_base)
+    want = [os.path.join(os.path.dirname(ckpt or ""), f"{kind}_{SAVE_EVERY}.pt")
+            for kind in ("model", "state")]
+    print(f"[preempt] SEIST_FAULT_SIGTERM_STEP={SAVE_EVERY}: SystemExit({PREEMPT_EXIT_CODE}); "
+          f"{[x for x in lines if x.startswith('Preempted')]}; newest checkpoint "
+          f"{ckpt and os.path.relpath(ckpt)}; K1 launches {counts['K1']}, K2 launches "
+          f"{counts['K2']}, wall {wall_s:.1f} s", flush=True)
+    if ckpt != want[0] or not os.path.exists(want[1]):
+        fail(f"no model_{SAVE_EVERY}.pt / state_{SAVE_EVERY}.pt after the preemption")
+    check_launches(counts, n_shapes, SAVE_EVERY, SAVE_EVERY)
+    _, counts_r, wall_r, lines = run_entry(packed_args(data) + ["--mode", "train",
+                                                                "--checkpoint", ckpt])
+    log_dir = os.path.dirname(os.path.dirname(ckpt))
+    losses = np.load(os.path.join(log_dir, "train_losses.npy"))
+    rel = max_rel(losses, run["losses"][SAVE_EVERY:])
+    record = torch.load(os.path.join(log_dir, "checkpoints", f"state_{TRAIN_STEPS}.pt"),
+                        map_location="cpu", weights_only=True)
+    print(f"[preempt] resumed: {[x for x in lines if x.startswith('Mid-epoch resume')]}; steps "
+          f"{SAVE_EVERY + 1}-{TRAIN_STEPS} losses {[round(float(x), 6) for x in losses]} vs "
+          f"phase 6 max rel {rel:.2e} (limit {RESUME_RTOL:.0e}); update count {record['step']}; "
+          f"K1 launches {counts_r['K1']}, K2 launches {counts_r['K2']}, wall {wall_r:.1f} s",
+          flush=True)
+    if not rel <= RESUME_RTOL or record["step"] != TRAIN_STEPS:
+        fail("the run resumed after the preemption does not continue phase 6's")
+    check_launches(counts_r, n_shapes, TRAIN_STEPS - SAVE_EVERY + VAL_BATCHES,
+                   TRAIN_STEPS - SAVE_EVERY)
+    return {"counts": counts, "counts_resumed": counts_r, "max_rel": rel}
 
 
 # ------------------------------------------------------------- phase 7
@@ -993,6 +1127,64 @@ def profile_forward(entry, iters: int = 5) -> dict:
     }
 
 
+LOADER_EVENTS = 2048  # 295 MB of float32 waveforms at trace 12000, 74 MB as int8
+
+
+def loader_rate(dataset: str, data: str, batch: int, processes: int) -> Tuple[float, int]:
+    """Waveforms/s of the train Loader that ``--dataset-name dataset``
+    builds at window 8192 with augmentation on, with ``--workers 8``
+    threads or ``--loader-processes processes``, over the second half of
+    its first epoch: the first half starts the pools (a worker process
+    imports torch, seconds each, and starts when work arrives). Returns
+    (rate, waveforms timed)."""
+    argv = ["--model-name", MODEL, "--dataset-name", dataset, "--in-samples", str(WINDOW),
+            "--batch-size", str(batch), "--seed", str(SEED), "--workers", "8",
+            "--loader-processes", str(processes)]
+    argv += (["--synthetic-events", str(LOADER_EVENTS)] if dataset == "synthetic"
+             else ["--data", data])
+    loader = worker._build_loader(cli.get_args(argv), taskspec.get_task_spec(MODEL), "train")
+    try:
+        batches, warm = iter(loader), len(loader) // 2
+        for _ in range(warm):
+            next(batches)
+        t0, n = time.perf_counter(), 0
+        for b in batches:
+            n += len(b.mask)
+        rate = n / (time.perf_counter() - t0)
+    finally:
+        loader.close()
+    return rate, n
+
+
+def loader_phase(name_power: str, step_ms: Dict[int, float]) -> List[dict]:
+    """The train Loader's throughput on the synthetic dataset and on its
+    float32, bfloat16 and int8 packs, at batch 64 and 500, with threads and
+    with processes, beside the fp32 train step's consumption."""
+    packs = os.path.join(str(_kernels.BUILD_DIR), "packs")
+    sources = [("synthetic", "", "generated at first touch, cached per process")]
+    for dtype in ("float32", "bfloat16", "int8"):
+        out = os.path.join(packs, f"{dtype}_{LOADER_EVENTS}")
+        pack_entry(out, dtype, events=LOADER_EVENTS, shard_mb=512, workers=os.cpu_count() or 4)
+        sources.append(("packed", out, dtype))
+    consume = {b: b * 1e3 / ms for b, ms in step_ms.items()}
+    rows = []
+    for batch in (TRAIN_BATCH, 500):
+        for dataset, data, label in sources:
+            for processes in (0, 4):
+                rate, n = loader_rate(dataset, data, batch, processes)
+                mode = "4 processes" if processes else "8 threads"
+                rows.append({"source": label, "batch": batch, "mode": mode, "wps": rate})
+                print(f"[loader] {name_power} | {os.cpu_count()} CPUs | train Loader, window "
+                      f"{WINDOW}, augmentation on, {LOADER_EVENTS} events, {dataset} "
+                      f"({label}), b{batch}, {mode}: {rate:.1f} waveforms/s over the epoch's "
+                      f"last {n}; the fp32 "
+                      f"train step consumes {consume[TRAIN_BATCH]:.1f} (b{TRAIN_BATCH}) and "
+                      f"{consume[256]:.1f} (b256) waveforms/s", flush=True)
+    print(f"[loader] the packs sit in the page cache: these rates are the host's cost per "
+          f"sample (read, widen, preprocess, augment, assemble), not the disk's", flush=True)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this drives the "
@@ -1026,7 +1218,10 @@ def main() -> int:
     trained = train_test_phase(logs, len(shapes))
     resumed = resume_phase(trained, len(shapes))
     bf16 = bf16_phase(logs, len(shapes), trained["best"], dev)
-    paths = (trained, resumed, bf16)
+    packed = packed_phase(logs, len(shapes), trained)
+    preempted = preempt_phase(len(shapes), trained, packed["f32"])
+    path_counts = [trained["counts"], resumed["counts"], bf16["counts"], packed["counts"],
+                   packed["counts_i8"], preempted["counts"], preempted["counts_resumed"]]
     gpu_vs_cpu_step(weights)
 
     ones = torch.ones(1024, device=dev)
@@ -1080,9 +1275,12 @@ def main() -> int:
     served_launches = served["launches"]
     del served
 
+    step_ms = {}
     for dtype in ("fp32", "bf16"):
         for batch in (TRAIN_BATCH, 256):
             run = time_train_step(weights, batch, dtype=dtype)
+            if dtype == "fp32":
+                step_ms[batch] = run["ms"]
             print(f"[time] {name_power} | {MODEL} window {WINDOW} train step b{batch} {dtype} "
                   f"(forward, backward, Adam update, guard): {run['ms']:.2f} ms, peak memory "
                   f"{run['peak_gib']:.2f} GiB", flush=True)
@@ -1099,14 +1297,21 @@ def main() -> int:
             del run
             torch.cuda.empty_cache()
 
+    loader_phase(name_power, step_ms)
+
     fp32 = [r for r in rows if r["dtype"] == "fp32"]  # the serving path is fp32
-    launches = {k: served_launches * (k == "K1") + sum(p["counts"][k] for p in paths)
+    launches = {k: served_launches * (k == "K1") + sum(c[k] for c in path_counts)
                 for k in ("K1", "K2")}
     print(f"[paths] serve: K1 {served_launches} launches; train_test: K1 "
           f"{trained['counts']['K1']}, K2 {trained['counts']['K2']}; resume: K1 "
           f"{resumed['counts']['K1']}, K2 {resumed['counts']['K2']}; bf16 train_test: K1 "
           f"{bf16['counts']['K1_bf16']}, K2 {bf16['counts']['K2_bf16']} (bf16 "
-          f"instantiations); all paths: K1 {launches['K1']}, K2 {launches['K2']}", flush=True)
+          f"instantiations); packed train_test: K1 {packed['counts']['K1']}, K2 "
+          f"{packed['counts']['K2']}; int8 pack train: K1 {packed['counts_i8']['K1']}, K2 "
+          f"{packed['counts_i8']['K2']}; preempted: K1 {preempted['counts']['K1']}, K2 "
+          f"{preempted['counts']['K2']}; resumed after it: K1 "
+          f"{preempted['counts_resumed']['K1']}, K2 {preempted['counts_resumed']['K2']}; "
+          f"all paths: K1 {launches['K1']}, K2 {launches['K2']}", flush=True)
     bounds = {}
     for kid, label, rs, ops_at in (
             ("K1", "five fp32 b8 launches", fp32, "on the fp32 CUDA cores"),

@@ -10,7 +10,9 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``--device cpu`` on the command line)::
 
     python -m seist_tpu_torch serve --model seist_l_dpk[=WEIGHTS.pt] --window 8192
-    python -m seist_tpu_torch train --model-name seist_l_dpk --dataset-name synthetic ...
+    python -m seist_tpu_torch train --model-name seist_l_dpk --dataset-name packed --data PACK ...
+    python -m seist_tpu_torch pack --dataset synthetic --out PACK ...
+    python -m seist_tpu_torch supervise -- python -m seist_tpu_torch train ...
 """
 
 from __future__ import annotations
@@ -19,5 +21,5 @@ from __future__ import annotations
 def load_all() -> None:
     """Import the model and dataset modules so their names register in
     :data:`seist_tpu_torch.registry.MODELS` and ``DATASETS``."""
-    from seist_tpu_torch.data import synthetic  # noqa: F401
+    from seist_tpu_torch.data import packed, synthetic  # noqa: F401
     from seist_tpu_torch.models import seist  # noqa: F401

@@ -1,4 +1,5 @@
-"""``python -m seist_tpu_torch serve|train ...``: the port's command line."""
+"""``python -m seist_tpu_torch serve|train|pack|supervise ...``: the port's
+command line."""
 
 from __future__ import annotations
 
@@ -6,7 +7,9 @@ import sys
 
 _USAGE = (
     "usage: python -m seist_tpu_torch serve --model NAME[=WEIGHTS] ...\n"
-    "       python -m seist_tpu_torch train --model-name NAME --dataset-name synthetic ..."
+    "       python -m seist_tpu_torch train --model-name NAME --dataset-name synthetic|packed ...\n"
+    "       python -m seist_tpu_torch pack --dataset NAME --out DIR ...\n"
+    "       python -m seist_tpu_torch supervise [--retries N] [--backoff S] -- COMMAND ..."
 )
 
 
@@ -20,6 +23,14 @@ def main(argv=None) -> None:
         from seist_tpu_torch.cli import main as train_main
 
         train_main(argv[1:])
+    elif argv and argv[0] == "pack":
+        from seist_tpu_torch.pack import main as pack_main
+
+        sys.exit(pack_main(argv[1:]))
+    elif argv and argv[0] == "supervise":
+        from seist_tpu_torch.supervise import main as supervise_main
+
+        sys.exit(supervise_main(argv[1:]))
     else:
         raise SystemExit(_USAGE)
 

@@ -6,13 +6,22 @@ the port runs, plus ``--device`` (default ``cuda``; it raises without a
 card unless ``--device cpu`` is given). ``--mode`` is ``train``, ``test``
 or ``train_test`` (the default): after training, the test run takes the
 best checkpoint. With ``--checkpoint`` the log directory is that
-checkpoint's run directory, and a train run resumes from it. A flag of the
-JAX CLI whose non-default value the port does not run yet raises and names
-``ROADMAP.md``: ``--grad-accum-steps``, ``--steps-per-call`` > 1,
-``--device-aug``, ``--seq-shards``, ``--loader-processes``,
-``--mixture-temperature`` and every dataset but ``synthetic``. Flags of
-the telemetry plane, preemption and the data-plane guard are not accepted
-at all.
+checkpoint's run directory, and a train run resumes from it.
+
+Datasets: ``synthetic`` and ``packed`` (``--data`` a pack directory, from
+``python -m seist_tpu_torch pack`` or the JAX package's ``python -m
+tools.pack_dataset``). The HDF5 datasets (DiTing, PNW, SOS) are read only
+through a pack: naming one raises with the command that packs it.
+``--mixture-temperature`` samples a mixture pack's sources;
+``--loader-processes`` assembles train batches in worker processes;
+``--max-quarantine-frac`` and ``--data-watchdog-sec`` set the data-plane
+guard (``data/io_guard.py``). A preempted run exits 75 after its
+checkpoint (``python -m seist_tpu_torch supervise`` relaunches it).
+
+A flag of the JAX CLI whose non-default value the port does not run yet
+raises and names ``ROADMAP.md``: ``--grad-accum-steps``,
+``--steps-per-call`` > 1, ``--device-aug`` and ``--seq-shards``. Flags of
+the telemetry plane are not accepted at all.
 """
 
 from __future__ import annotations
@@ -27,10 +36,12 @@ _UNPORTED = {
     "grad_accum_steps": 1,
     "device_aug": "off",
     "seq_shards": 1,
-    "loader_processes": 0,
-    "mixture_temperature": 0.0,
 }
 _MODES = ("train", "test", "train_test")
+_DATASETS = ("synthetic", "packed")
+#: The JAX package's HDF5 readers (h5py and pandas, which the port does
+#: not import): their data reaches the port as a pack.
+_HDF5_DATASETS = ("diting", "diting_light", "pnw", "pnw_light", "sos")
 
 
 def bool_(x) -> bool:
@@ -54,7 +65,9 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--dtype", default="fp32", type=str, choices=["fp32", "bf16"],
                     help="compute dtype of the train/eval steps: bf16 keeps fp32 "
                     "parameters, optimizer state, BatchNorm statistics and loss")
-    ap.add_argument("--loader-processes", default=0, type=int, dest="loader_processes")
+    ap.add_argument("--loader-processes", default=0, type=int, dest="loader_processes",
+                    help="assemble train batches in this many worker processes instead of "
+                    "the --workers threads (batches are identical); 0 = threads")
     ap.add_argument("--steps-per-call", default=0, type=int, dest="steps_per_call")
     ap.add_argument("--grad-accum-steps", default=1, type=int, dest="grad_accum_steps")
     ap.add_argument("--device-aug", default="off", type=str,
@@ -72,12 +85,14 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     # Dataset
     ap.add_argument("--data", default="", type=str, help="path to dataset")
     ap.add_argument("--dataset-name", default="diting_light", type=str,
-                    help="only 'synthetic' is ported")
+                    help="'synthetic' or 'packed' (--data: a pack directory)")
     ap.add_argument("--data-split", type=bool_, default=True)
     ap.add_argument("--train-size", type=float, default=0.8)
     ap.add_argument("--val-size", type=float, default=0.1)
     ap.add_argument("--mixture-temperature", default=0.0, type=float,
-                    dest="mixture_temperature")
+                    dest="mixture_temperature",
+                    help="temperature-weighted TRAIN sampling over a mixture pack's "
+                    "sources: p_s ∝ (n_s/N)^(1/T); 0 = the plain shuffle")
 
     # Data loader
     ap.add_argument("--shuffle", type=bool_, default=True)
@@ -128,6 +143,14 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--max-bad-steps", default=3, type=int, dest="max_bad_steps",
                     help="consecutive guard-skipped updates before rolling back to the "
                     "last checkpoint; 0 disables rollback")
+    ap.add_argument("--max-quarantine-frac", default=0.05, type=float,
+                    dest="max_quarantine_frac",
+                    help="abort once more than this fraction of the dataset has been "
+                    "quarantined by the data-plane guard. Default 0.05")
+    ap.add_argument("--data-watchdog-sec", default=600.0, type=float, dest="data_watchdog_sec",
+                    help="exit 75 (after dumping thread stacks) when the loop waits longer "
+                    "than this for the next host batch; steps, kernel builds and "
+                    "validation compute do not count. 0 disables. Default 600")
     ap.add_argument("--use-lr-scheduler", default=True, type=bool_)
     ap.add_argument("--lr-scheduler-mode", default="exp_range", type=str,
                     help="'triangular', 'triangular2' or 'exp_range'")
@@ -176,7 +199,14 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         bad.append(f"--steps-per-call {args.steps_per_call}")
     if args.mode not in _MODES:
         raise ValueError(f"`mode` must be 'train', 'test' or 'train_test', got '{args.mode}'")
-    if args.dataset_name != "synthetic":
+    if args.dataset_name in _HDF5_DATASETS:
+        raise NotImplementedError(
+            f"--dataset-name {args.dataset_name!r} is an HDF5 dataset, which the port reads "
+            "only as a pack: pack it once with the JAX package on a machine with h5py "
+            f"(python -m tools.pack_dataset --dataset {args.dataset_name} --data-dir DIR "
+            "--out PACK), then train with --dataset-name packed --data PACK"
+        )
+    if args.dataset_name not in _DATASETS:
         bad.append(f"--dataset-name {args.dataset_name!r}")
     if bad:
         raise NotImplementedError(

@@ -8,14 +8,20 @@ The port's copy of the host path of ``seist_tpu/data/pipeline.py``:
   ``idx < size``, augmented for ``idx >= size``). Every sample's RNG is
   ``default_rng(SeedSequence([seed, epoch, idx]))``, so batches are
   byte-identical to the JAX package's and independent of worker scheduling.
-* :func:`epoch_indices` — the seeded per-epoch permutation.
-* :class:`Loader` — thread-pool batch assembly with fixed shapes:
-  ``drop_last`` on train; eval pads the final batch and zeroes ``mask``
-  on the padding rows; :meth:`Loader.set_start_batch` begins an epoch
-  mid-way for a resumed run.
+  Every read goes through the data-plane guard (``data/io_guard.py``):
+  transient faults are retried, a corrupt sample is quarantined and
+  replaced by the ``(seed, epoch, idx)``-keyed fallback.
+* :func:`epoch_indices` / :func:`mixture_epoch_indices` — the seeded
+  per-epoch order, plain or temperature-weighted over the sources of a
+  mixture pack; :func:`_epoch_order` picks between them.
+* :class:`Loader` — batch assembly with fixed shapes by a thread pool, or
+  by worker processes (``worker_processes``, started by forkserver or
+  spawn): ``drop_last`` on train; eval pads the final batch and zeroes
+  ``mask`` on the padding rows; :meth:`Loader.set_start_batch` begins an
+  epoch mid-way for a resumed run. A worker that raises anything but a
+  sample fault surfaces as :class:`~io_guard.LoaderDeathError`.
 
-Not ported: the data-plane guard (retry/quarantine, fault injection),
-process-pool workers, host sharding, mixture sampling and the
+Not ported: host sharding (multi-GPU training) and the
 device-augmentation feeds. Batches stay numpy; the train loop moves them
 to the device.
 """
@@ -30,8 +36,11 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from seist_tpu_torch import taskspec
+from seist_tpu_torch.data import io_guard
+from seist_tpu_torch.data.base import Event
 from seist_tpu_torch.data.preprocess import DataPreprocessor
 from seist_tpu_torch.registry import DATASETS
+from seist_tpu_torch.utils import faults as faults_lib
 from seist_tpu_torch.utils.logger import logger
 
 Batch = collections.namedtuple(
@@ -59,6 +68,7 @@ class SeismicDataset:
         train_size: float = 0.8,
         val_size: float = 0.1,
         max_event_num: int = 1,
+        max_quarantine_frac: float = 0.05,
         dataset_kwargs: Optional[dict] = None,
         **preprocessor_kwargs,
     ) -> None:
@@ -88,6 +98,13 @@ class SeismicDataset:
         )
         logger.info(repr(self._dataset))
         self._dataset_size = len(self._dataset)
+        # The data-plane guard: this dataset's quarantine and the injector
+        # of SEIST_FAULT_IO_*, both fixed at construction.
+        self._quarantine = io_guard.Quarantine(
+            self._dataset_size, max_frac=float(max_quarantine_frac)
+        )
+        self._io_faults = faults_lib.IoFaultInjector.from_env()
+        self._io_faults_enabled = self._io_faults.enabled
         if self._augmentation:
             logger.warning(f"Data augmentation: Dataset size -> {self._dataset_size * 2}")
 
@@ -99,6 +116,70 @@ class SeismicDataset:
             max_event_num=max_event_num,
             soft_label_width=int(label_width_sec * self._dataset.sampling_rate()),
             **preprocessor_kwargs,
+        )
+
+    @property
+    def quarantine(self) -> io_guard.Quarantine:
+        return self._quarantine
+
+    @property
+    def io_faults(self) -> faults_lib.IoFaultInjector:
+        return self._io_faults
+
+    def quarantine_report(self) -> Dict[str, Any]:
+        """Epoch-end quarantine report (logged by the train worker)."""
+        return self._quarantine.report()
+
+    def source_ids(self) -> Optional[np.ndarray]:
+        """Per-LOGICAL-index source ids when the dataset is a mixture pack,
+        else None; doubled under augmentation (logical index ``n + i`` is
+        sample ``i``'s augmented copy, same source)."""
+        fn = getattr(self._dataset, "source_ids", None)
+        sids = fn() if callable(fn) else None
+        if sids is None:
+            return None
+        sids = np.asarray(sids)
+        return np.concatenate([sids, sids]) if self._augmentation else sids
+
+    def _fetch_event(self, raw_idx: int, *, idx: int) -> Tuple[Event, dict]:
+        """Guarded sample read. The fast path (nothing quarantined, no
+        injected faults) is one read and its validation; any failure falls
+        through to the retry/quarantine ladder of :meth:`_fetch_event_slow`."""
+        if not (self._quarantine.active or self._io_faults_enabled):
+            try:
+                event, meta = self._dataset[raw_idx]
+                io_guard.validate_event(event)
+                io_guard.COUNTERS.inc("reads")
+                return event, meta
+            except (OSError, io_guard.CorruptSampleError):
+                pass
+        return self._fetch_event_slow(raw_idx, idx=idx)
+
+    def _fetch_event_slow(self, raw_idx: int, *, idx: int) -> Tuple[Event, dict]:
+        """Transient faults retried; a permanently bad candidate
+        quarantined; the first clean candidate of the ``(seed, epoch,
+        idx)``-keyed fallback sequence taken."""
+        for cand in self._quarantine.candidates(
+            raw_idx, seed=self._seed, epoch=self._epoch, idx=idx
+        ):
+            try:
+                event, meta = io_guard.guarded_event_read(
+                    lambda c=cand: self._dataset[c],
+                    key=cand,
+                    desc=f"{self._dataset.name()}[{cand}]",
+                    injector=self._io_faults,
+                )
+            except io_guard.CorruptSampleError as e:
+                # Covers RetriesExhaustedError; add() raises
+                # QuarantineOverflowError past --max-quarantine-frac.
+                self._quarantine.add(cand, repr(e))
+                continue
+            if cand != raw_idx:
+                io_guard.COUNTERS.inc("fallback_reads")
+            return event, meta
+        raise io_guard.CorruptSampleError(
+            f"no clean fallback found for sample {raw_idx} "
+            f"(quarantined: {len(self._quarantine)}/{self._dataset_size})"
         )
 
     def sampling_rate(self) -> int:
@@ -115,7 +196,11 @@ class SeismicDataset:
         return 2 * self._dataset_size if self._augmentation else self._dataset_size
 
     def __getitem__(self, idx: int) -> Tuple[Any, Any, Dict[str, np.ndarray], str]:
-        event, meta_data = self._dataset[idx % self._dataset_size]
+        raw_idx = idx % self._dataset_size
+        if io_guard.enabled():
+            event, meta_data = self._fetch_event(raw_idx, idx=int(idx))
+        else:
+            event, meta_data = self._dataset[raw_idx]
         rng = np.random.default_rng(
             np.random.SeedSequence([self._seed, self._epoch, int(idx)])
         )
@@ -156,6 +241,72 @@ def epoch_indices(n: int, *, seed: int, epoch: int, shuffle: bool) -> np.ndarray
     return np.arange(n)
 
 
+# Keys the mixture-draw PRNG stream apart from the shuffle/fallback ones.
+_MIXTURE_SALT = 0x313C7
+
+
+def mixture_epoch_indices(
+    source_ids: np.ndarray, *, seed: int, epoch: int, temperature: float
+) -> np.ndarray:
+    """Temperature-weighted mixture order over a multi-source pack, under
+    the resume contract of :func:`epoch_indices`: a pure function of
+    (seed, epoch), ``len(source_ids)`` long.
+
+    Each slot draws its source with probability ``p_s ∝ (n_s / n)^(1/T)``
+    (T = 1: proportional; large T: uniform over sources) and takes the
+    next sample of that source's stream, a seeded permutation of its
+    members drawn again at every wrap: small sources are resampled evenly,
+    large ones subsampled without replacement."""
+    source_ids = np.asarray(source_ids)
+    n = int(source_ids.shape[0])
+    if temperature <= 0:
+        raise ValueError(f"mixture temperature must be > 0, got {temperature}")
+    counts = np.bincount(source_ids)
+    if counts.size < 2:
+        raise ValueError("mixture sampling needs >= 2 sources")
+    p = (counts / n) ** (1.0 / float(temperature))
+    p = np.where(counts > 0, p, 0.0)
+    p = p / p.sum()
+    rng = np.random.default_rng(np.random.SeedSequence([int(seed), int(epoch), _MIXTURE_SALT]))
+    choice = rng.choice(counts.size, size=n, p=p)
+    order = np.empty(n, np.int64)
+    for s in range(counts.size):
+        slots = np.flatnonzero(choice == s)
+        if slots.size == 0:
+            continue
+        members = np.flatnonzero(source_ids == s)
+        wraps = -(-slots.size // members.size)
+        stream = np.concatenate([
+            np.random.default_rng(
+                np.random.SeedSequence([int(seed), int(epoch), _MIXTURE_SALT, s, w])
+            ).permutation(members)
+            for w in range(wraps)
+        ])
+        order[slots] = stream[: slots.size]
+    return order
+
+
+def _epoch_order(
+    n: int,
+    *,
+    seed: int,
+    epoch: int,
+    shuffle: bool,
+    source_ids: Optional[np.ndarray] = None,
+    mixture_temperature: float = 0.0,
+) -> np.ndarray:
+    """The one epoch-order dispatcher: the seeded permutation, or the
+    temperature-weighted mixture order when a multi-source pack and a
+    temperature are given. Both are pure functions of (seed, epoch)."""
+    if mixture_temperature and source_ids is not None:
+        if len(source_ids) != n:
+            raise ValueError(f"source_ids has {len(source_ids)} entries for {n} samples")
+        return mixture_epoch_indices(
+            source_ids, seed=seed, epoch=epoch, temperature=mixture_temperature
+        )
+    return epoch_indices(n, seed=seed, epoch=epoch, shuffle=shuffle)
+
+
 def _stack(samples: List[Any]) -> Any:
     """Stack a list of per-sample structures (arrays / tuples of arrays)."""
     first = samples[0]
@@ -167,10 +318,16 @@ def _stack(samples: List[Any]) -> Any:
 class Loader:
     """Host-side batch loader with fixed shapes.
 
-    Each epoch: seeded permutation -> fixed-size batches assembled by a
-    thread pool (numpy releases the GIL for the heavy parts). Train drops
-    the tail (``drop_last``); eval pads the final batch by repeating its
-    last index and sets ``Batch.mask`` zeros on the padding rows.
+    Each epoch: the seeded order (:func:`_epoch_order`) -> fixed-size
+    batches. Train drops the tail (``drop_last``); eval pads the final
+    batch by repeating its last index and sets ``Batch.mask`` zeros on the
+    padding rows.
+
+    Workers: ``num_workers`` threads (numpy releases the GIL for the heavy
+    parts), or ``worker_processes > 0`` processes, each holding the dataset
+    pickled once, which sidesteps the GIL at the cost of per-sample IPC.
+    Batches are byte-identical either way: a sample's RNG comes from
+    (seed, epoch, idx), never from the worker.
     """
 
     def __init__(
@@ -181,7 +338,9 @@ class Loader:
         shuffle: bool = False,
         drop_last: bool = False,
         num_workers: int = 8,
+        worker_processes: int = 0,
         seed: int = 0,
+        mixture_temperature: float = 0.0,
     ) -> None:
         if batch_size <= 0:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
@@ -190,10 +349,40 @@ class Loader:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
+        self.worker_processes = max(0, worker_processes)
         self.seed = seed
+        # Mixture sampling (multi-source packs only); the per-sample
+        # source ids are fixed for the dataset's lifetime.
+        self.mixture_temperature = float(mixture_temperature or 0.0)
+        self._source_ids = None
+        if self.mixture_temperature > 0:
+            fn = getattr(dataset, "source_ids", None)
+            self._source_ids = fn() if callable(fn) else None
+            if self._source_ids is None:
+                raise ValueError(
+                    "mixture_temperature set but the dataset exposes no mixture "
+                    "sources (pack with python -m seist_tpu_torch pack --mixture)"
+                )
         self.epoch = 0
         self._start_batch = 0
         self._pool: Optional[ThreadPoolExecutor] = None
+        self._proc_pool = None
+        if self.worker_processes and io_guard.enabled():
+            # Each worker process holds its own copy of the dataset, so the
+            # quarantine and the counters accumulate per worker: the
+            # parent's epoch report undercounts and --max-quarantine-frac
+            # applies per worker. Replacement content stays the same.
+            logger.warning(
+                "worker_processes > 0: data-plane quarantine/counters are "
+                "tracked per worker process; parent-side epoch reports "
+                "undercount and the --max-quarantine-frac abort applies "
+                "per worker"
+            )
+        # One injector per pipeline: the dataset's, so a programmatic plan
+        # reaches the stall hook too.
+        self._io_faults = (
+            getattr(dataset, "io_faults", None) or faults_lib.IoFaultInjector.from_env()
+        )
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = int(epoch)
@@ -209,14 +398,22 @@ class Loader:
         self._start_batch = int(start_batch)
 
     def close(self) -> None:
-        """Release the worker pool; the loader stays usable."""
+        """Release the worker pools; the loader stays usable."""
         if self._pool is not None:
-            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool.shutdown(wait=False, cancel_futures=True)
             self._pool = None
+        if self._proc_pool is not None:
+            self._proc_pool.shutdown(wait=False, cancel_futures=True)
+            self._proc_pool = None
 
     def _indices(self) -> np.ndarray:
-        return epoch_indices(
-            len(self.dataset), seed=self.seed, epoch=self.epoch, shuffle=self.shuffle
+        return _epoch_order(
+            len(self.dataset),
+            seed=self.seed,
+            epoch=self.epoch,
+            shuffle=self.shuffle,
+            source_ids=self._source_ids,
+            mixture_temperature=self.mixture_temperature,
         )
 
     def __len__(self) -> int:
@@ -226,6 +423,50 @@ class Loader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def _fetch(self, chunk: np.ndarray) -> List[Any]:
+        """One batch's samples. Sample faults never reach here (the guarded
+        read retries and quarantines them); anything a worker still raises
+        is a loader death, wrapped as :class:`io_guard.LoaderDeathError`
+        for the train worker to checkpoint and preempt-exit. The deliberate
+        aborts (quarantine overflow, no clean fallback) pass through: they
+        must end the run, not start a relaunch loop."""
+        try:
+            return self._fetch_inner(chunk)
+        except (io_guard.QuarantineOverflowError, io_guard.CorruptSampleError):
+            raise
+        except Exception as e:
+            io_guard.COUNTERS.inc("loader_deaths")
+            raise io_guard.LoaderDeathError(
+                f"loader worker died fetching batch chunk "
+                f"[{int(chunk[0])}..{int(chunk[-1])}]: {e!r}"
+            ) from e
+
+    def _fetch_inner(self, chunk: np.ndarray) -> List[Any]:
+        if self.worker_processes:
+            if self._proc_pool is None:
+                import multiprocessing
+                from concurrent.futures import ProcessPoolExecutor
+
+                # forkserver or spawn, never fork: the pool starts from the
+                # prefetch thread of a process that has touched CUDA, and a
+                # forked child fails at its first CUDA call or inherits a
+                # lock held by another thread. The dataset is pickled once
+                # per worker, by the initializer.
+                try:
+                    ctx = multiprocessing.get_context("forkserver")
+                except ValueError:
+                    ctx = multiprocessing.get_context("spawn")
+                self._proc_pool = ProcessPoolExecutor(
+                    max_workers=self.worker_processes,
+                    mp_context=ctx,
+                    initializer=_proc_worker_init,
+                    initargs=(self.dataset,),
+                )
+            epoch = self.epoch
+            return list(self._proc_pool.map(
+                _proc_worker_getitem,
+                [(epoch, int(i)) for i in chunk],
+                chunksize=max(1, len(chunk) // self.worker_processes),
+            ))
         if self._pool is None:
             self._pool = ThreadPoolExecutor(
                 max_workers=self.num_workers, thread_name_prefix="seist-loader"
@@ -246,6 +487,9 @@ class Loader:
         indices = self._indices()
         start, self._start_batch = self._start_batch, 0  # one-shot
         for b in range(start, len(self)):
+            # SEIST_FAULT_IO_STALL_BATCH wedges the loader here: the stall
+            # watchdog's stand-in for a deadlocked pool or a hung mount.
+            self._io_faults.maybe_stall(b)
             chunk = indices[b * self.batch_size : (b + 1) * self.batch_size]
             pad = self.batch_size - len(chunk)
             if pad:
@@ -259,3 +503,20 @@ class Loader:
             if pad:
                 mask[-pad:] = 0.0
             yield Batch(inputs, loss_targets, metrics_targets, meta, mask)
+
+
+_PROC_DATASET: Optional[SeismicDataset] = None
+
+
+def _proc_worker_init(dataset: SeismicDataset) -> None:
+    global _PROC_DATASET
+    _PROC_DATASET = dataset
+
+
+def _proc_worker_getitem(epoch_idx):
+    """A worker process's sample fetch. The epoch rides along with every
+    index: the parent's ``set_epoch`` does not reach live workers, and the
+    sample RNG is seeded from (seed, epoch, idx)."""
+    epoch, idx = epoch_idx
+    _PROC_DATASET.set_epoch(epoch)
+    return _PROC_DATASET[idx]

@@ -20,6 +20,13 @@ Each file is written to a temporary name and moved into place with
 file exists is whole. A save at a step that exists replaces it. The
 best-val step is kept in ``best.json`` (atomic too), so retention never
 deletes it after a resume.
+
+A preempted run (SIGTERM, a loader death, a stalled loader) exits with
+:data:`PREEMPT_EXIT_CODE` after its checkpoint is durable;
+:func:`find_newest_checkpoint` is where a supervisor resumes it. torch is
+imported inside the functions that use it, so the supervisor
+(``python -m seist_tpu_torch supervise``), which needs only those two
+names, stays stdlib-only.
 """
 
 from __future__ import annotations
@@ -27,11 +34,14 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Any, Dict, List, Optional
-
-import torch
+from typing import Any, Dict, List, Optional, Tuple
 
 from seist_tpu_torch.utils.logger import logger
+
+#: sysexits EX_TEMPFAIL: "checkpointed, relaunch me" (the JAX package's
+#: ``seist_tpu/train/checkpoint.py`` value and ``tools/supervise.py``'s
+#: contract).
+PREEMPT_EXIT_CODE = 75
 
 #: The resume meta: ``data_epoch`` / ``data_batch_offset`` are the NEXT
 #: batch to consume (the shuffle order is a pure function of (seed,
@@ -52,7 +62,31 @@ RESUME_META = {
 _WEIGHTS = re.compile(r"^model_(\d+)\.pt$")
 
 
+def find_newest_checkpoint(log_base: str) -> Optional[str]:
+    """The newest ``*/checkpoints/model_<step>.pt`` under ``log_base``
+    whose ``state_<step>.pt`` exists, by mtime (the step number breaks
+    ties within one mtime); None when there is none. Only a whole
+    checkpoint counts: the state file is written first."""
+    newest: Optional[str] = None
+    newest_key: Tuple[float, int] = (-1.0, -1)
+    for dirpath, _, filenames in os.walk(log_base):
+        if os.path.basename(dirpath) != "checkpoints":
+            continue
+        names = set(filenames)
+        for name in filenames:
+            m = _WEIGHTS.match(name)
+            if not m or f"state_{m.group(1)}.pt" not in names:
+                continue
+            path = os.path.join(dirpath, name)
+            key = (os.path.getmtime(path), int(m.group(1)))
+            if key > newest_key:
+                newest, newest_key = path, key
+    return newest
+
+
 def _to_cpu(obj: Any) -> Any:
+    import torch
+
     if torch.is_tensor(obj):
         return obj.detach().cpu()
     if isinstance(obj, dict):
@@ -63,6 +97,8 @@ def _to_cpu(obj: Any) -> Any:
 
 
 def _atomic_torch_save(obj: Any, path: str) -> None:
+    import torch
+
     tmp = f"{path}.tmp.{os.getpid()}"
     torch.save(obj, tmp)
     os.replace(tmp, path)
@@ -77,7 +113,9 @@ def state_path_for(weights_path: str) -> str:
     return os.path.join(d, f"state_{m.group(1)}.pt")
 
 
-def load_weights(path: str) -> Dict[str, torch.Tensor]:
+def load_weights(path: str) -> Dict[str, Any]:
+    import torch
+
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
@@ -91,6 +129,8 @@ def load_checkpoint(weights_path: str, state) -> Dict[str, Any]:
             f"{weights_path} has no train state beside it ({spath}): a weights-only "
             "file can be tested or served, not resumed"
         )
+    import torch
+
     record = torch.load(spath, map_location="cpu", weights_only=True)
     state.model.load_state_dict(load_weights(weights_path), strict=True)
     state.optimizer.load_state_dict(record["optimizer"])

@@ -25,9 +25,26 @@ package reads it a few steps late).
 ``test_results_<split>.csv`` and ``test_metrics_<dataset>.json`` to the
 run's log directory without overwriting earlier ones.
 
+Preemption and the data plane: SIGTERM (a cluster manager's notice) only
+sets a flag; at the next step boundary, once the step's device work is
+done, the run saves ``model_<step>.pt`` and ``state_<step>.pt`` and exits
+with :data:`~seist_tpu_torch.train.checkpoint.PREEMPT_EXIT_CODE` (75), for
+``python -m seist_tpu_torch supervise`` to relaunch from that checkpoint.
+The flag is read before each step's dispatch as well as after it, so a
+SIGTERM that arrives while the loop waits for a batch (or the injected
+``SEIST_FAULT_SIGTERM_STEP=k``) checkpoints at step k with k updates done;
+the JAX package reads it after the step only. A loader death
+(``io_guard.LoaderDeathError``) checkpoints the position reached and
+exits 75 through ``os._exit``, since wedged pool threads could hang a
+normal exit. The stall watchdog (``--data-watchdog-sec``) is armed only
+while the loop waits on the prefetch queue: never during a step, a kernel
+build or a save. Each epoch logs the quarantine report and the guard's
+counters; the test metrics JSON carries them as ``data_plane``. The
+``SEIST_FAULT_*`` injector (``utils/faults.py``) fires at step starts.
+
 Not ported: the scanned multi-step, accumulation and device-augmentation
-step variants, SIGTERM preemption, the data-plane watchdog, train-time
-metrics and the telemetry plane (``ROADMAP.md``).
+step variants, train-time metrics and the telemetry plane
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -35,6 +52,8 @@ from __future__ import annotations
 import json
 import os
 import queue
+import signal
+import sys
 import threading
 import time
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
@@ -43,13 +62,18 @@ import numpy as np
 import torch
 
 from seist_tpu_torch import taskspec
-from seist_tpu_torch.data import pipeline
+from seist_tpu_torch.data import io_guard, pipeline
 from seist_tpu_torch.models import api
 from seist_tpu_torch.ops.metrics import Metrics
 from seist_tpu_torch.ops.postprocess import process_outputs
 from seist_tpu_torch.ops.results import ResultSaver
 from seist_tpu_torch.serve.pool import resolve_device
-from seist_tpu_torch.train.checkpoint import CheckpointManager, load_checkpoint, load_weights
+from seist_tpu_torch.train.checkpoint import (
+    PREEMPT_EXIT_CODE,
+    CheckpointManager,
+    load_checkpoint,
+    load_weights,
+)
 from seist_tpu_torch.train.optim import build_optimizer
 from seist_tpu_torch.train.schedule import build_cyclic_schedule, constant
 from seist_tpu_torch.train.step import (
@@ -59,8 +83,51 @@ from seist_tpu_torch.train.step import (
     move_batch,
     step_random_source,
 )
+from seist_tpu_torch.utils import faults as faults_lib
 from seist_tpu_torch.utils.logger import logger
 from seist_tpu_torch.utils.misc import get_safe_path
+
+
+class _PreemptionHandler:
+    """SIGTERM -> checkpoint at the next step boundary -> exit 75.
+
+    The handler only sets a flag; the train loop reads it between steps.
+    A context manager; outside the main thread (a test driving the worker
+    from a thread) no handler can be installed and it stays inert."""
+
+    def __init__(self):
+        self.triggered = False
+        self._prev = None
+        self._installed = False
+
+    def __enter__(self) -> "_PreemptionHandler":
+        if threading.current_thread() is threading.main_thread():
+            def _on_term(signum, frame):
+                self.triggered = True
+                logger.warning(
+                    "SIGTERM received: will checkpoint at the next step "
+                    f"boundary and exit {PREEMPT_EXIT_CODE}"
+                )
+
+            self._prev = signal.signal(signal.SIGTERM, _on_term)
+            self._installed = True
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._installed:
+            signal.signal(signal.SIGTERM, self._prev)
+            self._installed = False
+
+
+def _mixture_temperature(args: Any, mode: str) -> float:
+    """--mixture-temperature applies to TRAIN sampling only: evaluation
+    walks every split plainly, so its metrics stay comparable."""
+    return float(args.mixture_temperature or 0.0) if mode == "train" else 0.0
+
+
+def _start_watchdog(args: Any) -> Optional[io_guard.StallWatchdog]:
+    timeout = float(args.data_watchdog_sec or 0.0)
+    return io_guard.StallWatchdog(timeout).start() if timeout > 0 else None
 
 
 def _build_loader(args: Any, spec: taskspec.TaskSpec, mode: str) -> pipeline.Loader:
@@ -96,6 +163,7 @@ def _build_loader(args: Any, spec: taskspec.TaskSpec, mode: str) -> pipeline.Loa
         soft_label_shape=args.label_shape,
         label_width=args.label_width,
         dataset_kwargs=args.dataset_kwargs,
+        max_quarantine_frac=float(args.max_quarantine_frac),
     )
     return pipeline.Loader(
         sds,
@@ -103,7 +171,12 @@ def _build_loader(args: Any, spec: taskspec.TaskSpec, mode: str) -> pipeline.Loa
         shuffle=(mode == "train" and args.shuffle),
         drop_last=(mode == "train"),
         num_workers=args.workers,
+        # Processes only where throughput matters: a second resident pool,
+        # each child holding the dataset, is memory cost for the short
+        # eval passes.
+        worker_processes=int(args.loader_processes or 0) if mode == "train" else 0,
         seed=args.seed,
+        mixture_temperature=_mixture_temperature(args, mode),
     )
 
 
@@ -186,16 +259,18 @@ def validate(
     *,
     testing: bool = False,
     save_results: bool = False,
+    watchdog: Optional[io_guard.StallWatchdog] = None,
 ) -> Tuple[float, Dict[str, Metrics]]:
     """Mean loss over the real (unpadded) samples and the per-task metrics
     of the decoded outputs, trimmed to those samples; at test time,
-    optionally the results CSV in ``args.log_dir``."""
+    optionally the results CSV in ``args.log_dir``. ``watchdog`` is armed
+    while the loop waits for a batch."""
     tasks = list(spec.eval)
     fs = loader.dataset.sampling_rate()
     metrics = _make_metrics(args, tasks, fs)
     saver = ResultSaver(item_names=tasks) if save_results else None
     total, count = 0.0, 0
-    for batch in _prefetch(loader):
+    for batch in io_guard.watch(_prefetch(loader), watchdog):
         mask = torch.from_numpy(batch.mask).to(device)
         loss, outputs = eval_step(
             state, move_batch(batch.inputs, device), move_batch(batch.loss_targets, device), mask
@@ -326,6 +401,10 @@ def train_worker(args: Any) -> str:
 
     save_every = int(args.save_interval_steps)
     max_bad = int(args.max_bad_steps)
+    faults = faults_lib.FaultInjector.from_env()
+    if faults.enabled:
+        logger.warning(f"Fault injection ACTIVE: {faults.plan}")
+    watchdog = _start_watchdog(args)
 
     def save(gstep: int, epoch: int, batches_done: int, val_loss: Optional[float] = None) -> str:
         """Checkpoint at global batch ``gstep``; the data position saved is
@@ -340,93 +419,158 @@ def train_worker(args: Any) -> str:
             val_loss=val_loss, best_loss=best_loss, patience=patience,
         )
 
+    def preempt_exit(epoch: int, batches_done: int, hard: bool = False) -> None:
+        """Make the checkpoint of the position reached durable, then exit
+        75. ``hard`` (a loader death) ends in ``os._exit``: the loader's
+        pool threads are not daemons, and one wedged in a dead read would
+        hang ``sys.exit``; the watchdog stays armed in case the save
+        wedges too."""
+        if watchdog is not None and not hard:
+            watchdog.stop()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        gstep = epoch * steps_per_epoch + batches_done
+        path = save(gstep, epoch, batches_done)
+        logger.warning(f"Preempted: checkpoint step {gstep} durable ({path}); "
+                       f"exiting {PREEMPT_EXIT_CODE}")
+        if hard:
+            io_guard.hard_exit(PREEMPT_EXIT_CODE)
+        sys.exit(PREEMPT_EXIT_CODE)
+
+    def loader_death_exit(e: io_guard.LoaderDeathError, epoch: int, batches_done: int) -> None:
+        """The device and the weights are healthy: checkpoint and exit 75
+        so a relaunch starts with a fresh data plane."""
+        logger.error(f"Loader worker death: {e}; dumping thread stacks and "
+                     "preempt-exiting for supervised relaunch")
+        io_guard.dump_thread_stacks()
+        if watchdog is not None:
+            watchdog.arm()  # the escalation if the save below hangs
+        preempt_exit(epoch, batches_done, hard=True)
+
     train_losses: List[float] = []
     val_losses: List[float] = []
     skipped, bad_run = 0, 0
-    for epoch in range(start_epoch, epochs):
-        t_epoch = time.perf_counter()
-        train_loader.set_epoch(epoch)
-        skip = start_batch if epoch == start_epoch else 0
-        if skip:
-            train_loader.set_start_batch(skip)
-            logger.info(f"Mid-epoch resume: epoch {epoch} from batch {skip}")
-        epoch_losses: List[torch.Tensor] = []
-        for step, batch in enumerate(_prefetch(train_loader), start=skip):
-            gstep = epoch * steps_per_epoch + step
-            rng = step_random_source(args.seed, epoch, state.step, device)
-            loss, _, diag = train_step(
-                state,
-                move_batch(batch.inputs, device),
-                move_batch(batch.loss_targets, device),
-                rng,
-            )
-            epoch_losses.append(loss)
-            if diag:
-                if diag["applied"]:
-                    bad_run = 0
-                else:
-                    skipped, bad_run = skipped + 1, bad_run + 1
-                    logger.warning(
-                        f"Bad-update guard skipped step {gstep} (loss {float(loss):.4e}, "
-                        f"grad-norm {diag['grad_norm']:.4e}; consecutive run: {bad_run})"
-                    )
-                if max_bad and bad_run >= max_bad:
-                    step_r = ckpt_mgr.latest_step()
-                    if step_r is None:
-                        raise RuntimeError(
-                            f"{bad_run} consecutive non-finite updates and no checkpoint to "
-                            "roll back to — aborting (enable --save-interval-steps for "
-                            "rollback coverage)"
-                        )
-                    logger.warning(
-                        f"Bad-update guard: {bad_run} consecutive non-finite updates; "
-                        f"rolling back to checkpoint step {step_r}"
-                    )
-                    ckpt_mgr.restore(state, step_r)
-                    bad_run = 0
-            if save_every and (step + 1) % save_every == 0:
-                save(gstep + 1, epoch, step + 1)
-            if step % args.log_step == 0:
-                logger.info(
-                    f"{args.model_name}_train epoch {epoch} step {step}/{steps_per_epoch} "
-                    f"loss {float(loss):.4e} lr {schedule(max(state.step - 1, 0)):.3e}"
-                )
-        losses = [float(x) for x in torch.stack(epoch_losses).cpu()] if epoch_losses else []
-        train_losses.extend(losses)
-        finite = [x for x in losses if np.isfinite(x)]
-        epoch_train_loss = float(np.mean(finite)) if finite else 0.0
+    preempt = _PreemptionHandler().__enter__()
+    try:
+        for epoch in range(start_epoch, epochs):
+            t_epoch = time.perf_counter()
+            train_loader.set_epoch(epoch)
+            skip = start_batch if epoch == start_epoch else 0
+            if skip:
+                train_loader.set_start_batch(skip)
+                logger.info(f"Mid-epoch resume: epoch {epoch} from batch {skip}")
+            epoch_losses: List[torch.Tensor] = []
+            batches_done = skip
 
-        val_loss, _ = validate(args, state, eval_step, spec, val_loader, device)
-        val_losses.append(val_loss)
-        if val_loss < best_loss:
-            best_loss, patience = val_loss, 0
-            best_path = save((epoch + 1) * steps_per_epoch, epoch, steps_per_epoch, val_loss)
-            logger.info(f"Best val loss {val_loss:.4e}: saved {best_path}")
-        else:
-            patience += 1
-            if patience > args.patience:
-                logger.info(
-                    f"Early stopping at epoch {epoch} "
-                    f"(no val improvement in {args.patience} epochs)"
+            def on_death(e: io_guard.LoaderDeathError) -> None:
+                loader_death_exit(e, epoch, batches_done)
+
+            batches = io_guard.watch(_prefetch(train_loader), watchdog, on_death=on_death)
+            for step, batch in enumerate(batches, start=skip):
+                gstep = epoch * steps_per_epoch + step
+                faults.on_step(gstep)
+                if preempt.triggered:  # before this step's dispatch
+                    preempt_exit(epoch, step)
+                rng = step_random_source(args.seed, epoch, state.step, device)
+                loss, _, diag = train_step(
+                    state,
+                    faults.corrupt_inputs(gstep, move_batch(batch.inputs, device)),
+                    move_batch(batch.loss_targets, device),
+                    rng,
                 )
-                break
-        logger.info(
-            f"Epoch {epoch}: train-loss {epoch_train_loss:.4e} val-loss {val_loss:.4e} "
-            f"best {best_loss:.4e} time {time.perf_counter() - t_epoch:.1f} s"
-        )
+                batches_done = step + 1
+                epoch_losses.append(loss)
+                if diag:
+                    if diag["applied"]:
+                        bad_run = 0
+                    else:
+                        skipped, bad_run = skipped + 1, bad_run + 1
+                        logger.warning(
+                            f"Bad-update guard skipped step {gstep} (loss {float(loss):.4e}, "
+                            f"grad-norm {diag['grad_norm']:.4e}; consecutive run: {bad_run})"
+                        )
+                    if max_bad and bad_run >= max_bad:
+                        step_r = ckpt_mgr.latest_step()
+                        if step_r is None:
+                            raise RuntimeError(
+                                f"{bad_run} consecutive non-finite updates and no checkpoint to "
+                                "roll back to — aborting (enable --save-interval-steps for "
+                                "rollback coverage)"
+                            )
+                        logger.warning(
+                            f"Bad-update guard: {bad_run} consecutive non-finite updates; "
+                            f"rolling back to checkpoint step {step_r}"
+                        )
+                        ckpt_mgr.restore(state, step_r)
+                        bad_run = 0
+                if save_every and (step + 1) % save_every == 0:
+                    save(gstep + 1, epoch, step + 1)
+                if preempt.triggered:  # SIGTERM during the step
+                    preempt_exit(epoch, step + 1)
+                if step % args.log_step == 0:
+                    logger.info(
+                        f"{args.model_name}_train epoch {epoch} step {step}/{steps_per_epoch} "
+                        f"loss {float(loss):.4e} lr {schedule(max(state.step - 1, 0)):.3e}"
+                    )
+            losses = [float(x) for x in torch.stack(epoch_losses).cpu()] if epoch_losses else []
+            train_losses.extend(losses)
+            finite = [x for x in losses if np.isfinite(x)]
+            epoch_train_loss = float(np.mean(finite)) if finite else 0.0
+
+            # The data plane's epoch report: a slowly rotting dataset shows
+            # long before --max-quarantine-frac aborts the run.
+            q_report = train_loader.dataset.quarantine_report()
+            if q_report["quarantined"]:
+                logger.warning(
+                    f"[data-plane] epoch {epoch} quarantine report: {json.dumps(q_report)}"
+                )
+            if io_guard.COUNTERS.any_faults():
+                logger.info(f"[data-plane] counters: {io_guard.COUNTERS.snapshot()}")
+
+            try:
+                val_loss, _ = validate(args, state, eval_step, spec, val_loader, device,
+                                       watchdog=watchdog)
+            except io_guard.LoaderDeathError as e:
+                loader_death_exit(e, epoch, steps_per_epoch)
+            val_losses.append(val_loss)
+            if val_loss < best_loss:
+                best_loss, patience = val_loss, 0
+                best_path = save((epoch + 1) * steps_per_epoch, epoch, steps_per_epoch, val_loss)
+                logger.info(f"Best val loss {val_loss:.4e}: saved {best_path}")
+            else:
+                patience += 1
+                if patience > args.patience:
+                    logger.info(
+                        f"Early stopping at epoch {epoch} "
+                        f"(no val improvement in {args.patience} epochs)"
+                    )
+                    break
+            if preempt.triggered:  # SIGTERM during validation
+                preempt_exit(epoch, steps_per_epoch)
+            logger.info(
+                f"Epoch {epoch}: train-loss {epoch_train_loss:.4e} val-loss {val_loss:.4e} "
+                f"best {best_loss:.4e} time {time.perf_counter() - t_epoch:.1f} s"
+            )
+    finally:
+        preempt.__exit__()
+        if watchdog is not None:
+            watchdog.stop()
+        train_loader.close()
+        val_loader.close()
+    if io_guard.COUNTERS.any_faults():
+        logger.info(f"[data-plane] run counters: {io_guard.COUNTERS.snapshot()}")
     if skipped:
         logger.warning(f"Bad-update guard skipped {skipped} non-finite update(s) this run")
     np.save(os.path.join(args.log_dir, "train_losses.npy"), np.asarray(train_losses))
     np.save(os.path.join(args.log_dir, "val_losses.npy"), np.asarray(val_losses))
-    train_loader.close()
-    val_loader.close()
     return best_path
 
 
 def test_worker(args: Any) -> float:
     """Test ``--checkpoint``'s weights on the held-out split; writes the
-    results CSV (with ``--save-test-results``) and the metrics JSON to
-    ``args.log_dir``; returns the test loss."""
+    results CSV (with ``--save-test-results``) and the metrics JSON, with
+    the data plane's counters over the test run, to ``args.log_dir``;
+    returns the test loss."""
     if not args.checkpoint:
         raise ValueError("test mode requires --checkpoint")
     device = resolve_device(args.device)
@@ -441,13 +585,28 @@ def test_worker(args: Any) -> float:
     logger.info(f"Loaded checkpoint: {args.checkpoint}")
     state = TrainState(model.to(device))
     eval_step = make_eval_step(loss_fn, compute_dtype=args.dtype)
-    loss, metrics = validate(args, state, eval_step, spec, test_loader, device,
-                             testing=True, save_results=args.save_test_results)
+    # The same stall protection as training; a loader death here simply
+    # propagates: there is no train state to checkpoint.
+    watchdog = _start_watchdog(args)
+    start = io_guard.COUNTERS.snapshot()
+    try:
+        loss, metrics = validate(args, state, eval_step, spec, test_loader, device,
+                                 testing=True, save_results=args.save_test_results,
+                                 watchdog=watchdog)
+    finally:
+        if watchdog is not None:
+            watchdog.stop()
     payload = {
         "model": args.model_name,
         "dataset": args.dataset_name,
         "loss": float(loss),
         "metrics": {task: m.get_metrics(m.metric_names()) for task, m in metrics.items()},
+        # The guard's counters over this test run, and the test split's
+        # quarantine report.
+        "data_plane": {
+            "counters": {k: v - start[k] for k, v in io_guard.COUNTERS.snapshot().items()},
+            "quarantine": test_loader.dataset.quarantine_report(),
+        },
     }
     out_json = get_safe_path(os.path.join(args.log_dir, f"test_metrics_{args.dataset_name}.json"))
     with open(out_json, "w") as f:

@@ -1,6 +1,7 @@
 """The port stands alone: seist_tpu_torch imports neither jax, flax nor
-seist_tpu, nor pandas or h5py (the machine with the card has neither), and
-its entry points do not fall back to the CPU silently."""
+seist_tpu, nor pandas, h5py or ml_dtypes (the machine with the card has
+none of them), and its entry points do not fall back to the CPU silently.
+The supervisor imports the standard library only."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "seist_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "seist_tpu", "pandas", "h5py")
+FORBIDDEN = ("jax", "jaxlib", "flax", "seist_tpu", "pandas", "h5py", "ml_dtypes")
 
 
 def _modules():
@@ -57,6 +58,15 @@ def test_source_imports_nothing_of_jax_or_seist_tpu(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+
+
+def test_the_supervisor_imports_no_torch():
+    code = ("import sys, seist_tpu_torch.supervise\n"
+            "assert 'torch' not in sys.modules and 'numpy' not in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for():

@@ -241,14 +241,16 @@ def test_use_checkpoint_and_unported_flags_raise():
         tapi.create_model(MODEL, in_samples=WINDOW, use_checkpoint=True)
     base = ["--dataset-name", "synthetic"]
     for extra in (["--grad-accum-steps", "2"], ["--steps-per-call", "4"],
-                  ["--device-aug", "step"], ["--seq-shards", "2"],
-                  ["--loader-processes", "2"], ["--mixture-temperature", "1.0"]):
+                  ["--device-aug", "step"], ["--seq-shards", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             cli.get_args(base + extra)
     with pytest.raises(ValueError, match="train_test"):
         cli.get_args(base + ["--mode", "serve"])
-    with pytest.raises(NotImplementedError, match="dataset-name"):
-        cli.get_args([])  # the JAX CLI's default dataset is not ported
+    with pytest.raises(NotImplementedError, match="dataset-name.*tools.pack_dataset"):
+        cli.get_args([])  # the JAX CLI's default dataset is HDF5: read as a pack
+    args = cli.get_args(["--dataset-name", "packed", "--loader-processes", "2",
+                         "--mixture-temperature", "1.0"])
+    assert (args.loader_processes, args.mixture_temperature) == (2, 1.0)
     assert cli.get_args(base + ["--steps-per-call", "1"]).device == "cuda"
 
 
