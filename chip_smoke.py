@@ -56,14 +56,27 @@ non-zero before the last line):
    bound (bytes, or operations at the faster of fp32 on the CUDA cores and
    3xTF32 on the tensor cores, both printed), the model's
    forward per batch bucket, and the train step at batch 64 and 256 with
-   its peak memory, in fp32 and bf16; K2 in bf16 per shape beside SDPA's
+   its peak memory, in fp32 and bf16, eager and captured as a CUDA graph
+   (with the capture's seconds); K2 in bf16 per shape beside SDPA's
    bf16 backward and its bound at the bf16 tensor-core rate; profile a
-   batch-8 forward and a batch-64 train step in fp32 and bf16; time K1 with
+   batch-8 forward and a batch-64 train step in fp32 and bf16, eager and
+   captured; time K1 with
    and without two warps sharing a row group where its planner shares them;
    the train Loader's waveforms/s at window 8192 with augmentation on over
    2048 synthetic events, on the synthetic dataset and its float32, bfloat16
    and int8 packs, at batch 64 and 500, with 8 threads and with 4 processes,
-   beside the fp32 train step's consumption at b64 and b256.
+   beside the fp32 train step's consumption at b64 and b256;
+9. the captured step (``train/graph.py``), which every train path above
+   already runs: at batch 64, drop rates 0.3, fp32, six captured steps
+   against six eager ones from the same weights, batches and (seed,
+   epoch, step): losses within RESUME_RTOL and the output-projection
+   dropout's zero pattern of the first attention block identical at every
+   step and new at each; a NaN batch through the graph leaves every state
+   tensor bitwise; one replay under ``torch.profiler`` (K1 and K2 five
+   times each where it traces graph kernels); and ``train_test`` with
+   ``--steps-per-call 2`` (losses against phase 6's pair means) and with
+   ``--grad-accum-steps 2 --batch-size 32`` through the train entry, plain
+   versions patched to raise, the replays' launches counted.
 
 It prints one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -74,6 +87,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import gc
 import io
 import json
 import logging
@@ -112,7 +126,15 @@ from seist_tpu_torch.train.checkpoint import (
     find_newest_checkpoint,
     state_path_for,
 )
-from seist_tpu_torch.train.step import TrainState, make_eval_step, make_train_step, move_batch
+from seist_tpu_torch.models.seist import AttentionBlock
+from seist_tpu_torch.train.graph import capture_train_step
+from seist_tpu_torch.train.step import (
+    TrainState,
+    make_eval_step,
+    make_train_step,
+    move_batch,
+    step_random_source,
+)
 from seist_tpu_torch.utils.logger import logger
 
 MODEL = "seist_l_dpk"
@@ -207,6 +229,13 @@ def check_spills(name: str, log: str) -> None:
         ep = re.search(r",(\d+)>", kern)
         if spill and ep and int(ep.group(1)) <= 32:
             fail(f"{kern} spills {spill} bytes of registers")
+
+
+def allocated_gib() -> float:
+    """Memory allocated on the card, after a garbage collection."""
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() / 2**30
 
 
 def fail(msg: str) -> None:
@@ -947,7 +976,8 @@ def time_shapes(shapes, dev) -> List[dict]:
             q, k, v = qkv(BATCH, l, m, h, e, dtype, 500 + i, dev)
             scale = 1.0 / math.sqrt(e)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            fns = {"ms": lambda: kernel(q, k, v), "plain_ms": lambda: plain(q, k, v),
+            seed = pa.seed_tensor(0, dev)  # made once: the timed call is K1's launch alone
+            fns = {"ms": lambda: kernel(q, k, v, seed=seed), "plain_ms": lambda: plain(q, k, v),
                    "library_ms": lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                                         scale=scale)}
             row = {"L": l, "M": m, "H": h, "E": e, "dtype": name}
@@ -980,12 +1010,13 @@ def time_bwd_shapes(shapes, dev, dtype=torch.float32) -> List[dict]:
     peak = PEAK_BF16_S if dtype == torch.bfloat16 else PEAK_FP32_S
     for i, (l, m, h, e) in enumerate(shapes):
         q, k, v, g = qkvg(TRAIN_BATCH, l, m, h, e, dtype, 800 + i, dev)
-        o, lse = kernel(q, k, v, 0.3, 5, with_lse=True)
+        seed = pa.seed_tensor(5, dev)  # made once: the timed call is K2's launch alone
+        o, lse = kernel(q, k, v, 0.3, seed, with_lse=True)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         scale = 1.0 / math.sqrt(e)
         ot = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
         gt = g.transpose(1, 2)
-        fns = {"ms": lambda: kernel_bwd(q, k, v, g, o, lse, 0.3, 5),
+        fns = {"ms": lambda: kernel_bwd(q, k, v, g, o, lse, 0.3, seed),
                "plain_ms": lambda: plain_bwd(q, k, v, g, o, lse, 0.3, 5),
                "library_ms": lambda: torch.autograd.grad(ot, (qt, kt, vt), gt,
                                                          retain_graph=True)}
@@ -1013,13 +1044,14 @@ def time_ksplit(shapes, dev) -> List[dict]:
     rows = []
     for n, l, m, h, e in cases:
         q, k, v = qkv(n, l, m, h, e, torch.float32, 900 + l, dev)
+        seed = pa.seed_tensor(0, dev)
         sms = _kernels.sm_count(dev)
         row = {"N": n, "L": l, "M": m, "H": h, "E": e, "plan": real(n, l, m, h, sms),
                "plan1": one_warp(n, l, m, h, sms), "ms": [], "ms1": []}
         for key in ("ms", "ms1", "ms1", "ms"):
             _kernels.fwd_plan = one_warp if key == "ms1" else real
             try:
-                row[key].append(device_ms(lambda: kernel(q, k, v)))
+                row[key].append(device_ms(lambda: kernel(q, k, v, seed=seed)))
                 if max_err(kernel(q, k, v), plain(q, k, v)) > FP32_TOL:
                     fail(f"K1 with the plan {_kernels.fwd_plan(n, l, m, h, sms)} "
                          f"disagrees with plain at {(n, l, m, h, e)}")
@@ -1029,16 +1061,26 @@ def time_ksplit(shapes, dev) -> List[dict]:
     return rows
 
 
-def time_train_step(weights: str, batch: int, steps: int = 5, dtype: str = "fp32") -> dict:
-    """Forward, backward and update of seist_l_dpk (its drop rates 0.3) at
-    ``batch`` in the compute ``dtype``: host wall time per step over
-    ``steps`` steps after two warm ones, each step ending in the guard's
-    host read; peak memory."""
+def time_train_step(weights: str, batch: int, steps: int = 5, dtype: str = "fp32",
+                    captured: bool = False) -> dict:
+    """Forward, backward and guarded update of seist_l_dpk (its drop rates
+    0.3) at ``batch`` in the compute ``dtype``, eager or as the captured
+    graph the train worker runs: host wall time per step over ``steps``
+    steps after two warm ones (the first captures), the steps queued
+    without a host read between them; peak memory above what was
+    allocated before (the model, the optimizer, the step's activations,
+    and for the graph its warm-up's snapshot and its pool); capture
+    seconds."""
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     model = api.create_model(MODEL, in_samples=WINDOW, seed=SEED)
     model.load_state_dict(torch.load(weights, map_location="cpu", weights_only=True))
     model.cuda()
     state = TrainState(model, build_optimizer("adam", model.parameters()), constant(1e-4))
     step = make_train_step(taskspec.make_loss(MODEL), compute_dtype=dtype)
+    if captured:
+        step = capture_train_step(step)
     g = torch.Generator().manual_seed(batch)
     x = torch.randn(batch, WINDOW, 3, generator=g).cuda()
     y = torch.rand(batch, WINDOW, 3, generator=g).cuda()
@@ -1052,7 +1094,9 @@ def time_train_step(weights: str, batch: int, steps: int = 5, dtype: str = "fp32
         step(state, x, y, RandomSource.from_seed(10 + i, "cuda"))
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / steps
-    return {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+    return {"ms": ms, "peak_gib": (torch.cuda.max_memory_allocated() - before) / 2**30,
+            "before_gib": before / 2**30,
+            "capture_s": step.graphs.capture_seconds[0] if captured else None,
             "state": state, "step": step, "x": x, "y": y}
 
 
@@ -1185,6 +1229,178 @@ def loader_phase(name_power: str, step_ms: Dict[int, float]) -> List[dict]:
     return rows
 
 
+# ------------------------------------------------------------- phase 9
+CAPTURE_STEPS = 6  # captured against eager steps, from the same state
+
+
+def _dropout_pattern(model: torch.nn.Module, dev) -> Tuple[torch.Tensor, list]:
+    """A buffer that holds, after each step, the zero pattern of the first
+    attention block's output-projection dropout: written by a copy in a
+    forward hook, which a captured step captures and replays."""
+    att = next(m for m in model.modules() if isinstance(m, AttentionBlock))
+    holder: list = []
+
+    def hook(module, inputs, out):
+        if not module.training:
+            return
+        if not holder:
+            holder.append(torch.zeros(out.shape, dtype=torch.bool, device=dev))
+        holder[0].copy_(out == 0)
+
+    att.proj_drop.register_forward_hook(hook)
+    return att, holder
+
+
+def _train_model(weights: str, dev):
+    """seist_l_dpk from phase 5's seeded weights, its drop rates 0.3, with
+    Adam at a constant 1e-4 (the weights keep the activations O(1), so
+    the dropout's zeros are its own)."""
+    model = api.create_model(MODEL, in_samples=WINDOW, seed=SEED)
+    model.load_state_dict(torch.load(weights, map_location="cpu", weights_only=True))
+    model.to(dev)
+    return TrainState(model, build_optimizer("adam", model.parameters()), constant(1e-4))
+
+
+def _state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
+    """Everything an update changes but the gradients: parameters,
+    BatchNorm statistics, Adam's moments and step counters, the count."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    for i, st in state.optimizer.state_dict()["state"].items():
+        out.update({f"adam.{i}.{k}": v for k, v in st.items()})
+    out["count"] = state.count
+    return {k: v.detach().clone() for k, v in out.items()}
+
+
+def captured_vs_eager(weights: str, dev) -> dict:
+    """Phase 9a-b: CAPTURE_STEPS captured steps against as many eager ones
+    from the same weights, batches and (seed, epoch, step); then a NaN
+    batch through the captured step."""
+    loss_fn = taskspec.make_loss(MODEL)
+    g = torch.Generator().manual_seed(SEED + 9)
+    xs = [torch.randn(TRAIN_BATCH, WINDOW, 3, generator=g).to(dev) for _ in range(CAPTURE_STEPS)]
+    ys = [torch.rand(TRAIN_BATCH, WINDOW, 3, generator=g).to(dev) for _ in range(CAPTURE_STEPS)]
+    runs = {}
+    for mode in ("eager", "captured"):
+        state = _train_model(weights, dev)
+        att, pattern = _dropout_pattern(state.model, dev)
+        step = make_train_step(loss_fn)
+        if mode == "captured":
+            step = capture_train_step(step)
+        losses, patterns = [], []
+        before = pa.counts()
+        for t in range(CAPTURE_STEPS):
+            loss, _, diag = step(state, xs[t], ys[t], step_random_source(SEED, 0, t, dev))
+            losses.append(float(loss))
+            patterns.append(pattern[0].clone())
+            if not bool(diag["applied"]):
+                fail(f"{mode} step {t} was skipped")
+        launches = tuple(b - a for a, b in zip(before, pa.counts()))
+        pa.set_counts(before)
+        runs[mode] = {"state": state, "step": step, "losses": np.array(losses),
+                      "patterns": patterns, "launches": launches}
+    eager, cap = runs["eager"], runs["captured"]
+    rel = max_rel(cap["losses"], eager["losses"])
+    same = [bool(torch.equal(a, b)) for a, b in zip(cap["patterns"], eager["patterns"])]
+    fresh = [not torch.equal(a, b) for a, b in zip(cap["patterns"], cap["patterns"][1:])]
+    frac = float(cap["patterns"][0].float().mean())
+    graph = next(iter(cap["step"].graphs.by_key.values()))
+    print(f"[capture] {MODEL} window {WINDOW} b{TRAIN_BATCH} fp32, drop rates 0.3: "
+          f"{CAPTURE_STEPS} captured steps vs eager: losses {cap['losses'].tolist()} vs "
+          f"{eager['losses'].tolist()} (max rel {rel:.3e}, limit {RESUME_RTOL:.0e}); "
+          f"output-projection dropout zero pattern identical at every step: {all(same)}, "
+          f"new each step: {all(fresh)}, dropped fraction {frac:.4f}; attention seeds per "
+          f"step {graph.seeds.numel()}; launches K1/K2 per replay {graph.launches[:2]}, over "
+          f"the {CAPTURE_STEPS} steps captured {cap['launches'][:2]} eager "
+          f"{eager['launches'][:2]}; capture {cap['step'].graphs.capture_seconds[0]:.2f} s",
+          flush=True)
+    if not rel <= RESUME_RTOL or not all(same) or not all(fresh) or not 0.25 < frac < 0.35:
+        fail("the captured step does not reproduce the eager one")
+    if cap["launches"] != eager["launches"] or graph.seeds.numel() != len(
+            api.create_model(MODEL, in_samples=WINDOW).attention_shapes(WINDOW)):
+        fail("the captured step's attention launches or seeds differ from the eager step's")
+
+    # 9b: a NaN batch through the captured step changes no byte of the state.
+    state, step = cap["state"], cap["step"]
+    want = _state_tensors(state)
+    loss, _, diag = step(state, xs[0] * float("nan"), ys[0],
+                         step_random_source(SEED, 0, CAPTURE_STEPS, dev))
+    got = _state_tensors(state)
+    changed = [k for k in want if not torch.equal(got[k], want[k])]
+    print(f"[capture] NaN batch through the captured step: applied {bool(diag['applied'])}, "
+          f"loss {float(loss)}; {len(want)} state tensors (parameters, BatchNorm statistics, "
+          f"Adam moments and step counters, update count {int(state.count)}) bitwise "
+          f"unchanged: {not changed}", flush=True)
+    if bool(diag["applied"]) or changed or int(state.count) != CAPTURE_STEPS:
+        fail(f"the skipped captured step changed the state: {changed[:5]}")
+    loss, _, diag = step(state, xs[1], ys[1], step_random_source(SEED, 0, CAPTURE_STEPS, dev))
+    if not bool(diag["applied"]) or int(state.count) != CAPTURE_STEPS + 1:
+        fail("the captured step did not recover after the skipped one")
+    out = {"max_rel": rel, "capture_s": cap["step"].graphs.capture_seconds[0],
+           "replay_profile": profile_replay(state, step, xs[2], ys[2])}
+    del runs, cap, eager, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_replay(state, step, x, y) -> dict:
+    """torch.profiler over one replay: does the trace show the kernels
+    inside a graph, and K1 and K2 five times each?"""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(state, x, y, step_random_source(SEED, 0, 99, x.device))
+        torch.cuda.synchronize()
+    events = device_kernels(prof)
+    k1 = sum(e.count for e in events if "fwd_kernel" in e.key)
+    k2 = sum(e.count for e in events if "bwd_kernel" in e.key)
+    total = sum(e.count for e in events)
+    print(f"[capture] torch.profiler over one replay: {total} kernels traced, K1 {k1}, K2 "
+          f"{k2}", flush=True)
+    if total and (k1, k2) != (5, 5):
+        fail(f"one replay traced K1 {k1} and K2 {k2} times, not 5 and 5")
+    return {"kernels": total, "K1": k1, "K2": k2}
+
+
+def grouped_entry_phase(log_base: str, n_shapes: int, run: dict) -> dict:
+    """Phase 9c: ``train_test`` with ``--steps-per-call 2``, then with
+    ``--grad-accum-steps 2 --batch-size 32``, through the CLI entry."""
+    best, counts, wall_s, lines = run_entry(TRAIN_ARGS + [
+        "--mode", "train_test", "--steps-per-call", "2", "--log-base", log_base])
+    log_dir = os.path.dirname(os.path.dirname(best))
+    losses = np.load(os.path.join(log_dir, "train_losses.npy"))
+    pairs = run["losses"].reshape(-1, 2).mean(axis=1)
+    rel = max_rel(losses, pairs)
+    record = torch.load(state_path_for(best), map_location="cpu", weights_only=True)
+    print(f"[spc] train_test --steps-per-call 2: losses per call {losses.tolist()} vs phase 6's "
+          f"pair means {pairs.tolist()} (max rel {rel:.3e}, limit {RESUME_RTOL:.0e}); update "
+          f"count {record['step']}; K1 launches {counts['K1']}, K2 {counts['K2']}, wall "
+          f"{wall_s:.1f} s", flush=True)
+    check_launches(counts, n_shapes, TRAIN_STEPS + VAL_BATCHES + TEST_BATCHES, TRAIN_STEPS)
+    if not rel <= RESUME_RTOL or record["step"] != TRAIN_STEPS:
+        fail("--steps-per-call 2 does not train phase 6's steps")
+    test_outputs(log_dir)
+
+    args = [a for a in TRAIN_ARGS]
+    args[args.index("--batch-size") + 1] = "32"
+    best, counts_a, wall_a, lines = run_entry(args + [
+        "--mode", "train_test", "--grad-accum-steps", "2", "--log-base", log_base])
+    log_dir = os.path.dirname(os.path.dirname(best))
+    losses_a = np.load(os.path.join(log_dir, "train_losses.npy"))
+    record = torch.load(state_path_for(best), map_location="cpu", weights_only=True)
+    micro = 2 * len(losses_a)
+    print(f"[accum] train_test --grad-accum-steps 2 --batch-size 32: {len(losses_a)} updates of "
+          f"2 micro-batches, losses {[round(float(x), 6) for x in losses_a]}; update count "
+          f"{record['step']}; {[x for x in lines if x.startswith('grad_accum_steps')]}; K1 "
+          f"launches {counts_a['K1']}, K2 {counts_a['K2']}, wall {wall_a:.1f} s", flush=True)
+    check_launches(counts_a, n_shapes, micro + 2, micro)
+    if record["step"] != len(losses_a) or not np.isfinite(losses_a).all() or not len(losses_a):
+        fail("--grad-accum-steps 2 did not apply one update per two micro-batches")
+    test_outputs(log_dir)
+    return {"counts": counts, "counts_accum": counts_a, "max_rel": rel, "wall_s": wall_s,
+            "wall_accum_s": wall_a}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this drives the "
@@ -1215,14 +1431,20 @@ def main() -> int:
     seeded_weights(weights)
     served = serve_phase(weights, len(shapes))
     logs = os.path.join(str(_kernels.BUILD_DIR), "train_logs")
+    mem_before_train = allocated_gib()
     trained = train_test_phase(logs, len(shapes))
     resumed = resume_phase(trained, len(shapes))
     bf16 = bf16_phase(logs, len(shapes), trained["best"], dev)
     packed = packed_phase(logs, len(shapes), trained)
     preempted = preempt_phase(len(shapes), trained, packed["f32"])
+    grouped = grouped_entry_phase(logs, len(shapes), trained)
     path_counts = [trained["counts"], resumed["counts"], bf16["counts"], packed["counts"],
-                   packed["counts_i8"], preempted["counts"], preempted["counts_resumed"]]
+                   packed["counts_i8"], preempted["counts"], preempted["counts_resumed"],
+                   grouped["counts"], grouped["counts_accum"]]
     gpu_vs_cpu_step(weights)
+    captured = captured_vs_eager(weights, dev)
+    print(f"[memory] allocated on the card after gc: {mem_before_train:.3f} GiB before the "
+          f"train runs, {allocated_gib():.3f} GiB after them and phase 9", flush=True)
 
     ones = torch.ones(1024, device=dev)
     device_ms(lambda: ones.add_(1.0), attempts=10)  # the profiler's first traces
@@ -1278,24 +1500,29 @@ def main() -> int:
     step_ms = {}
     for dtype in ("fp32", "bf16"):
         for batch in (TRAIN_BATCH, 256):
-            run = time_train_step(weights, batch, dtype=dtype)
-            if dtype == "fp32":
-                step_ms[batch] = run["ms"]
-            print(f"[time] {name_power} | {MODEL} window {WINDOW} train step b{batch} {dtype} "
-                  f"(forward, backward, Adam update, guard): {run['ms']:.2f} ms, peak memory "
-                  f"{run['peak_gib']:.2f} GiB", flush=True)
-            if batch == TRAIN_BATCH:
-                tp = profile_train_step(run)
-                print(f"[profile] {name_power} | {MODEL} train step b{batch} {dtype}: wall "
-                      f"{tp['wall_ms_per_step']:.2f} ms/step, device busy "
-                      f"{tp['device_busy_ms_per_step']:.2f} ms, idle share "
-                      f"{tp['device_idle_share']:.3f}, {tp['kernels_per_step']:.0f} "
-                      f"kernels/step", flush=True)
-                for key, ms, count in tp["top"]:
-                    print(f"[profile]   {ms:.3f} ms/step in {count} launches: {key}",
-                          flush=True)
-            del run
-            torch.cuda.empty_cache()
+            for mode in ("eager", "captured"):
+                run = time_train_step(weights, batch, dtype=dtype, captured=mode == "captured")
+                if dtype == "fp32" and mode == "captured":  # what the train worker runs
+                    step_ms[batch] = run["ms"]
+                cap = (f", capture {run['capture_s']:.2f} s" if run["capture_s"] is not None
+                       else "")
+                print(f"[time] {name_power} | {MODEL} window {WINDOW} train step b{batch} "
+                      f"{dtype} {mode} (forward, backward, Adam update, guard): "
+                      f"{run['ms']:.2f} ms, peak memory {run['peak_gib']:.2f} GiB above the "
+                      f"{run['before_gib']:.2f} GiB allocated before{cap}",
+                      flush=True)
+                if batch == TRAIN_BATCH:
+                    tp = profile_train_step(run)
+                    print(f"[profile] {name_power} | {MODEL} train step b{batch} {dtype} {mode}: "
+                          f"wall {tp['wall_ms_per_step']:.2f} ms/step, device busy "
+                          f"{tp['device_busy_ms_per_step']:.2f} ms, idle share "
+                          f"{tp['device_idle_share']:.3f}, {tp['kernels_per_step']:.0f} "
+                          f"kernels/step", flush=True)
+                    for key, ms, count in tp["top"]:
+                        print(f"[profile]   {ms:.3f} ms/step in {count} launches: {key}",
+                              flush=True)
+                del run
+                torch.cuda.empty_cache()
 
     loader_phase(name_power, step_ms)
 
@@ -1311,7 +1538,10 @@ def main() -> int:
           f"{packed['counts_i8']['K2']}; preempted: K1 {preempted['counts']['K1']}, K2 "
           f"{preempted['counts']['K2']}; resumed after it: K1 "
           f"{preempted['counts_resumed']['K1']}, K2 {preempted['counts_resumed']['K2']}; "
-          f"all paths: K1 {launches['K1']}, K2 {launches['K2']}", flush=True)
+          f"--steps-per-call 2: K1 {grouped['counts']['K1']}, K2 {grouped['counts']['K2']}; "
+          f"--grad-accum-steps 2: K1 {grouped['counts_accum']['K1']}, K2 "
+          f"{grouped['counts_accum']['K2']}; all paths: K1 {launches['K1']}, K2 "
+          f"{launches['K2']}", flush=True)
     bounds = {}
     for kid, label, rs, ops_at in (
             ("K1", "five fp32 b8 launches", fp32, "on the fp32 CUDA cores"),

@@ -18,10 +18,17 @@ through a pack: naming one raises with the command that packs it.
 guard (``data/io_guard.py``). A preempted run exits 75 after its
 checkpoint (``python -m seist_tpu_torch supervise`` relaunches it).
 
+``--steps-per-call k`` trains k batches per call, k updates one after
+another (0, the default, means 1); ``--grad-accum-steps k`` makes one
+update from the mean gradient of k batches (``--batch-size 100
+--grad-accum-steps 5`` is the reference's batch-500 recipe). The two
+exclude each other; a tail of fewer than k batches per epoch is dropped
+and logged. On CUDA every train and eval step runs as a captured CUDA
+graph (``train/graph.py``).
+
 A flag of the JAX CLI whose non-default value the port does not run yet
-raises and names ``ROADMAP.md``: ``--grad-accum-steps``,
-``--steps-per-call`` > 1, ``--device-aug`` and ``--seq-shards``. Flags of
-the telemetry plane are not accepted at all.
+raises and names ``ROADMAP.md``: ``--device-aug`` and ``--seq-shards``.
+Flags of the telemetry plane are not accepted at all.
 """
 
 from __future__ import annotations
@@ -33,7 +40,6 @@ from typing import List, Optional
 
 #: JAX-CLI flags the port accepts only at the value it runs: dest -> value.
 _UNPORTED = {
-    "grad_accum_steps": 1,
     "device_aug": "off",
     "seq_shards": 1,
 }
@@ -195,8 +201,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         for dest, ok in _UNPORTED.items()
         if getattr(args, dest) != ok
     ]
-    if args.steps_per_call > 1:
-        bad.append(f"--steps-per-call {args.steps_per_call}")
     if args.mode not in _MODES:
         raise ValueError(f"`mode` must be 'train', 'test' or 'train_test', got '{args.mode}'")
     if args.dataset_name in _HDF5_DATASETS:

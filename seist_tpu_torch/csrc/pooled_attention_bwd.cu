@@ -119,7 +119,7 @@ __global__ void __launch_bounds__(kBwdThreads, EP <= 32 ? 2 : 1) bwd_kernel(
     T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
     float* __restrict__ dq_part, float* __restrict__ dk_part, float* __restrict__ dv_part,
     int N, int L, int M, int H, int E, int ktiles, int rows_per_split, float scale,
-    float rate, float out_scale, uint32_t lm, uint32_t seed_mix, bool vec) {
+    float rate, float out_scale, uint32_t lm, const int* __restrict__ seed, bool vec) {
   using Sm = BwdSmem<EP>;
   constexpr int S = Sm::S, R = Sm::R, DS = Sm::DS, QT = Sm::QT, KP = Sm::KP;
   constexpr int KS = EP / 8, RN = R / 8;
@@ -244,6 +244,12 @@ __global__ void __launch_bounds__(kBwdThreads, EP <= 32 ? 2 : 1) bwd_kernel(
           }
         }
         // Pd and dS in place of the score fragments; dS to shared memory.
+        // The dropout seed lives in device memory (a captured graph replays
+        // with the seed written there before each replay); it is read here,
+        // once per row tile, so that no register holds it through the
+        // products (E = 32 in fp32 would spill).
+        const uint32_t seed_mix =
+            (uint32_t)(*reinterpret_cast<const volatile int*>(seed)) * 0x9E3779B9u;
 #pragma unroll
         for (int n = 0; n < HN; ++n) {
 #pragma unroll
@@ -355,7 +361,7 @@ cudaError_t launch_ep(const void* q, const void* k, const void* v, const void* g
                       const void* o, const float* lse, void* dq, void* dk, void* dv,
                       float* dq_part, float* dk_part, float* dv_part, int n, int l, int m,
                       int heads, int e, int splits, int rows_per_split, float scale,
-                      float rate, float out_scale, uint32_t lm, uint32_t seed_mix,
+                      float rate, float out_scale, uint32_t lm, const int* seed,
                       cudaStream_t stream) {
   const int ktiles = (m + kKeyTile - 1) / kKeyTile;
   const long long blocks = (long long)ktiles * n * heads * splits;
@@ -369,7 +375,7 @@ cudaError_t launch_ep(const void* q, const void* k, const void* v, const void* g
       static_cast<const T*>(g), static_cast<const T*>(o), lse, static_cast<T*>(dq),
       static_cast<T*>(dk), static_cast<T*>(dv), ktiles > 1 ? dq_part : nullptr,
       splits > 1 ? dk_part : nullptr, splits > 1 ? dv_part : nullptr, n, l, m, heads, e,
-      ktiles, rows_per_split, scale, rate, out_scale, lm, seed_mix, vec);
+      ktiles, rows_per_split, scale, rate, out_scale, lm, seed, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (ktiles > 1) {
@@ -387,11 +393,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
                    const void* o, const float* lse, void* dq, void* dk, void* dv,
                    float* dq_part, float* dk_part, float* dv_part, int n, int l, int m,
                    int heads, int e, int splits, int rows_per_split, float scale, float rate,
-                   float out_scale, uint32_t lm, uint32_t seed_mix, cudaStream_t stream) {
+                   float out_scale, uint32_t lm, const int* seed, cudaStream_t stream) {
 #define SEIST_LAUNCH(EP)                                                                  \
   return launch_ep<T, EP>(q, k, v, g, o, lse, dq, dk, dv, dq_part, dk_part, dv_part, n, \
                           l, m, heads, e, splits, rows_per_split, scale, rate,            \
-                          out_scale, lm, seed_mix, stream)
+                          out_scale, lm, seed, stream)
   if (e <= 8) SEIST_LAUNCH(8);
   if (e <= 16) SEIST_LAUNCH(16);
   if (e <= 32) SEIST_LAUNCH(32);
@@ -408,15 +414,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
 // multiple of the 32-row tile). Scratch, fp32, used only when needed:
 // dq_part holds ceil(M/128) slabs of N*L*H*E (when M > 128), dk_part and
 // dv_part `splits` slabs of N*M*H*E each (when splits > 1). lm = (L*M) mod
-// 2^32, seed = the int32 dropout seed's bits, out_scale = 1/(1 - rate)
-// (1 when rate == 0).
+// 2^32, seed = a device pointer to the int32 dropout seed (as the forward's),
+// out_scale = 1/(1 - rate) (1 when rate == 0).
 extern "C" int pooled_attention_bwd(const void* q, const void* k, const void* v,
                                     const void* g, const void* o, const void* lse,
                                     void* dq, void* dk, void* dv, void* dq_part,
                                     void* dk_part, void* dv_part, int n, int l, int m,
                                     int heads, int e, int dtype, int splits,
                                     int rows_per_split, float scale, float rate,
-                                    float out_scale, unsigned int lm, unsigned int seed,
+                                    float out_scale, unsigned int lm, const void* seed,
                                     void* stream) {
   if (n < 1 || l < 1 || m < 1 || heads < 1 || e < 1 || splits < 1 ||
       rows_per_split < 1 || rows_per_split % seist::kBwdRowTile != 0 ||
@@ -424,7 +430,8 @@ extern "C" int pooled_attention_bwd(const void* q, const void* k, const void* v,
       (long long)(splits - 1) * rows_per_split >= l) {
     return (int)cudaErrorInvalidValue;
   }
-  const uint32_t seed_mix = (uint32_t)seed * 0x9E3779B9u;
+  const int* sd = static_cast<const int*>(seed);
+  if (sd == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   float* qp = static_cast<float*>(dq_part);
@@ -433,12 +440,12 @@ extern "C" int pooled_attention_bwd(const void* q, const void* k, const void* v,
   if (dtype == 0) {
     return (int)seist::launch<float>(q, k, v, g, o, ls, dq, dk, dv, qp, kp, vp, n, l, m,
                                      heads, e, splits, rows_per_split, scale, rate,
-                                     out_scale, lm, seed_mix, s);
+                                     out_scale, lm, sd, s);
   }
   if (dtype == 1) {
     return (int)seist::launch<__nv_bfloat16>(q, k, v, g, o, ls, dq, dk, dv, qp, kp, vp, n,
                                              l, m, heads, e, splits, rows_per_split, scale,
-                                             rate, out_scale, lm, seed_mix, s);
+                                             rate, out_scale, lm, sd, s);
   }
   return (int)cudaErrorInvalidValue;
 }

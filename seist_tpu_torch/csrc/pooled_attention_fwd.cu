@@ -73,12 +73,15 @@ __global__ void __launch_bounds__(128) fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, int L, int M, int H, int E,
     int row_tiles, int ksplit, float scale, float rate, float out_scale, uint32_t lm,
-    uint32_t seed_mix, bool vec) {
+    const int* __restrict__ seed, bool vec) {
   constexpr int S = EP + 4;         // shared-memory row stride, floats
   constexpr int KS = EP / 8;        // MMA depth steps over E
   constexpr int NT = kFwdChunk / 8;  // 8-key column blocks of a chunk
   constexpr bool kExact = sizeof(T) == 2;  // bf16: K and V are exact in TF32
   extern __shared__ float smem[];
+  // The dropout seed lives in device memory (a captured graph replays with
+  // the seed its caller writes there before each replay): read once.
+  const uint32_t seed_mix = (uint32_t)__ldg(seed) * 0x9E3779B9u;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -275,7 +278,7 @@ template <typename T, int EP>
 cudaError_t launch_ep(const void* q, const void* k, const void* v, void* o, float* lse,
                       int n, int l, int m, int heads, int e, int row_warps, int ksplit,
                       float scale, float rate, float out_scale, uint32_t lm,
-                      uint32_t seed_mix, cudaStream_t stream) {
+                      const int* seed, cudaStream_t stream) {
   const int row_tiles = (l + kWarpRows * row_warps - 1) / (kWarpRows * row_warps);
   const long long blocks = (long long)row_tiles * n * heads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -287,18 +290,18 @@ cudaError_t launch_ep(const void* q, const void* k, const void* v, void* o, floa
   fwd_kernel<T, EP><<<(unsigned)blocks, 32 * row_warps * ksplit, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, l, m, heads, e, row_tiles, ksplit, scale, rate, out_scale,
-      lm, seed_mix, vec);
+      lm, seed, vec);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    int n, int l, int m, int heads, int e, int row_warps, int ksplit,
-                   float scale, float rate, float out_scale, uint32_t lm, uint32_t seed_mix,
+                   float scale, float rate, float out_scale, uint32_t lm, const int* seed,
                    cudaStream_t stream) {
 #define SEIST_LAUNCH(EP)                                                               \
   return launch_ep<T, EP>(q, k, v, o, lse, n, l, m, heads, e, row_warps, ksplit, scale, \
-                          rate, out_scale, lm, seed_mix, stream)
+                          rate, out_scale, lm, seed, stream)
   if (e <= 8) SEIST_LAUNCH(8);
   if (e <= 16) SEIST_LAUNCH(16);
   if (e <= 32) SEIST_LAUNCH(32);
@@ -313,28 +316,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 // dtype: 0 = float32, 1 = bfloat16. lse: fp32 (N*H, L) or null (no row
 // statistics written). A block has row_warps x ksplit warps (at most 4):
 // row_warps groups of 16 rows, each over ksplit (1 or 2) key halves.
-// lm = (L*M) mod 2^32, seed = the int32 dropout seed's bits, out_scale =
-// 1/(1 - rate) (1 when rate == 0).
+// lm = (L*M) mod 2^32, seed = a device pointer to the int32 dropout seed
+// (read by every block, so a captured launch takes the seed written there
+// before each replay), out_scale = 1/(1 - rate) (1 when rate == 0).
 extern "C" int pooled_attention_fwd(const void* q, const void* k, const void* v,
                                     void* o, void* lse, int n, int l, int m, int heads,
                                     int e, int dtype, int row_warps, int ksplit,
                                     float scale, float rate,
-                                    float out_scale, unsigned int lm, unsigned int seed,
+                                    float out_scale, unsigned int lm, const void* seed,
                                     void* stream) {
   if (n < 1 || l < 1 || m < 1 || heads < 1 || e < 1 || !(ksplit == 1 || ksplit == 2) ||
       !(row_warps == 1 || row_warps == 2 || row_warps == 4) || row_warps * ksplit > 4) {
     return (int)cudaErrorInvalidValue;
   }
-  const uint32_t seed_mix = (uint32_t)seed * 0x9E3779B9u;
+  const int* sd = static_cast<const int*>(seed);
+  if (sd == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ls = static_cast<float*>(lse);
   if (dtype == 0) {
     return (int)seist::launch<float>(q, k, v, o, ls, n, l, m, heads, e, row_warps, ksplit,
-                                     scale, rate, out_scale, lm, seed_mix, s);
+                                     scale, rate, out_scale, lm, sd, s);
   }
   if (dtype == 1) {
     return (int)seist::launch<__nv_bfloat16>(q, k, v, o, ls, n, l, m, heads, e, row_warps,
-                                             ksplit, scale, rate, out_scale, lm, seed_mix, s);
+                                             ksplit, scale, rate, out_scale, lm, sd, s);
   }
   return (int)cudaErrorInvalidValue;
 }

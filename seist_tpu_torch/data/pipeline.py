@@ -21,6 +21,12 @@ The port's copy of the host path of ``seist_tpu/data/pipeline.py``:
   epoch mid-way for a resumed run. A worker that raises anything but a
   sample fault surfaces as :class:`~io_guard.LoaderDeathError`.
 
+* :func:`group_batches` — k train batches stacked into one
+  ``(inputs_k, targets_k)`` pair of torch tensors (leading axis k), in
+  pinned host memory for a CUDA train loop, whose copies to the device
+  then do not wait for it (``seist_tpu/data/pipeline.py::
+  prefetch_packed_to_device``).
+
 Not ported: host sharding (multi-GPU training) and the
 device-augmentation feeds. Batches stay numpy; the train loop moves them
 to the device.
@@ -313,6 +319,32 @@ def _stack(samples: List[Any]) -> Any:
     if isinstance(first, tuple):
         return tuple(np.stack([s[i] for s in samples]) for i in range(len(first)))
     return np.stack(samples)
+
+
+def group_batches(batches, k: int, pin: bool = False) -> Iterator[Tuple[Any, Any]]:
+    """Group ``k`` train batches into one stacked ``(inputs_k, targets_k)``
+    pair of torch tensors: leading axis the batch's place in the group,
+    each batch's bytes unchanged. ``pin`` puts them in pinned host memory.
+    A trailing group smaller than ``k`` is dropped, as the JAX package
+    drops it (fixed shapes); only the inputs and the loss targets survive
+    grouping, as there."""
+    import torch
+
+    def stacked(parts: List[Any]) -> Any:
+        if isinstance(parts[0], tuple):
+            return tuple(stacked([p[i] for p in parts]) for i in range(len(parts[0])))
+        first = torch.from_numpy(np.ascontiguousarray(parts[0]))
+        out = torch.empty((len(parts),) + tuple(first.shape), dtype=first.dtype, pin_memory=pin)
+        for i, x in enumerate(parts):
+            out[i].copy_(torch.from_numpy(np.ascontiguousarray(x)))
+        return out
+
+    group: List[Batch] = []
+    for b in batches:
+        group.append(b)
+        if len(group) == k:
+            yield stacked([g.inputs for g in group]), stacked([g.loss_targets for g in group])
+            group = []
 
 
 class Loader:

@@ -84,7 +84,7 @@ def avg_pool_1d_ceil(x: torch.Tensor, kernel_size: int) -> torch.Tensor:
     sums = _windows(x, kernel_size, 0.0).sum(dim=2)
     n_out = sums.shape[1]
     counts = torch.full((n_out,), float(kernel_size), dtype=x.dtype, device=x.device)
-    counts[-1] = float(length - (n_out - 1) * kernel_size)
+    counts[-1:].fill_(float(length - (n_out - 1) * kernel_size))  # a fill: no host copy
     return sums / counts[None, :, None]
 
 
@@ -169,11 +169,16 @@ class RandomSource:
 
     ``generator`` draws the element-dropout and DropPath uniforms on the
     activations' device. ``seed_generator`` is a CPU generator that draws
-    the attention-dropout seeds: the seed is a host integer handed to the
-    kernel, so drawing it costs no device sync, and a step on the card and
-    the same step on the CPU use the same attention masks.
-    :meth:`inject_droppath` routes DropPath to given uniform rows instead,
-    one row per train-mode call with a positive rate, in call order.
+    the attention-dropout seeds: drawing one costs no device sync, and a
+    step on the card and the same step on the CPU use the same attention
+    masks. The kernels read the seed from an int32 tensor on the device:
+    :meth:`attention_seed` writes each draw into one by a fill or, when
+    ``attention_seeds`` holds a device buffer of the step's seeds (a
+    captured step's, written before each replay from the same draws),
+    returns its next entry, in call order; ``attention_calls`` counts
+    the calls. :meth:`inject_droppath` routes DropPath to given uniform rows
+    instead, one row per train-mode call with a positive rate, in call
+    order.
     """
 
     def __init__(
@@ -185,11 +190,15 @@ class RandomSource:
         self.seed_generator = seed_generator
         self.droppath_uniforms: Optional[torch.Tensor] = None
         self.droppath_calls = 0
+        self.attention_seeds: Optional[torch.Tensor] = None
+        self.attention_calls = 0
 
     @classmethod
     def from_seed(cls, seed: int, device) -> "RandomSource":
         """Both generators seeded from one integer (the device one on
-        ``device``)."""
+        ``device``). A captured step re-seeds the default CUDA generator
+        with ``generator.initial_seed()``, which then draws the same
+        uniforms."""
         words = np.random.SeedSequence(int(seed)).generate_state(2, np.uint64)
         gen = torch.Generator(device=device).manual_seed(int(words[0]))
         return cls(gen, torch.Generator().manual_seed(int(words[1])))
@@ -205,12 +214,28 @@ class RandomSource:
             raise RuntimeError("this RandomSource has no generator for dropout")
         return torch.rand(shape, generator=self.generator, device=device)
 
-    def attention_seed(self) -> int:
+    def draw_attention_seed(self) -> int:
         """An int32 seed in [0, 2^31 - 1), as ``jax.random.randint(key,
         (1,), 0, iinfo(int32).max)`` draws it (``seist.py:545-551``)."""
         if self.seed_generator is None:
             raise RuntimeError("this RandomSource has no seed generator")
         return int(torch.randint(0, 2**31 - 1, (1,), generator=self.seed_generator))
+
+    def attention_seed(self, device) -> torch.Tensor:
+        """The next attention call's seed: an int32 scalar tensor on
+        ``device`` (class docstring)."""
+        i = self.attention_calls
+        if self.attention_seeds is not None:
+            if i >= self.attention_seeds.numel():
+                raise RuntimeError(
+                    f"attention call {i + 1} of a step whose seed buffer holds "
+                    f"{self.attention_seeds.numel()}"
+                )
+            seed = self.attention_seeds[i]
+        else:
+            seed = torch.full((), self.draw_attention_seed(), dtype=torch.int32, device=device)
+        self.attention_calls = i + 1
+        return seed
 
 
 def need_source(module: nn.Module) -> RandomSource:

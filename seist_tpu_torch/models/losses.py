@@ -24,22 +24,33 @@ def _as_weight(weight) -> Optional[torch.Tensor]:
     return torch.from_numpy(np.asarray(weight, dtype=np.float32).reshape(-1))
 
 
-def _weighted(loss: torch.Tensor, weight: Optional[torch.Tensor]) -> torch.Tensor:
-    return loss if weight is None else loss * weight.to(loss.device)
+class _Weighted:
+    """A loss with an optional per-channel ``weight``, moved to the loss's
+    device once and kept there: a step captured as a CUDA graph must not
+    copy from the host."""
+
+    weight: Optional[torch.Tensor] = None
+
+    def _weighted(self, loss: torch.Tensor) -> torch.Tensor:
+        if self.weight is None:
+            return loss
+        if self.weight.device != loss.device:
+            self.weight = self.weight.to(loss.device)
+        return loss * self.weight
 
 
-class CELoss:
+class CELoss(_Weighted):
     """Cross entropy on probability outputs; ``(N, L, C)`` or ``(N, Classes)``."""
 
     def __init__(self, weight=None):
         self.weight = _as_weight(weight)
 
     def __call__(self, preds: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-        loss = _weighted(-targets * torch.log(preds + _EPS), self.weight)
+        loss = self._weighted(-targets * torch.log(preds + _EPS))
         return loss.sum(dim=-1).mean()
 
 
-class BCELoss:
+class BCELoss(_Weighted):
     """Binary cross entropy on probability outputs."""
 
     def __init__(self, weight=None):
@@ -50,10 +61,10 @@ class BCELoss:
             targets * torch.log(preds + _EPS)
             + (1.0 - targets) * torch.log(1.0 - preds + _EPS)
         )
-        return _weighted(loss, self.weight).mean()
+        return self._weighted(loss).mean()
 
 
-class FocalLoss:
+class FocalLoss(_Weighted):
     """Focal loss; ``has_softmax`` applies softmax over the class axis."""
 
     def __init__(self, gamma: float = 2.0, weight=None, has_softmax: bool = True):
@@ -67,10 +78,10 @@ class FocalLoss:
             preds = preds / preds.sum(dim=-1, keepdim=True)
         loss = -targets * torch.log(preds + _EPS)
         loss = loss * torch.pow(1.0 - preds, self.gamma)
-        return _weighted(loss, self.weight).sum(dim=-1).mean()
+        return self._weighted(loss).sum(dim=-1).mean()
 
 
-class BinaryFocalLoss:
+class BinaryFocalLoss(_Weighted):
     """Binary focal loss on sigmoid outputs."""
 
     def __init__(self, gamma: float = 2.0, alpha: float = 1.0, weight=None):
@@ -85,17 +96,17 @@ class BinaryFocalLoss:
             + (1.0 - self.alpha) * torch.pow(preds, self.gamma) * (1.0 - targets)
             * torch.log(1.0 - preds + _EPS)
         )
-        return _weighted(loss, self.weight).mean()
+        return self._weighted(loss).mean()
 
 
-class MSELoss:
+class MSELoss(_Weighted):
     """Mean squared error."""
 
     def __init__(self, weight=None):
         self.weight = _as_weight(weight)
 
     def __call__(self, preds: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-        return _weighted((preds - targets) ** 2, self.weight).mean()
+        return self._weighted((preds - targets) ** 2).mean()
 
 
 class HuberLoss:

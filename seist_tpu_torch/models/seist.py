@@ -183,8 +183,9 @@ class AttentionBlock(nn.Module):
     """MHA with K/V from a pooled sequence: full-length Q attends to L/r
     keys, cost L x (L/r) (ref seist.py:321-393). In training mode: key
     dropout, post-softmax probability dropout inside the kernel (its int32
-    seed drawn per call from the source's CPU generator) and output
-    projection dropout."""
+    seed drawn per call from the source's CPU generator, or read from the
+    source's device buffer of the step's seeds, and handed to the kernel as
+    a device tensor) and output projection dropout."""
 
     def __init__(self, io_dim: int, head_dim: int, qkv_bias: bool, attn_aggr_ratio: int,
                  attn_drop_rate: float = 0.0, key_drop_rate: float = 0.0,
@@ -215,7 +216,7 @@ class AttentionBlock(nn.Module):
         k = self.key_drop(self.k_proj(x).view(n, m, heads, e))
         v = self.v_proj(x).view(n, m, heads, e)
         rate = self.attn_drop_rate if self.training else 0.0
-        seed = common.need_source(self).attention_seed() if rate > 0.0 else 0
+        seed = common.need_source(self).attention_seed(q.device) if rate > 0.0 else 0
         out = fused_pooled_attention(
             q, k, v, 1.0 / math.sqrt(e), dropout_rate=rate, dropout_seed=seed
         )

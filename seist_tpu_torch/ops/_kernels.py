@@ -36,11 +36,12 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 #: C signature of each source's entry point (all return a cudaError_t as int).
 _ARGTYPES = {
     # q, k, v, o, lse, n, l, m, heads, e, dtype, row_warps, ksplit, scale, rate,
-    # out_scale, lm, seed, stream
-    "pooled_attention_fwd": [_P] * 5 + [_I] * 8 + [_F] * 3 + [_U] * 2 + [_P],
+    # out_scale, lm, seed (device pointer), stream
+    "pooled_attention_fwd": [_P] * 5 + [_I] * 8 + [_F] * 3 + [_U] + [_P] * 2,
     # q, k, v, g, o, lse, dq, dk, dv, dq_part, dk_part, dv_part, n, l, m, heads,
-    # e, dtype, splits, rows_per_split, scale, rate, out_scale, lm, seed, stream
-    "pooled_attention_bwd": [_P] * 12 + [_I] * 8 + [_F] * 3 + [_U] * 2 + [_P],
+    # e, dtype, splits, rows_per_split, scale, rate, out_scale, lm, seed (device
+    # pointer), stream
+    "pooled_attention_bwd": [_P] * 12 + [_I] * 8 + [_F] * 3 + [_U] + [_P] * 2,
 }
 
 _LOCK = threading.Lock()  # guards _NAME_LOCKS
@@ -196,6 +197,14 @@ def _out_scale(rate: float) -> float:
     return 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
 
 
+def _seed_ptr(seed: torch.Tensor, device) -> int:
+    """The device address of the int32 dropout seed that K1 and K2 read."""
+    if seed.dtype != torch.int32 or seed.numel() != 1 or seed.device != device:
+        raise ValueError(f"the dropout seed must be one int32 on {device}, got "
+                         f"{seed.dtype} {tuple(seed.shape)} on {seed.device}")
+    return seed.data_ptr()
+
+
 def pooled_attention_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -204,11 +213,13 @@ def pooled_attention_fwd(
     lse: Optional[torch.Tensor],
     scale: float,
     rate: float,
-    seed: int,
+    seed: torch.Tensor,
 ) -> None:
     """Launch K1 on the current stream: q/o (N, L, H, E), k/v (N, M, H, E),
     checked by the caller (ops/pooled_attention.py); ``lse`` fp32 (N, H, L)
-    receives the row statistics, or is None."""
+    receives the row statistics, or is None. ``seed`` is the int32 dropout
+    seed on q's device: the kernel reads it there, so a captured launch
+    takes whatever seed is written into it before each replay."""
     lib = build("pooled_attention_fwd")
     n, l, h, e = q.shape
     m = k.shape[1]
@@ -219,7 +230,7 @@ def pooled_attention_fwd(
         None if lse is None else lse.data_ptr(),
         n, l, m, h, e, _DTYPES[q.dtype], row_warps, ksplit,
         float(scale), float(rate), _out_scale(rate),
-        (l * m) & 0xFFFFFFFF, int(seed) & 0xFFFFFFFF, stream,
+        (l * m) & 0xFFFFFFFF, _seed_ptr(seed, q.device), stream,
     )
     if err != 0:
         raise RuntimeError(
@@ -240,11 +251,13 @@ def pooled_attention_bwd(
     dv: torch.Tensor,
     scale: float,
     rate: float,
-    seed: int,
+    seed: torch.Tensor,
 ) -> None:
     """Launch K2 on the current stream: q/g/o/dq (N, L, H, E), k/v/dk/dv
-    (N, M, H, E), lse fp32 (N, H, L), checked by the caller. Allocates the
-    fp32 scratch that :func:`bwd_scratch` sizes (none on the main path)."""
+    (N, M, H, E), lse fp32 (N, H, L), checked by the caller; ``seed`` as
+    K1's. Allocates the fp32 scratch that :func:`bwd_scratch` sizes (none on
+    the main path; under graph capture it comes from, and stays in, the
+    graph's private pool)."""
     lib = build("pooled_attention_bwd")
     n, l, h, e = q.shape
     m = k.shape[1]
@@ -260,7 +273,7 @@ def pooled_attention_bwd(
         _ptr(dq_part), _ptr(dk_part), _ptr(dv_part),
         n, l, m, h, e, _DTYPES[q.dtype], splits, rows,
         float(scale), float(rate), _out_scale(rate),
-        (l * m) & 0xFFFFFFFF, int(seed) & 0xFFFFFFFF, stream,
+        (l * m) & 0xFFFFFFFF, _seed_ptr(seed, q.device), stream,
     )
     if err != 0:
         raise RuntimeError(

@@ -13,6 +13,13 @@ log-sum-exp when a gradient will be needed, and saves it with q, k, v, its
 output and the seed; the backward rebuilds the probabilities from it in
 one pass, and the dropout mask from the seed.
 
+The dropout seed reaches the kernels as an int32 scalar tensor on q's
+device, which they read from device memory, as the TPU kernel reads its
+``seed_ref``: a step captured as a CUDA graph then draws new masks on each
+replay from the seed written into that tensor before it. The plain
+versions take an int; on CPU tensors the wrappers read the seed tensor's
+value (``.item()``, no device sync there).
+
 Post-softmax dropout draws its uniforms from the counter hash of the JAX
 package (``_mix_to_uniform`` / ``_uniform01``): murmur3's finalizer over
 the element index ``pid*(L*M) + row*M + col`` with ``pid = b*H + h``. The
@@ -197,11 +204,46 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> N
         raise ValueError("L and M must be >= 1")
 
 
+def seed_tensor(seed, device) -> torch.Tensor:
+    """The dropout seed as the int32 scalar tensor on ``device`` that the
+    kernels read: a tensor is checked and returned as it is; an int is
+    written by a fill on the device (no host-to-device copy, so a graph
+    capture may make one)."""
+    if torch.is_tensor(seed):
+        if seed.dtype != torch.int32 or seed.numel() != 1 or seed.device != torch.device(device):
+            raise ValueError(f"the dropout seed must be one int32 on {device}, got "
+                             f"{seed.dtype} {tuple(seed.shape)} on {seed.device}")
+        return seed.reshape(())
+    return torch.full((), int(seed), dtype=torch.int32, device=device)
+
+
+def _seed_int(seed) -> int:
+    return int(seed.item()) if torch.is_tensor(seed) else int(seed)
+
+
+def counts() -> Tuple[int, int, int, int]:
+    """(launches, bwd_launches, bf16_launches, bf16_bwd_launches)."""
+    return launches, bwd_launches, bf16_launches, bf16_bwd_launches
+
+
+def set_counts(values: Tuple[int, int, int, int]) -> None:
+    global launches, bwd_launches, bf16_launches, bf16_bwd_launches
+    launches, bwd_launches, bf16_launches, bf16_bwd_launches = values
+
+
+def add_counts(delta: Tuple[int, int, int, int]) -> None:
+    """Count the launches of one replay of a captured graph: the kernels
+    it captured launch again, though no wrapper runs."""
+    set_counts(tuple(a + b for a, b in zip(counts(), delta)))
+
+
 def _forward(q, k, v, scale, rate, seed, with_lse: bool):
     """K1 on CUDA tensors, the plain version on CPU tensors: o, and the
-    fp32 (N, H, L) row statistics when ``with_lse`` (else None)."""
+    fp32 (N, H, L) row statistics when ``with_lse`` (else None). ``seed``
+    is an int or the int32 seed tensor on q's device."""
     global launches, bf16_launches
     if q.device.type == "cpu":
+        seed = _seed_int(seed)
         if with_lse:
             return pooled_attention_plain(q, k, v, scale, rate, seed, return_lse=True)
         return pooled_attention_plain(q, k, v, scale, rate, seed), None
@@ -211,7 +253,7 @@ def _forward(q, k, v, scale, rate, seed, with_lse: bool):
     o = torch.empty_like(q)
     n, l, h, _ = q.shape
     lse = torch.empty(n, h, l, dtype=torch.float32, device=q.device) if with_lse else None
-    _kernels.pooled_attention_fwd(q, k, v, o, lse, scale, rate, seed)
+    _kernels.pooled_attention_fwd(q, k, v, o, lse, scale, rate, seed_tensor(seed, q.device))
     launches += 1
     if q.dtype == torch.bfloat16:
         bf16_launches += 1
@@ -225,7 +267,7 @@ def _backward(q, k, v, g, o, lse, scale, rate, seed):
     layout."""
     global bwd_launches, bf16_bwd_launches
     if q.device.type == "cpu":
-        return pooled_attention_bwd_plain(q, k, v, g, o, lse, scale, rate, seed)
+        return pooled_attention_bwd_plain(q, k, v, g, o, lse, scale, rate, _seed_int(seed))
     g = g.to(q.dtype).contiguous()
     _check_kernel_inputs(q, k, v)
     n, l, h, _ = q.shape
@@ -240,7 +282,8 @@ def _backward(q, k, v, g, o, lse, scale, rate, seed):
     from seist_tpu_torch.ops import _kernels
 
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _kernels.pooled_attention_bwd(q, k, v, g, o, lse, dq, dk, dv, scale, rate, seed)
+    _kernels.pooled_attention_bwd(q, k, v, g, o, lse, dq, dk, dv, scale, rate,
+                                  seed_tensor(seed, q.device))
     bwd_launches += 1
     if q.dtype == torch.bfloat16:
         bf16_bwd_launches += 1
@@ -250,20 +293,20 @@ def _backward(q, k, v, g, o, lse, scale, rate, seed):
 class _PooledAttention(torch.autograd.Function):
     """Forward K1, backward K2. The residuals are q, k, v, the output o and
     its row statistics lse (written by K1 only when a gradient will be
-    asked for), and the seed. Saving o costs no memory: ``out_proj``
-    already saves a view of the same storage."""
+    asked for), and the int32 seed tensor. Saving o costs no memory:
+    ``out_proj`` already saves a view of the same storage."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float, rate: float, seed: int):
+    def forward(ctx, q, k, v, scale: float, rate: float, seed: torch.Tensor):
         o, lse = _forward(q, k, v, scale, rate, seed, any(ctx.needs_input_grad[:3]))
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale, ctx.rate, ctx.seed = scale, rate, seed
+        ctx.save_for_backward(q, k, v, o, lse, seed)
+        ctx.scale, ctx.rate = scale, rate
         return o
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = _backward(q, k, v, g, o, lse, ctx.scale, ctx.rate, ctx.seed)
+        q, k, v, o, lse, seed = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, g, o, lse, ctx.scale, ctx.rate, seed)
         return dq, dk, dv, None, None, None
 
 
@@ -274,7 +317,7 @@ def fused_pooled_attention(
     scale: Optional[float] = None,
     *,
     dropout_rate: float = 0.0,
-    dropout_seed: int = 0,
+    dropout_seed=0,
 ) -> torch.Tensor:
     """Attention for ``q (N, L, H, E)``, ``k/v (N, M, H, E)``, differentiable
     in q, k and v.
@@ -282,9 +325,11 @@ def fused_pooled_attention(
     On CUDA tensors: the hand-written kernels (forward, and backward when
     a gradient is asked for), or an exception. On CPU tensors: the plain
     versions. ``dropout_rate`` > 0 applies post-softmax probability
-    dropout from the counter hash seeded by the int32 ``dropout_seed``.
+    dropout from the counter hash seeded by ``dropout_seed``: an int32
+    scalar tensor on q's device (what a captured step passes), or an int.
     """
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
-    return _PooledAttention.apply(q, k, v, float(scale), float(dropout_rate), int(dropout_seed))
+    return _PooledAttention.apply(q, k, v, float(scale), float(dropout_rate),
+                                  seed_tensor(dropout_seed, q.device))

@@ -133,7 +133,9 @@ def load_checkpoint(weights_path: str, state) -> Dict[str, Any]:
 
     record = torch.load(spath, map_location="cpu", weights_only=True)
     state.model.load_state_dict(load_weights(weights_path), strict=True)
-    state.optimizer.load_state_dict(record["optimizer"])
+    from seist_tpu_torch.train.optim import load_state
+
+    load_state(state.optimizer, record["optimizer"])  # in place: captured steps read it
     state.step = int(record["step"])
     return record
 

@@ -1,0 +1,292 @@
+"""The train and eval steps as CUDA graphs (counterpart of
+``seist_tpu/train/step.py``'s ``jit_step``, ``jit_multi_step`` and
+``jit_eval_step``).
+
+The JAX package compiles its step into one program; the port captures the
+step's kernels into a CUDA graph once per (variant, batch geometry, dtype)
+and replays it, so a step costs one graph launch instead of ~14,000 kernel
+launches from Python. On the CPU the wrappers return the step itself: the
+eager step is the graphs' reference and the CPU tests' path.
+
+A capture (:class:`Captured`):
+
+1. copies the first call's inputs into static input buffers on the
+   device;
+2. runs the step twice on a side stream (cuDNN picks its algorithms, the
+   kernels are built, the caching allocator warms up), the first time to
+   count the attention calls that draw a dropout seed, then restores every
+   tensor the step writes (parameters, gradients, BatchNorm statistics,
+   optimizer state, update count) to its value before: the warm-up runs
+   update nothing;
+3. captures one run into a graph (``capture_error_mode="thread_local"``,
+   so the loader threads may pin memory meanwhile). Any failure raises:
+   there is no fallback to the eager step.
+
+A replay copies the call's inputs into the static buffers (non-blocking
+from pinned host memory), writes the step's attention seeds into the
+graph's seed buffer (drawn on the host from the step's
+:class:`~seist_tpu_torch.models.common.RandomSource`, in call order, as
+the eager step draws them), re-seeds the default CUDA generator with the
+source's device seed (the graph's dropout and DropPath draws read the
+default generator's seed and offset at each replay, so they equal the
+eager step's draws from a generator seeded the same way), launches the
+graph, and adds the attention kernels it captured to their launch counts
+(``ops/pooled_attention.py``: the wrappers do not run in a replay).
+Outputs live in the graph's memory and are overwritten by the next
+replay: the train step returns copies of its loss and verdict, the eval
+step of its loss and outputs.
+
+``--steps-per-call k`` replays the one-step graph k times
+(``step.make_multi_train_step`` over :func:`capture_train_step`): a graph
+launch costs microseconds, one capture serves every k, and the graph's
+memory holds one step's activations. ``--grad-accum-steps k`` captures
+three graphs, replayed begin, k x micro-batch, update.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from seist_tpu_torch.models.common import RandomSource
+from seist_tpu_torch.ops import pooled_attention as pa
+from seist_tpu_torch.train import step as step_lib
+from seist_tpu_torch.train.precision import resolve_dtype
+from seist_tpu_torch.train.step import TrainState
+
+
+def _flat(tree) -> List[torch.Tensor]:
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in _flat(x)]
+    return [tree]
+
+
+def _unflat(tree, leaves: List[torch.Tensor]):
+    """``tree``'s structure over ``leaves`` (consumed in order)."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_unflat(x, leaves) for x in tree)
+    return leaves.pop(0)
+
+
+def _geometry(tensors: Sequence[torch.Tensor]) -> Tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in tensors)
+
+
+#: One warm-up stream per device, for every capture of the process:
+#: cuBLAS keeps a workspace for each stream it has run on until the
+#: process ends (32 MiB on an H100), so a stream per capture would leak one
+#: workspace per capture.
+_WARMUP_STREAMS: Dict[int, torch.cuda.Stream] = {}
+
+
+def _warmup_stream(device: torch.device) -> "torch.cuda.Stream":
+    index = device.index or 0
+    if index not in _WARMUP_STREAMS:
+        _WARMUP_STREAMS[index] = torch.cuda.Stream(device)
+    return _WARMUP_STREAMS[index]
+
+
+class Captured:
+    """One function captured as a CUDA graph (module docstring).
+
+    ``fn(*inputs, rng)`` (``fn(*inputs)`` when not ``random``: the
+    function draws no randomness) returns the graph's outputs (tensors,
+    or None). ``mutable`` lists every tensor ``fn`` writes, restored after
+    the warm-up runs."""
+
+    def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor], device: torch.device,
+                 mutable: Sequence[torch.Tensor] = (), random: bool = False):
+        self.device = device
+        self.random = random
+        self.generator = torch.cuda.default_generators[device.index or 0]
+        self.static = [torch.empty_like(x, device=device) for x in inputs]
+        for s, x in zip(self.static, inputs):
+            s.copy_(x)
+        before = pa.counts()
+        snapshot = [t.clone() for t in mutable]
+        side = _warmup_stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        self.seeds: Optional[torch.Tensor] = None
+        with torch.cuda.stream(side):
+            counting = self._source(seed_generator=torch.Generator().manual_seed(0))
+            fn(*self._args(counting))
+            if self.random:
+                self.seeds = torch.zeros(counting.attention_calls, dtype=torch.int32,
+                                         device=device)
+            fn(*self._args(self._source()))
+        torch.cuda.current_stream(device).wait_stream(side)
+        with torch.no_grad():
+            for t, saved in zip(mutable, snapshot):
+                t.copy_(saved)
+        del snapshot
+        warm = pa.counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            out = fn(*self._args(self._source()))
+        self.outputs = out
+        #: The attention kernels one replay launches (K1, K2, and their
+        #: bf16 instantiations).
+        self.launches = tuple(b - a for a, b in zip(warm, pa.counts()))
+        pa.set_counts(before)
+
+    def _source(self, seed_generator: Optional[torch.Generator] = None) -> Optional[RandomSource]:
+        if not self.random:
+            return None
+        src = RandomSource(self.generator, seed_generator)
+        src.attention_seeds = self.seeds
+        return src
+
+    def _args(self, src: Optional[RandomSource]) -> List[Any]:
+        return self.static + [src] if self.random else list(self.static)
+
+    def replay(self, inputs: Sequence[torch.Tensor], rng: Optional[RandomSource] = None):
+        for s, x in zip(self.static, inputs):
+            s.copy_(x, non_blocking=True)
+        if self.random:
+            if rng.generator is None or rng.droppath_uniforms is not None:
+                raise ValueError("a captured step takes a RandomSource.from_seed source: its "
+                                 "dropout and DropPath draw from the re-seeded default generator")
+            n = self.seeds.numel()
+            if n:
+                draws = torch.tensor([rng.draw_attention_seed() for _ in range(n)],
+                                     dtype=torch.int32).pin_memory()
+                self.seeds.copy_(draws, non_blocking=True)
+            self.generator.manual_seed(rng.generator.initial_seed())
+        self.graph.replay()
+        pa.add_counts(self.launches)
+        return self.outputs
+
+
+class _Graphs:
+    """The captures of one step function, by train state and input
+    geometry (a capture holds its state, so the state's id stays its
+    own)."""
+
+    def __init__(self):
+        self.by_key: Dict[Tuple, Captured] = {}
+        self.capture_seconds: List[float] = []
+
+    def get(self, key: Tuple, make: Callable[[], Any]) -> Any:
+        """The capture of ``key``, made by ``make`` the first time (its
+        wall seconds, warm-up included, go to :attr:`capture_seconds`)."""
+        got = self.by_key.get(key)
+        if got is None:
+            t0 = time.perf_counter()
+            got = self.by_key[key] = make()
+            torch.cuda.synchronize()
+            self.capture_seconds.append(time.perf_counter() - t0)
+        return got
+
+
+def _on_cuda(state: TrainState) -> Optional[torch.device]:
+    """The model's CUDA device, or None when it lies on the CPU."""
+    dev = step_lib._device_of(state.model)
+    return dev if dev.type == "cuda" else None
+
+
+def capture_train_step(step: Callable) -> Callable:
+    """``step(state, inputs, targets, rng) -> (loss, outputs, diag)`` (a
+    :func:`~seist_tpu_torch.train.step.make_train_step` step) run as a
+    graph on CUDA: returns copies of the loss and ``diag``, and None for
+    the outputs. On the CPU, the step itself."""
+    graphs = _Graphs()
+
+    def run(state: TrainState, inputs, targets, rng: RandomSource):
+        dev = _on_cuda(state)
+        if dev is None:
+            return step(state, inputs, targets, rng)
+        flat_in = _flat(inputs) + _flat(targets)
+        n_in = len(_flat(inputs))
+
+        def fn(*args):
+            *tensors, src = args
+            loss, _, diag = step(state, _unflat(inputs, list(tensors[:n_in])),
+                                 _unflat(targets, list(tensors[n_in:])), src)
+            return (loss, diag)
+
+        def make() -> Captured:
+            state.prepare()
+            return Captured(fn, flat_in, dev, state.tensors(), random=True)
+
+        cap = graphs.get(("train", id(state)) + _geometry(flat_in), make)
+        loss, diag = cap.replay(flat_in, rng)
+        return loss.clone(), None, {k: v.clone() for k, v in diag.items()}
+
+    run.graphs = graphs
+    return run
+
+
+def capture_accum_step(loss_fn: Callable, accum_steps: int, guard: bool = True,
+                       compute_dtype: Optional[str] = None) -> Callable:
+    """:func:`~seist_tpu_torch.train.step.make_accum_train_step` run as
+    three graphs on CUDA (begin, one micro-batch, the update), replayed
+    begin, k x micro-batch, update; the eager step on the CPU."""
+    eager = step_lib.make_accum_train_step(loss_fn, accum_steps, guard, compute_dtype)
+    if accum_steps <= 1:
+        return capture_train_step(eager)
+    cdtype = resolve_dtype(compute_dtype)
+    graphs = _Graphs()
+
+    def run(state: TrainState, inputs_k, targets_k, rngs: Sequence[RandomSource]):
+        dev = _on_cuda(state)
+        if dev is None:
+            return eager(state, inputs_k, targets_k, rngs)
+        xs, ys = step_lib._index(inputs_k, 0), step_lib._index(targets_k, 0)
+        flat_in = _flat(xs) + _flat(ys)
+        n_in = len(_flat(xs))
+
+        def micro(*args):
+            *tensors, src = args
+            loss, _ = step_lib.accumulate(state, _unflat(xs, list(tensors[:n_in])),
+                                          _unflat(ys, list(tensors[n_in:])), src, loss_fn,
+                                          cdtype)
+            return loss
+
+        def make() -> Tuple[Captured, Captured, Captured]:
+            state.prepare()
+            mutable = state.tensors()
+            return (Captured(lambda: step_lib.begin_step(state, guard), [], dev, mutable),
+                    Captured(micro, flat_in, dev, mutable, random=True),
+                    Captured(lambda: step_lib.finish_step(state, guard, accum_steps),
+                             [], dev, mutable))
+
+        begin, one, finish = graphs.get(("accum", id(state)) + _geometry(flat_in), make)
+        begin.replay([])
+        for i in range(accum_steps):
+            one.replay(_flat(step_lib._index(inputs_k, i)) + _flat(step_lib._index(targets_k, i)),
+                       rngs[i])
+        loss, diag = finish.replay([])
+        return loss.clone(), None, {k: v.clone() for k, v in diag.items()}
+
+    run.graphs = graphs
+    return run
+
+
+def capture_eval_step(step: Callable) -> Callable:
+    """``step(state, inputs, targets, mask) -> (loss, outputs)`` (a
+    :func:`~seist_tpu_torch.train.step.make_eval_step` step) run as a
+    graph on CUDA, returning copies; the step itself on the CPU."""
+    graphs = _Graphs()
+
+    def run(state: TrainState, inputs, targets, mask):
+        dev = _on_cuda(state)
+        if dev is None:
+            return step(state, inputs, targets, mask)
+        flat_in = _flat(inputs) + _flat(targets) + [mask]
+        n_x, n_y = len(_flat(inputs)), len(_flat(targets))
+
+        def fn(*tensors):
+            loss, outputs = step(state, _unflat(inputs, list(tensors[:n_x])),
+                                 _unflat(targets, list(tensors[n_x:n_x + n_y])),
+                                 tensors[-1])
+            return (loss, outputs)
+
+        cap = graphs.get(("eval", id(state)) + _geometry(flat_in),
+                         lambda: Captured(fn, flat_in, dev))
+        loss, outputs = cap.replay(flat_in)
+        return loss.clone(), _unflat(outputs, [o.clone() for o in _flat(outputs)])
+
+    run.graphs = graphs
+    return run

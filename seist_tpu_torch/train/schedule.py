@@ -4,18 +4,42 @@ The reference trains every model with torch ``CyclicLR``: warmup of
 ``step_size_up`` steps from base_lr to max_lr, then ``step_size_down`` back,
 cycling; mode one of triangular / triangular2 / exp_range, with
 ``gamma = base_lr ** (1 / (2 * steps))`` computed by the caller. The JAX
-package evaluates that as an fp32 ``step -> lr`` function; this module
-evaluates the same formula in fp32 torch scalars, so both frameworks give
-the same learning rate for update ``t``.
+package evaluates that as an fp32 ``step -> lr`` function inside its
+compiled step; this module evaluates the same formula in fp32 torch
+scalars, so both frameworks give the same learning rate for update ``t``.
+
+A :class:`Schedule` has two forms of one formula: ``schedule(t)`` takes
+the update count as an int and returns a float (logs), and
+``schedule.at(count)`` takes it as a tensor on the device and returns the
+fp32 learning rate there. The train step uses the tensor form: after a
+skipped update the host cannot know the count without a device sync (the
+JAX package computes its schedule inside its program for the same
+reason). On the CPU the two forms agree bit for bit: the float form is
+the tensor form of a CPU scalar.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-Schedule = Callable[[int], float]
+
+class Schedule:
+    """``count -> lr`` in fp32; ``fn`` maps an fp32 count tensor to an
+    fp32 learning-rate tensor on the count's device with capturable ops
+    only (no host reads, no host-to-device copies)."""
+
+    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor]):
+        self._fn = fn
+
+    def at(self, count: torch.Tensor) -> torch.Tensor:
+        """The learning rate of update ``count`` (a tensor), on its device."""
+        return self._fn(count.to(torch.float32))
+
+    def __call__(self, count: int) -> float:
+        return float(self.at(torch.tensor(count, dtype=torch.float32)))
 
 
 def cyclic_lr(
@@ -33,9 +57,9 @@ def cyclic_lr(
     step_size_down = float(step_size_down if step_size_down is not None else step_size_up)
     total_size = step_size_up + step_size_down
     step_ratio = step_size_up / total_size
+    gamma32 = float(np.float32(gamma))  # the fp32 base of the exp_range envelope
 
-    def schedule(count: int) -> float:
-        t = torch.tensor(count, dtype=torch.float32)
+    def lr_at(t: torch.Tensor) -> torch.Tensor:
         cycle = torch.floor(1.0 + t / total_size)
         x = 1.0 + t / total_size - cycle
         scale_factor = torch.where(
@@ -43,14 +67,12 @@ def cyclic_lr(
         )
         height = (max_lr - base_lr) * scale_factor
         if mode == "triangular":
-            lr = base_lr + height
-        elif mode == "triangular2":
-            lr = base_lr + height * torch.pow(torch.tensor(2.0), -(cycle - 1.0))
-        else:
-            lr = base_lr + height * torch.pow(torch.tensor(gamma, dtype=torch.float32), t)
-        return float(lr)
+            return base_lr + height
+        if mode == "triangular2":
+            return base_lr + height * torch.pow(2.0, -(cycle - 1.0))
+        return base_lr + height * torch.pow(gamma32, t)
 
-    return schedule
+    return Schedule(lr_at)
 
 
 def reference_gamma(base_lr: float, total_steps: int) -> float:
@@ -82,5 +104,5 @@ def build_cyclic_schedule(
 
 
 def constant(lr: float) -> Schedule:
-    """The schedule of ``--use-lr-scheduler false``."""
-    return lambda count: float(lr)
+    """The schedule of ``--use-lr-scheduler false``: ``lr`` in fp32."""
+    return Schedule(lambda t: torch.full_like(t, lr))

@@ -2,8 +2,8 @@
 single-device paths of ``seist_tpu/train/worker.py::train_worker`` and
 ``test_worker``).
 
-Per epoch: the seeded train loader feeds the guarded train step (loss
-logged every ``--log-step`` steps), then :func:`validate` runs the masked
+Per epoch: the seeded train loader feeds the guarded train step, then
+:func:`validate` runs the masked
 eval step over the validation split, decodes each batch's outputs and
 accumulates the per-task metrics (logged as ``[val] <model> <task>:
 ...``). A lower val loss writes a checkpoint (``train/checkpoint.py``:
@@ -12,13 +12,28 @@ load, beside ``state_<step>.pt``); ``--patience`` epochs without
 improvement stop the run. ``--steps > 0`` overrides ``--epochs`` with the
 whole epochs that cover it, as the JAX package does.
 
+The step: on CUDA every train and eval step runs as a captured CUDA graph
+(``train/graph.py``), on the CPU eagerly; neither reads the device back.
+A call takes one batch, or a group of k (``--steps-per-call k``: k
+updates; ``--grad-accum-steps k``: one update from their mean gradient),
+stacked in pinned host memory by the loader's thread
+(``pipeline.group_batches``); a tail of fewer than k batches is dropped
+and logged. The host reads each call's loss and the guard's verdict two
+calls late (:class:`_BadUpdateMonitor`, as the JAX worker does): the loss
+lines of every ``--log-step`` calls print then, and the host mirrors the
+update count from the verdicts read, from which it keys each update's
+randomness (:func:`~seist_tpu_torch.train.step.step_random_source`).
+Saves, preemption exits and rollbacks happen at call boundaries.
+
 Fault tolerance: ``--save-interval-steps N`` checkpoints every N batches;
 ``--checkpoint`` resumes from one at its exact data position (mid-epoch
 too), refusing a mid-epoch resume under another seed or batch geometry;
 after ``--max-bad-steps`` consecutive updates skipped by the guard the run
-rolls back to the latest checkpoint, or raises when there is none. The
-port's step is eager, so the guard's verdict is read at once (the JAX
-package reads it a few steps late).
+rolls back to the latest checkpoint, or raises when there is none; with
+the verdicts read two calls late, the rollback lands on the JAX worker's
+step. After a skipped update whose verdict is still unread, the next
+calls key their randomness by a count one too high (the JAX package
+reads the true count on the device): a NaN-free run is not affected.
 
 :func:`test_worker` loads ``--checkpoint``'s weights, runs
 :func:`validate` over the test split and writes
@@ -42,13 +57,13 @@ build or a save. Each epoch logs the quarantine report and the guard's
 counters; the test metrics JSON carries them as ``data_plane``. The
 ``SEIST_FAULT_*`` injector (``utils/faults.py``) fires at step starts.
 
-Not ported: the scanned multi-step, accumulation and device-augmentation
-step variants, train-time metrics and the telemetry plane
-(``ROADMAP.md``).
+Not ported: the device-augmentation step variants, train-time metrics
+and the telemetry plane (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import queue
@@ -76,9 +91,15 @@ from seist_tpu_torch.train.checkpoint import (
 )
 from seist_tpu_torch.train.optim import build_optimizer
 from seist_tpu_torch.train.schedule import build_cyclic_schedule, constant
+from seist_tpu_torch.train.graph import (
+    capture_accum_step,
+    capture_eval_step,
+    capture_train_step,
+)
 from seist_tpu_torch.train.step import (
     TrainState,
     make_eval_step,
+    make_multi_train_step,
     make_train_step,
     move_batch,
     step_random_source,
@@ -117,6 +138,70 @@ class _PreemptionHandler:
         if self._installed:
             signal.signal(signal.SIGTERM, self._prev)
             self._installed = False
+
+
+class _BadUpdateMonitor:
+    """Host-side tracking of consecutive updates skipped by the guard
+    (``seist_tpu/train/worker.py::_BadUpdateMonitor``).
+
+    Reading a step's verdict at once would make the host wait for the
+    device after every step, so verdicts are read ``lag`` calls late: by
+    then the device has long finished that step and the read costs
+    nothing. The rollback decision therefore comes at most ``lag`` calls
+    late; the guard already kept every skipped update off the parameters.
+    :attr:`total_skipped` counts the skips of the verdicts read so far, from
+    which the host mirrors the update count."""
+
+    def __init__(self, max_bad: int, lag: int = 2):
+        self.max_bad = int(max_bad)
+        self.lag = max(0, int(lag))
+        self.bad_run = 0  # consecutive skipped updates at the tail
+        self.total_skipped = 0
+        self._pending: "collections.deque" = collections.deque()
+
+    def push(self, applied_dev) -> bool:
+        """Queue one call's verdict (a scalar, or the ordered (k,) mask of a
+        call of k updates); returns True when the consecutive-bad run has
+        reached ``max_bad`` (rollback needed)."""
+        self._pending.append(applied_dev)
+        while len(self._pending) > self.lag:
+            self._eval(self._pending.popleft())
+        return self.exceeded
+
+    def flush(self) -> bool:
+        while self._pending:
+            self._eval(self._pending.popleft())
+        return self.exceeded
+
+    def reset(self) -> None:
+        self.bad_run = 0
+        self._pending.clear()
+
+    @property
+    def exceeded(self) -> bool:
+        return bool(self.max_bad) and self.bad_run >= self.max_bad
+
+    def _eval(self, applied_dev) -> None:
+        if torch.is_tensor(applied_dev):
+            applied_dev = applied_dev.cpu().numpy()
+        mask = np.atleast_1d(np.asarray(applied_dev)).astype(np.int64)
+        skipped = int(mask.size - mask.sum())
+        self.total_skipped += skipped
+        if skipped == 0:
+            self.bad_run = 0
+        else:
+            # Only the trailing skips extend a consecutive run: a call that
+            # ends in an applied update breaks the run.
+            trailing = 0
+            for v in mask[::-1]:
+                if v:
+                    break
+                trailing += 1
+            self.bad_run = self.bad_run + trailing if trailing == mask.size else trailing
+            logger.warning(
+                f"Bad-update guard: skipped {skipped} non-finite update(s) "
+                f"(consecutive run: {self.bad_run})"
+            )
 
 
 def _mixture_temperature(args: Any, mode: str) -> float:
@@ -302,6 +387,13 @@ def validate(
     return total / max(count, 1), metrics
 
 
+def _first(tree):
+    """Batch 0 of a group of one (``pipeline.group_batches``)."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_first(t) for t in tree)
+    return tree[0]
+
+
 def _disable_tf32(device: torch.device) -> None:
     if device.type == "cuda":
         # fp32 products stay fp32: cuDNN convolutions default to TF32.
@@ -325,6 +417,29 @@ def train_worker(args: Any) -> str:
     if args.steps > 0:  # whole epochs that cover --steps
         epochs = max(1, int(np.ceil(args.steps / steps_per_epoch)))
     total_steps = steps_per_epoch * epochs
+    # Gradient accumulation: k loader batches -> ONE update; the count, and
+    # the schedule that follows it, counts updates.
+    gas = max(1, int(args.grad_accum_steps or 1))
+    spc = max(1, int(args.steps_per_call or 0))  # 0 (the default) means 1
+    if spc > 1 and gas > 1:
+        raise ValueError(
+            "--steps-per-call and --grad-accum-steps are mutually exclusive (both "
+            "consume stacked micro-batches, with different update semantics)"
+        )
+    if gas > 1:
+        if steps_per_epoch // gas == 0:
+            raise ValueError(
+                f"--grad-accum-steps {gas} exceeds steps_per_epoch {steps_per_epoch}: "
+                "every epoch would apply ZERO updates"
+            )
+        total_steps = (steps_per_epoch // gas) * epochs
+    if spc > 1 and steps_per_epoch // spc == 0:
+        raise ValueError(
+            f"--steps-per-call {spc} exceeds steps_per_epoch {steps_per_epoch}: every "
+            "epoch would train ZERO steps (trailing part-groups are dropped)"
+        )
+    kpack = gas if gas > 1 else spc  # loader batches per call
+    updates_per_call = 1 if gas > 1 else spc
 
     in_channels = taskspec.get_num_inchannels(args.model_name)
     model = api.create_model(
@@ -347,8 +462,27 @@ def train_worker(args: Any) -> str:
         args.optim, model.parameters(), weight_decay=args.weight_decay, momentum=args.momentum
     )
     state = TrainState(model, optimizer, schedule)
-    train_step = make_train_step(loss_fn, guard=args.bad_step_guard, compute_dtype=args.dtype)
-    eval_step = make_eval_step(loss_fn, compute_dtype=args.dtype)
+    guard = bool(args.bad_step_guard)
+    # On CUDA each step is a captured graph (train/graph.py); on the CPU
+    # the same functions run eagerly.
+    if gas > 1:
+        if steps_per_epoch % gas:
+            logger.warning(f"grad_accum_steps={gas} drops {steps_per_epoch % gas} trailing "
+                           f"batch(es) per epoch ({steps_per_epoch} steps)")
+        train_call = capture_accum_step(loss_fn, gas, guard=guard, compute_dtype=args.dtype)
+        logger.info(f"grad_accum_steps={gas}: effective batch {args.batch_size * gas}, "
+                    f"{steps_per_epoch // gas} updates/epoch")
+    else:
+        if spc > 1 and steps_per_epoch % spc:
+            logger.warning(f"steps_per_call={spc} drops {steps_per_epoch % spc} trailing "
+                           f"batch(es) per epoch ({steps_per_epoch} steps)")
+        single = capture_train_step(make_train_step(loss_fn, guard=guard,
+                                                    compute_dtype=args.dtype))
+        train_call = make_multi_train_step(loss_fn, spc, guard=guard,
+                                           compute_dtype=args.dtype, step=single)
+        if spc > 1:
+            logger.info(f"steps_per_call={spc}: {spc} updates per call")
+    eval_step = capture_eval_step(make_eval_step(loss_fn, compute_dtype=args.dtype))
 
     ckpt_mgr = CheckpointManager(
         os.path.join(args.log_dir, "checkpoints"), keep_last=args.keep_checkpoints
@@ -449,69 +583,101 @@ def train_worker(args: Any) -> str:
 
     train_losses: List[float] = []
     val_losses: List[float] = []
-    skipped, bad_run = 0, 0
+    monitor = _BadUpdateMonitor(max_bad if guard else 0)
+    # The host's mirror of the update count, which keys each update's
+    # randomness: the count at the last read, plus the updates dispatched
+    # since, less the skips among them whose verdicts have been read.
+    mirror = {"base": state.step, "dispatched": 0, "skipped": 0}
+
+    def next_count() -> int:
+        return (mirror["base"] + mirror["dispatched"]
+                - (monitor.total_skipped - mirror["skipped"]))
+
+    def rollback() -> None:
+        step_r = ckpt_mgr.latest_step()
+        if step_r is None:
+            raise RuntimeError(
+                f"{monitor.bad_run} consecutive non-finite updates and no checkpoint to "
+                "roll back to — aborting (enable --save-interval-steps for rollback coverage)"
+            )
+        logger.warning(
+            f"Bad-update guard: {monitor.bad_run} consecutive non-finite updates; "
+            f"rolling back to checkpoint step {step_r}"
+        )
+        ckpt_mgr.restore(state, step_r)
+        monitor.reset()
+        mirror.update(base=state.step, dispatched=0, skipped=monitor.total_skipped)
+
+    def random_sources(epoch: int):
+        """The call's randomness: update j's (seed, epoch, count + j), or
+        micro-batch i's (seed, epoch, count, i) of an accumulated update."""
+        count = next_count()
+        if gas > 1:
+            return [step_random_source(args.seed, epoch, count, device, micro=i)
+                    for i in range(gas)]
+        rngs = [step_random_source(args.seed, epoch, count + j, device) for j in range(spc)]
+        return rngs if spc > 1 else rngs[0]
+
+    pin = device.type == "cuda"
     preempt = _PreemptionHandler().__enter__()
     try:
         for epoch in range(start_epoch, epochs):
             t_epoch = time.perf_counter()
             train_loader.set_epoch(epoch)
             skip = start_batch if epoch == start_epoch else 0
+            if skip and skip % kpack:
+                # A checkpoint of the single-step path may sit off a call
+                # boundary of the grouped paths.
+                logger.warning(
+                    f"Resume offset {skip} is not a multiple of the packed group {kpack}; "
+                    f"rounding down (re-trains {skip % kpack} batch(es))"
+                )
+                skip -= skip % kpack
             if skip:
                 train_loader.set_start_batch(skip)
                 logger.info(f"Mid-epoch resume: epoch {epoch} from batch {skip}")
             epoch_losses: List[torch.Tensor] = []
+            late_logs: "collections.deque" = collections.deque()
             batches_done = skip
 
             def on_death(e: io_guard.LoaderDeathError) -> None:
                 loader_death_exit(e, epoch, batches_done)
 
-            batches = io_guard.watch(_prefetch(train_loader), watchdog, on_death=on_death)
-            for step, batch in enumerate(batches, start=skip):
-                gstep = epoch * steps_per_epoch + step
-                faults.on_step(gstep)
-                if preempt.triggered:  # before this step's dispatch
-                    preempt_exit(epoch, step)
-                rng = step_random_source(args.seed, epoch, state.step, device)
-                loss, _, diag = train_step(
-                    state,
-                    faults.corrupt_inputs(gstep, move_batch(batch.inputs, device)),
-                    move_batch(batch.loss_targets, device),
-                    rng,
-                )
-                batches_done = step + 1
+            def log_late(upto: Optional[int]) -> None:
+                """Print the loss lines of calls before ``upto`` (all when
+                None): their losses are read once the device is past them."""
+                while late_logs and (upto is None or late_logs[0][0] < upto):
+                    _, prefix, loss_t, lr = late_logs.popleft()
+                    logger.info(f"{prefix} loss {float(loss_t):.4e} lr {lr:.3e}")
+
+            groups = pipeline.group_batches(train_loader, kpack, pin=pin)
+            batches = io_guard.watch(_prefetch(groups), watchdog, on_death=on_death)
+            for call, (xk, yk) in enumerate(batches, start=skip // kpack):
+                first_b = call * kpack
+                gstep = epoch * steps_per_epoch + first_b
+                faults.on_step(gstep, n_steps=kpack)
+                if preempt.triggered:  # before this call's dispatch
+                    preempt_exit(epoch, first_b)
+                xk = faults.corrupt_inputs(gstep, xk, n_steps=kpack)
+                x, y = (xk, yk) if kpack > 1 else (_first(xk), _first(yk))
+                loss, _, diag = train_call(state, x, y, random_sources(epoch))
+                mirror["dispatched"] += updates_per_call
+                batches_done = first_b + kpack
                 epoch_losses.append(loss)
-                if diag:
-                    if diag["applied"]:
-                        bad_run = 0
-                    else:
-                        skipped, bad_run = skipped + 1, bad_run + 1
-                        logger.warning(
-                            f"Bad-update guard skipped step {gstep} (loss {float(loss):.4e}, "
-                            f"grad-norm {diag['grad_norm']:.4e}; consecutive run: {bad_run})"
-                        )
-                    if max_bad and bad_run >= max_bad:
-                        step_r = ckpt_mgr.latest_step()
-                        if step_r is None:
-                            raise RuntimeError(
-                                f"{bad_run} consecutive non-finite updates and no checkpoint to "
-                                "roll back to — aborting (enable --save-interval-steps for "
-                                "rollback coverage)"
-                            )
-                        logger.warning(
-                            f"Bad-update guard: {bad_run} consecutive non-finite updates; "
-                            f"rolling back to checkpoint step {step_r}"
-                        )
-                        ckpt_mgr.restore(state, step_r)
-                        bad_run = 0
-                if save_every and (step + 1) % save_every == 0:
-                    save(gstep + 1, epoch, step + 1)
-                if preempt.triggered:  # SIGTERM during the step
-                    preempt_exit(epoch, step + 1)
-                if step % args.log_step == 0:
-                    logger.info(
-                        f"{args.model_name}_train epoch {epoch} step {step}/{steps_per_epoch} "
-                        f"loss {float(loss):.4e} lr {schedule(max(state.step - 1, 0)):.3e}"
-                    )
+                if diag and monitor.push(diag["applied"]):
+                    rollback()
+                if save_every and batches_done // save_every > (batches_done - kpack) // save_every:
+                    save(epoch * steps_per_epoch + batches_done, epoch, batches_done)
+                if preempt.triggered:  # SIGTERM during the call
+                    preempt_exit(epoch, batches_done)
+                if call % args.log_step == 0:
+                    late_logs.append((call, f"{args.model_name}_train epoch {epoch} step "
+                                      f"{first_b}/{steps_per_epoch}", loss,
+                                      schedule(max(next_count() - 1, 0))))
+                log_late(call - monitor.lag)
+            log_late(None)
+            if monitor.flush():  # the verdicts of the epoch's last calls
+                rollback()
             losses = [float(x) for x in torch.stack(epoch_losses).cpu()] if epoch_losses else []
             train_losses.extend(losses)
             finite = [x for x in losses if np.isfinite(x)]
@@ -559,8 +725,9 @@ def train_worker(args: Any) -> str:
         val_loader.close()
     if io_guard.COUNTERS.any_faults():
         logger.info(f"[data-plane] run counters: {io_guard.COUNTERS.snapshot()}")
-    if skipped:
-        logger.warning(f"Bad-update guard skipped {skipped} non-finite update(s) this run")
+    if monitor.total_skipped:
+        logger.warning(f"Bad-update guard skipped {monitor.total_skipped} non-finite "
+                       "update(s) this run")
     np.save(os.path.join(args.log_dir, "train_losses.npy"), np.asarray(train_losses))
     np.save(os.path.join(args.log_dir, "val_losses.npy"), np.asarray(val_losses))
     return best_path
@@ -584,7 +751,7 @@ def test_worker(args: Any) -> float:
     model.load_state_dict(load_weights(args.checkpoint), strict=True)
     logger.info(f"Loaded checkpoint: {args.checkpoint}")
     state = TrainState(model.to(device))
-    eval_step = make_eval_step(loss_fn, compute_dtype=args.dtype)
+    eval_step = capture_eval_step(make_eval_step(loss_fn, compute_dtype=args.dtype))
     # The same stall protection as training; a loader death here simply
     # propagates: there is no train state to checkpoint.
     watchdog = _start_watchdog(args)

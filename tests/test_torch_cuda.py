@@ -145,3 +145,79 @@ def test_autograd_through_both_kernels_matches_plain_autograd(dev):
     assert (pa.launches, pa.bwd_launches) == (fwd + 1, bwd + 1)
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= _bwd_limit(torch.float32, b)
+
+
+def test_a_captured_kernel_reads_the_seed_written_before_each_replay(dev):
+    """K1 and K2 read the dropout seed from device memory: one captured
+    forward and backward, replayed with another seed written into the same
+    tensor, gives that seed's masks (the plain versions')."""
+    q, k, v = _qkv(dev, 2, 130, 65, 3, 16, seed=4)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(dev)
+    seed = torch.zeros((), dtype=torch.int32, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # warm-up: builds and loads both kernels
+        out = pa.fused_pooled_attention(*leaves, 0.25, dropout_rate=0.3, dropout_seed=seed)
+        torch.autograd.grad(out, leaves, g)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.fused_pooled_attention(*leaves, 0.25, dropout_rate=0.3, dropout_seed=seed)
+        grads = torch.autograd.grad(out, leaves, g)
+    for s in (7, 123456):
+        seed.fill_(s)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = [t.clone().requires_grad_() for t in (q, k, v)]
+        want_o = pa.pooled_attention_plain(*ref, 0.25, 0.3, s)
+        want = torch.autograd.grad(want_o, ref, g)
+        assert torch.equal(out == 0, want_o == 0)
+        torch.testing.assert_close(out, want_o, rtol=0, atol=1e-5)
+        for a, b in zip(grads, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * max(1.0, float(b.abs().max())))
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_the_captured_train_step_matches_the_eager_one(dev, dtype):
+    """Three captured steps of a small SeisT (drop rates 0.3) against three
+    eager ones from the same weights, batches and (seed, epoch, step):
+    losses within 1e-4 relative (cuDNN promises no bits), the count
+    advanced; K1 and K2 counted at every replay; then a NaN batch through
+    the graph changes no parameter."""
+    from seist_tpu_torch import taskspec
+    from seist_tpu_torch.models import api
+    from seist_tpu_torch.train.graph import capture_train_step
+    from seist_tpu_torch.train.optim import build_optimizer
+    from seist_tpu_torch.train.schedule import constant
+    from seist_tpu_torch.train.step import TrainState, make_train_step, step_random_source
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seist_model = api.create_model("seist_s_dpk", in_samples=1024, seed=0)
+    init = {k: v.clone() for k, v in seist_model.state_dict().items()}
+    g = torch.Generator().manual_seed(0)
+    xs = [torch.randn(8, 1024, 3, generator=g).to(dev) for _ in range(3)]
+    ys = [torch.rand(8, 1024, 3, generator=g).to(dev) for _ in range(3)]
+    losses, launches = {}, {}
+    for mode in ("eager", "captured"):
+        model = api.create_model("seist_s_dpk", in_samples=1024)
+        model.load_state_dict(init)
+        state = TrainState(model.to(dev), build_optimizer("adam", model.parameters()),
+                           constant(1e-4))
+        step = make_train_step(taskspec.make_loss("seist_s_dpk"), compute_dtype=dtype)
+        if mode == "captured":
+            step = capture_train_step(step)
+        before = pa.counts()
+        losses[mode] = [float(step(state, xs[t], ys[t], step_random_source(0, 0, t, dev))[0])
+                        for t in range(3)]
+        launches[mode] = tuple(b - a for a, b in zip(before, pa.counts()))
+        assert state.step == 3
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["captured"], losses["eager"]))
+    assert rel <= 1e-4, losses
+    assert launches["captured"] == launches["eager"] and launches["eager"][1] > 0
+    params = {k: v.clone() for k, v in state.model.state_dict().items()}
+    _, _, diag = step(state, xs[0] * float("nan"), ys[0], step_random_source(0, 0, 3, dev))
+    assert not bool(diag["applied"]) and state.step == 3
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(v, params[k]), k

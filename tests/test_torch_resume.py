@@ -10,8 +10,9 @@
 * Retention keeps the last K steps plus the best-val one, across managers.
 * A JAX train state written by ``convert.save_torch_train_state`` resumes
   at its data position and update count.
-* Three non-finite batches in a row roll back to the last interval save;
-  without one, the run raises, as the JAX package's does.
+* Three non-finite batches in a row roll back to the last interval save,
+  with the guard's verdicts read two calls late; without a save, the run
+  raises, as the JAX package's does.
 * The command line: a ``train_test`` subprocess writes the weights, the
   results CSV and the metrics JSON, and ``--mode test --checkpoint``
   writes the same JSON again.
@@ -219,17 +220,19 @@ ROLLBACK = [a if a != "30" else "40" for a in BASE] + ["--mode", "train", "--log
 
 
 def test_three_non_finite_batches_roll_back_to_the_last_save(monkeypatch, tmp_path, log_lines):
-    # Saves at 4 and 8; step 4 is applied after the first save, steps 5-7
-    # are skipped, and the third skip rolls back to step 4's state.
-    _poison(monkeypatch, {5, 6, 7})
+    # Saves at 4 and 8; steps 1-3 are skipped. The guard's verdicts are read
+    # two calls late, as the JAX worker reads them, so the third skip is
+    # seen after step 5: the run rolls back to step 4's save (one applied
+    # update), dropping the updates of steps 4 and 5; steps 6 and 7 apply.
+    _poison(monkeypatch, {1, 2, 3})
     best = cli.main(ROLLBACK + [str(tmp_path), "--save-interval-steps", "4"])
     run = Path(best).parent.parent
     assert "Bad-update guard: 3 consecutive non-finite updates; rolling back to checkpoint step 4" \
         in log_lines
     losses = np.load(run / "train_losses.npy")
-    assert np.isfinite(losses[:5]).all() and not np.isfinite(losses[5:]).any()
-    assert _load(_files(run, 8)[1])["step"] == 4  # 5 applied, one rolled back
-    _assert_same(_load(_files(run, 8)[0]), _load(_files(run, 4)[0]))
+    assert np.isfinite(losses[[0, 4, 5, 6, 7]]).all() and not np.isfinite(losses[1:4]).any()
+    assert _load(_files(run, 4)[1])["step"] == 1
+    assert _load(_files(run, 8)[1])["step"] == 3  # 1 at the save, then steps 6 and 7
 
 
 def test_non_finite_batches_without_a_save_raise(monkeypatch, tmp_path):

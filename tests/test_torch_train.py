@@ -240,10 +240,13 @@ def test_use_checkpoint_and_unported_flags_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tapi.create_model(MODEL, in_samples=WINDOW, use_checkpoint=True)
     base = ["--dataset-name", "synthetic"]
-    for extra in (["--grad-accum-steps", "2"], ["--steps-per-call", "4"],
-                  ["--device-aug", "step"], ["--seq-shards", "2"]):
+    for extra in (["--device-aug", "step"], ["--seq-shards", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             cli.get_args(base + extra)
+    # Ported in the slice of the captured step: accepted as given.
+    args = cli.get_args(base + ["--grad-accum-steps", "2"])
+    assert (args.grad_accum_steps, args.steps_per_call) == (2, 0)
+    assert cli.get_args(base + ["--steps-per-call", "4"]).steps_per_call == 4
     with pytest.raises(ValueError, match="train_test"):
         cli.get_args(base + ["--mode", "serve"])
     with pytest.raises(NotImplementedError, match="dataset-name.*tools.pack_dataset"):

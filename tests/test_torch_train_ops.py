@@ -166,9 +166,7 @@ def test_optimizer_update_matches_optax(name, wd):
     for t, g in enumerate(grads):
         upd, st = tx.update(jnp.asarray(g), st, jp_)
         jp_ = optax.apply_updates(jp_, upd)
-        tp_.grad = torch.from_numpy(g)
-        toptim.set_lr(opt, tschedule(t))
-        opt.step()
+        toptim.apply_update(opt, [tp_], [torch.from_numpy(g)], tschedule.at(torch.tensor(t)))
         np.testing.assert_allclose(tp_.detach().numpy(), np.asarray(jp_), rtol=0, atol=4e-7)
 
 
