@@ -76,7 +76,19 @@ non-zero before the last line):
    times each where it traces graph kernels); and ``train_test`` with
    ``--steps-per-call 2`` (losses against phase 6's pair means) and with
    ``--grad-accum-steps 2 --batch-size 32`` through the train entry, plain
-   versions patched to raise, the replays' launches counted.
+   versions patched to raise, the replays' launches counted;
+10. the six baseline families at their published widths, none of which
+    reaches K1 or K2: PhaseNet served at window 8192 (24 concurrent
+    requests, every response's picks within 0.1 s of the port's CPU run);
+    ``train_test`` of phasenet, eqtransformer (both L1 flags on), magnet and
+    baz_network at window 8192 and ditingmotion at 128, batch 64, through
+    the train entry; per family 3 captured steps against 3 eager ones
+    (losses within RESUME_RTOL, no attention launch), the forward at b8,
+    the captured and eager step at b64 with a profile and peak memory; a
+    bf16 step of eqtransformer and magnet against fp32 (loss rtol 0.05);
+    BAZNetwork's eigenvector signs on the card against the CPU and its
+    outputs where they agree; DistPTNetwork's forward at window 8192
+    against the CPU.
 
 It prints one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -374,8 +386,9 @@ def picks_close(a: dict, b: dict, tol_samples: float) -> bool:
         sb = sorted(p["sample"] for p in b[kind])
         if len(sa) != len(sb) or any(abs(x - y) > tol_samples for x, y in zip(sa, sb)):
             return False
-    da = sorted((d["onset"], d["offset"]) for d in a["det"])
-    db = sorted((d["onset"], d["offset"]) for d in b["det"])
+    # PhaseNet's (non, ppk, spk) has no detection head.
+    da = sorted((d["onset"], d["offset"]) for d in a.get("det", []))
+    db = sorted((d["onset"], d["offset"]) for d in b.get("det", []))
     return len(da) == len(db) and all(
         abs(x[0] - y[0]) <= tol_samples and abs(x[1] - y[1]) <= tol_samples
         for x, y in zip(da, db)
@@ -1401,6 +1414,278 @@ def grouped_entry_phase(log_base: str, n_shapes: int, run: dict) -> dict:
             "wall_accum_s": wall_a}
 
 
+# ------------------------------------------------------------- phase 10
+#: The five families with a task row and the window each trains at
+#: (DiTingMotion's published input is 128 samples).
+BASELINES = {"phasenet": WINDOW, "eqtransformer": WINDOW, "magnet": WINDOW,
+             "baz_network": WINDOW, "ditingmotion": 128}
+# 128 synthetic events -> 102 train (x2 by augmentation -> 3 batches of 64),
+# one padded val batch and one padded test batch.
+BASELINE_EVENTS, BASELINE_STEPS = 128, 3
+#: EQTransformer trains with both L1 terms on (``--conv-*-l1-alpha``).
+L1_ARGS = ["--conv-kernel-l1-alpha", "1e-4", "--conv-bias-l1-alpha", "1e-4"]
+BF16_LOSS_RTOL = 0.05  # bf16 vs fp32 step loss, the JAX package's limit (tests/test_train.py)
+#: The model's output on the card vs the CPU (cuDNN and the CPU sum in other
+#: orders), as PROB_TOL; DistPTNetwork's heads are unbounded values.
+DISTPT_TOL = 1e-4
+
+
+def baseline_args(name: str) -> List[str]:
+    """The train entry's arguments for one family. A window that
+    augmentation turns into noise keeps no value or class label, which
+    the loader (the JAX package's too) cannot stack: the families with
+    such labels train with ``--generate-noise-rate 0``."""
+    args = ["--model-name", name, "--dataset-name", "synthetic", "--synthetic-events",
+            str(BASELINE_EVENTS), "--in-samples", str(BASELINES[name]), "--batch-size",
+            str(TRAIN_BATCH), "--epochs", "1", "--seed", str(SEED), "--device", "cuda"]
+    if name in ("magnet", "baz_network", "ditingmotion"):
+        args += ["--generate-noise-rate", "0"]
+    return args + (L1_ARGS if name == "eqtransformer" else [])
+
+
+def baseline_batch(name: str, n: int, seed: int, dev):
+    """Seeded inputs and targets of a family's task row at its window."""
+    window = BASELINES.get(name, WINDOW)
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, window, 2 if name == "ditingmotion" else 3, generator=g)
+    if name in ("phasenet", "eqtransformer"):
+        y = torch.rand(n, window, 3, generator=g)
+    elif name == "magnet":
+        y = 6.0 * torch.rand(n, 1, generator=g)
+    elif name == "baz_network":
+        y = 360.0 * torch.rand(n, 1, generator=g)
+    else:
+        y = tuple(torch.eye(2)[torch.randint(0, 2, (n,), generator=g)].long() for _ in "cp")
+    return x.to(dev), (tuple(t.to(dev) for t in y) if isinstance(y, tuple) else y.to(dev))
+
+
+def serve_phasenet(name_power: str) -> None:
+    """Phase 10a: PhaseNet served at window 8192 from seeded weights (its
+    own initialisers), 24 concurrent requests; every response's picks
+    within 0.1 s of the port's CPU run of the same trace."""
+    weights = os.path.join(str(_kernels.BUILD_DIR), f"phasenet_seed{SEED}.pt")
+    torch.save(api.create_model("phasenet", in_samples=WINDOW, seed=SEED).state_dict(), weights)
+    service = srv.build_service([("phasenet", weights)], window=WINDOW, device="cuda",
+                                max_batch=BATCH, max_delay_ms=20.0)
+    server = srv.start_http_server(service, "127.0.0.1", 0)
+    url = "http://127.0.0.1:%d/predict" % server.server_address[1]
+    data, opts = traces(N_REQUESTS), {"max_events": 1}
+    results: List[Tuple[int, dict, float]] = [None] * N_REQUESTS
+
+    def one(i: int) -> None:
+        t0 = time.perf_counter()
+        status, body = post(url, {"data": data[i].tolist(), "options": opts})
+        results[i] = (status, body, (time.perf_counter() - t0) * 1e3)
+
+    before = pa.counts()
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(N_REQUESTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    launches = tuple(b - a for a, b in zip(before, pa.counts()))
+    forwards = service.metrics()["models"]["phasenet"]["forwards"]
+    server.shutdown()
+    service.shutdown()
+    if any(r is None or r[0] != 200 or r[1].get("task") != "picking" for r in results):
+        fail(f"a phasenet /predict failed: {[r and (r[0], str(r[1])[:120]) for r in results]}")
+    cpu = load_model_entry("phasenet", weights, window=WINDOW, device="cpu")
+    x = np.stack([normalize(t.T, "std", axis=0) for t in data]).astype(np.float32)
+    out_cpu = cpu.run(x)
+    popts = PredictOptions.from_dict(opts)
+    close = n_picks = 0
+    for i, (_, body, _) in enumerate(results):
+        ref = decode_outputs(cpu, out_cpu[i:i + 1], popts)
+        close += picks_close(body, ref, PICK_TOL_S * popts.sampling_rate)
+        n_picks += sum(len(ref[k]) for k in ("ppk", "spk"))
+    lat = np.array([r[2] for r in results])
+    p50, p99 = float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+    print(f"[phasenet-serve] {name_power} | window {WINDOW}: {N_REQUESTS} concurrent /predict -> "
+          f"{forwards} forwards; picks within {PICK_TOL_S} s of the CPU run in {close} of "
+          f"{N_REQUESTS} responses ({n_picks} reference picks); client p50 {p50:.1f} ms p99 "
+          f"{p99:.1f} ms; K1/K2 launches {launches[:2]}", flush=True)
+    if close != N_REQUESTS or n_picks == 0 or any(launches):
+        fail("served PhaseNet's picks differ from the CPU run, or an attention kernel ran")
+
+
+def baseline_train_test(name: str, log_base: str) -> None:
+    """Phase 10b: ``train_test`` of one family through the train entry, the
+    plain attention versions patched to raise (no family reaches them)."""
+    best, counts, wall_s, lines = run_entry(baseline_args(name) + [
+        "--mode", "train_test", "--log-base", log_base])
+    log_dir = os.path.dirname(os.path.dirname(best))
+    losses = np.load(os.path.join(log_dir, "train_losses.npy"))
+    with open(os.path.join(log_dir, "test_metrics_synthetic.json")) as f:
+        payload = json.load(f)
+    with open(os.path.join(log_dir, "test_results_synthetic_test.csv"), newline="") as f:
+        rows = len(list(csv.reader(f))) - 1
+    eval_tasks = list(taskspec.get_task_spec(name).eval)
+    values = [v for m in payload["metrics"].values() for v in m.values()]
+    print(f"[baseline-train] {name} window {BASELINES[name]} b{TRAIN_BATCH}"
+          f"{' ' + ' '.join(L1_ARGS) if name == 'eqtransformer' else ''}: losses "
+          f"{[round(float(x), 5) for x in losses]}, test loss {payload['loss']:.5f}, metrics "
+          f"{json.dumps(payload['metrics'])}, CSV {rows} rows; attention launches "
+          f"{sum(counts.values())}; wall {wall_s:.1f} s", flush=True)
+    if (len(losses) != BASELINE_STEPS or not np.isfinite(losses).all()
+            or sorted(payload["metrics"]) != sorted(eval_tasks) or not rows
+            or not np.isfinite([payload["loss"]] + values).all() or any(counts.values())):
+        fail(f"{name} train_test: losses {losses}, metrics {payload['metrics']}, {rows} rows, "
+             f"attention launches {counts}")
+    if name == "eqtransformer" and not any("conv_kernel_l1_alpha: 0.0001" in x for x in lines):
+        fail("the L1 flags did not reach the eqtransformer run")
+
+
+def baseline_state(name: str, dev) -> TrainState:
+    model = api.create_model(name, in_channels=2 if name == "ditingmotion" else 3,
+                             in_samples=BASELINES[name], seed=SEED).to(dev)
+    return TrainState(model, build_optimizer("adam", model.parameters()), constant(1e-4))
+
+
+def baseline_steps(name: str, dev, name_power: str) -> None:
+    """Phase 10c-d and the family's times: 3 captured b64 steps against 3
+    eager ones from the same weights, batches and (seed, epoch, step), their
+    drop rates on (losses within RESUME_RTOL, no attention launch); then 5
+    timed steps of each, one profiled captured step; the forward at b8;
+    for eqtransformer and magnet one bf16 captured step against fp32."""
+    loss_fn = taskspec.make_loss(name)
+    batches = [baseline_batch(name, TRAIN_BATCH, 100 + t, dev) for t in range(3)]
+    runs = {}
+    for mode in ("eager", "captured"):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before_b = torch.cuda.memory_allocated()
+        state = baseline_state(name, dev)
+        step = make_train_step(loss_fn)
+        if mode == "captured":
+            step = capture_train_step(step)
+        before = pa.counts()
+        losses = [float(step(state, x, y, step_random_source(SEED, 0, t, dev))[0])
+                  for t, (x, y) in enumerate(batches)]
+        launches = tuple(b - a for a, b in zip(before, pa.counts()))
+        x, y = batches[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(5):
+            step(state, x, y, step_random_source(SEED, 1, i, dev))
+        torch.cuda.synchronize()
+        runs[mode] = {"losses": np.array(losses), "launches": launches,
+                      "ms": (time.perf_counter() - t0) * 1e3 / 5,
+                      "peak_gib": (torch.cuda.max_memory_allocated() - before_b) / 2**30,
+                      "state": state, "step": step}
+    cap, eag = runs["captured"], runs["eager"]
+    rel = max_rel(cap["losses"], eag["losses"])
+    prof = profile_train_step({"state": cap["state"], "step": cap["step"], "x": batches[0][0],
+                               "y": batches[0][1]})
+    model = cap["state"].model.eval()
+    xf = baseline_batch(name, BATCH, 7, dev)[0]
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(xf), 20, warmup=3)
+    print(f"[baseline-capture] {name} window {BASELINES[name]} b{TRAIN_BATCH} fp32, its drop "
+          f"rates: 3 captured steps vs eager: losses {cap['losses'].tolist()} vs "
+          f"{eag['losses'].tolist()} (max rel {rel:.3e}, limit {RESUME_RTOL:.0e}); attention "
+          f"launches captured {sum(cap['launches'])}, eager {sum(eag['launches'])}; capture "
+          f"{cap['step'].graphs.capture_seconds[0]:.2f} s", flush=True)
+    print(f"[baseline-time] {name_power} | {name} window {BASELINES[name]}: forward b{BATCH} "
+          f"{fwd_ms:.3f} ms; train step b{TRAIN_BATCH} captured {cap['ms']:.2f} ms, eager "
+          f"{eag['ms']:.2f} ms; captured step: device busy {prof['device_busy_ms_per_step']:.2f} "
+          f"ms, {prof['kernels_per_step']:.0f} kernels, idle share {prof['device_idle_share']:.3f} "
+          f"(profiled wall {prof['wall_ms_per_step']:.2f} ms); peak memory captured "
+          f"{cap['peak_gib']:.3f} GiB, eager {eag['peak_gib']:.3f} GiB", flush=True)
+    for key, ms, count in prof["top"][:4]:
+        print(f"[baseline-time]   {ms:.3f} ms/step in {count} launches: {key}", flush=True)
+    if not rel <= RESUME_RTOL or any(cap["launches"]) or any(eag["launches"]):
+        fail(f"{name}: the captured step does not reproduce the eager one")
+    del runs, cap, eag, model
+    if name in ("eqtransformer", "magnet"):  # 10d
+        x, y = batches[0]
+        got = {}
+        for dtype in ("fp32", "bf16"):
+            state = baseline_state(name, dev)
+            step = capture_train_step(make_train_step(loss_fn, compute_dtype=dtype))
+            got[dtype] = float(step(state, x, y, step_random_source(SEED, 0, 0, dev))[0])
+            if not all(p.dtype == torch.float32 for p in state.model.parameters()):
+                fail(f"{name} bf16 step left a parameter in another dtype")
+        rel16 = abs(got["bf16"] - got["fp32"]) / abs(got["fp32"])
+        print(f"[baseline-bf16] {name}: captured bf16 step loss {got['bf16']:.6f} vs fp32 "
+              f"{got['fp32']:.6f} (rel {rel16:.3e}, limit {BF16_LOSS_RTOL})", flush=True)
+        if not rel16 <= BF16_LOSS_RTOL:
+            fail(f"{name}: the bf16 step's loss is off the fp32 one")
+    torch.cuda.empty_cache()
+
+
+def baz_features(dev) -> None:
+    """BAZNetwork's eigen features on the card against the CPU, for windows
+    of noise mixed across the channels (distinct eigenvalues, so each
+    eigenvector is defined up to its sign): covariance and eigenvalues
+    alike, the eigenvectors equal up to sign, the windows where cuSOLVER's
+    sign differs from LAPACK's counted, the outputs compared where none
+    does and, on the CPU's features, in every window; and the features'
+    cost per b64 step (computed before each replay)."""
+    from seist_tpu_torch.models.baz_network import cov_features
+
+    window = BASELINES["baz_network"]
+    model = api.create_model("baz_network", in_samples=window, seed=SEED)
+    g = torch.Generator().manual_seed(11)
+    mix = torch.linalg.qr(torch.randn(3, 3, generator=g))[0] * torch.tensor([3.0, 1.5, 0.5])
+    x = torch.randn(TRAIN_BATCH, window, 3, generator=g) @ mix
+    xg = x.to(dev)
+    f_cpu, f_gpu = cov_features(x), cov_features(xg).cpu()
+    same_rest = float((f_gpu[:, :4] - f_cpu[:, :4]).abs().max())
+    dots = (f_gpu[:, 4:] * f_cpu[:, 4:]).sum(dim=-1)  # (N, 3): +-1 per eigenvector
+    aligned = bool(((dots.abs() - 1).abs() < 1e-4).all())
+    agree = (dots > 0).all(dim=1)
+    with torch.no_grad():
+        o_cpu = model(x)
+        model.to(dev)
+        o_gpu = [o.cpu() for o in model(xg)]
+        o_fed = [o.cpu() for o in model((xg, f_cpu.to(dev)))]  # the CPU's features on the card
+    err = max(float(torch.cat([(a - b).abs()[agree].reshape(-1), torch.zeros(1)]).max())
+              for a, b in zip(o_gpu, o_cpu))
+    fed_err = max(float((a - b).abs().max()) for a, b in zip(o_fed, o_cpu))
+    ms = time_ms(lambda: cov_features(xg), 20)
+    flips = int((~agree).sum())
+    per_vector = (dots < 0).sum(dim=0).tolist()
+    print(f"[baz-eigh] b{TRAIN_BATCH} window {window}: covariance and eigenvalues, card vs CPU, "
+          f"max abs err {same_rest:.2e}; eigenvectors equal up to sign: {aligned}; cuSOLVER's "
+          f"sign differs from LAPACK's in {flips} of {len(agree)} windows (per eigenvector, "
+          f"ascending: {per_vector}); outputs on the card's own features where no sign differs "
+          f"({int(agree.sum())} windows) max abs err {err:.2e}, on the CPU's features (all "
+          f"windows) {fed_err:.2e} (limit {PROB_TOL:.0e}); features before each replay "
+          f"{ms:.3f} ms per b{TRAIN_BATCH} step", flush=True)
+    if (not same_rest <= PROB_TOL or not aligned or not err <= PROB_TOL
+            or not fed_err <= PROB_TOL):
+        fail("BAZNetwork's features or outputs on the card differ from the CPU's")
+
+
+def distpt_forward(dev) -> None:
+    """Phase 10e: DistPTNetwork at window 8192 on the card against the CPU."""
+    model = api.create_model("distpt_network", in_samples=WINDOW, seed=SEED)
+    x = torch.randn(BATCH, WINDOW, 3, generator=torch.Generator().manual_seed(12))
+    with torch.no_grad():
+        want = model(x)
+        got = [o.cpu() for o in model.to(dev)(x.to(dev))]
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    print(f"[distpt] window {WINDOW} b{BATCH}: outputs on the card vs the CPU max abs err "
+          f"{err:.2e} (limit {DISTPT_TOL:.0e})", flush=True)
+    if not err <= DISTPT_TOL:
+        fail("DistPTNetwork on the card differs from the CPU")
+
+
+def baseline_phase(name_power: str, log_base: str, dev) -> None:
+    """Phase 10: the six baseline families on the card at their published
+    widths."""
+    t0 = time.perf_counter()
+    serve_phasenet(name_power)
+    for name in BASELINES:
+        baseline_train_test(name, log_base)
+    for name in BASELINES:
+        baseline_steps(name, dev, name_power)
+    baz_features(dev)
+    distpt_forward(dev)
+    print(f"[baseline] phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this drives the "
@@ -1525,6 +1810,7 @@ def main() -> int:
                 torch.cuda.empty_cache()
 
     loader_phase(name_power, step_ms)
+    baseline_phase(name_power, logs, dev)
 
     fp32 = [r for r in rows if r["dtype"] == "fp32"]  # the serving path is fp32
     launches = {k: served_launches * (k == "K1") + sum(c[k] for c in path_counts)
@@ -1545,6 +1831,8 @@ def main() -> int:
     bounds = {}
     for kid, label, rs, ops_at in (
             ("K1", "five fp32 b8 launches", fp32, "on the fp32 CUDA cores"),
+            ("K1-bf16", "five bf16 b8 launches", [r for r in rows if r["dtype"] == "bf16"],
+             "at the bf16 tensor-core peak"),
             ("K2", "five fp32 b64 launches", bwd_rows["fp32"], "on the fp32 CUDA cores"),
             ("K2-bf16", "five bf16 b64 launches", bwd_rows["bf16"],
              "at the bf16 tensor-core peak")):

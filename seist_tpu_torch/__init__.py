@@ -22,4 +22,12 @@ def load_all() -> None:
     """Import the model and dataset modules so their names register in
     :data:`seist_tpu_torch.registry.MODELS` and ``DATASETS``."""
     from seist_tpu_torch.data import packed, synthetic  # noqa: F401
-    from seist_tpu_torch.models import seist  # noqa: F401
+    from seist_tpu_torch.models import (  # noqa: F401
+        baz_network,
+        distpt_network,
+        ditingmotion,
+        eqtransformer,
+        magnet,
+        phasenet,
+        seist,
+    )

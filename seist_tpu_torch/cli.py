@@ -26,6 +26,10 @@ exclude each other; a tail of fewer than k batches per epoch is dropped
 and logged. On CUDA every train and eval step runs as a captured CUDA
 graph (``train/graph.py``).
 
+``--conv-kernel-l1-alpha`` and ``--conv-bias-l1-alpha`` add L1 sign decay
+to EQTransformer's encoder and decoder convolutions (any other model
+raises, as in the JAX package).
+
 A flag of the JAX CLI whose non-default value the port does not run yet
 raises and names ``ROADMAP.md``: ``--device-aug`` and ``--seq-shards``.
 Flags of the telemetry plane are not accepted at all.
@@ -68,6 +72,14 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--checkpoint", default="", type=str,
                     help="model_<step>.pt: resume (train) or the weights to test")
     ap.add_argument("--seq-shards", default=1, type=int, dest="seq_shards")
+    ap.add_argument("--conv-kernel-l1-alpha", default=0.0, type=float,
+                    dest="conv_kernel_l1_alpha",
+                    help="L1 (sign) regularization strength on eqtransformer's "
+                    "encoder/decoder conv kernels (ref eqtransformer.py "
+                    "conv_kernel_l1_regularization)")
+    ap.add_argument("--conv-bias-l1-alpha", default=0.0, type=float,
+                    dest="conv_bias_l1_alpha",
+                    help="as --conv-kernel-l1-alpha, for conv biases")
     ap.add_argument("--dtype", default="fp32", type=str, choices=["fp32", "bf16"],
                     help="compute dtype of the train/eval steps: bf16 keeps fp32 "
                     "parameters, optimizer state, BatchNorm statistics and loss")

@@ -1,1 +1,2 @@
-"""Models of the port (registered by importing seist_tpu_torch.models.seist)."""
+"""Models of the port: the 21 names of the JAX package, registered by
+``seist_tpu_torch.load_all()`` (SeisT's 15 and the six baseline families)."""

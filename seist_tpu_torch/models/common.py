@@ -1,10 +1,14 @@
 """Shared building blocks (channels-last ``(N, L, C)``, torch).
 
 Counterparts of ``seist_tpu/models/common.py``: ``auto_pad_1d`` with the
-reference's asymmetric 'same' padding, ceil-mode pooling (the avg divisor
-is the count of valid elements), ``interpolate_linear``
-(``align_corners=False``), ``make_divisible``, exact-erf ``gelu``,
-BatchNorm with eps 1e-5, ``global_avg_pool`` and ``DropPath``.
+reference's asymmetric 'same' padding, the static ``same_pad_1d`` and the
+left-only ``causal_pad_1d``, ceil-mode pooling (the avg divisor is the
+count of valid elements) and floor-mode ``max_pool_1d``,
+``interpolate_linear`` (``align_corners=False``), ``interpolate_nearest``
+and ``upsample_x2``, ``make_divisible``, exact-erf ``gelu``, BatchNorm
+with eps 1e-5, flax's ``LayerNorm`` (eps 1e-6), ``global_avg_pool``,
+``DropPath``, element and channel ``Dropout``, a transposed convolution
+and the ``LSTM`` of the baseline families (``nn.LSTM``, cuDNN on the card).
 
 Activations stay channels-last at every public function, as in the JAX
 package; convolutions transpose to ``(N, C, L)`` around ``F.conv1d``.
@@ -38,6 +42,8 @@ BN_EPSILON = 1e-5
 BN_MOMENTUM = 0.9
 #: Std of the truncated-normal weight init (``seist_tpu/models/common.py:30``).
 INIT_STD = 0.02
+#: flax ``nn.LayerNorm``'s epsilon (torch's default is 1e-5).
+LN_EPSILON = 1e-6
 
 
 # --------------------------------------------------------------------- padding
@@ -57,6 +63,18 @@ def auto_pad_1d(
     """Pad the length axis (-2) of an (N, L, C) tensor."""
     lp, rp = auto_pad_amount(x.shape[-2], kernel_size, stride)
     return F.pad(x, (0, 0, lp, rp), value=padding_value)
+
+
+def same_pad_1d(x: torch.Tensor, kernel_size: int) -> torch.Tensor:
+    """Static 'same' padding of a stride-1 conv: (k-1)//2 left, the rest
+    right (``seist_tpu/models/common.py:60``)."""
+    lp = (kernel_size - 1) // 2
+    return F.pad(x, (0, 0, lp, kernel_size - 1 - lp))
+
+
+def causal_pad_1d(x: torch.Tensor, kernel_size: int, dilation: int = 1) -> torch.Tensor:
+    """Left-only padding of a causal dilated conv (``common.py:67``)."""
+    return F.pad(x, (0, 0, (kernel_size - 1) * dilation, 0))
 
 
 # --------------------------------------------------------------------- pooling
@@ -88,6 +106,14 @@ def avg_pool_1d_ceil(x: torch.Tensor, kernel_size: int) -> torch.Tensor:
     return sums / counts[None, :, None]
 
 
+def max_pool_1d(x: torch.Tensor, kernel_size: int) -> torch.Tensor:
+    """MaxPool1d(k), floor mode: the trailing partial window is dropped
+    (``common.py:140``)."""
+    n, length, c = x.shape
+    n_out = length // kernel_size
+    return x[:, : n_out * kernel_size].reshape(n, n_out, kernel_size, c).amax(dim=2)
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """AdaptiveAvgPool1d(1) + flatten: (N, L, C) -> (N, C)."""
     return x.mean(dim=-2)
@@ -114,6 +140,24 @@ def interpolate_linear(x: torch.Tensor, out_size: int) -> torch.Tensor:
     return x.index_select(1, lo) * (1.0 - w) + x.index_select(1, hi) * w
 
 
+def interpolate_nearest(x: torch.Tensor, out_size: int) -> torch.Tensor:
+    """F.interpolate(mode='nearest') on (N, L, C): source index
+    ``floor(d * L_in/L_out)`` in float32, as the JAX package computes it
+    (``common.py:211``); an integer upscale repeats each sample."""
+    l_in = x.shape[-2]
+    if l_in == out_size:
+        return x
+    if out_size % l_in == 0:
+        return x.repeat_interleave(out_size // l_in, dim=-2)
+    src = torch.arange(out_size, dtype=torch.float32, device=x.device) * (l_in / out_size)
+    return x.index_select(1, torch.floor(src).long())
+
+
+def upsample_x2(x: torch.Tensor) -> torch.Tensor:
+    """nn.Upsample(scale_factor=2), nearest (``common.py:227``)."""
+    return x.repeat_interleave(2, dim=-2)
+
+
 # --------------------------------------------------------------------- helpers
 def make_divisible(v: int, divisor: int) -> int:
     """Channel rounding (ref seist.py:51-60)."""
@@ -132,7 +176,8 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 class Conv1d(nn.Module):
     """Channels-last conv1d: (N, L, Cin) -> (N, L_out, Cout), VALID padding.
     ``groups`` > 1 covers the depthwise and grouped convs of the JAX
-    package (their lowering choices are XLA's and are not ported)."""
+    package (their lowering choices are XLA's and are not ported);
+    ``dilation`` the causal TCN's."""
 
     def __init__(
         self,
@@ -142,6 +187,7 @@ class Conv1d(nn.Module):
         stride: int = 1,
         groups: int = 1,
         bias: bool = False,
+        dilation: int = 1,
     ):
         super().__init__()
         if in_channels % groups or out_channels % groups:
@@ -151,6 +197,7 @@ class Conv1d(nn.Module):
             )
         self.stride = stride
         self.groups = groups
+        self.dilation = dilation
         # Values come from models/api.py::init_weights or a state_dict.
         self.weight = nn.Parameter(
             torch.zeros(out_channels, in_channels // groups, kernel_size)
@@ -159,9 +206,97 @@ class Conv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv1d(
-            x.transpose(1, 2), self.weight, self.bias, self.stride, 0, 1, self.groups
+            x.transpose(1, 2), self.weight, self.bias, self.stride, 0, self.dilation,
+            self.groups,
         )
         return y.transpose(1, 2)
+
+
+class ConvTranspose1d(nn.Module):
+    """Channels-last transposed conv1d, no padding or bias: L_out = (L-1)*s + k.
+
+    ``weight`` has torch's ``ConvTranspose1d`` layout (Cin, Cout, k). A
+    flax ``ConvTranspose`` (``padding="VALID"``, no kernel transpose)
+    correlates the dilated input with its kernel as stored, while torch
+    flips it, so ``models/convert.py`` stores ``kernel[k-1-t, i, o]`` at
+    ``weight[i, o, t]``; both lengths are (L-1)*s + k for k >= s
+    (``seist_tpu/models/phasenet.py:92-94``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1):
+        super().__init__()
+        if kernel_size < stride:
+            raise ValueError(f"kernel {kernel_size} < stride {stride}: the lengths differ")
+        self.stride = stride
+        self.weight = nn.Parameter(torch.zeros(in_channels, out_channels, kernel_size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose1d(x.transpose(1, 2), self.weight, None, self.stride)
+        return y.transpose(1, 2)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm`` over the channel axis: eps 1e-6, scale and bias."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=LN_EPSILON)
+
+
+class LSTM(nn.LSTM):
+    """One LSTM layer over (N, L, C), batch first, returning ``(outputs,
+    final_h)`` as ``seist_tpu/models/common.py::LSTM`` (:603) does; with
+    ``bidirectional`` the ``BiLSTM`` (:637): outputs ``(N, L, 2H)`` and the
+    final h ``concat(fwd_h, bwd_h)``. The backward direction runs over the
+    reversed sequence without masking, which is what flax's ``bwd`` cell
+    computes on ``x[:, ::-1]``.
+
+    The gates are torch's (i, f, g, o), flax ``OptimizedLSTMCell``'s order.
+    flax has one bias per gate (on the hidden product) where torch has two:
+    ``bias_ih`` is a zero buffer, outside the ``state_dict`` and the
+    optimizer, so an update moves the effective bias once. The forward
+    calls the cuDNN LSTM on the card with every weight cast to the input's
+    dtype (a no-op in fp32, where the weights stay views of cuDNN's flat
+    buffer: ``nn.LSTM`` flattens them after ``.to()``; loads and the
+    optimizer write into them in place), so under the bf16 policy the
+    recurrence and its carry are bf16, as the JAX package pins them."""
+
+    def __init__(self, input_size: int, hidden: int, bidirectional: bool = False):
+        super().__init__(input_size, hidden, batch_first=True, bidirectional=bidirectional)
+        for name in self._flat_weights_names:
+            if name.startswith("bias_ih"):
+                p = self._parameters.pop(name)
+                self.register_buffer(name, torch.zeros_like(p.data), persistent=False)
+        self._init_flat_weights()
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        dirs = 2 if self.bidirectional else 1
+        h0 = x.new_zeros(dirs, x.shape[0], self.hidden_size)
+        # getattr, not _flat_weights: functional_call swaps the parameters.
+        weights = [getattr(self, n).to(x.dtype) for n in self._flat_weights_names]
+        out, h, _ = torch._VF.lstm(x, (h0, h0), weights, True, 1, 0.0, self.training,
+                                   self.bidirectional, True)
+        return out, (torch.cat([h[0], h[1]], dim=-1) if self.bidirectional else h[0])
+
+    @torch.no_grad()
+    def flax_init(self, generator: torch.Generator) -> None:
+        """flax ``OptimizedLSTMCell``'s initialisers, gate by gate: input
+        kernels lecun_normal, recurrent kernels orthogonal, biases zero."""
+        h = self.hidden_size
+        for name, p in self.named_parameters(recurse=False):
+            if name.startswith("bias"):
+                p.zero_()
+                continue
+            for gate in p.split(h, dim=0):
+                if name.startswith("weight_ih"):
+                    lecun_normal_(gate, gate.shape[1], generator)
+                else:
+                    nn.init.orthogonal_(gate, generator=generator)
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """flax's default kernel init: a normal truncated at 2 of its std,
+    scaled so the std is 1/sqrt(fan_in)."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
 class RandomSource:
@@ -299,18 +434,22 @@ class BatchNorm(nn.Module):
 
 class Dropout(nn.Module):
     """Element dropout (flax ``nn.Dropout``): keep with probability
-    1 - rate, scale the kept by 1/(1 - rate); the identity in eval."""
+    1 - rate, scale the kept by 1/(1 - rate); the identity in eval. With
+    ``channel``, flax's ``Dropout(broadcast_dims=(1,))`` (torch's
+    ``Dropout1d``): one draw per (sample, channel), the mask (N, 1, C)."""
 
-    def __init__(self, rate: float):
+    def __init__(self, rate: float, channel: bool = False):
         super().__init__()
         self.rate = rate
+        self.channel = channel
         self.random: Optional[RandomSource] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate <= 0.0:
             return x
         keep = 1.0 - self.rate
-        u = need_source(self).uniform(x.shape, x.device)
+        shape = (x.shape[0], 1, x.shape[2]) if self.channel else x.shape
+        u = need_source(self).uniform(shape, x.device)
         return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -6,11 +6,24 @@ port's modules carry the flax module names, so each leaf's path maps to
 one ``state_dict`` key; only the leaf names and layouts change:
 
 * Dense ``kernel`` (in, out)                  -> Linear ``weight`` (out, in)
+  (a Dense over (N, L, C) is the same rule)
 * Conv ``kernel`` (K, Cin/g, Cout)            -> ``weight`` (Cout, Cin/g, K)
   (depthwise ``(K, 1, C)`` -> ``(C, 1, K)`` is the same rule)
+* ConvTranspose ``kernel`` (K, Cin, Cout) of a module named ``convt``
+  (PhaseNet's)                                -> ``weight`` (Cin, Cout, K),
+  flipped: ``weight[i, o, t] = kernel[K-1-t, i, o]`` (``common.ConvTranspose1d``)
 * ``bias``                                    -> ``bias``
-* BatchNorm ``scale`` / ``bias``              -> ``weight`` / ``bias``
+* BatchNorm / LayerNorm ``scale`` / ``bias``  -> ``weight`` / ``bias``
 * BatchNorm ``mean`` / ``var`` (batch_stats)  -> ``running_mean`` / ``running_var``
+* EQTransformer attention ``Wx``, ``Wt``, ``bh``, ``Wa``, ``ba`` -> the same
+  names and layouts
+* an ``OptimizedLSTMCell_0`` (``{ii,if,ig,io}/kernel`` (in, H) and
+  ``{hi,hf,hg,ho}/{kernel,bias}``) of an ``LSTM`` ``X``, or of the ``fwd``
+  / ``bwd`` cells of a ``BiLSTM`` ``X`` -> ``X.weight_ih_l0`` (4H, in),
+  ``X.weight_hh_l0`` (4H, H), ``X.bias_hh_l0`` (4H), ``_reverse`` for
+  ``bwd``: transposed and stacked in the gate order (i, f, g, o). flax
+  has no input bias; the port's ``bias_ih`` is a zero buffer
+  (``common.LSTM``)
 
 A leaf no rule maps raises. Loading the result with
 ``load_state_dict(strict=True)`` checks names and shapes against the model.
@@ -43,8 +56,18 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator:
             yield prefix + (key,), value
 
 
+#: Parameters kept under their flax names and layouts (EQTransformer's attention).
+_RAW = ("Wx", "Wt", "bh", "Wa", "ba")
+_LSTM_CELL = "OptimizedLSTMCell_0"
+_GATES = "ifgo"  # torch's gate order, flax's cell names (i, f, g, o)
+
+
 def _convert_param(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
     module, leaf = ".".join(path[:-1]), path[-1]
+    if leaf in _RAW:
+        return f"{module}.{leaf}", arr
+    if leaf == "kernel" and arr.ndim == 3 and path[-2] == "convt":
+        return f"{module}.weight", arr[::-1].transpose(1, 2, 0)
     if leaf == "kernel" and arr.ndim == 2:
         return f"{module}.weight", arr.T
     if leaf == "kernel" and arr.ndim == 3:
@@ -56,6 +79,44 @@ def _convert_param(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndar
     raise KeyError(f"no rule maps param '{'/'.join(path)}' of shape {arr.shape}")
 
 
+def _lstm_params(cells: Dict[Tuple[str, ...], Dict[str, np.ndarray]]
+                 ) -> Iterator[Tuple[str, np.ndarray]]:
+    """The torch leaves of the gathered LSTM cells (module docstring)."""
+    for owner, leaves in cells.items():
+        module, suffix = owner, ""
+        if owner[-1] in ("fwd", "bwd"):
+            module, suffix = owner[:-1], ("_reverse" if owner[-1] == "bwd" else "")
+        prefix = ".".join(module)
+        expected = {f"i{g}/kernel" for g in _GATES} | {
+            f"h{g}/{leaf}" for g in _GATES for leaf in ("kernel", "bias")}
+        if set(leaves) != expected:
+            raise KeyError(f"LSTM cell '{'/'.join(owner)}': leaves {sorted(leaves)}, "
+                           f"expected {sorted(expected)}")
+        yield (f"{prefix}.weight_ih_l0{suffix}",
+               np.concatenate([leaves[f"i{g}/kernel"].T for g in _GATES]))
+        yield (f"{prefix}.weight_hh_l0{suffix}",
+               np.concatenate([leaves[f"h{g}/kernel"].T for g in _GATES]))
+        yield f"{prefix}.bias_hh_l0{suffix}", np.concatenate([leaves[f"h{g}/bias"] for g in _GATES])
+
+
+def _convert_tree(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """Every parameter leaf of ``tree`` (params, or an optimizer moment
+    shaped like them) as torch ``state_dict`` entries; raises on an
+    unmapped leaf."""
+    out: Dict[str, np.ndarray] = {}
+    cells: Dict[Tuple[str, ...], Dict[str, np.ndarray]] = {}
+    for path, arr in _leaves(tree):
+        arr = np.asarray(arr, dtype=np.float32)
+        if _LSTM_CELL in path:
+            at = path.index(_LSTM_CELL)
+            cells.setdefault(path[:at], {})["/".join(path[at + 1:])] = arr
+            continue
+        key, value = _convert_param(path, arr)
+        out[key] = value
+    out.update(_lstm_params(cells))
+    return out
+
+
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -64,10 +125,10 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise KeyError(f"unknown variable collections: {sorted(unknown)}")
-    out: Dict[str, torch.Tensor] = {}
-    for path, arr in _leaves(variables.get("params", {})):
-        key, value = _convert_param(path, np.asarray(arr, dtype=np.float32))
-        out[key] = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
+    out: Dict[str, torch.Tensor] = {
+        key: torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
+        for key, value in _convert_tree(variables.get("params", {})).items()
+    }
     for path, arr in _leaves(variables.get("batch_stats", {})):
         if path[-1] not in _STATS:
             raise KeyError(f"no rule maps batch_stats '{'/'.join(path)}'")
@@ -99,8 +160,7 @@ def train_state_from_optax(
     model.load_state_dict(state_dict_from_flax(variables), strict=True)
     moments = {}
     for tree, slot in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
-        for path, arr in _leaves(tree):
-            key, value = _convert_param(path, np.asarray(arr, dtype=np.float32))
+        for key, value in _convert_tree(tree).items():
             moments.setdefault(key, {})[slot] = torch.from_numpy(
                 np.array(value, dtype=np.float32, order="C"))
     names = [name for name, _ in model.named_parameters()]

@@ -367,6 +367,9 @@ class SeismogramTransformer(nn.Module):
     (ref seist.py:613-852). ``forward(x)`` maps (N, L, C) waveforms to the
     head's output; :meth:`backbone` and :meth:`head` split it at the trunk."""
 
+    #: ``models/api.py::init_weights``: SeisT's truncated normal at 0.02.
+    trunc_normal_init = True
+
     def __init__(self, cfg: SeisTConfig):
         super().__init__()
         self.cfg = cfg

@@ -1,11 +1,13 @@
-"""Task specifications: the io-item catalog and the SeisT task table (the
-port's copy of ``seist_tpu/taskspec.py``, SeisT family only).
+"""Task specifications: the io-item catalog and the task table (the port's
+copy of ``seist_tpu/taskspec.py``).
 
 Data layout convention, as in the JAX package: waveforms are channels-last
-``(N, L, C)`` and dense outputs are ``(N, L, C)``. Each SeisT row carries
-its loss factory (``seist_tpu/taskspec.py:231-264``); the results
-transforms of the other model families are kept here, rewritten in torch,
-so those families port onto one table.
+``(N, L, C)`` and dense outputs are ``(N, L, C)``. Each row carries its
+loss factory (``seist_tpu/taskspec.py:186-264``): the five baseline rows
+(phasenet, eqtransformer, magnet, baz_network, ditingmotion) and SeisT's.
+DistPTNetwork has no row, as in the JAX package. A row's
+``targets_transform_for_loss`` (baz's degrees to (cos, sin)) is applied
+inside the loss its factory makes, where the JAX step applies it.
 """
 
 from __future__ import annotations
@@ -142,14 +144,43 @@ class TaskSpec:
     outputs_transform_for_results: Optional[Callable] = None
     #: Zero-arg factory of ``loss(preds, targets) -> scalar`` (models/losses.py).
     loss: Optional[Callable] = None
+    targets_transform_for_loss: Optional[Callable] = None
 
     def matches(self, model_name: str) -> bool:
         return bool(re.findall(self.pattern, model_name))
+
+    def make_loss(self) -> Callable:
+        """The row's loss, with its targets transform applied first."""
+        loss = self.loss()
+        if self.targets_transform_for_loss is None:
+            return loss
+        return _TransformedTargets(loss, self.targets_transform_for_loss)
+
+
+class _TransformedTargets:
+    """``loss(preds, transform(targets))``, keeping the loss's reduction."""
+
+    def __init__(self, loss: Callable, transform: Callable):
+        self.loss, self.transform = loss, transform
+        self.reduction = getattr(loss, "reduction", "mean")
+
+    def __call__(self, preds, targets):
+        return self.loss(preds, self.transform(targets))
 
 
 _ZNE = (("z", "n", "e"),)
 
 TASK_SPECS: Tuple[TaskSpec, ...] = (
+    TaskSpec("phasenet", _ZNE, (("non", "ppk", "spk"),), ("ppk", "spk"),
+             loss=lambda: losses.CELoss(weight=[1.0, 1.0, 1.0])),
+    TaskSpec("eqtransformer", _ZNE, (("det", "ppk", "spk"),), ("det", "ppk", "spk"),
+             loss=lambda: losses.BCELoss(weight=[0.5, 1.0, 1.0])),
+    TaskSpec("magnet", _ZNE, ("emg",), ("emg",), magnet_results, loss=losses.MousaviLoss),
+    TaskSpec("baz_network", _ZNE, ("baz",), ("baz",), baz_outputs_to_deg,
+             loss=lambda: losses.CombinationLoss(losses=[losses.MSELoss, losses.MSELoss]),
+             targets_transform_for_loss=baz_targets_to_cos_sin),
+    TaskSpec("ditingmotion", (("z", "dz"),), ("clr", "pmp"), ("pmp",), softmax_each,
+             loss=lambda: losses.CombinationLoss(losses=[losses.FocalLoss, losses.FocalLoss])),
     TaskSpec("seist_.*?_dpk.*", _ZNE, (("det", "ppk", "spk"),), ("det", "ppk", "spk"),
              loss=lambda: losses.BCELoss(weight=[0.5, 1.0, 1.0])),
     TaskSpec("seist_.*?_pmp", _ZNE, ("pmp",), ("pmp",),
@@ -196,5 +227,5 @@ def get_num_classes(name: str) -> int:
 
 
 def make_loss(model_name: str):
-    """Instantiate the loss for a model."""
-    return get_task_spec(model_name).loss()
+    """Instantiate the loss for a model (its targets transform applied)."""
+    return get_task_spec(model_name).make_loss()

@@ -36,6 +36,11 @@ Outputs live in the graph's memory and are overwritten by the next
 replay: the train step returns copies of its loss and verdict, the eval
 step of its loss and outputs.
 
+A model with a ``captured_inputs(x)`` method (``models/baz_network.py``,
+whose ``torch.linalg.eigh`` synchronises with the host) computes, on the
+device and before each replay, what its forward would compute from the
+input inside the graph; the graph's input is what that method returns.
+
 ``--steps-per-call k`` replays the one-step graph k times
 (``step.make_multi_train_step`` over :func:`capture_train_step`): a graph
 launch costs microseconds, one capture serves every k, and the graph's
@@ -180,6 +185,12 @@ class _Graphs:
         return got
 
 
+def _staged(model: torch.nn.Module, inputs):
+    """``inputs`` as a captured step takes them (module docstring)."""
+    stage = getattr(model, "captured_inputs", None)
+    return inputs if stage is None else stage(inputs)
+
+
 def _on_cuda(state: TrainState) -> Optional[torch.device]:
     """The model's CUDA device, or None when it lies on the CPU."""
     dev = step_lib._device_of(state.model)
@@ -197,6 +208,7 @@ def capture_train_step(step: Callable) -> Callable:
         dev = _on_cuda(state)
         if dev is None:
             return step(state, inputs, targets, rng)
+        inputs = _staged(state.model, inputs)
         flat_in = _flat(inputs) + _flat(targets)
         n_in = len(_flat(inputs))
 
@@ -233,7 +245,9 @@ def capture_accum_step(loss_fn: Callable, accum_steps: int, guard: bool = True,
         dev = _on_cuda(state)
         if dev is None:
             return eager(state, inputs_k, targets_k, rngs)
-        xs, ys = step_lib._index(inputs_k, 0), step_lib._index(targets_k, 0)
+        micro_inputs = [_staged(state.model, step_lib._index(inputs_k, i))
+                        for i in range(accum_steps)]
+        xs, ys = micro_inputs[0], step_lib._index(targets_k, 0)
         flat_in = _flat(xs) + _flat(ys)
         n_in = len(_flat(xs))
 
@@ -255,8 +269,7 @@ def capture_accum_step(loss_fn: Callable, accum_steps: int, guard: bool = True,
         begin, one, finish = graphs.get(("accum", id(state)) + _geometry(flat_in), make)
         begin.replay([])
         for i in range(accum_steps):
-            one.replay(_flat(step_lib._index(inputs_k, i)) + _flat(step_lib._index(targets_k, i)),
-                       rngs[i])
+            one.replay(_flat(micro_inputs[i]) + _flat(step_lib._index(targets_k, i)), rngs[i])
         loss, diag = finish.replay([])
         return loss.clone(), None, {k: v.clone() for k, v in diag.items()}
 
@@ -274,6 +287,7 @@ def capture_eval_step(step: Callable) -> Callable:
         dev = _on_cuda(state)
         if dev is None:
             return step(state, inputs, targets, mask)
+        inputs = _staged(state.model, inputs)
         flat_in = _flat(inputs) + _flat(targets) + [mask]
         n_x, n_y = len(_flat(inputs)), len(_flat(targets))
 

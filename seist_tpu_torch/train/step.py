@@ -66,7 +66,10 @@ class TrainState:
     """What one run trains. ``count`` (int64 on the model's device) counts
     applied updates; :attr:`step` reads it (a device sync on CUDA) or
     writes it in place. An eval-only state (the test run) holds no
-    optimizer or schedule."""
+    optimizer or schedule. ``l1`` lists ``(alpha, mask)`` pairs: each
+    update first adds ``alpha * sign(w)`` to the gradient of every
+    parameter ``mask(name)`` selects (``optim.l1_sign_decay``, EQTransformer's
+    ``--conv-{kernel,bias}-l1-alpha``)."""
 
     def __init__(
         self,
@@ -74,10 +77,12 @@ class TrainState:
         optimizer: Optional[torch.optim.Optimizer] = None,
         schedule: Optional[Schedule] = None,
         step: int = 0,
+        l1: Sequence[Tuple[float, Callable[[str], bool]]] = (),
     ):
         self.model = model
         self.optimizer = optimizer
         self.schedule = schedule
+        self.l1 = tuple(l1)
         self.count = torch.full((), int(step), dtype=torch.int64, device=_device_of(model))
         self.loss_sum: Optional[torch.Tensor] = None  # the step's summed micro-batch losses
         self.bn_saved: Optional[torch.Tensor] = None  # BatchNorm statistics before the step
@@ -172,6 +177,8 @@ def accumulate(state: TrainState, inputs, targets, rng: RandomSource, loss_fn: C
     loss = loss.detach()
     with torch.no_grad():
         state.loss_sum.add_(loss)
+    if isinstance(outputs, (tuple, list)):
+        return loss, type(outputs)(o.detach() for o in outputs)
     return loss, outputs.detach()
 
 
@@ -195,14 +202,18 @@ def _guarded_update(state: TrainState, grads: List[torch.Tensor], loss: torch.Te
     BatchNorm statistics and the count keep their values, so a skipped
     step does not advance the schedule. ``diag``: ``{"applied": bool,
     "grad_norm": fp32}`` device tensors (empty without the guard, where
-    every update is applied)."""
+    every update is applied). The guard judges the raw gradients; the L1
+    terms of ``state.l1`` join them after it, as the JAX package chains
+    ``l1_sign_decay`` in front of its optimizer."""
     params = _params(state)
     lr = state.schedule.at(state.count)
+    grad_norm = global_norm(grads) if guard else None
+    for alpha, mask in state.l1:
+        optim.l1_sign_decay(state.model.named_parameters(), alpha, mask)
     if not guard:
         optim.apply_update(state.optimizer, params, grads, lr)
         state.count.add_(1)
         return {}
-    grad_norm = global_norm(grads)
     finite = torch.isfinite(loss) & torch.isfinite(grad_norm)
     optim.apply_update(state.optimizer, params, grads, lr, finite)
     bufs = _bn_buffers(state.model)
@@ -337,8 +348,13 @@ def make_eval_step(loss_fn: Callable, compute_dtype: Optional[str] = None) -> Ca
     sum_reduced = getattr(loss_fn, "reduction", "mean") == "sum"
     cdtype = resolve_dtype(compute_dtype)
 
+    def batch_of_one(tree):
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(batch_of_one(t) for t in tree)
+        return tree[None]
+
     def one(o1, t1):
-        return loss_fn(o1[None], t1[None])
+        return loss_fn(batch_of_one(o1), batch_of_one(t1))
 
     per_sample_fn = torch.vmap(one)
 

@@ -401,12 +401,32 @@ def _disable_tf32(device: torch.device) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def _l1_terms(args: Any) -> List[Tuple[float, Any]]:
+    """``--conv-kernel-l1-alpha`` / ``--conv-bias-l1-alpha`` as the train
+    state's L1 terms: EQTransformer's encoder and decoder convs
+    (``models/eqtransformer.py::l1_param_mask``); any other model raises,
+    as the JAX worker does (``seist_tpu/train/worker.py:495-508``)."""
+    alphas = ((float(args.conv_kernel_l1_alpha), "kernel"),
+              (float(args.conv_bias_l1_alpha), "bias"))
+    if not any(alpha for alpha, _ in alphas):
+        return []
+    if args.model_name != "eqtransformer":
+        raise ValueError(
+            "--conv-{kernel,bias}-l1-alpha apply only to eqtransformer "
+            f"(got --model-name {args.model_name})"
+        )
+    from seist_tpu_torch.models.eqtransformer import l1_param_mask
+
+    return [(alpha, l1_param_mask(kind)) for alpha, kind in alphas if alpha]
+
+
 def train_worker(args: Any) -> str:
     """The full run; returns the best checkpoint's weights path."""
     device = resolve_device(args.device)
     _disable_tf32(device)
     spec = taskspec.get_task_spec(args.model_name)
-    loss_fn = spec.loss()
+    loss_fn = spec.make_loss()
+    l1 = _l1_terms(args)
 
     train_loader = _build_loader(args, spec, "train")
     val_loader = _build_loader(args, spec, "val")
@@ -461,7 +481,7 @@ def train_worker(args: Any) -> str:
     optimizer = build_optimizer(
         args.optim, model.parameters(), weight_decay=args.weight_decay, momentum=args.momentum
     )
-    state = TrainState(model, optimizer, schedule)
+    state = TrainState(model, optimizer, schedule, l1=l1)
     guard = bool(args.bad_step_guard)
     # On CUDA each step is a captured graph (train/graph.py); on the CPU
     # the same functions run eagerly.
@@ -743,7 +763,7 @@ def test_worker(args: Any) -> float:
     device = resolve_device(args.device)
     _disable_tf32(device)
     spec = taskspec.get_task_spec(args.model_name)
-    loss_fn = spec.loss()
+    loss_fn = spec.make_loss()
     test_loader = _build_loader(args, spec, "test")
     in_channels = taskspec.get_num_inchannels(args.model_name)
     model = api.create_model(args.model_name, in_channels=in_channels,

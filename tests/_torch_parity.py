@@ -22,10 +22,10 @@ def random_flax_variables(shapes: Any, seed: int) -> Any:
 
     def fill(path, leaf):
         name, shape = path[-1].key, leaf.shape
-        if name == "kernel":
+        if name in ("kernel", "Wx", "Wt", "Wa"):
             fan_in = int(np.prod(shape[:-1]))
             return (0.5 * rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32)
-        if name in ("bias", "mean"):
+        if name in ("bias", "mean", "bh", "ba"):
             return (0.1 * rng.standard_normal(shape)).astype(np.float32)
         if name in ("scale", "var"):
             return rng.uniform(0.5, 1.5, shape).astype(np.float32)
@@ -34,7 +34,8 @@ def random_flax_variables(shapes: Any, seed: int) -> Any:
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-def model_pair(name: str, window: int, seed: int = 0, **kw) -> Tuple[Any, Any, torch.nn.Module]:
+def model_pair(name: str, window: int, seed: int = 0, in_channels: int = 3,
+               **kw) -> Tuple[Any, Any, torch.nn.Module]:
     """(flax module, its variables, the port's model with them loaded)."""
     import seist_tpu
     from seist_tpu.models import api as japi
@@ -43,8 +44,9 @@ def model_pair(name: str, window: int, seed: int = 0, **kw) -> Tuple[Any, Any, t
     from seist_tpu_torch.models.convert import state_dict_from_flax
 
     seist_tpu.load_all()
-    jm = japi.create_model(name, in_channels=3, in_samples=window, **kw)
-    variables = random_flax_variables(japi.param_shapes(jm, in_samples=window), seed)
-    tm = tapi.create_model(name, in_channels=3, in_samples=window, **kw)
+    jm = japi.create_model(name, in_channels=in_channels, in_samples=window, **kw)
+    variables = random_flax_variables(
+        japi.param_shapes(jm, in_samples=window, in_channels=in_channels), seed)
+    tm = tapi.create_model(name, in_channels=in_channels, in_samples=window, **kw)
     tm.load_state_dict(state_dict_from_flax(jax.device_get(variables)), strict=True)
     return jm, variables, tm

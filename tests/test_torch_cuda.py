@@ -221,3 +221,99 @@ def test_the_captured_train_step_matches_the_eager_one(dev, dtype):
     assert not bool(diag["applied"]) and state.step == 3
     for k, v in state.model.state_dict().items():
         assert torch.equal(v, params[k]), k
+
+
+# ------------------------------------------------- the baseline families
+#: Each baseline family at its published widths, the window cut to keep the
+#: file quick (DiTingMotion's own window is 128), and the loss of its task
+#: row; DistPTNetwork has none in the JAX package, so its case sums the MSE
+#: of both heads against zero targets.
+BASELINES = {"phasenet": 1024, "eqtransformer": 1024, "magnet": 1024,
+             "baz_network": 1024, "ditingmotion": 128, "distpt_network": 1024}
+
+
+def _baseline_batch(name, window, n, seed):
+    from seist_tpu_torch import taskspec
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, window, 2 if name == "ditingmotion" else 3, generator=g)
+    if name in ("phasenet", "eqtransformer"):
+        y = torch.rand(n, window, 3, generator=g)
+    elif name == "magnet":
+        y = 4.0 * torch.rand(n, 1, generator=g)
+    elif name == "baz_network":
+        y = 360.0 * torch.rand(n, 1, generator=g)
+    elif name == "ditingmotion":
+        y = tuple(torch.eye(2)[torch.randint(0, 2, (n,), generator=g)].long() for _ in "cp")
+    else:
+        y = (torch.zeros(n, 2), torch.zeros(n, 2))
+    loss = (taskspec.make_loss(name) if name != "distpt_network" else
+            (lambda o, t: sum(((a - b) ** 2).mean() for a, b in zip(o, t))))
+    return x, y, loss
+
+
+def _to(tree, dev):
+    return type(tree)(_to(t, dev) for t in tree) if isinstance(tree, tuple) else tree.to(dev)
+
+
+@pytest.mark.parametrize("name,dtype", [(n, "fp32") for n in sorted(BASELINES)]
+                         + [("eqtransformer", "bf16"), ("magnet", "bf16")])
+def test_a_baseline_captured_step_matches_the_eager_one(dev, name, dtype):
+    """Three captured steps of each baseline family (its drop rates) against
+    three eager ones from the same weights, batches and (seed, epoch, step):
+    losses within 1e-4 relative (cuDNN promises no bits), no attention
+    kernel launched, the LSTM weights still views of cuDNN's flat buffer.
+    The two families with recurrences also in bf16."""
+    from seist_tpu_torch.models import api
+    from seist_tpu_torch.models.common import LSTM
+    from seist_tpu_torch.train.graph import capture_train_step
+    from seist_tpu_torch.train.optim import build_optimizer
+    from seist_tpu_torch.train.schedule import constant
+    from seist_tpu_torch.train.step import TrainState, make_train_step, step_random_source
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    window = BASELINES[name]
+    batches = [_baseline_batch(name, window, 8, seed) for seed in range(3)]
+    c = batches[0][0].shape[-1]
+    init = api.create_model(name, in_channels=c, in_samples=window, seed=0).state_dict()
+    losses = {}
+    for mode in ("eager", "captured"):
+        model = api.create_model(name, in_channels=c, in_samples=window)
+        model.load_state_dict(init)
+        state = TrainState(model.to(dev), build_optimizer("adam", model.parameters()),
+                           constant(1e-4))
+        step = make_train_step(batches[0][2], compute_dtype=dtype)
+        if mode == "captured":
+            step = capture_train_step(step)
+        before = pa.counts()
+        losses[mode] = [float(step(state, _to(x, dev), _to(y, dev),
+                                   step_random_source(0, 0, t, dev))[0])
+                        for t, (x, y, _) in enumerate(batches)]
+        assert pa.counts() == before and state.step == 3
+        for m in model.modules():
+            if isinstance(m, LSTM):
+                ptrs = {w.untyped_storage().data_ptr() for w in m._flat_weights}
+                assert len(ptrs) == 1, "LSTM weights left cuDNN's flat buffer"
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["captured"], losses["eager"]))
+    assert rel <= 1e-4, losses
+
+
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_the_lstm_runs_in_bf16_on_the_card(dev, bidirectional):
+    """cuDNN's LSTM in bf16 (outputs, final h and the gradients bf16)
+    against the fp32 one from the same weights, within 0.05."""
+    from seist_tpu_torch.models.common import LSTM
+
+    lstm = LSTM(32, 100, bidirectional=bidirectional)
+    lstm.flax_init(torch.Generator().manual_seed(0))
+    lstm.to(dev)
+    x = torch.randn(8, 512, 32, generator=torch.Generator().manual_seed(1)).to(dev)
+    out32, h32 = lstm(x)
+    params = {n: p.to(torch.bfloat16) for n, p in lstm.named_parameters()}
+    out16, h16 = torch.func.functional_call(lstm, params, (x.to(torch.bfloat16),))
+    assert out16.dtype == h16.dtype == torch.bfloat16
+    torch.testing.assert_close(out16.float(), out32, rtol=0, atol=0.05)
+    torch.testing.assert_close(h16.float(), h32, rtol=0, atol=0.05)
+    grads = torch.autograd.grad(out16.float().sum(), list(params.values()))
+    assert all(g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all()) for g in grads)
