@@ -7,10 +7,11 @@ Phases, each fatal on failure (nothing is caught; a failed check exits
 non-zero before the last line):
 
 1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
-2. build both attention kernels from ``seist_tpu_torch/csrc`` with nvcc,
-   one process per source, started together, and print each kernel's
-   registers and spills (``-Xptxas -v``), failing when an instantiation
-   for E <= 32 spills;
+2. build the three kernels from ``seist_tpu_torch/csrc`` with nvcc (both
+   attention kernels and K3, the augmentation draws), one process per
+   source, started together, and print each kernel's registers and spills
+   (``-Xptxas -v``), failing when an attention instantiation for E <= 32,
+   or K3, spills;
 3. hold the forward kernel (K1) and its row statistics (lse) against the
    plain PyTorch version on the card: at the five attention shapes of one
    ``seist_l_dpk`` forward at window 8192 (batch 8) in fp32 and bf16, at
@@ -70,8 +71,8 @@ non-zero before the last line):
    already runs: at batch 64, drop rates 0.3, fp32, six captured steps
    against six eager ones from the same weights, batches and (seed,
    epoch, step): losses within RESUME_RTOL and the output-projection
-   dropout's zero pattern of the first attention block identical at every
-   step and new at each; a NaN batch through the graph leaves every state
+   dropout's decisions in the first attention block (its zeros where both
+   runs' inputs are nonzero) identical at every step and new at each; a NaN batch through the graph leaves every state
    tensor bitwise; one replay under ``torch.profiler`` (K1 and K2 five
    times each where it traces graph kernels); and ``train_test`` with
    ``--steps-per-call 2`` (losses against phase 6's pair means) and with
@@ -88,7 +89,28 @@ non-zero before the last line):
     bf16 step of eqtransformer and magnet against fp32 (loss rtol 0.05);
     BAZNetwork's eigenvector signs on the card against the CPU and its
     outputs where they agree; DistPTNetwork's forward at window 8192
-    against the CPU.
+    against the CPU;
+11. device augmentation (``--device-aug step|cached``, ``--ingest``) on
+    phase 6's events, the CLI's default rates: (a) K3 against its plain
+    version at b64 and b256 of traces of 12000 (keys, uniforms and the
+    integer draws made from them bitwise, the two normal fields within
+    1e-6), with its time (CUDA events over back-to-back launches) beside its
+    bound (threefry blocks at the int32 rate), and a processed b64 batch on the card against the port on
+    the CPU (phases, counts and gates exactly, windows and labels within
+    1e-5); (b) ``--device-aug step`` through the train entry on the
+    synthetic events, on their float32 pack with ``--ingest direct``
+    (losses equal to the synthetic run's) and on the int8 pack, plain
+    versions patched to raise, each log showing the resolved mode and no
+    fallback, K3 launched once per step; (c) ``--device-aug step --ingest
+    direct`` and ``cached`` (automatic steps per call, 32) on the
+    2048-event float32 pack of phase 8, two epochs each, and the cached run
+    resumed mid-epoch from its interval checkpoint (losses within
+    RESUME_RTOL); (d) three captured device-aug steps against three eager
+    ones from one state, in step and cached mode; (e) the captured
+    device-aug call at b64 and b256 in both modes beside phase 8's
+    host-fed step, the processor's device ms, peak memory and the cache's
+    MiB, the step mode's host feed rate, and waveforms/s through the train
+    entry beside phase 8's Loader.
 
 It prints one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -127,6 +149,7 @@ from seist_tpu_torch.models import api
 from seist_tpu_torch.models.common import RandomSource
 from seist_tpu_torch.ops import _kernels
 from seist_tpu_torch.ops import pooled_attention as pa
+from seist_tpu_torch.ops import threefry as tf
 from seist_tpu_torch.serve import server as srv
 from seist_tpu_torch.serve.pool import decode_outputs, load_model_entry
 from seist_tpu_torch.serve.protocol import PredictOptions
@@ -157,6 +180,7 @@ N_REQUESTS = 24
 SEED = 0
 KERNEL = "pooled_attention_fwd"
 KERNEL_BWD = "pooled_attention_bwd"
+KERNEL_K3 = "aug_draws"
 # The train run: 256 synthetic events -> 204 train (x2 by augmentation ->
 # 6 batches of 64), 25 val (1 padded batch) and 27 test (1 padded batch).
 TRAIN_ARGS = ["--model-name", MODEL, "--dataset-name", "synthetic", "--synthetic-events",
@@ -222,7 +246,7 @@ def ptxas_summary(log: str) -> List[Tuple[str, int, int]]:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and cur:
-            kind = re.search(r"(fwd_kernel|bwd_kernel|reduce_slabs)", cur)
+            kind = re.search(r"(fwd_kernel|bwd_kernel|reduce_slabs|aug_draws_kernel)", cur)
             ep = re.search(r"Li(\d+)E", cur)
             out.append((f"{kind.group(1) if kind else cur[:24]}"
                         f"<{'bf16' if 'bfloat16' in cur else 'f32'}"
@@ -233,13 +257,13 @@ def ptxas_summary(log: str) -> List[Tuple[str, int, int]]:
 
 def check_spills(name: str, log: str) -> None:
     """Print registers/spill-store bytes per kernel; fail when a K1 or K2
-    instantiation for E <= 32 spills."""
+    instantiation for E <= 32, or K3, spills."""
     rows = ptxas_summary(log)
     print(f"[build] {name}: ptxas registers/spill bytes: "
           f"{' '.join(f'{k}:{r}/{sp}' for k, r, sp in rows)}", flush=True)
     for kern, _, spill in rows:
         ep = re.search(r",(\d+)>", kern)
-        if spill and ep and int(ep.group(1)) <= 32:
+        if spill and ((ep and int(ep.group(1)) <= 32) or name == KERNEL_K3):
             fail(f"{kern} spills {spill} bytes of registers")
 
 
@@ -554,38 +578,42 @@ def run_entry(argv: List[str],
     instantiations) over exactly that run, its wall seconds and its log.
     With ``expect_exit``, the run must end in ``SystemExit(expect_exit)``
     (and the checkpoint is ""); any other exit is fatal."""
-    real = pa.pooled_attention_plain, pa.pooled_attention_bwd_plain
+    real = pa.pooled_attention_plain, pa.pooled_attention_bwd_plain, tf.aug_draws_plain
 
     def off_path(*a, **k):
-        raise AssertionError("a plain attention version was reached on the main path")
+        raise AssertionError("a plain kernel version was reached on the main path")
 
     lines: List[str] = []
     handler = logging.Handler()
     handler.emit = lambda record: lines.append(record.getMessage())
     logger.addHandler(handler)
-    pa.pooled_attention_plain = pa.pooled_attention_bwd_plain = off_path
-    pa.launches = pa.bwd_launches = pa.bf16_launches = pa.bf16_bwd_launches = 0
+    pa.pooled_attention_plain = pa.pooled_attention_bwd_plain = tf.aug_draws_plain = off_path
+    pa.launches = pa.bwd_launches = pa.bf16_launches = pa.bf16_bwd_launches = tf.launches = 0
     t0 = time.perf_counter()
     try:
         best, code = cli.main(argv), 0
     except SystemExit as e:
         best, code = "", e.code
     finally:
-        pa.pooled_attention_plain, pa.pooled_attention_bwd_plain = real
+        pa.pooled_attention_plain, pa.pooled_attention_bwd_plain, tf.aug_draws_plain = real
         logger.removeHandler(handler)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     if code != expect_exit:
         fail(f"the train entry exited with {code!r}, expected {expect_exit}")
     counts = {"K1": pa.launches, "K2": pa.bwd_launches, "K1_bf16": pa.bf16_launches,
-              "K2_bf16": pa.bf16_bwd_launches}
+              "K2_bf16": pa.bf16_bwd_launches, "K3": tf.launches}
     return best, counts, wall_s, lines
 
 
-def check_launches(counts: Dict[str, int], n_shapes: int, forwards: int, steps: int) -> None:
-    if counts["K1"] != n_shapes * forwards or counts["K2"] != n_shapes * steps:
-        fail(f"K1 launches {counts['K1']} != {n_shapes} x {forwards} or K2 launches "
-             f"{counts['K2']} != {n_shapes} x {steps}")
+def check_launches(counts: Dict[str, int], n_shapes: int, forwards: int, steps: int,
+                   k3: int = 0) -> None:
+    """K1 n_shapes per forward, K2 n_shapes per train step, K3 ``k3``
+    launches (one per device-augmented step)."""
+    if (counts["K1"] != n_shapes * forwards or counts["K2"] != n_shapes * steps
+            or counts["K3"] != k3):
+        fail(f"K1 launches {counts['K1']} != {n_shapes} x {forwards}, K2 launches "
+             f"{counts['K2']} != {n_shapes} x {steps} or K3 launches {counts['K3']} != {k3}")
 
 
 def changed_params(trained: Dict[str, torch.Tensor]) -> Tuple[int, int]:
@@ -797,7 +825,8 @@ def packed_phase(log_base: str, n_shapes: int, run: dict) -> dict:
     check_launches(counts8, n_shapes, TRAIN_STEPS + VAL_BATCHES, TRAIN_STEPS)
     if len(losses8) != TRAIN_STEPS or not np.isfinite(losses8).all():
         fail(f"int8 pack losses: {losses8}")
-    return {"counts": counts, "counts_i8": counts8, "max_rel": rel, "f32": f32, "wall_s": wall_s}
+    return {"counts": counts, "counts_i8": counts8, "max_rel": rel, "f32": f32, "i8": i8,
+            "wall_s": wall_s}
 
 
 def preempt_phase(n_shapes: int, run: dict, data: str) -> dict:
@@ -1247,9 +1276,11 @@ CAPTURE_STEPS = 6  # captured against eager steps, from the same state
 
 
 def _dropout_pattern(model: torch.nn.Module, dev) -> Tuple[torch.Tensor, list]:
-    """A buffer that holds, after each step, the zero pattern of the first
-    attention block's output-projection dropout: written by a copy in a
-    forward hook, which a captured step captures and replays."""
+    """Buffers that hold, after each step, the zero pattern of the first
+    attention block's output-projection dropout and where its input is
+    nonzero (where a zero of the output is the dropout's decision): written
+    by copies in a forward hook, which a captured step captures and
+    replays."""
     att = next(m for m in model.modules() if isinstance(m, AttentionBlock))
     holder: list = []
 
@@ -1257,8 +1288,9 @@ def _dropout_pattern(model: torch.nn.Module, dev) -> Tuple[torch.Tensor, list]:
         if not module.training:
             return
         if not holder:
-            holder.append(torch.zeros(out.shape, dtype=torch.bool, device=dev))
+            holder.extend(torch.zeros(out.shape, dtype=torch.bool, device=dev) for _ in range(2))
         holder[0].copy_(out == 0)
+        holder[1].copy_(inputs[0] != 0)
 
     att.proj_drop.register_forward_hook(hook)
     return att, holder
@@ -1304,7 +1336,7 @@ def captured_vs_eager(weights: str, dev) -> dict:
         for t in range(CAPTURE_STEPS):
             loss, _, diag = step(state, xs[t], ys[t], step_random_source(SEED, 0, t, dev))
             losses.append(float(loss))
-            patterns.append(pattern[0].clone())
+            patterns.append((pattern[0].clone(), pattern[1].clone()))
             if not bool(diag["applied"]):
                 fail(f"{mode} step {t} was skipped")
         launches = tuple(b - a for a, b in zip(before, pa.counts()))
@@ -1313,15 +1345,27 @@ def captured_vs_eager(weights: str, dev) -> dict:
                       "patterns": patterns, "launches": launches}
     eager, cap = runs["eager"], runs["captured"]
     rel = max_rel(cap["losses"], eager["losses"])
-    same = [bool(torch.equal(a, b)) for a, b in zip(cap["patterns"], eager["patterns"])]
-    fresh = [not torch.equal(a, b) for a, b in zip(cap["patterns"], cap["patterns"][1:])]
-    frac = float(cap["patterns"][0].float().mean())
+    # The dropout's decisions are compared where both runs' inputs are
+    # nonzero: a product that rounds to exactly 0 in one run and not in the
+    # other (cuDNN sums in another order in a graph) zeroes an output the
+    # dropout kept.
+    both = [nz_a & nz_b for (_, nz_a), (_, nz_b) in zip(cap["patterns"], eager["patterns"])]
+    same = [bool(torch.equal(a[v], b[v])) for (a, _), (b, _), v in
+            zip(cap["patterns"], eager["patterns"], both)]
+    raw_diff = sum(int((a != b).sum()) for (a, _), (b, _) in zip(cap["patterns"],
+                                                                 eager["patterns"]))
+    exact_zero = sum(int((~v).sum()) for v in both)
+    fresh = [not torch.equal(a, b) for (a, _), (b, _) in zip(cap["patterns"],
+                                                             cap["patterns"][1:])]
+    frac = float(cap["patterns"][0][0].float().mean())
     graph = next(iter(cap["step"].graphs.by_key.values()))
     print(f"[capture] {MODEL} window {WINDOW} b{TRAIN_BATCH} fp32, drop rates 0.3: "
           f"{CAPTURE_STEPS} captured steps vs eager: losses {cap['losses'].tolist()} vs "
           f"{eager['losses'].tolist()} (max rel {rel:.3e}, limit {RESUME_RTOL:.0e}); "
-          f"output-projection dropout zero pattern identical at every step: {all(same)}, "
-          f"new each step: {all(fresh)}, dropped fraction {frac:.4f}; attention seeds per "
+          f"output-projection dropout decisions identical at every step: {all(same)} (over "
+          f"{sum(int(v.sum()) for v in both)} elements; {exact_zero} with an input of exactly 0 "
+          f"in a run, {raw_diff} zeros of the outputs differ), new each step: {all(fresh)}, "
+          f"dropped fraction {frac:.4f}; attention seeds per "
           f"step {graph.seeds.numel()}; launches K1/K2 per replay {graph.launches[:2]}, over "
           f"the {CAPTURE_STEPS} steps captured {cap['launches'][:2]} eager "
           f"{eager['launches'][:2]}; capture {cap['step'].graphs.capture_seconds[0]:.2f} s",
@@ -1686,6 +1730,408 @@ def baseline_phase(name_power: str, log_base: str, dev) -> None:
     print(f"[baseline] phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ------------------------------------------------------------- phase 11
+# The int32 rate of one H100 SXM: its 132 SMs have 64 INT32 lanes each
+# beside 128 FP32 lanes (Hopper architecture white paper), so a quarter of
+# the published fp32 FLOP/s (which counts an FMA as two). K3's bound counts
+# the threefry2x32 blocks its draws need, 77 integer operations each (20
+# rounds of add, funnel-shift rotate and xor; five key injections of three
+# adds; two initial adds), and 40 fp32 operations per normal (log1p, sqrt,
+# nine FMAs of the erfinv polynomial, the scaling).
+PEAK_INT32_S = PEAK_FP32_S / 4
+THREEFRY_OPS = 77
+NORMAL_FLOPS = 40
+DA_STEPS = 3  # captured against eager device-aug steps, from the same state
+
+
+def aug_store(argv: List[str]):
+    """The train split of ``argv``'s dataset, its RawStore and AugConfig."""
+    from seist_tpu_torch.data import device_aug as da
+
+    sds = worker._build_loader(cli.get_args(argv), taskspec.get_task_spec(MODEL),
+                               "train").dataset
+    store = pipeline.RawStore.build(sds)
+    cfg = da.AugConfig.from_preprocessor(sds.preprocessor, seed=SEED, raw_len=store.raw_len,
+                                         phase_slots=store.phase_slots)
+    return sds, store, cfg
+
+
+def aug_batch(store, batch: int, epoch: int = 0, pin: bool = True):
+    """Batch 0 of the epoch's order as the step mode's feed makes it."""
+    item = next(pipeline.iter_raw_batches(store, epoch, seed=SEED, shuffle=True,
+                                          batch_size=batch))
+    return pipeline.raw_batch_tensors(item, pin)
+
+
+def k3_bound(batch: int, cfg) -> Tuple[float, str, float, float]:
+    """(bound_ms, bound_by, bytes_ms, ops_ms) of one K3 launch over a batch:
+    its outputs written once and the indices read once, against the
+    threefry blocks (two for the key chain and one per named draw of each
+    sample, one per output element) at the int32 rate or the normals'
+    float work at the fp32 rate, whichever is longer."""
+    from seist_tpu_torch.data import device_aug as da
+
+    uniforms, fields = da._draw_layout(cfg)
+    slots = sum(n for _, _, n, _ in uniforms)
+    normals = len(fields) * cfg.channels * cfg.raw_len
+    nbytes = 4 * batch * (slots + normals) + 4 * (batch + 1)
+    blocks = batch * (2 + len(uniforms) + len(fields) + slots + normals)
+    int_ms = blocks * THREEFRY_OPS / PEAK_INT32_S * 1e3
+    fp_ms = batch * normals * NORMAL_FLOPS / PEAK_FP32_S * 1e3
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, max(int_ms, fp_ms)
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", bytes_ms, ops_ms
+
+
+def check_k3(store, cfg, dev, name_power: str) -> dict:
+    """Phase 11a: K3 against its plain version on the card at b64 and b256
+    of phase 6's train split (trace 12000, the CLI's default rates: both
+    normal fields): keys of the plain version on the card and the CPU,
+    uniforms and the integer draws made from them bitwise, normals within
+    1e-6; then times beside the bound."""
+    from seist_tpu_torch.data import device_aug as da
+
+    uniforms, fields = da._draw_layout(cfg)
+    slots = [(tag, pos) for _, tag, n, _ in uniforms for pos in range(n)]
+    tags = [tag for _, tag in fields]
+    flen = cfg.channels * cfg.raw_len
+    epoch = torch.tensor(0, dtype=torch.int32)
+    out = {}
+    for batch in (TRAIN_BATCH, 256):
+        _, idx, _ = aug_batch(store, batch)
+        idx_d, ep_d = idx.to(dev), epoch.to(dev)
+        before = tf.launches
+        u, f = tf.aug_draws(SEED, ep_d, idx_d, slots, tags, flen)
+        torch.cuda.synchronize()
+        tf.launches = before
+        pu, pf = tf.aug_draws_plain(SEED, ep_d, idx_d, slots, tags, flen)
+        keys_equal = torch.equal(tf.sample_keys(SEED, ep_d, idx_d).cpu(),
+                                 tf.sample_keys(SEED, epoch, idx))
+        ints_equal = all(torch.equal(da._u2i(u[:, s], n), da._u2i(pu[:, s], n))
+                         for s in range(len(slots)) for n in (2, 40, cfg.raw_len, 2**30 - 1))
+        err = float((f - pf).abs().max())
+        exact = float((f == pf).float().mean())
+        bound_ms, bound_by, bytes_ms, ops_ms = k3_bound(batch, cfg)
+        # CUDA events around back-to-back launches: a K3 launch outlasts its
+        # host call, and the profiler's one-call traces lose its kernel.
+        ms = time_ms(lambda: tf.aug_draws(SEED, ep_d, idx_d, slots, tags, flen, out=(u, f)), 100)
+        plain_ms = time_ms(lambda: tf.aug_draws_plain(SEED, ep_d, idx_d, slots, tags, flen), 5,
+                           warmup=1)
+        tf.launches = before
+        print(f"[k3] {name_power} | b{batch}: {len(slots)} uniforms and {len(tags)} normal fields "
+              f"of {cfg.channels}x{cfg.raw_len} a sample; keys (card vs CPU) equal {keys_equal}, "
+              f"uniforms equal {torch.equal(u, pu)}, integer draws equal {ints_equal}, normals "
+              f"max abs err {err:.3g} ({exact:.4f} exact, limit 1e-6); ms per call (CUDA events, "
+              f"back to back): kernel {ms:.4f}, plain {plain_ms:.4f}; bound {bound_ms:.4f} ms by {bound_by} (bytes "
+              f"{bytes_ms:.4f}, operations {ops_ms:.4f}); bound / kernel "
+              f"{bound_ms / ms:.3f}", flush=True)
+        if not (keys_equal and torch.equal(u, pu) and ints_equal and err <= 1e-6):
+            fail("K3 disagrees with its plain version")
+        out[batch] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+    return out
+
+
+def processed_card_vs_cpu(sds, store, cfg, dev) -> None:
+    """Phase 11a: the card's processed b64 batch (K3, then the ops) against
+    the port's on the CPU for the same rows: phase arrays, counts and gates
+    exactly, windows and labels within 1e-5."""
+    from seist_tpu_torch.data import device_aug as da
+
+    rows, idx, aug = aug_batch(store, TRAIN_BATCH, pin=False)
+    epoch = torch.tensor(0, dtype=torch.int32)
+    on_dev = pipeline._tree_map(lambda t: t.to(dev), rows)
+    before = tf.launches
+    states = []
+    for r, i, a, e in ((rows, idx, aug, epoch), (on_dev, idx.to(dev), aug.to(dev), epoch.to(dev))):
+        draws = da.draw_all(cfg, e, i)
+        states.append(da.process_event(cfg, r["data"], *(r[k].long() for k in (
+            "ppks", "np_p", "spks", "np_s")), draws, a))
+    proc = da.make_row_processor(cfg, sds.input_names, sds.label_names)
+    want = proc(rows, idx, aug, epoch)
+    got = proc(on_dev, idx.to(dev), aug.to(dev), epoch.to(dev))
+    torch.cuda.synchronize()
+    tf.launches = before
+    cpu, card = states
+    exact = all(torch.equal(cpu[k], card[k].cpu()) for k in ("ppks", "np_p", "spks", "np_s",
+                                                              "gen_fired"))
+    win_err = float((cpu["win"] - card["win"].cpu()).abs().max())
+    io_err = max(float((w - g.cpu()).abs().max()) for w, g in zip(want, got))
+    print(f"[device-aug] b{TRAIN_BATCH} processed on the card vs the CPU, same rows: phases, "
+          f"counts and gates equal {exact} ({int(card['gen_fired'].sum())} noise-generated, "
+          f"{int((card['np_p'] > 0).sum())} with phases); windows max abs err {win_err:.3g}, "
+          f"inputs and labels {io_err:.3g} (limit 1e-5)", flush=True)
+    if not exact or win_err > 1e-5 or io_err > 1e-5:
+        fail("the card's processed batch differs from the CPU's")
+
+
+def da_entry(argv: List[str], mode: str, expect: List[str], n_shapes: int, forwards: int,
+             steps: int) -> Tuple[str, dict, List[str], np.ndarray]:
+    """One device-aug run through the train entry: the log must show the
+    resolved mode (``expect`` prefixes) and no fallback; K1, K2 and K3
+    (one per step) launched as the run's steps and forwards need."""
+    best, counts, wall_s, lines = run_entry(argv)
+    fallback = [x for x in lines if (x.startswith("--device-aug") and "->" in x)
+                or "direct ingest unavailable" in x or "fallback path" in x]
+    shown = [next((x for x in lines if x.startswith(p)), None) for p in expect]
+    log_dir = os.path.dirname(os.path.dirname(best)) if best else ""
+    losses = np.load(os.path.join(log_dir, "train_losses.npy")) if best else np.zeros(0)
+    epoch_lines = [x for x in lines if x.startswith("Epoch ")]
+    print(f"[device-aug] {mode}: {' | '.join(str(x)[:110] for x in shown)}; losses "
+          f"{[round(float(x), 5) for x in losses]}; {epoch_lines}; K1 {counts['K1']}, K2 "
+          f"{counts['K2']}, K3 {counts['K3']} launches, wall {wall_s:.1f} s", flush=True)
+    if fallback or None in shown:
+        fail(f"--device-aug {mode} did not run as asked: {fallback or lines[:5]}")
+    check_launches(counts, n_shapes, forwards, steps, k3=steps)
+    if not len(losses) or not np.isfinite(losses).all():
+        fail(f"device-aug losses: {losses}")
+    return best, counts, lines, losses
+
+
+def train_seconds(lines: List[str], epoch: int) -> Tuple[float, int]:
+    """(train-loop seconds, steps) of ``epoch`` from the worker's epoch line."""
+    line = next(x for x in lines if x.startswith(f"Epoch {epoch}:"))
+    m = re.search(r"\(train ([0-9.]+) s, (\d+) steps\)", line)
+    return float(m.group(1)), int(m.group(2))
+
+
+def device_aug_entry_phase(log_base: str, n_shapes: int, f32: str, i8: str,
+                           big_pack: str) -> dict:
+    """Phases 11b-c: ``--device-aug step`` through the train entry on phase
+    6's synthetic events, on its float32 pack (``--ingest direct``, losses
+    equal to the synthetic run's: the same events and keys) and int8 pack;
+    ``--device-aug step --ingest direct`` and ``cached`` (automatic steps
+    per call) on the 2048-event float32 pack for waveforms/s, and the
+    cached run resumed from its interval checkpoint."""
+    step_log = ["device-aug step:"]
+    direct_log = ["packed direct ingest:", "device-aug step:"]
+    two = ["--epochs", "2"]
+    tt = TRAIN_STEPS * 2
+    _, c_a, _, losses_a = da_entry(
+        TRAIN_ARGS + two + ["--device-aug", "step", "--mode", "train_test", "--log-base",
+                            log_base], "step (synthetic)", step_log, n_shapes,
+        tt + 2 * VAL_BATCHES + TEST_BATCHES, tt)
+    _, c_b, _, losses_b = da_entry(
+        packed_args(f32) + two + ["--device-aug", "step", "--ingest", "direct", "--mode",
+                                  "train_test", "--log-base", log_base],
+        "step --ingest direct (float32 pack)", direct_log, n_shapes,
+        tt + 2 * VAL_BATCHES + TEST_BATCHES, tt)
+    rel = max_rel(losses_b, losses_a)
+    print(f"[device-aug] float32 pack vs synthetic, same events and keys: losses max rel "
+          f"{rel:.2e} (limit {RESUME_RTOL:.0e})", flush=True)
+    if not rel <= RESUME_RTOL:
+        fail("device-aug losses on the float32 pack differ from the synthetic run's")
+    _, c_c, _, _ = da_entry(
+        packed_args(i8) + ["--device-aug", "step", "--ingest", "direct", "--mode", "train",
+                           "--log-base", log_base],
+        "step --ingest direct (int8 pack)", direct_log, n_shapes, TRAIN_STEPS + VAL_BATCHES,
+        TRAIN_STEPS)
+
+    big = packed_args(big_pack) + ["--epochs", "2", "--mode", "train", "--log-base", log_base,
+                                   "--keep-checkpoints", "10"]
+    big_steps = (LOADER_EVENTS * 8 // 10) * 2 // TRAIN_BATCH  # 51
+    big_val = -(-(LOADER_EVENTS // 10) // TRAIN_BATCH)  # 4
+    _, c_d, lines_d, _ = da_entry(
+        big + ["--device-aug", "step", "--ingest", "direct"],
+        f"step --ingest direct ({LOADER_EVENTS}-event float32 pack)", direct_log, n_shapes,
+        2 * big_steps + 2 * big_val, 2 * big_steps)
+    spc = min(32, big_steps)
+    cached_steps = (big_steps // spc) * spc
+    best_e, c_e, lines_e, losses_e = da_entry(
+        big + ["--device-aug", "cached", "--save-interval-steps", str(spc)],
+        f"cached ({LOADER_EVENTS}-event float32 pack)", ["device-aug cached:"], n_shapes,
+        2 * cached_steps + 2 * big_val, 2 * cached_steps)
+    if not any(f"steps_per_call={spc}" in x for x in lines_e):
+        fail(f"--device-aug cached did not take the automatic steps per call {spc}")
+    run_e = os.path.dirname(os.path.dirname(best_e))
+    ckpt = os.path.join(run_e, "checkpoints", f"model_{spc}.pt")
+    _, c_r, lines_r, _ = da_entry(
+        packed_args(big_pack) + ["--epochs", "2", "--mode", "train", "--device-aug", "cached",
+                                 "--save-interval-steps", str(spc), "--checkpoint", ckpt],
+        "cached, resumed", ["device-aug cached:", f"Mid-epoch resume: epoch 0 from batch {spc}"],
+        n_shapes,
+        cached_steps + 2 * big_val, cached_steps)
+    resumed = np.load(os.path.join(run_e, "train_losses.npy"))
+    rel_r = max_rel(resumed, losses_e[-len(resumed):])
+    print(f"[device-aug] cached resumed from {os.path.basename(ckpt)} (epoch 0, batch {spc} of "
+          f"{big_steps}): losses {resumed.tolist()} vs uninterrupted {losses_e.tolist()} (max "
+          f"rel {rel_r:.2e}, limit {RESUME_RTOL:.0e})", flush=True)
+    if not rel_r <= RESUME_RTOL:
+        fail("the resumed cached run does not continue the uninterrupted one")
+    rates = {}
+    for mode, lines in (("step --ingest direct", lines_d), ("cached", lines_e)):
+        secs, steps = train_seconds(lines, 1)
+        rates[mode] = steps * TRAIN_BATCH / secs
+    return {"counts": [c_a, c_b, c_c, c_d, c_e, c_r], "wps": rates}
+
+
+def device_aug_captured_vs_eager(weights: str, store, sds, cfg, dev) -> dict:
+    """Phase 11d: DA_STEPS captured device-aug steps (processor graph, then
+    step graph) against as many eager ones from the same state, indices
+    and (seed, epoch, step), in step and cached mode: losses within
+    RESUME_RTOL."""
+    from seist_tpu_torch.data import device_aug as da
+    from seist_tpu_torch.train.graph import capture_processor
+    from seist_tpu_torch.train.step import make_cached_train_call, make_device_aug_train_step
+
+    loss_fn = taskspec.make_loss(MODEL)
+    items = list(pipeline.iter_raw_batches(store, 0, seed=SEED, shuffle=True,
+                                           batch_size=TRAIN_BATCH))[:DA_STEPS]
+    cache = pipeline.DeviceEpochCache(store, dev)
+    epoch = torch.tensor(0, dtype=torch.int32)
+    out = {}
+    for mode in ("step", "cached"):
+        losses = {}
+        for run in ("eager", "captured"):
+            state = _train_model(weights, dev)
+            step = make_train_step(loss_fn)
+            if mode == "step":
+                proc = da.make_row_processor(cfg, sds.input_names, sds.label_names)
+                if run == "captured":
+                    proc, step = capture_processor(proc, dev), capture_train_step(step)
+                call = make_device_aug_train_step(loss_fn, proc, step=step)
+            else:
+                proc = da.make_cache_processor(cfg, sds.input_names, sds.label_names,
+                                               store.n_raw, store.augmentation)
+                if run == "captured":
+                    proc = capture_processor(proc, dev, resident=1)
+                    step = capture_train_step(step)
+                call = make_cached_train_call(loss_fn, proc, step=step)
+            got = []
+            for t, item in enumerate(items):
+                rows, idx, aug = pipeline.raw_batch_tensors(item, pin=True)
+                rng = step_random_source(SEED, 0, t, dev)
+                e = epoch if run == "captured" else epoch.to(dev)
+                if run == "eager":
+                    rows = pipeline._tree_map(lambda x: x.to(dev), rows)
+                    idx, aug = idx.to(dev), aug.to(dev)
+                if mode == "step":
+                    got.append(call(state, rows, idx, aug, e, rng)[0])
+                else:
+                    got.append(call(state, cache.arrays, idx[None], e, rng)[0])
+            losses[run] = [float(x) for x in got]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["captured"], losses["eager"]))
+        print(f"[device-aug] {mode}: {DA_STEPS} captured steps vs eager from one state: losses "
+              f"{losses['captured']} vs {losses['eager']} (max rel {rel:.3e}, limit "
+              f"{RESUME_RTOL:.0e})", flush=True)
+        if not rel <= RESUME_RTOL:
+            fail(f"the captured device-aug {mode} step differs from the eager one")
+        out[mode] = rel
+    return out
+
+
+def time_device_aug_step(weights: str, store, sds, cfg, batch: int, mode: str,
+                         steps: int = 5) -> dict:
+    """The captured device-aug call the train worker runs (processor graph,
+    then step graph), seist_l_dpk at ``batch``: host wall time per step over
+    ``steps`` after two warm ones, the step mode's rows ready in pinned
+    memory as its feed thread leaves them; the processor replay alone
+    (CUDA events over back-to-back replays); peak memory above what was allocated before; the cache's
+    MiB in cached mode."""
+    from seist_tpu_torch.data import device_aug as da
+    from seist_tpu_torch.train.graph import capture_processor
+    from seist_tpu_torch.train.step import make_cached_train_call, make_device_aug_train_step
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    loss_fn = taskspec.make_loss(MODEL)
+    state = _train_model(weights, "cuda")
+    step = capture_train_step(make_train_step(loss_fn))
+    rows, idx, aug = aug_batch(store, batch)
+    epoch = torch.tensor(0, dtype=torch.int32)
+    cache_mib = 0.0
+    torch.cuda.reset_peak_memory_stats()
+    if mode == "step":
+        proc = capture_processor(da.make_row_processor(cfg, sds.input_names, sds.label_names),
+                                 "cuda")
+        call = make_device_aug_train_step(loss_fn, proc, step=step)
+        run = lambda i: call(state, rows, idx, aug, epoch, RandomSource.from_seed(i, "cuda"))
+        replay = lambda: proc(rows, idx, aug, epoch)
+    else:
+        cache = pipeline.DeviceEpochCache(store, "cuda")
+        cache_mib = cache.nbytes / 2**20
+        proc = capture_processor(da.make_cache_processor(
+            cfg, sds.input_names, sds.label_names, store.n_raw, store.augmentation), "cuda",
+            resident=1)
+        call = make_cached_train_call(loss_fn, proc, step=step)
+        run = lambda i: call(state, cache.arrays, idx[None], epoch, RandomSource.from_seed(i, "cuda"))
+        replay = lambda: proc(cache.arrays, idx, epoch)
+    for i in range(2):
+        run(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        run(10 + i)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    proc_ms = time_ms(replay, 10, warmup=2)
+    return {"ms": ms, "proc_ms": proc_ms,
+            "peak_gib": (torch.cuda.max_memory_allocated() - before) / 2**30,
+            "cache_mib": cache_mib,
+            "capture_s": proc.graphs.capture_seconds[0] + step.graphs.capture_seconds[0]}
+
+
+def feed_rate(store, batch: int, batches: int = 8) -> float:
+    """Waveforms/s of the step mode's host feed alone: a raw-row gather (or
+    a packed store's shard fill) and the copy into pinned memory, one
+    thread, the work of the worker's feed thread."""
+    it = pipeline.iter_raw_batches(store, 1, seed=SEED, shuffle=True, batch_size=batch)
+    pipeline.raw_batch_tensors(next(it), pin=True)
+    t0, n = time.perf_counter(), 0
+    for _ in range(batches):
+        item = next(it, None)
+        if item is None:
+            break
+        n += len(pipeline.raw_batch_tensors(item, pin=True)[1])
+    return n / (time.perf_counter() - t0)
+
+
+def device_aug_phase(name_power: str, logs: str, n_shapes: int, weights: str, dev,
+                     packed: dict, step_ms: Dict[int, float], loader_rows: List[dict]) -> dict:
+    """Phase 11: device augmentation and direct ingest (module docstring)."""
+    from seist_tpu_torch.data import ingest as ingest_lib
+
+    t0 = time.perf_counter()
+    sds, store, cfg = aug_store(TRAIN_ARGS)
+    k3 = check_k3(store, cfg, dev, name_power)
+    processed_card_vs_cpu(sds, store, cfg, dev)
+    big_pack = os.path.join(str(_kernels.BUILD_DIR), "packs", f"float32_{LOADER_EVENTS}")
+    entry = device_aug_entry_phase(logs, n_shapes, packed["f32"], packed["i8"], big_pack)
+    device_aug_captured_vs_eager(weights, store, sds, cfg, dev)
+    big_sds, big_store, big_cfg = aug_store(packed_args(big_pack))
+    direct = ingest_lib.PackedRawStore.build(big_sds, batch_size=256, reuse_staging=True)
+    times = {}
+    for batch in (TRAIN_BATCH, 256):
+        for mode in ("step", "cached"):
+            r = time_device_aug_step(weights, big_store, big_sds, big_cfg, batch, mode)
+            times[(batch, mode)] = r
+            print(f"[device-aug-time] {name_power} | {MODEL} window {WINDOW} b{batch} "
+                  f"--device-aug {mode} captured (processor graph, then step graph): {r['ms']:.2f} "
+                  f"ms/step ({batch * 1e3 / r['ms']:.1f} waveforms/s) beside the host-fed "
+                  f"captured step's {step_ms[batch]:.2f} ms (phase 8); processor graph "
+                  f"{r['proc_ms']:.3f} ms per replay (CUDA events, its input copies included); K3 "
+                  f"{k3[batch]['ms']:.4f} ms (bound {k3[batch]['bound_ms']:.4f}); peak memory "
+                  f"{r['peak_gib']:.2f} GiB above before"
+                  + (f", cache {r['cache_mib']:.1f} MiB" if mode == "cached" else "")
+                  + f"; captures {r['capture_s']:.2f} s", flush=True)
+            torch.cuda.empty_cache()
+    for batch in (TRAIN_BATCH, 256):
+        feed = {"RawStore": feed_rate(big_store, batch), "direct ingest": feed_rate(direct, batch)}
+        host = max((r["wps"] for r in loader_rows if r["batch"] == 500), default=float("nan"))
+        print(f"[device-aug-feed] {name_power} | {os.cpu_count()} CPUs | b{batch} step-mode host "
+              f"feed, one thread: RawStore gather {feed['RawStore']:.1f} waveforms/s, float32 "
+              f"pack direct ingest {feed['direct ingest']:.1f}; the device-aug step consumes "
+              f"{batch * 1e3 / times[(batch, 'step')]['ms']:.1f}, the host-fed step "
+              f"{batch * 1e3 / step_ms[batch]:.1f}; best host Loader (phase 8, b500) "
+              f"{host:.1f}", flush=True)
+    for mode, wps in entry["wps"].items():
+        print(f"[device-aug-entry] {name_power} | train entry, --device-aug {mode}, "
+              f"{LOADER_EVENTS}-event float32 pack, b{TRAIN_BATCH}, epoch 1 (warm): {wps:.1f} "
+              f"waveforms/s over the train loop", flush=True)
+    print(f"[device-aug] phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"k3": k3, "counts": entry["counts"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this drives the "
@@ -1698,12 +2144,12 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    _kernels.build_all((KERNEL, KERNEL_BWD))
-    for name in (KERNEL, KERNEL_BWD):
+    _kernels.build_all((KERNEL, KERNEL_BWD, KERNEL_K3))
+    for name in (KERNEL, KERNEL_BWD, KERNEL_K3):
         print(f"[build] {name}: {_kernels.BUILD_SECONDS[name]:.2f} s "
               f"({_kernels.library_path(name).name})", flush=True)
         check_spills(name, _kernels.BUILD_LOGS.get(name, ""))
-    print(f"[build] both, in parallel: {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] all three, in parallel: {time.perf_counter() - t0:.2f} s", flush=True)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1809,12 +2255,16 @@ def main() -> int:
                 del run
                 torch.cuda.empty_cache()
 
-    loader_phase(name_power, step_ms)
+    loader_rows = loader_phase(name_power, step_ms)
     baseline_phase(name_power, logs, dev)
+    augmented = device_aug_phase(name_power, logs, len(shapes), weights, dev, packed, step_ms,
+                                 loader_rows)
+    path_counts += augmented["counts"]
 
     fp32 = [r for r in rows if r["dtype"] == "fp32"]  # the serving path is fp32
+    k3 = augmented["k3"][TRAIN_BATCH]  # the train path's batch
     launches = {k: served_launches * (k == "K1") + sum(c[k] for c in path_counts)
-                for k in ("K1", "K2")}
+                for k in ("K1", "K2", "K3")}
     print(f"[paths] serve: K1 {served_launches} launches; train_test: K1 "
           f"{trained['counts']['K1']}, K2 {trained['counts']['K2']}; resume: K1 "
           f"{resumed['counts']['K1']}, K2 {resumed['counts']['K2']}; bf16 train_test: K1 "
@@ -1826,8 +2276,11 @@ def main() -> int:
           f"{preempted['counts_resumed']['K1']}, K2 {preempted['counts_resumed']['K2']}; "
           f"--steps-per-call 2: K1 {grouped['counts']['K1']}, K2 {grouped['counts']['K2']}; "
           f"--grad-accum-steps 2: K1 {grouped['counts_accum']['K1']}, K2 "
-          f"{grouped['counts_accum']['K2']}; all paths: K1 {launches['K1']}, K2 "
-          f"{launches['K2']}", flush=True)
+          f"{grouped['counts_accum']['K2']}; device-aug (phase 11, six runs): K1 "
+          f"{sum(c['K1'] for c in augmented['counts'])}, K2 "
+          f"{sum(c['K2'] for c in augmented['counts'])}, K3 "
+          f"{sum(c['K3'] for c in augmented['counts'])}; all paths: K1 {launches['K1']}, K2 "
+          f"{launches['K2']}, K3 {launches['K3']}", flush=True)
     bounds = {}
     for kid, label, rs, ops_at in (
             ("K1", "five fp32 b8 launches", fp32, "on the fp32 CUDA cores"),
@@ -1869,6 +2322,18 @@ def main() -> int:
         "bound_ms": bounds["K2"][0],
         "bound_by": bounds["K2"][1],
         "library_ms": sum(r["library_ms"] for r in bwd_rows["fp32"]),
+    }, {
+        "name": KERNEL_K3,
+        "route": "cuda",
+        "source": "seist_tpu_torch/csrc/aug_draws.cu",
+        "replaces": "seist_tpu/data/device_aug.py:169 (jax.random threefry draws, XLA code)",
+        "launches": launches["K3"],
+        "max_abs_err": k3["max_abs_err"],
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

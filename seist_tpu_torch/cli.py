@@ -30,9 +30,15 @@ graph (``train/graph.py``).
 to EQTransformer's encoder and decoder convolutions (any other model
 raises, as in the JAX package).
 
+``--device-aug step|cached`` augments and labels the train batches on
+the device (``data/device_aug.py``; ``cached`` holds the raw epoch there,
+its budget ``--device-aug-hbm-gb``); ``--ingest auto|direct|host`` chooses
+how the step mode's raw rows arrive (straight from a pack's shards, or a
+resident store). Both resolve and fall back as in the JAX package.
+
 A flag of the JAX CLI whose non-default value the port does not run yet
-raises and names ``ROADMAP.md``: ``--device-aug`` and ``--seq-shards``.
-Flags of the telemetry plane are not accepted at all.
+raises and names ``ROADMAP.md``: ``--seq-shards``. Flags of the telemetry
+plane are not accepted at all.
 """
 
 from __future__ import annotations
@@ -44,7 +50,6 @@ from typing import List, Optional
 
 #: JAX-CLI flags the port accepts only at the value it runs: dest -> value.
 _UNPORTED = {
-    "device_aug": "off",
     "seq_shards": 1,
 }
 _MODES = ("train", "test", "train_test")
@@ -89,7 +94,18 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--steps-per-call", default=0, type=int, dest="steps_per_call")
     ap.add_argument("--grad-accum-steps", default=1, type=int, dest="grad_accum_steps")
     ap.add_argument("--device-aug", default="off", type=str,
-                    choices=["off", "step", "cached"], dest="device_aug")
+                    choices=["off", "step", "cached"], dest="device_aug",
+                    help="device-side augmentation and label synthesis. 'step': the step "
+                    "augments raw rows the host feeds; 'cached': the raw epoch lives on the "
+                    "card and a call receives sample indices; falls back to 'step' over the "
+                    "memory budget, to 'off' on unsupported configs (both logged). Default off")
+    ap.add_argument("--device-aug-hbm-gb", default=0.0, type=float, dest="device_aug_hbm_gb",
+                    help="device memory budget (GiB) of the --device-aug cached epoch. 0 = "
+                    "auto: half the card's memory, or 4 GiB on the CPU")
+    ap.add_argument("--ingest", default="auto", type=str, choices=["auto", "direct", "host"],
+                    help="raw-row feed of the device-aug step path. 'auto': straight from the "
+                    "shards when the dataset is packed; 'host': always a resident RawStore; "
+                    "'direct': demand the shard feed, error instead of falling back. Default auto")
 
     ap.add_argument("--seed", default=0, type=int)
 

@@ -27,9 +27,15 @@ The port's copy of the host path of ``seist_tpu/data/pipeline.py``:
   then do not wait for it (``seist_tpu/data/pipeline.py::
   prefetch_packed_to_device``).
 
-Not ported: host sharding (multi-GPU training) and the
-device-augmentation feeds. Batches stay numpy; the train loop moves them
-to the device.
+* The device-augmentation feeds (``--device-aug``): :class:`RawStore`
+  (raw rows decoded once, the draw-free preprocessing done),
+  :class:`DeviceEpochCache` (those rows resident on the card, one card),
+  :func:`iter_raw_batches` (step mode's raw batches in the Loader's order)
+  and :func:`raw_batch_tensors` (a batch copied into pinned memory by the
+  worker's feed thread).
+
+Not ported: host sharding (multi-GPU training). Host batches stay numpy;
+the train loop moves them to the device.
 """
 
 from __future__ import annotations
@@ -125,6 +131,27 @@ class SeismicDataset:
         )
 
     @property
+    def preprocessor(self) -> DataPreprocessor:
+        return self._preprocessor
+
+    @property
+    def augmentation(self) -> bool:
+        return self._augmentation
+
+    @property
+    def raw_size(self) -> int:
+        """Number of RAW events (len() doubles under augmentation)."""
+        return self._dataset_size
+
+    @property
+    def input_names(self) -> list:
+        return list(self._input_names)
+
+    @property
+    def label_names(self) -> list:
+        return list(self._label_names)
+
+    @property
     def quarantine(self) -> io_guard.Quarantine:
         return self._quarantine
 
@@ -146,6 +173,11 @@ class SeismicDataset:
             return None
         sids = np.asarray(sids)
         return np.concatenate([sids, sids]) if self._augmentation else sids
+
+    def raw_event(self, idx: int) -> Tuple[Event, dict]:
+        """One unprocessed event and its meta: the device-augmentation store
+        reads raw traces here (``--device-aug``)."""
+        return self._dataset[idx % self._dataset_size]
 
     def _fetch_event(self, raw_idx: int, *, idx: int) -> Tuple[Event, dict]:
         """Guarded sample read. The fast path (nothing quarantined, no
@@ -552,3 +584,224 @@ def _proc_worker_getitem(epoch_idx):
     epoch, idx = epoch_idx
     _PROC_DATASET.set_epoch(epoch)
     return _PROC_DATASET[idx]
+
+
+# ------------------------------------------------------ device augmentation
+def _guarded_raw_event(sds: SeismicDataset, i: int) -> dict:
+    """A raw read for the device-augmentation store: transient faults are
+    retried as on the host path; a permanently corrupt sample raises
+    ValueError. The store holds every sample for the whole run, so it
+    refuses rather than bake a fallback in; the worker then falls back to
+    the host path, whose per-read quarantine handles the sample."""
+    if not io_guard.enabled():
+        return sds.raw_event(i)[0]
+    try:
+        event, _ = io_guard.guarded_event_read(
+            lambda: sds.raw_event(i), key=i, desc=f"{sds.name()}.raw[{i}]",
+            injector=sds.io_faults)
+        return event
+    except io_guard.CorruptSampleError as e:
+        raise ValueError(
+            f"sample {i} is permanently corrupt ({e}); --device-aug falls back to the host "
+            "path, which quarantines it"
+        ) from e
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the arrays of a (nested) dict of arrays."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_leaves(tree) -> List[Any]:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    return [tree]
+
+
+class RawStore:
+    """Fixed-shape raw arrays on the host for ``--device-aug step|cached``:
+    every raw trace decoded once, the draw-free preprocessing
+    (``_is_noise`` and ``pad_phases``, :func:`device_aug.host_prepare`)
+    done per sample, VALUE/ONEHOT labels as dense arrays. A step's host work
+    is then a row gather; augmentation, windowing, normalisation and labels
+    run on the device (``data/device_aug.py``).
+
+    Needs one raw trace length across the dataset; :meth:`build` raises
+    ``ValueError`` otherwise, and the worker falls back to the host path."""
+
+    def __init__(self, arrays: Dict[str, Any], *, n_raw: int, augmentation: bool,
+                 raw_len: int, phase_slots: int) -> None:
+        self.arrays = arrays
+        self.n_raw = int(n_raw)
+        self.augmentation = bool(augmentation)
+        self.raw_len = int(raw_len)
+        self.phase_slots = int(phase_slots)
+
+    def __len__(self) -> int:
+        # The 2x-epoch rule: raw copy for idx < n_raw, augmented above.
+        return 2 * self.n_raw if self.augmentation else self.n_raw
+
+    @property
+    def nbytes(self) -> int:
+        return int(sum(np.asarray(a).nbytes for a in _tree_leaves(self.arrays)))
+
+    @classmethod
+    def estimate_bytes(cls, sds: SeismicDataset) -> int:
+        """The resident size without decoding the dataset: one sample's
+        float32 waveform bytes times the dataset size. The probe read is
+        guarded, as the build's reads are."""
+        event = _guarded_raw_event(sds, 0)
+        return int(np.asarray(event["data"]).astype(np.float32, copy=False).nbytes
+                   * sds.raw_size)
+
+    @classmethod
+    def build(cls, sds: SeismicDataset) -> "RawStore":
+        from seist_tpu_torch.data import device_aug as da  # it imports this module
+        from seist_tpu_torch.data.preprocess import pad_phases
+
+        pre = sds.preprocessor
+        names = taskspec.flatten_io_names(sds.input_names + sds.label_names)
+        value_names = sorted({n for n in names if taskspec.get_kind(n) == taskspec.VALUE})
+        onehot_names = sorted({n for n in names if taskspec.get_kind(n) == taskspec.ONEHOT})
+        # One decode per sample; the waveforms go straight into the stacked
+        # array and each event is dropped once consumed, so host memory
+        # stays about one dataset.
+        n = sds.raw_size
+        events: List[Optional[dict]] = []
+        raw_len = None
+        max_phases = 1
+        for i in range(n):
+            event = _guarded_raw_event(sds, i)
+            length = int(np.asarray(event["data"]).shape[-1])
+            if raw_len is None:
+                raw_len = length
+            elif length != raw_len:
+                raise ValueError(f"device-aug needs uniform raw trace lengths; sample {i} has "
+                                 f"{length} != {raw_len}")
+            ppks, spks = list(event["ppks"]), list(event["spks"])
+            if not pre._is_noise(event["data"], ppks, spks, event["snr"]):
+                p, s = pad_phases(ppks, spks, pre.min_event_gap, pre.in_samples)
+                max_phases = max(max_phases, len(p), len(s))
+            events.append(event)
+        phase_slots = max(max_phases, pre._max_event_num)
+        n_ch = len(pre.data_channels)
+        arrays: Dict[str, Any] = {
+            "data": np.empty((n, n_ch, int(raw_len or 0)), np.float32),
+            "ppks": np.empty((n, phase_slots), np.int32),
+            "np_p": np.empty((n,), np.int32),
+            "spks": np.empty((n, phase_slots), np.int32),
+            "np_s": np.empty((n,), np.int32),
+        }
+        vals = {name: np.zeros((n, 1), np.float32) for name in value_names}
+        oh = {name: np.zeros((n,), np.int32) for name in onehot_names}
+        for i in range(n):
+            event, events[i] = events[i], None
+            row = da.host_prepare(pre, event, phase_slots)
+            for k in ("data", "ppks", "np_p", "spks", "np_s"):
+                arrays[k][i] = row[k]
+            if row["is_noise"] and (value_names or onehot_names):
+                # The host path fails on a noise-classified trace with
+                # VALUE/ONEHOT labels; zero-filling would train on invented
+                # labels. Refuse: the worker falls back to the host path.
+                raise ValueError(f"sample {i} is noise-classified but the task has VALUE/ONEHOT "
+                                 f"labels ({value_names + onehot_names}); the device path will "
+                                 "not fabricate label values for it")
+            for name in value_names:
+                v = np.asarray(event.get(name, []), np.float32)
+                if v.size == 0:
+                    raise ValueError(f"sample {i} has no '{name}' value; refusing to fabricate "
+                                     "a device-path label")
+                vals[name][i] = v.reshape(-1)[:1]
+            for name in onehot_names:
+                v = event.get(name, [])
+                if not len(v):
+                    raise ValueError(f"sample {i} has no '{name}' class; refusing to fabricate "
+                                     "a device-path label")
+                oh[name][i] = int(v[0])
+        if value_names:
+            arrays["values"] = vals
+        if onehot_names:
+            arrays["onehots"] = oh
+        return cls(arrays, n_raw=n, augmentation=sds.augmentation, raw_len=int(raw_len or 0),
+                   phase_slots=phase_slots)
+
+    def row_batch(self, raw_idx: np.ndarray) -> Dict[str, Any]:
+        """The raw rows of a batch (a numpy fancy index: step mode's host
+        work)."""
+        return _tree_map(lambda a: a[raw_idx], self.arrays)
+
+
+class DeviceEpochCache:
+    """The raw epoch resident on the card (``--device-aug cached``): the
+    :class:`RawStore` arrays uploaded once, so a call of k steps receives
+    only a (k, B) int32 index array. One card: no mesh, no host sharding
+    (multi-GPU training is in ROADMAP.md)."""
+
+    def __init__(self, store: RawStore, device) -> None:
+        import torch
+
+        self.store = store
+        self.arrays = _tree_map(lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device),
+                                store.arrays)
+        self.nbytes = int(sum(t.numel() * t.element_size() for t in _tree_leaves(self.arrays)))
+
+    def epoch_index_chunks(self, epoch: int, *, seed: int, shuffle: bool, batch_size: int,
+                           steps_per_call: int, start_batch: int = 0,
+                           source_ids: Optional[np.ndarray] = None,
+                           mixture_temperature: float = 0.0) -> Iterator[np.ndarray]:
+        """(k, B) int32 index arrays of one epoch: the sample sequence the
+        host Loader would produce (:func:`_epoch_order`), in calls of k;
+        a trailing part-call is dropped (drop-last, fixed shapes)."""
+        order = _epoch_order(len(self.store), seed=seed, epoch=epoch, shuffle=shuffle,
+                             source_ids=source_ids, mixture_temperature=mixture_temperature)
+        nb = len(order) // batch_size
+        calls = nb // steps_per_call
+        per_call = steps_per_call * batch_size
+        for c in range(start_batch // steps_per_call, calls):
+            flat = order[c * per_call:(c + 1) * per_call]
+            yield np.asarray(flat.reshape(steps_per_call, batch_size), np.int32)
+
+
+def iter_raw_batches(store: RawStore, epoch: int, *, seed: int, shuffle: bool, batch_size: int,
+                     start_batch: int = 0, source_ids: Optional[np.ndarray] = None,
+                     mixture_temperature: float = 0.0):
+    """Step mode's feed (``--device-aug step``): per batch, the raw rows
+    gathered on the host (no augmentation, labels or stacking) as ``(rows,
+    idx, aug)`` for the augmenting train step. The order is the host
+    Loader's (:func:`_epoch_order`, drop-last). A store with
+    ``row_batch_at`` (packed direct ingest) gets the (epoch, logical idx)
+    its guarded reads key quarantine fallbacks on."""
+    order = _epoch_order(len(store), seed=seed, epoch=epoch, shuffle=shuffle,
+                         source_ids=source_ids, mixture_temperature=mixture_temperature)
+    nb = len(order) // batch_size
+    n_raw = store.n_raw
+    row_batch_at = getattr(store, "row_batch_at", None)
+    for b in range(start_batch, nb):
+        sel = np.asarray(order[b * batch_size:(b + 1) * batch_size], np.int64)
+        raw = sel % n_raw if store.augmentation else sel
+        aug = (sel >= n_raw) if store.augmentation else np.zeros(sel.shape, bool)
+        if row_batch_at is not None:
+            rows = row_batch_at(raw, epoch=epoch, idx=sel)
+        else:
+            rows = store.row_batch(raw)
+        yield rows, sel.astype(np.int32), aug
+
+
+def raw_batch_tensors(item, pin: bool = False):
+    """One :func:`iter_raw_batches` item as torch tensors, copied out of the
+    numpy arrays (into pinned memory with ``pin``). The copy is what lets a
+    staging slab be refilled at once: the batch no longer aliases it, and
+    a pinned block is reused by torch's host allocator only after the
+    non-blocking copies that read it have run."""
+    import torch
+
+    def copy(a):
+        a = np.ascontiguousarray(a)
+        out = torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype, pin_memory=pin)
+        out.copy_(torch.from_numpy(a))
+        return out
+
+    rows, idx, aug = item
+    return _tree_map(copy, rows), copy(idx), copy(aug)

@@ -42,6 +42,9 @@ _ARGTYPES = {
     # e, dtype, splits, rows_per_split, scale, rate, out_scale, lm, seed (device
     # pointer), stream
     "pooled_attention_bwd": [_P] * 12 + [_I] * 8 + [_F] * 3 + [_U] + [_P] * 2,
+    # seed, epoch, idx, batch, slot tags (host), slot positions (host),
+    # n_slots, tag0, tag1, n_fields, field_len, uniforms, fields, stream
+    "aug_draws": [_U, _P, _P, _I, _P, _P] + [_I] * 5 + [_P] * 3,
 }
 
 _LOCK = threading.Lock()  # guards _NAME_LOCKS
@@ -280,3 +283,25 @@ def pooled_attention_bwd(
             f"pooled_attention_bwd launch failed: CUDA error {err} "
             f"(q {tuple(q.shape)} {q.dtype}, M={m}, splits={splits})"
         )
+
+
+def aug_draws(seed: int, epoch: torch.Tensor, idx: torch.Tensor, slots, field_tags,
+              field_len: int, uniforms: torch.Tensor, fields: torch.Tensor) -> None:
+    """Launch K3 on the current stream (checked by the caller,
+    ops/threefry.py): ``slots`` (tag, pos) pairs and ``field_tags`` go to
+    the kernel by value, ``epoch`` and ``idx`` are read on the device."""
+    lib = build("aug_draws")
+    n = len(slots)
+    tags = (ctypes.c_int * max(n, 1))(*[int(t) for t, _ in slots])
+    pos = (ctypes.c_int * max(n, 1))(*[int(p) for _, p in slots])
+    ftags = list(field_tags) + [0] * (2 - len(field_tags))
+    stream = torch.cuda.current_stream(idx.device).cuda_stream
+    err = lib.aug_draws(
+        int(seed) & 0xFFFFFFFF, epoch.data_ptr(), idx.data_ptr(), idx.shape[0],
+        ctypes.cast(tags, ctypes.c_void_p), ctypes.cast(pos, ctypes.c_void_p), n,
+        int(ftags[0]), int(ftags[1]), len(field_tags), int(field_len), uniforms.data_ptr(),
+        fields.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"aug_draws launch failed: CUDA error {err} (batch {idx.shape[0]}, "
+                           f"{n} slots, {len(field_tags)} fields of {field_len})")

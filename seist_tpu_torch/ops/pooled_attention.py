@@ -231,12 +231,6 @@ def set_counts(values: Tuple[int, int, int, int]) -> None:
     launches, bwd_launches, bf16_launches, bf16_bwd_launches = values
 
 
-def add_counts(delta: Tuple[int, int, int, int]) -> None:
-    """Count the launches of one replay of a captured graph: the kernels
-    it captured launch again, though no wrapper runs."""
-    set_counts(tuple(a + b for a, b in zip(counts(), delta)))
-
-
 def _forward(q, k, v, scale, rate, seed, with_lse: bool):
     """K1 on CUDA tensors, the plain version on CPU tensors: o, and the
     fp32 (N, H, L) row statistics when ``with_lse`` (else None). ``seed``

@@ -110,6 +110,14 @@ def get_metrics(name: str) -> List[str]:
 IOName = Union[str, Tuple[str, ...]]
 
 
+def flatten_io_names(names: Sequence[IOName]) -> List[str]:
+    """Grouped io-names expanded into a flat list."""
+    out: List[str] = []
+    for n in names:
+        out.extend(n) if isinstance(n, (tuple, list)) else out.append(n)
+    return out
+
+
 # Results/target transforms of the non-SeisT families (torch versions of
 # seist_tpu/taskspec.py:132-154).
 def baz_targets_to_cos_sin(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

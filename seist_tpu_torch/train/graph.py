@@ -57,6 +57,7 @@ import torch
 
 from seist_tpu_torch.models.common import RandomSource
 from seist_tpu_torch.ops import pooled_attention as pa
+from seist_tpu_torch.ops import threefry
 from seist_tpu_torch.train import step as step_lib
 from seist_tpu_torch.train.precision import resolve_dtype
 from seist_tpu_torch.train.step import TrainState
@@ -65,6 +66,8 @@ from seist_tpu_torch.train.step import TrainState
 def _flat(tree) -> List[torch.Tensor]:
     if isinstance(tree, (tuple, list)):
         return [t for x in tree for t in _flat(x)]
+    if isinstance(tree, dict):
+        return [t for x in tree.values() for t in _flat(x)]
     return [tree]
 
 
@@ -72,7 +75,20 @@ def _unflat(tree, leaves: List[torch.Tensor]):
     """``tree``'s structure over ``leaves`` (consumed in order)."""
     if isinstance(tree, (tuple, list)):
         return type(tree)(_unflat(x, leaves) for x in tree)
+    if isinstance(tree, dict):
+        return {k: _unflat(x, leaves) for k, x in tree.items()}
     return leaves.pop(0)
+
+
+def kernel_counts() -> Tuple[int, ...]:
+    """The launch counts of the port's kernels: the attention's four
+    (``ops/pooled_attention.py``) and K3's (``ops/threefry.py``)."""
+    return pa.counts() + (threefry.launches,)
+
+
+def set_kernel_counts(values: Tuple[int, ...]) -> None:
+    pa.set_counts(tuple(values[:4]))
+    threefry.launches = values[4]
 
 
 def _geometry(tensors: Sequence[torch.Tensor]) -> Tuple:
@@ -109,7 +125,7 @@ class Captured:
         self.static = [torch.empty_like(x, device=device) for x in inputs]
         for s, x in zip(self.static, inputs):
             s.copy_(x)
-        before = pa.counts()
+        before = kernel_counts()
         snapshot = [t.clone() for t in mutable]
         side = _warmup_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
@@ -126,15 +142,14 @@ class Captured:
             for t, saved in zip(mutable, snapshot):
                 t.copy_(saved)
         del snapshot
-        warm = pa.counts()
+        warm = kernel_counts()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             out = fn(*self._args(self._source()))
         self.outputs = out
-        #: The attention kernels one replay launches (K1, K2, and their
-        #: bf16 instantiations).
-        self.launches = tuple(b - a for a, b in zip(warm, pa.counts()))
-        pa.set_counts(before)
+        #: The kernels one replay launches (:func:`kernel_counts`).
+        self.launches = tuple(b - a for a, b in zip(warm, kernel_counts()))
+        set_kernel_counts(before)
 
     def _source(self, seed_generator: Optional[torch.Generator] = None) -> Optional[RandomSource]:
         if not self.random:
@@ -160,7 +175,7 @@ class Captured:
                 self.seeds.copy_(draws, non_blocking=True)
             self.generator.manual_seed(rng.generator.initial_seed())
         self.graph.replay()
-        pa.add_counts(self.launches)
+        set_kernel_counts(tuple(a + b for a, b in zip(kernel_counts(), self.launches)))
         return self.outputs
 
 
@@ -272,6 +287,37 @@ def capture_accum_step(loss_fn: Callable, accum_steps: int, guard: bool = True,
             one.replay(_flat(micro_inputs[i]) + _flat(step_lib._index(targets_k, i)), rngs[i])
         loss, diag = finish.replay([])
         return loss.clone(), None, {k: v.clone() for k, v in diag.items()}
+
+    run.graphs = graphs
+    return run
+
+
+def capture_processor(process: Callable, device: torch.device, resident: int = 0) -> Callable:
+    """A device-augmentation processor (``data/device_aug.py``:
+    ``process(rows, idx, aug, epoch)`` or ``process(cache, idx, epoch)``)
+    run as its own CUDA graph on a CUDA ``device``, one capture per input
+    geometry: a replay copies the arguments (host tensors, pinned for a
+    copy that does not wait) into the graph's static buffers and returns
+    the graph's ``(inputs, targets)``, which the next replay overwrites;
+    the train step copies them into its own buffers at once. The first
+    ``resident`` arguments are device tensors the graph reads where they
+    lie (the resident cache: the same tensors at every call, keyed by
+    address). K3's launch inside it is counted at each replay. On the CPU,
+    the processor itself."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return process
+    graphs = _Graphs()
+
+    def run(*args):
+        kept, copied = args[:resident], args[resident:]
+        flat_in = _flat(copied)
+
+        def fn(*tensors):
+            return process(*kept, *_unflat(copied, list(tensors)))
+
+        key = (tuple(t.data_ptr() for t in _flat(kept)),) + _geometry(flat_in)
+        return graphs.get(key, lambda: Captured(fn, flat_in, device)).replay(flat_in)
 
     run.graphs = graphs
     return run

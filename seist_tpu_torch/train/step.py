@@ -26,7 +26,9 @@ worker a few steps late (``train/worker.py::_BadUpdateMonitor``).
 Variants: :func:`make_multi_train_step` runs k updates on k batches, one
 after another (``--steps-per-call``); :func:`make_accum_train_step` runs
 one update from the mean gradient of k micro-batches, BatchNorm chained
-through them (``--grad-accum-steps``). The randomness of each update, or of
+through them (``--grad-accum-steps``); :func:`make_device_aug_train_step`
+and :func:`make_cached_train_call` augment raw rows on the device first
+(``--device-aug step|cached``). The randomness of each update, or of
 each micro-batch, is a :class:`RandomSource` that the caller builds from
 (seed, epoch, update count[, micro-batch]) with :func:`step_random_source`.
 
@@ -335,6 +337,65 @@ def make_accum_train_step(
         return loss, None, diag
 
     return accum_step
+
+
+def make_device_aug_train_step(
+    loss_fn: Callable,
+    process_rows: Callable,
+    guard: bool = True,
+    compute_dtype: Optional[str] = None,
+    step: Optional[Callable] = None,
+) -> Callable:
+    """Build the step of ``--device-aug step``: ``step(state, rows, idx,
+    aug, epoch, rng) -> (loss, None, diag)``. ``rows`` is a raw-row batch
+    (``data/pipeline.RawStore``), ``idx`` the (B,) epoch indices keying the
+    augmentation draws, ``aug`` the (B,) augment flags, ``epoch`` a scalar
+    int32 tensor; ``process_rows`` (``data/device_aug.make_row_processor``,
+    or its captured graph) turns them into (inputs, targets) on the device,
+    then the train step ``step`` (:func:`make_train_step`'s, or its captured
+    graph) updates with randomness ``rng``. The outputs are not returned:
+    the device path has no host metrics targets to score them against."""
+    base = step or make_train_step(loss_fn, guard=guard, compute_dtype=compute_dtype)
+
+    def device_aug_step(state: TrainState, rows, idx, aug, epoch, rng: RandomSource):
+        inputs, targets = process_rows(rows, idx, aug, epoch)
+        loss, _, diag = base(state, inputs, targets, rng)
+        return loss, None, diag
+
+    return device_aug_step
+
+
+def make_cached_train_call(
+    loss_fn: Callable,
+    process_cache: Callable,
+    steps_per_call: int = 1,
+    guard: bool = True,
+    compute_dtype: Optional[str] = None,
+    step: Optional[Callable] = None,
+) -> Callable:
+    """Build the call of ``--device-aug cached``: ``call(state, cache,
+    idx_k, epoch, rngs) -> (loss, None, diag)`` runs ``steps_per_call``
+    updates; update j gathers its raw rows from the resident ``cache`` by
+    ``idx_k[j]`` and augments them (``process_cache`` =
+    ``data/device_aug.make_cache_processor``, or its captured graph), then
+    the train step ``step`` updates with randomness ``rngs[j]`` (``rngs``
+    one source when k = 1). The loss and ``diag["applied"]`` are those of
+    :func:`make_multi_train_step`: the only host-to-device traffic of a
+    call is the (k, B) indices and the epoch."""
+    base = step or make_train_step(loss_fn, guard=guard, compute_dtype=compute_dtype)
+
+    def call(state: TrainState, cache, idx_k, epoch, rngs):
+        def one(st: TrainState, idx, _, rng: RandomSource):
+            inputs, targets = process_cache(cache, idx, epoch)
+            loss, _, diag = base(st, inputs, targets, rng)
+            return loss, None, diag
+
+        if steps_per_call == 1:
+            return one(state, idx_k[0], None, rngs)
+        multi = make_multi_train_step(loss_fn, steps_per_call, guard=guard, step=one)
+        return multi(state, idx_k, idx_k, rngs)
+
+    return call
 
 
 def make_eval_step(loss_fn: Callable, compute_dtype: Optional[str] = None) -> Callable:

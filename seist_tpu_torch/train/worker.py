@@ -57,8 +57,19 @@ build or a save. Each epoch logs the quarantine report and the guard's
 counters; the test metrics JSON carries them as ``data_plane``. The
 ``SEIST_FAULT_*`` injector (``utils/faults.py``) fires at step starts.
 
-Not ported: the device-augmentation step variants, train-time metrics
-and the telemetry plane (``ROADMAP.md``).
+Device augmentation (``--device-aug step|cached``, ``--ingest``): the
+mode is resolved as the JAX worker resolves it (:func:`_resolve_device_aug`,
+each fallback one warning). ``step`` feeds raw rows (from a resident
+``RawStore``, or straight from a pack's shards) gathered by a thread into
+pinned memory; ``cached`` holds the raw epoch on the device and a call
+receives only its (k, B) indices, k = ``--steps-per-call`` (auto: min(32,
+steps per epoch)). On CUDA the processor (``data/device_aug.py``, whose
+draws are the kernel K3) runs as its own captured graph, then the train
+step's graph (``train/graph.py``); the randomness of the augmentation is
+keyed by (seed, epoch, sample index), that of the step as on the host path.
+Saves, preemption and mid-epoch resume work as on the host path.
+
+Not ported: train-time metrics and the telemetry plane (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -77,6 +88,8 @@ import numpy as np
 import torch
 
 from seist_tpu_torch import taskspec
+from seist_tpu_torch.data import device_aug as da
+from seist_tpu_torch.data import ingest as ingest_lib
 from seist_tpu_torch.data import io_guard, pipeline
 from seist_tpu_torch.models import api
 from seist_tpu_torch.ops.metrics import Metrics
@@ -94,10 +107,13 @@ from seist_tpu_torch.train.schedule import build_cyclic_schedule, constant
 from seist_tpu_torch.train.graph import (
     capture_accum_step,
     capture_eval_step,
+    capture_processor,
     capture_train_step,
 )
 from seist_tpu_torch.train.step import (
     TrainState,
+    make_cached_train_call,
+    make_device_aug_train_step,
     make_eval_step,
     make_multi_train_step,
     make_train_step,
@@ -420,6 +436,74 @@ def _l1_terms(args: Any) -> List[Tuple[float, Any]]:
     return [(alpha, l1_param_mask(kind)) for alpha, kind in alphas if alpha]
 
 
+def _resolve_device_aug(args: Any, sds: pipeline.SeismicDataset, device: torch.device,
+                        gas: int, spc: int) -> Tuple[str, Optional[pipeline.RawStore], int]:
+    """``--device-aug`` and ``--ingest`` resolved as the JAX worker resolves
+    them (``seist_tpu/train/worker.py:589-715``): an unsupported
+    configuration falls back to the host path ('off'), a 'cached' epoch over
+    the memory budget to 'step', and ``--ingest auto`` on a pack takes the
+    direct shard feed; each fallback logs one warning. Returns (mode, the
+    raw store or None, steps per call)."""
+    device_req, ingest_req = args.device_aug, args.ingest
+    if ingest_req == "direct" and device_req == "off":
+        raise ValueError("--ingest direct feeds the device-aug step path; run with "
+                         "--device-aug step")
+    if device_req == "off":
+        return "off", None, spc
+    if gas > 1:
+        raise ValueError("--device-aug is incompatible with --grad-accum-steps (accumulation "
+                         "stacks host batches)")
+    reasons = da.unsupported_reasons(sds.preprocessor, sds.input_names, sds.label_names)
+    budget = da.hbm_budget_bytes(float(args.device_aug_hbm_gb or 0.0), device)
+    est = 0
+    if not reasons:
+        try:
+            est = pipeline.RawStore.estimate_bytes(sds)
+        except ValueError as e:  # a corrupt probe sample: the host path quarantines it
+            reasons = [str(e)]
+    mode, why = da.select_device_aug_mode(device_req, est, budget, reasons)
+    if mode != device_req:
+        logger.warning(f"--device-aug {device_req} -> {mode}: {why}")
+    if ingest_req == "direct" and mode != "step":
+        raise ValueError(f"--ingest direct requires the device-aug step path; the run resolved "
+                         f"--device-aug to '{mode}' ({why})")
+    store = None
+    if mode != "off":
+        # The cached mode keeps the RawStore: its point is residency.
+        direct = mode == "step" and ingest_req != "host" and (
+            ingest_req == "direct" or ingest_lib.packed_dataset_of(sds) is not None)
+        if direct:
+            try:
+                store = ingest_lib.PackedRawStore.build(
+                    sds, batch_size=args.batch_size, reuse_staging=device.type == "cuda")
+                logger.info(ingest_lib.describe(store))
+            except ValueError as e:
+                if ingest_req == "direct":
+                    raise
+                logger.warning(f"packed direct ingest unavailable ({e}); uploading a resident "
+                               "RawStore instead")
+                direct = False
+        if not direct:
+            try:
+                store = pipeline.RawStore.build(sds)
+            except ValueError as e:
+                logger.warning(f"--device-aug {mode} -> off: {e}")
+                mode = "off"
+    if mode == "step" and spc > 1:
+        # An explicit 'step' with packing is a configuration error; a
+        # 'cached' request that fell back to 'step' drops its packing.
+        if device_req == "step":
+            raise ValueError("--steps-per-call > 1 requires --device-aug cached (the step mode "
+                             "feeds one raw batch per call)")
+        logger.warning(f"--steps-per-call {spc} ignored on the device-aug step fallback path")
+        spc = 1
+    if mode != "off" and faults_lib.FaultInjector.from_env().plan.nan_step >= 0:
+        raise ValueError("SEIST_FAULT_NAN_STEP corrupts host-fed input batches, which the "
+                         "device-aug paths never make; use --device-aug off for NaN-injection "
+                         "runs (SIGTERM, kill and slow faults work on every path)")
+    return mode, (store if mode != "off" else None), spc
+
+
 def train_worker(args: Any) -> str:
     """The full run; returns the best checkpoint's weights path."""
     device = resolve_device(args.device)
@@ -440,12 +524,19 @@ def train_worker(args: Any) -> str:
     # Gradient accumulation: k loader batches -> ONE update; the count, and
     # the schedule that follows it, counts updates.
     gas = max(1, int(args.grad_accum_steps or 1))
-    spc = max(1, int(args.steps_per_call or 0))  # 0 (the default) means 1
+    # 0 (the default) means "auto": 1, or min(32, steps per epoch) under
+    # --device-aug cached, where no host work is left to overlap.
+    spc_auto = int(args.steps_per_call or 0) <= 0
+    spc = max(1, int(args.steps_per_call or 0))
     if spc > 1 and gas > 1:
         raise ValueError(
             "--steps-per-call and --grad-accum-steps are mutually exclusive (both "
             "consume stacked micro-batches, with different update semantics)"
         )
+    sds_train = train_loader.dataset
+    device_mode, dev_store, spc = _resolve_device_aug(args, sds_train, device, gas, spc)
+    if device_mode == "cached" and spc_auto:
+        spc = max(1, min(32, steps_per_epoch))
     if gas > 1:
         if steps_per_epoch // gas == 0:
             raise ValueError(
@@ -498,10 +589,30 @@ def train_worker(args: Any) -> str:
                            f"batch(es) per epoch ({steps_per_epoch} steps)")
         single = capture_train_step(make_train_step(loss_fn, guard=guard,
                                                     compute_dtype=args.dtype))
-        train_call = make_multi_train_step(loss_fn, spc, guard=guard,
-                                           compute_dtype=args.dtype, step=single)
-        if spc > 1:
-            logger.info(f"steps_per_call={spc}: {spc} updates per call")
+        if device_mode == "off":
+            train_call = make_multi_train_step(loss_fn, spc, guard=guard,
+                                               compute_dtype=args.dtype, step=single)
+            if spc > 1:
+                logger.info(f"steps_per_call={spc}: {spc} updates per call")
+        else:
+            cfg = da.AugConfig.from_preprocessor(sds_train.preprocessor, seed=args.seed,
+                                                 raw_len=dev_store.raw_len,
+                                                 phase_slots=dev_store.phase_slots)
+            names = (cfg, sds_train.input_names, sds_train.label_names)
+        if device_mode == "cached":
+            dev_cache = pipeline.DeviceEpochCache(dev_store, device)
+            logger.info(f"device-aug cached: {len(dev_store)} epoch samples resident "
+                        f"({dev_cache.nbytes / 2**20:.1f} MiB on {device}), steps_per_call={spc}")
+            process = capture_processor(
+                da.make_cache_processor(*names, n_raw=dev_store.n_raw,
+                                        augmentation=dev_store.augmentation),
+                device, resident=1)
+            train_call = make_cached_train_call(loss_fn, process, spc, guard=guard, step=single)
+        elif device_mode == "step":
+            logger.info("device-aug step: augmentation + labels inside the step on "
+                        f"{device}; host feeds raw rows only")
+            process = capture_processor(da.make_row_processor(*names), device)
+            train_call = make_device_aug_train_step(loss_fn, process, guard=guard, step=single)
     eval_step = capture_eval_step(make_eval_step(loss_fn, compute_dtype=args.dtype))
 
     ckpt_mgr = CheckpointManager(
@@ -639,6 +750,39 @@ def train_worker(args: Any) -> str:
         return rngs if spc > 1 else rngs[0]
 
     pin = device.type == "cuda"
+    mixture_t = _mixture_temperature(args, "train")
+    src_ids = sds_train.source_ids() if mixture_t > 0 else None
+
+    def epoch_calls(epoch: int, skip: int, on_death):
+        """The epoch's calls from batch ``skip`` on: an iterator of what
+        each call consumes, and ``dispatch(item, gstep, rngs)`` running the
+        call. Host path: stacked loader batches (the NaN injector corrupts
+        them). Step mode: raw rows gathered by a thread, copied to pinned
+        memory, two batches ahead. Cached mode: (k, B) index arrays."""
+        epoch_t = torch.tensor(epoch, dtype=torch.int32)
+        order = dict(seed=args.seed, shuffle=args.shuffle, batch_size=args.batch_size,
+                     start_batch=skip, source_ids=src_ids, mixture_temperature=mixture_t)
+        if device_mode == "cached":
+            chunks = dev_cache.epoch_index_chunks(epoch, steps_per_call=kpack, **order)
+            items = (torch.from_numpy(c).pin_memory() if pin else torch.from_numpy(c)
+                     for c in chunks)
+            return items, lambda idx_k, gstep, rngs: train_call(
+                state, dev_cache.arrays, idx_k, epoch_t, rngs)
+        if device_mode == "step":
+            raw = pipeline.iter_raw_batches(dev_store, epoch, **order)
+            items = _prefetch(pipeline.raw_batch_tensors(item, pin) for item in raw)
+            return io_guard.watch(items, watchdog), lambda item, gstep, rngs: train_call(
+                state, *item, epoch_t, rngs)
+
+        def host(item, gstep, rngs):
+            xk, yk = item
+            xk = faults.corrupt_inputs(gstep, xk, n_steps=kpack)
+            x, y = (xk, yk) if kpack > 1 else (_first(xk), _first(yk))
+            return train_call(state, x, y, rngs)
+
+        groups = pipeline.group_batches(train_loader, kpack, pin=pin)
+        return io_guard.watch(_prefetch(groups), watchdog, on_death=on_death), host
+
     preempt = _PreemptionHandler().__enter__()
     try:
         for epoch in range(start_epoch, epochs):
@@ -654,7 +798,8 @@ def train_worker(args: Any) -> str:
                 )
                 skip -= skip % kpack
             if skip:
-                train_loader.set_start_batch(skip)
+                if device_mode == "off":
+                    train_loader.set_start_batch(skip)
                 logger.info(f"Mid-epoch resume: epoch {epoch} from batch {skip}")
             epoch_losses: List[torch.Tensor] = []
             late_logs: "collections.deque" = collections.deque()
@@ -670,17 +815,14 @@ def train_worker(args: Any) -> str:
                     _, prefix, loss_t, lr = late_logs.popleft()
                     logger.info(f"{prefix} loss {float(loss_t):.4e} lr {lr:.3e}")
 
-            groups = pipeline.group_batches(train_loader, kpack, pin=pin)
-            batches = io_guard.watch(_prefetch(groups), watchdog, on_death=on_death)
-            for call, (xk, yk) in enumerate(batches, start=skip // kpack):
+            calls, dispatch = epoch_calls(epoch, skip, on_death)
+            for call, item in enumerate(calls, start=skip // kpack):
                 first_b = call * kpack
                 gstep = epoch * steps_per_epoch + first_b
                 faults.on_step(gstep, n_steps=kpack)
                 if preempt.triggered:  # before this call's dispatch
                     preempt_exit(epoch, first_b)
-                xk = faults.corrupt_inputs(gstep, xk, n_steps=kpack)
-                x, y = (xk, yk) if kpack > 1 else (_first(xk), _first(yk))
-                loss, _, diag = train_call(state, x, y, random_sources(epoch))
+                loss, _, diag = dispatch(item, gstep, random_sources(epoch))
                 mirror["dispatched"] += updates_per_call
                 batches_done = first_b + kpack
                 epoch_losses.append(loss)
@@ -699,6 +841,7 @@ def train_worker(args: Any) -> str:
             if monitor.flush():  # the verdicts of the epoch's last calls
                 rollback()
             losses = [float(x) for x in torch.stack(epoch_losses).cpu()] if epoch_losses else []
+            train_s = time.perf_counter() - t_epoch  # the losses read: the device is done
             train_losses.extend(losses)
             finite = [x for x in losses if np.isfinite(x)]
             epoch_train_loss = float(np.mean(finite)) if finite else 0.0
@@ -735,7 +878,8 @@ def train_worker(args: Any) -> str:
                 preempt_exit(epoch, steps_per_epoch)
             logger.info(
                 f"Epoch {epoch}: train-loss {epoch_train_loss:.4e} val-loss {val_loss:.4e} "
-                f"best {best_loss:.4e} time {time.perf_counter() - t_epoch:.1f} s"
+                f"best {best_loss:.4e} time {time.perf_counter() - t_epoch:.1f} s (train "
+                f"{train_s:.3f} s, {len(losses) * updates_per_call} steps)"
             )
     finally:
         preempt.__exit__()

@@ -317,3 +317,153 @@ def test_the_lstm_runs_in_bf16_on_the_card(dev, bidirectional):
     torch.testing.assert_close(h16.float(), h32, rtol=0, atol=0.05)
     grads = torch.autograd.grad(out16.float().sum(), list(params.values()))
     assert all(g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all()) for g in grads)
+
+
+# ------------------------------------------- device augmentation (K3)
+def _aug_setup(window=512, raw_len=1200, n_events=16):
+    """A small synthetic train split with every augmentation rate > 0, its
+    RawStore and the row processor of seist_s_dpk."""
+    import seist_tpu_torch
+    from seist_tpu_torch import taskspec
+    from seist_tpu_torch.data import device_aug as da
+    from seist_tpu_torch.data import pipeline
+
+    seist_tpu_torch.load_all()
+    rates = dict(add_event_rate=0.5, max_event_num=2, shift_event_rate=0.5, add_noise_rate=0.5,
+                 add_gap_rate=0.5, drop_channel_rate=0.5, scale_amplitude_rate=0.5,
+                 pre_emphasis_rate=0.5, generate_noise_rate=0.2)
+    sds = pipeline.from_task_spec(
+        taskspec.get_task_spec("seist_s_dpk"), "synthetic", "train", seed=0,
+        in_samples=window, augmentation=True, data_split=False,
+        dataset_kwargs={"num_events": n_events, "trace_samples": raw_len}, **rates)
+    store = pipeline.RawStore.build(sds)
+    cfg = da.AugConfig.from_preprocessor(sds.preprocessor, seed=0, raw_len=store.raw_len,
+                                         phase_slots=store.phase_slots)
+    return sds, store, cfg
+
+
+@pytest.mark.parametrize("b,field_len", [(64, 36000), (3, 7), (5, 1)])
+def test_k3_matches_plain(dev, b, field_len):
+    """Uniforms bit for bit, normal fields within 1e-6 (log1p's rounding),
+    one launch counted; epoch and indices read on the device."""
+    from seist_tpu_torch.ops import threefry as tf
+
+    idx = torch.arange(b, dtype=torch.int32) * 977 + 2**31 - 1 - 977 * b
+    epoch = torch.tensor(7, dtype=torch.int32)
+    slots = [(1, 0), (3, 0), (3, 1), (11, 0), (11, 1), (17, 2), (23, 0)]
+    before = tf.launches
+    u, f = tf.aug_draws(5, epoch.to(dev), idx.to(dev), slots, [2, 18], field_len)
+    torch.cuda.synchronize()
+    assert tf.launches == before + 1
+    want_u, want_f = tf.aug_draws_plain(5, epoch.to(dev), idx.to(dev), slots, [2, 18], field_len)
+    assert torch.equal(u, want_u)
+    torch.testing.assert_close(f, want_f, rtol=0, atol=1e-6)
+    cpu_u, cpu_f = tf.aug_draws_plain(5, epoch, idx, slots, [2, 18], field_len)
+    assert torch.equal(u.cpu(), cpu_u)
+    torch.testing.assert_close(f.cpu(), cpu_f, rtol=0, atol=1e-6)
+
+
+def test_k3_refuses_what_it_does_not_take(dev):
+    from seist_tpu_torch.ops import threefry as tf
+
+    epoch = torch.zeros((), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        tf.aug_draws(0, epoch, torch.zeros(4, dtype=torch.int64, device=dev), [(1, 0)], [], 0)
+    with pytest.raises(ValueError, match="slots"):
+        tf.aug_draws(0, epoch, torch.zeros(4, dtype=torch.int32, device=dev),
+                     [(1, 0)] * (tf.MAX_SLOTS + 1), [], 0)
+
+
+def test_the_processed_batch_on_the_card_matches_the_cpu(dev):
+    """The row processor on the card (K3 and the ops) against the port on
+    the CPU, same rows: outputs within 1e-5; then its captured graph,
+    replayed for new indices, against the eager one."""
+    from seist_tpu_torch.data import device_aug as da
+    from seist_tpu_torch.data import pipeline
+    from seist_tpu_torch.ops import threefry as tf
+    from seist_tpu_torch.train.graph import capture_processor
+
+    sds, store, cfg = _aug_setup()
+    proc = da.make_row_processor(cfg, sds.input_names, sds.label_names)
+    captured = capture_processor(proc, dev)
+    epoch = torch.tensor(3, dtype=torch.int32)
+    for start in (0, 8, 16):
+        idx = torch.arange(start, start + 8, dtype=torch.int32)
+        rows, idx_t, aug = pipeline.raw_batch_tensors(
+            (store.row_batch(idx.numpy() % store.n_raw), idx.numpy(), idx.numpy() >= store.n_raw))
+        want = proc(rows, idx_t, aug, epoch)
+        on_dev = pipeline._tree_map(lambda t: t.to(dev), rows)
+        got = proc(on_dev, idx_t.to(dev), aug.to(dev), epoch.to(dev))
+        before = tf.launches
+        replayed = captured(rows, idx_t, aug, epoch)
+        assert tf.launches == before + 1
+        for w, g, r in zip(want, got, replayed):
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-5)
+            torch.testing.assert_close(r, g, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["step", "cached"])
+def test_the_captured_device_aug_step_matches_the_eager_one(dev, mode):
+    """Three captured device-aug steps (processor graph, then step graph)
+    against three eager ones from the same weights and indices: losses
+    within 1e-4 relative; K3 counted once per step at every replay."""
+    from seist_tpu_torch import taskspec
+    from seist_tpu_torch.data import device_aug as da
+    from seist_tpu_torch.data import pipeline
+    from seist_tpu_torch.models import api
+    from seist_tpu_torch.ops import threefry as tf
+    from seist_tpu_torch.train.graph import capture_processor, capture_train_step
+    from seist_tpu_torch.train.optim import build_optimizer
+    from seist_tpu_torch.train.schedule import constant
+    from seist_tpu_torch.train.step import (TrainState, make_cached_train_call,
+                                            make_device_aug_train_step, make_train_step,
+                                            step_random_source)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sds, store, cfg = _aug_setup()
+    loss_fn = taskspec.make_loss("seist_s_dpk")
+    init = api.create_model("seist_s_dpk", in_samples=cfg.window, seed=0).state_dict()
+    cache = pipeline.DeviceEpochCache(store, dev)
+    epoch = torch.tensor(1, dtype=torch.int32)
+    orders = [torch.arange(8 * t, 8 * t + 8, dtype=torch.int32) for t in range(3)]
+    losses, k3 = {}, {}
+    for run in ("eager", "captured"):
+        model = api.create_model("seist_s_dpk", in_samples=cfg.window)
+        model.load_state_dict(init)
+        state = TrainState(model.to(dev), build_optimizer("adam", model.parameters()),
+                           constant(1e-4))
+        step = make_train_step(loss_fn)
+        if mode == "step":
+            proc = da.make_row_processor(cfg, sds.input_names, sds.label_names)
+            if run == "captured":
+                proc, step = capture_processor(proc, dev), capture_train_step(step)
+            call = make_device_aug_train_step(loss_fn, proc, step=step)
+        else:
+            proc = da.make_cache_processor(cfg, sds.input_names, sds.label_names,
+                                           store.n_raw, store.augmentation)
+            if run == "captured":
+                proc, step = capture_processor(proc, dev, resident=1), capture_train_step(step)
+            call = make_cached_train_call(loss_fn, proc, step=step)
+        before = tf.launches
+        out = []
+        for t, idx in enumerate(orders):
+            rng = step_random_source(0, 1, t, dev)
+            if mode == "step":
+                rows, idx_t, aug = pipeline.raw_batch_tensors(
+                    (store.row_batch(idx.numpy() % store.n_raw), idx.numpy(),
+                     idx.numpy() >= store.n_raw), pin=True)
+                if run == "eager":
+                    rows = pipeline._tree_map(lambda x: x.to(dev), rows)
+                    idx_t, aug = idx_t.to(dev), aug.to(dev)
+                out.append(float(call(state, rows, idx_t, aug,
+                                      epoch if run == "captured" else epoch.to(dev), rng)[0]))
+            else:
+                idx_k = idx[None] if run == "captured" else idx[None].to(dev)
+                out.append(float(call(state, cache.arrays, idx_k,
+                                      epoch if run == "captured" else epoch.to(dev), rng)[0]))
+        losses[run], k3[run] = out, tf.launches - before
+        assert state.step == 3
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["captured"], losses["eager"]))
+    assert rel <= 1e-4, losses
+    assert k3 == {"eager": 3, "captured": 3}

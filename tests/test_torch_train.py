@@ -240,9 +240,18 @@ def test_use_checkpoint_and_unported_flags_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tapi.create_model(MODEL, in_samples=WINDOW, use_checkpoint=True)
     base = ["--dataset-name", "synthetic"]
-    for extra in (["--device-aug", "step"], ["--seq-shards", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            cli.get_args(base + extra)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cli.get_args(base + ["--seq-shards", "2"])
+    # Ported in the slice of device augmentation: the JAX CLI's flags,
+    # names, choices and defaults.
+    args = cli.get_args(base)
+    assert (args.device_aug, args.device_aug_hbm_gb, args.ingest) == ("off", 0.0, "auto")
+    for mode in ("step", "cached"):
+        args = cli.get_args(base + ["--device-aug", mode, "--device-aug-hbm-gb", "2.5",
+                                    "--ingest", "direct"])
+        assert (args.device_aug, args.device_aug_hbm_gb, args.ingest) == (mode, 2.5, "direct")
+    with pytest.raises(SystemExit):
+        cli.get_args(base + ["--ingest", "bogus"])
     # Ported in the slice of the captured step: accepted as given.
     args = cli.get_args(base + ["--grad-accum-steps", "2"])
     assert (args.grad_accum_steps, args.steps_per_call) == (2, 0)
