@@ -7,11 +7,12 @@ Phases, each fatal on failure (nothing is caught; a failed check exits
 non-zero before the last line):
 
 1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
-2. build the three kernels from ``seist_tpu_torch/csrc`` with nvcc (both
-   attention kernels and K3, the augmentation draws), one process per
-   source, started together, and print each kernel's registers and spills
-   (``-Xptxas -v``), failing when an attention instantiation for E <= 32,
-   or K3, spills;
+2. build the three kernel sources from ``seist_tpu_torch/csrc`` with nvcc
+   (the attention forward and backward, each with its fp32 and its bf16
+   kernels, and K3, the augmentation draws), one process per source,
+   started together, and print each kernel's registers and spills
+   (``-Xptxas -v``), failing when an attention kernel for E <= 32, or K3,
+   spills;
 3. hold the forward kernel (K1) and its row statistics (lse) against the
    plain PyTorch version on the card: at the five attention shapes of one
    ``seist_l_dpk`` forward at window 8192 (batch 8) in fp32 and bf16, at
@@ -43,7 +44,7 @@ non-zero before the last line):
    that runs steps 4-6 (losses within rtol 1e-4 of phase 6's: the card's
    cuDNN backward promises no bits) and the val batch, ending at update 6;
    6c. bf16: ``--mode train_test --dtype bf16``, plain versions patched to
-   raise: the bf16 instantiations of K1 and K2 take every launch, losses and
+   raise: the bf16 kernels of K1 and K2 take every launch, losses and
    metrics are finite, parameters change and stay fp32 with Adam's moments
    and the BatchNorm statistics, and a bf16 eval forward of phase 6's best
    weights lies within 0.05 of the fp32 one on the test batch;
@@ -58,8 +59,10 @@ non-zero before the last line):
    3xTF32 on the tensor cores, both printed), the model's
    forward per batch bucket, and the train step at batch 64 and 256 with
    its peak memory, in fp32 and bf16, eager and captured as a CUDA graph
-   (with the capture's seconds); K2 in bf16 per shape beside SDPA's
-   bf16 backward and its bound at the bf16 tensor-core rate; profile a
+   (with the capture's seconds); K1 in bf16 also at the train step's
+   batch 64; K2 in both types per shape at rate 0.3 (the train step's) and
+   at rate 0 beside SDPA's backward (rate 0), its bound at the type's rate
+   (the bf16 tensor cores for bf16); profile a
    batch-8 forward and a batch-64 train step in fp32 and bf16, eager and
    captured; time K1 with
    and without two warps sharing a row group where its planner shares them;
@@ -112,7 +115,8 @@ non-zero before the last line):
     MiB, the step mode's host feed rate, and waveforms/s through the train
     entry beside phase 8's Loader.
 
-It prints one ``{"kernels": [...]}`` line and, last,
+It prints one ``{"kernels": [...]}`` line (the fp32 K1 and K2, their bf16
+kernels, K3) and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits 1 and prints no result.
 """
@@ -246,7 +250,8 @@ def ptxas_summary(log: str) -> List[Tuple[str, int, int]]:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and cur:
-            kind = re.search(r"(fwd_kernel|bwd_kernel|reduce_slabs|aug_draws_kernel)", cur)
+            kind = re.search(r"(fwd_kernel_bf16|bwd_kernel_bf16|fwd_kernel|bwd_kernel|"
+                             r"reduce_slabs|aug_draws_kernel)", cur)
             ep = re.search(r"Li(\d+)E", cur)
             out.append((f"{kind.group(1) if kind else cur[:24]}"
                         f"<{'bf16' if 'bfloat16' in cur else 'f32'}"
@@ -257,7 +262,7 @@ def ptxas_summary(log: str) -> List[Tuple[str, int, int]]:
 
 def check_spills(name: str, log: str) -> None:
     """Print registers/spill-store bytes per kernel; fail when a K1 or K2
-    instantiation for E <= 32, or K3, spills."""
+    kernel (fp32 or bf16) for E <= 32, or K3, spills."""
     rows = ptxas_summary(log)
     print(f"[build] {name}: ptxas registers/spill bytes: "
           f"{' '.join(f'{k}:{r}/{sp}' for k, r, sp in rows)}", flush=True)
@@ -299,9 +304,9 @@ def qkv(n: int, l: int, m: int, h: int, e: int, dtype, seed: int, dev):
 def kernel(q, k, v, rate=0.0, seed=0, with_lse=False):
     """One K1 launch through the wrapper, not counted against the main path:
     o, or (o, lse) with the row statistics."""
-    launches = pa.launches
+    counts = pa.counts()
     o, lse = pa._forward(q, k, v, 1.0 / math.sqrt(q.shape[-1]), rate, seed, with_lse)
-    pa.launches = launches
+    pa.set_counts(counts)
     return (o, lse) if with_lse else o
 
 
@@ -316,21 +321,30 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 # ------------------------------------------------------------- phase 3
 def check_kernel(shapes: List[Tuple[int, int, int, int]], dev) -> Dict[str, float]:
+    """K1 against its plain version, per type: at the serve batch in both
+    types; at the train step's batch in bf16 (the bf16 kernel's main path),
+    at rates 0 and 0.3; dropout 0.1 in fp32. Returns the largest max abs
+    error of o per type."""
     errs = {"fp32": 0.0, "bf16": 0.0}
+    cases = [(BATCH, l, m, h, e, name, dtype, tol, 0.0) for l, m, h, e in shapes
+             for name, dtype, tol in (("fp32", torch.float32, FP32_TOL),
+                                      ("bf16", torch.bfloat16, BF16_TOL))]
+    cases += [(TRAIN_BATCH, l, m, h, e, "bf16", torch.bfloat16, BF16_TOL, rate)
+              for l, m, h, e in shapes for rate in (0.0, 0.3)]
+    for i, (n, l, m, h, e, name, dtype, tol, rate) in enumerate(cases):
+        q, k, v = qkv(n, l, m, h, e, dtype, 100 + i, dev)
+        (o, lse), (o_p, lse_p) = (kernel(q, k, v, rate, 4321, with_lse=True),
+                                  plain(q, k, v, rate, 4321, with_lse=True))
+        err, lse_err = max_err(o, o_p), max_err(lse, lse_p)
+        print(f"[check] N={n} L={l} M={m} H={h} E={e} {name} rate {rate}: "
+              f"max_abs_err {err:.3e} (limit {tol:.1e}), lse {lse_err:.3e} "
+              f"(limit {LSE_TOL:.0e})", flush=True)
+        if not (err <= tol and lse_err <= LSE_TOL):
+            fail(f"kernel disagrees with plain at {(n, l, m, h, e)} {name} rate {rate}")
+        if not torch.equal(kernel(q, k, v, rate, 4321), o):
+            fail("K1's output changes when it also writes the row statistics")
+        errs[name] = max(errs[name], err)
     for i, (l, m, h, e) in enumerate(shapes):
-        for name, dtype, tol in (("fp32", torch.float32, FP32_TOL),
-                                 ("bf16", torch.bfloat16, BF16_TOL)):
-            q, k, v = qkv(BATCH, l, m, h, e, dtype, 100 + i, dev)
-            (o, lse), (o_p, lse_p) = kernel(q, k, v, with_lse=True), plain(q, k, v, with_lse=True)
-            err, lse_err = max_err(o, o_p), max_err(lse, lse_p)
-            print(f"[check] N={BATCH} L={l} M={m} H={h} E={e} {name}: "
-                  f"max_abs_err {err:.3e} (limit {tol:.1e}), lse {lse_err:.3e} "
-                  f"(limit {LSE_TOL:.0e})", flush=True)
-            if not (err <= tol and lse_err <= LSE_TOL):
-                fail(f"kernel disagrees with plain at {(l, m, h, e)} {name}")
-            if not torch.equal(kernel(q, k, v), o):
-                fail("K1's output changes when it also writes the row statistics")
-            errs[name] = max(errs[name], err)
         q, k, v = qkv(BATCH, l, m, h, e, torch.float32, 200 + i, dev)
         err = max_err(kernel(q, k, v, 0.1, 1234), plain(q, k, v, 0.1, 1234))
         print(f"[check] N={BATCH} L={l} M={m} H={h} E={e} fp32 dropout 0.1: "
@@ -346,17 +360,22 @@ def check_kernel(shapes: List[Tuple[int, int, int, int]], dev) -> Dict[str, floa
         if not (err <= FP32_TOL and lse_err <= LSE_TOL):
             fail(f"kernel disagrees with plain at ragged/long {(n, l, m, h, e)}")
     # Zero pattern: with v_h the identity (M <= E), O_h is the dropped
-    # probability matrix itself, so its zeros are the dropout mask.
+    # probability matrix itself, so its zeros are the dropout mask: the fp32
+    # kernel's uniform test and the bf16 kernel's integer threshold.
     n, l, m, h, e = 2, 1000, 32, 3, 32
-    q, k, _ = qkv(n, l, m, h, e, torch.float32, 400, dev)
-    v = torch.eye(m, e, device=dev).reshape(1, m, 1, e).expand(n, m, h, e).contiguous()
-    ok, op = kernel(q, k, v, 0.1, 77), plain(q, k, v, 0.1, 77)
-    same = bool(torch.equal(ok == 0, op == 0))
-    frac = float((op == 0).float().mean() * e / m)
-    print(f"[check] dropout zero pattern N={n} L={l} M={m} H={h}: identical={same}, "
-          f"dropped fraction {frac:.4f} (rate 0.1)", flush=True)
-    if not same or not 0.08 < frac < 0.12:
-        fail("dropout zero pattern differs from the plain version")
+    for name, dtype, rate in (("fp32", torch.float32, 0.1), ("bf16", torch.bfloat16, 0.3)):
+        q, k, _ = qkv(n, l, m, h, e, dtype, 400, dev)
+        v = torch.eye(m, e, device=dev, dtype=dtype).reshape(1, m, 1, e).expand(n, m, h, e)
+        v = v.contiguous()
+        ok, op = kernel(q, k, v, rate, 77), plain(q, k, v, rate, 77)
+        same = bool(torch.equal(ok == 0, op == 0))
+        frac = float((op == 0).float().mean() * e / m)
+        print(f"[check] dropout zero pattern N={n} L={l} M={m} H={h} {name}: "
+              f"identical={same}, dropped fraction {frac:.4f} (rate {rate})", flush=True)
+        if not same or not abs(frac - rate) < 0.02:
+            fail(f"{name} dropout zero pattern differs from the plain version")
+        if name == "bf16":
+            errs[name] = max(errs[name], max_err(ok, op))
     return errs
 
 
@@ -503,9 +522,9 @@ def qkvg(n: int, l: int, m: int, h: int, e: int, dtype, seed: int, dev):
 
 def kernel_bwd(q, k, v, g, o, lse, rate=0.0, seed=0):
     """One K2 launch from K1's (o, lse), not counted against the main path."""
-    launches = pa.bwd_launches
+    counts = pa.counts()
     out = pa._backward(q, k, v, g, o, lse, 1.0 / math.sqrt(q.shape[-1]), rate, seed)
-    pa.bwd_launches = launches
+    pa.set_counts(counts)
     return out
 
 
@@ -520,9 +539,10 @@ def bwd_err(got, want) -> float:
                for a, b in zip(got, want))
 
 
-def check_kernel_bwd(shapes, dev) -> float:
-    """Returns the largest fp32 max abs error over every output checked."""
-    worst = 0.0
+def check_kernel_bwd(shapes, dev) -> Dict[str, float]:
+    """Returns the largest max abs error over every output checked, per
+    type (fp32: the autograd check included)."""
+    worst = {"fp32": 0.0, "bf16": 0.0}
     cases = [(TRAIN_BATCH,) + s for s in shapes]
     cases += [(2, 1000, 125, 3, 8), (2, 300, 200, 2, 20), (2, 130, 65, 3, 64),
               (1, 4096, 512, 3, 16)]
@@ -549,8 +569,7 @@ def check_kernel_bwd(shapes, dev) -> float:
                 if not all(torch.equal(a, b) for a, b in zip(
                         got, kernel_bwd(q, k, v, g, o, lse, rate, 4321))):
                     fail(f"two K2 calls gave different bits at {(n, l, m, h, e)}")
-                if dtype == torch.float32:
-                    worst = max([worst] + [max_err(a, b) for a, b in zip(got, want)])
+                worst[name] = max([worst[name]] + [max_err(a, b) for a, b in zip(got, want)])
     # The autograd function (K1 forward, K2 backward) against autograd
     # through the plain forward, with dropout.
     n, l, m, h, e = 8, 1024, 128, 2, 8
@@ -567,7 +586,8 @@ def check_kernel_bwd(shapes, dev) -> float:
           f"torch.autograd.grad of the plain forward: rel err {err:.3e}", flush=True)
     if not err <= BWD_FP32_TOL:
         fail("autograd through the kernels disagrees with autograd through plain")
-    return max([worst] + [max_err(a, b) for a, b in zip(got, want)])
+    worst["fp32"] = max([worst["fp32"]] + [max_err(a, b) for a, b in zip(got, want)])
+    return worst
 
 
 # ------------------------------------------------------------- phase 6
@@ -575,7 +595,7 @@ def run_entry(argv: List[str],
               expect_exit: int = 0) -> Tuple[str, Dict[str, int], float, List[str]]:
     """``cli.main(argv)`` with both plain versions patched to raise: the
     best checkpoint, both kernels' launches (and those of their bf16
-    instantiations) over exactly that run, its wall seconds and its log.
+    kernels) over exactly that run, its wall seconds and its log.
     With ``expect_exit``, the run must end in ``SystemExit(expect_exit)``
     (and the checkpoint is ""); any other exit is fatal."""
     real = pa.pooled_attention_plain, pa.pooled_attention_bwd_plain, tf.aug_draws_plain
@@ -721,7 +741,7 @@ def bf16_phase(log_base: str, n_shapes: int, fp32_best: str, dev) -> dict:
           f"{counts['K2_bf16']}), wall {wall_s:.1f} s", flush=True)
     check_launches(counts, n_shapes, TRAIN_STEPS + VAL_BATCHES + TEST_BATCHES, TRAIN_STEPS)
     if counts["K1_bf16"] != counts["K1"] or counts["K2_bf16"] != counts["K2"]:
-        fail("a launch of the bf16 run was not the kernels' bf16 instantiation")
+        fail("a launch of the bf16 run went past the bf16 kernels")
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all() or not np.isfinite(val).all():
         fail(f"bf16 train losses: {losses}, val {val}")
     test_outputs(log_dir)
@@ -1010,23 +1030,27 @@ def bound_of(bytes_ms: float, ops_ms: float, tc_ms: float) -> Tuple[float, str]:
     return max(bytes_ms, op_ms), "bytes" if bytes_ms >= op_ms else "operations"
 
 
-def time_shapes(shapes, dev) -> List[dict]:
+def time_shapes(shapes, dev, n: int = BATCH, types=("fp32", "bf16")) -> List[dict]:
+    """K1, its plain version and ``F.scaled_dot_product_attention`` at
+    batch ``n`` in each of ``types``, rate 0."""
     rows = []
     for i, (l, m, h, e) in enumerate(shapes):
         for name, dtype, peak in (("fp32", torch.float32, PEAK_FP32_S),
                                   ("bf16", torch.bfloat16, PEAK_BF16_S)):
-            q, k, v = qkv(BATCH, l, m, h, e, dtype, 500 + i, dev)
+            if name not in types:
+                continue
+            q, k, v = qkv(n, l, m, h, e, dtype, 500 + i, dev)
             scale = 1.0 / math.sqrt(e)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             seed = pa.seed_tensor(0, dev)  # made once: the timed call is K1's launch alone
             fns = {"ms": lambda: kernel(q, k, v, seed=seed), "plain_ms": lambda: plain(q, k, v),
                    "library_ms": lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                                         scale=scale)}
-            row = {"L": l, "M": m, "H": h, "E": e, "dtype": name}
+            row = {"N": n, "L": l, "M": m, "H": h, "E": e, "dtype": name}
             for key, fn in fns.items():
                 row[key] = device_ms(fn)
                 row["call_" + key] = time_ms(fn, 200 if key != "plain_ms" else 50)
-            row["bytes_ms"], row["ops_ms"], row["tc_ms"] = bound(BATCH, l, m, h, e,
+            row["bytes_ms"], row["ops_ms"], row["tc_ms"] = bound(n, l, m, h, e,
                                                                  q.element_size(), peak)
             rows.append(row)
     return rows
@@ -1045,20 +1069,23 @@ def bound_bwd(n, l, m, h, e, itemsize, peak_ops=PEAK_FP32_S) -> Tuple[float, flo
 
 
 def time_bwd_shapes(shapes, dev, dtype=torch.float32) -> List[dict]:
-    """K2, its plain version and the backward of
-    ``F.scaled_dot_product_attention`` (rate 0) at the train step's shapes,
-    on ``dtype`` inputs."""
+    """K2 at rate 0.3 (``ms``, as the train step runs it) and at rate 0
+    (``ms0``, like for like with the library call), its plain version and the
+    backward of ``F.scaled_dot_product_attention`` (rate 0) at the train
+    step's shapes, on ``dtype`` inputs."""
     rows = []
     peak = PEAK_BF16_S if dtype == torch.bfloat16 else PEAK_FP32_S
     for i, (l, m, h, e) in enumerate(shapes):
         q, k, v, g = qkvg(TRAIN_BATCH, l, m, h, e, dtype, 800 + i, dev)
         seed = pa.seed_tensor(5, dev)  # made once: the timed call is K2's launch alone
         o, lse = kernel(q, k, v, 0.3, seed, with_lse=True)
+        o0, lse0 = kernel(q, k, v, 0.0, seed, with_lse=True)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         scale = 1.0 / math.sqrt(e)
         ot = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
         gt = g.transpose(1, 2)
         fns = {"ms": lambda: kernel_bwd(q, k, v, g, o, lse, 0.3, seed),
+               "ms0": lambda: kernel_bwd(q, k, v, g, o0, lse0, 0.0, seed),
                "plain_ms": lambda: plain_bwd(q, k, v, g, o, lse, 0.3, 5),
                "library_ms": lambda: torch.autograd.grad(ot, (qt, kt, vt), gt,
                                                          retain_graph=True)}
@@ -2180,9 +2207,10 @@ def main() -> int:
     ones = torch.ones(1024, device=dev)
     device_ms(lambda: ones.add_(1.0), attempts=10)  # the profiler's first traces
     rows = time_shapes(shapes, dev)
-    for r in rows:
+    rows64 = time_shapes(shapes, dev, n=TRAIN_BATCH, types=("bf16",))  # the train step's K1
+    for r in rows + rows64:
         b_ms, b_by = bound_of(r["bytes_ms"], r["ops_ms"], r["tc_ms"])
-        print(f"[time] {name_power} | N={BATCH} L={r['L']} M={r['M']} H={r['H']} "
+        print(f"[time] {name_power} | N={r['N']} L={r['L']} M={r['M']} H={r['H']} "
               f"E={r['E']} {r['dtype']}: device ms: kernel {r['ms']:.4f}, plain "
               f"{r['plain_ms']:.4f}, sdpa {r['library_ms']:.4f}; per call: kernel "
               f"{r['call_ms']:.4f}, plain {r['call_plain_ms']:.4f}, sdpa "
@@ -2197,13 +2225,14 @@ def main() -> int:
         for r in bwd_rows[name]:
             b_ms, b_by = bound_of(r["bytes_ms"], r["ops_ms"], r["tc_ms"])
             print(f"[time-bwd] {name_power} | N={TRAIN_BATCH} L={r['L']} M={r['M']} "
-                  f"H={r['H']} E={r['E']} {name} rate 0.3: device ms: kernel {r['ms']:.4f}, "
-                  f"plain {r['plain_ms']:.4f}, sdpa backward (rate 0) {r['library_ms']:.4f}; "
+                  f"H={r['H']} E={r['E']} {name} rate 0.3: device ms: kernel {r['ms']:.4f} "
+                  f"(at rate 0 {r['ms0']:.4f}), plain {r['plain_ms']:.4f}, sdpa backward "
+                  f"(rate 0) {r['library_ms']:.4f}; "
                   f"per call: kernel {r['call_ms']:.4f}, plain {r['call_plain_ms']:.4f}, sdpa "
                   f"backward {r['call_library_ms']:.4f}; bound {b_ms:.5f} ms by {b_by} (bytes "
                   f"{r['bytes_ms']:.5f}; ops {ops_at} {r['ops_ms']:.5f}, in 3xTF32 on the "
-                  f"tensor cores {r['tc_ms']:.5f}); kernel "
-                  f"{'<=' if r['ms'] <= r['library_ms'] else '>'} sdpa backward", flush=True)
+                  f"tensor cores {r['tc_ms']:.5f}); kernel at rate 0 "
+                  f"{'<=' if r['ms0'] <= r['library_ms'] else '>'} sdpa backward", flush=True)
     for r in time_ksplit(shapes, dev):
         print(f"[time-ksplit] {name_power} | K1 N={r['N']} L={r['L']} M={r['M']} H={r['H']} "
               f"E={r['E']} fp32: device ms with (row_warps, ksplit) {r['plan']}: "
@@ -2262,14 +2291,15 @@ def main() -> int:
     path_counts += augmented["counts"]
 
     fp32 = [r for r in rows if r["dtype"] == "fp32"]  # the serving path is fp32
+    bf16_rows = [r for r in rows if r["dtype"] == "bf16"]
     k3 = augmented["k3"][TRAIN_BATCH]  # the train path's batch
     launches = {k: served_launches * (k == "K1") + sum(c[k] for c in path_counts)
-                for k in ("K1", "K2", "K3")}
+                for k in ("K1", "K2", "K3", "K1_bf16", "K2_bf16")}
     print(f"[paths] serve: K1 {served_launches} launches; train_test: K1 "
           f"{trained['counts']['K1']}, K2 {trained['counts']['K2']}; resume: K1 "
           f"{resumed['counts']['K1']}, K2 {resumed['counts']['K2']}; bf16 train_test: K1 "
           f"{bf16['counts']['K1_bf16']}, K2 {bf16['counts']['K2_bf16']} (bf16 "
-          f"instantiations); packed train_test: K1 {packed['counts']['K1']}, K2 "
+          f"kernels); packed train_test: K1 {packed['counts']['K1']}, K2 "
           f"{packed['counts']['K2']}; int8 pack train: K1 {packed['counts_i8']['K1']}, K2 "
           f"{packed['counts_i8']['K2']}; preempted: K1 {preempted['counts']['K1']}, K2 "
           f"{preempted['counts']['K2']}; resumed after it: K1 "
@@ -2279,31 +2309,38 @@ def main() -> int:
           f"{grouped['counts_accum']['K2']}; device-aug (phase 11, six runs): K1 "
           f"{sum(c['K1'] for c in augmented['counts'])}, K2 "
           f"{sum(c['K2'] for c in augmented['counts'])}, K3 "
-          f"{sum(c['K3'] for c in augmented['counts'])}; all paths: K1 {launches['K1']}, K2 "
-          f"{launches['K2']}, K3 {launches['K3']}", flush=True)
+          f"{sum(c['K3'] for c in augmented['counts'])}; all paths: K1 {launches['K1']} (bf16 "
+          f"{launches['K1_bf16']}), K2 {launches['K2']} (bf16 {launches['K2_bf16']}), K3 "
+          f"{launches['K3']}", flush=True)
     bounds = {}
-    for kid, label, rs, ops_at in (
-            ("K1", "five fp32 b8 launches", fp32, "on the fp32 CUDA cores"),
-            ("K1-bf16", "five bf16 b8 launches", [r for r in rows if r["dtype"] == "bf16"],
+    for kid, label, rs, ms_key, ops_at in (
+            ("K1", "five fp32 b8 launches", fp32, "ms", "on the fp32 CUDA cores"),
+            ("K1-bf16", "five bf16 b8 launches", bf16_rows, "ms", "at the bf16 tensor-core peak"),
+            ("K1-bf16-b64", "five bf16 b64 launches", rows64, "ms",
              "at the bf16 tensor-core peak"),
-            ("K2", "five fp32 b64 launches", bwd_rows["fp32"], "on the fp32 CUDA cores"),
-            ("K2-bf16", "five bf16 b64 launches", bwd_rows["bf16"],
+            ("K2", "five fp32 b64 launches, rate 0.3", bwd_rows["fp32"], "ms",
+             "on the fp32 CUDA cores"),
+            ("K2-rate0", "five fp32 b64 launches, rate 0", bwd_rows["fp32"], "ms0",
+             "on the fp32 CUDA cores"),
+            ("K2-bf16", "five bf16 b64 launches, rate 0.3", bwd_rows["bf16"], "ms",
+             "at the bf16 tensor-core peak"),
+            ("K2-bf16-rate0", "five bf16 b64 launches, rate 0", bwd_rows["bf16"], "ms0",
              "at the bf16 tensor-core peak")):
         b_ms, o_ms, tc_ms = (sum(r[key] for r in rs) for key in ("bytes_ms", "ops_ms", "tc_ms"))
         bounds[kid] = bound_of(b_ms, o_ms, tc_ms)
         print(f"[sum] {name_power} | {kid} {label}: device ms kernel "
-              f"{sum(r['ms'] for r in rs):.4f}, plain {sum(r['plain_ms'] for r in rs):.4f}, "
+              f"{sum(r[ms_key] for r in rs):.4f}, plain {sum(r['plain_ms'] for r in rs):.4f}, "
               f"sdpa {sum(r['library_ms'] for r in rs):.4f}; bound {bounds[kid][0]:.5f} by "
               f"{bounds[kid][1]} (bytes {b_ms:.5f}; ops {ops_at} {o_ms:.5f}, in 3xTF32 on "
               f"the tensor cores {tc_ms:.5f}); kernel <= sdpa at "
-              f"{sum(r['ms'] <= r['library_ms'] for r in rs)} of {len(rs)} shapes",
+              f"{sum(r[ms_key] <= r['library_ms'] for r in rs)} of {len(rs)} shapes",
               flush=True)
     print(json.dumps({"kernels": [{
         "name": KERNEL,
         "route": "cuda",
         "source": "seist_tpu_torch/csrc/pooled_attention_fwd.cu",
         "replaces": "seist_tpu/ops/pallas_attention.py:137",
-        "launches": launches["K1"],
+        "launches": launches["K1"] - launches["K1_bf16"],
         "max_abs_err": errs["fp32"],
         "ms": sum(r["ms"] for r in fp32),
         "plain_ms": sum(r["plain_ms"] for r in fp32),
@@ -2315,13 +2352,37 @@ def main() -> int:
         "route": "cuda",
         "source": "seist_tpu_torch/csrc/pooled_attention_bwd.cu",
         "replaces": "seist_tpu/ops/pallas_attention.py:155",
-        "launches": launches["K2"],
-        "max_abs_err": bwd_abs,
+        "launches": launches["K2"] - launches["K2_bf16"],
+        "max_abs_err": bwd_abs["fp32"],
         "ms": sum(r["ms"] for r in bwd_rows["fp32"]),
         "plain_ms": sum(r["plain_ms"] for r in bwd_rows["fp32"]),
         "bound_ms": bounds["K2"][0],
         "bound_by": bounds["K2"][1],
         "library_ms": sum(r["library_ms"] for r in bwd_rows["fp32"]),
+    }, {
+        "name": KERNEL + "_bf16",
+        "route": "cuda",
+        "source": "seist_tpu_torch/csrc/pooled_attention_fwd_bf16.cuh",
+        "replaces": "seist_tpu/ops/pallas_attention.py:137",
+        "launches": launches["K1_bf16"],
+        "max_abs_err": errs["bf16"],
+        "ms": sum(r["ms"] for r in bf16_rows),
+        "plain_ms": sum(r["plain_ms"] for r in bf16_rows),
+        "bound_ms": bounds["K1-bf16"][0],
+        "bound_by": bounds["K1-bf16"][1],
+        "library_ms": sum(r["library_ms"] for r in bf16_rows),
+    }, {
+        "name": KERNEL_BWD + "_bf16",
+        "route": "cuda",
+        "source": "seist_tpu_torch/csrc/pooled_attention_bwd_bf16.cuh",
+        "replaces": "seist_tpu/ops/pallas_attention.py:155",
+        "launches": launches["K2_bf16"],
+        "max_abs_err": bwd_abs["bf16"],
+        "ms": sum(r["ms"] for r in bwd_rows["bf16"]),
+        "plain_ms": sum(r["plain_ms"] for r in bwd_rows["bf16"]),
+        "bound_ms": bounds["K2-bf16"][0],
+        "bound_by": bounds["K2-bf16"][1],
+        "library_ms": sum(r["library_ms"] for r in bwd_rows["bf16"]),
     }, {
         "name": KERNEL_K3,
         "route": "cuda",

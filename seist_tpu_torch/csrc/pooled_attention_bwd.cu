@@ -12,8 +12,10 @@
 //   dQ  = dS k_h scale,  dK = dS^T q_h scale
 // D = rowsum(g o) holds with dropout too: both sides equal
 // sum_j Pd_ij (g_i . v_j). q, g, o and dq are (N, L, H*E), k, v, dk and dv
-// are (N, M, H*E), contiguous, float32 or bfloat16; lse is fp32 (N*H, L);
-// arithmetic is fp32 and the outputs take the input type. The dropout mask
+// are (N, M, H*E), contiguous, float32 (this file's kernel: fp32
+// arithmetic) or bfloat16 (bwd_kernel_bf16, pooled_attention_bwd_bf16.cuh,
+// on the bf16 tensor cores); lse is fp32 (N*H, L); the outputs take the
+// input type. The dropout mask
 // is the forward's bit for bit: the counter hash of element
 // pid*(L*M) + row*M + col, pid = b*H + h, wrapped mod 2^32.
 //
@@ -32,11 +34,8 @@
 //     M) in shared memory, 8 warps of 16 keys each, and walks row tiles of
 //     32 rows (q, g, o, lse) through a cp.async double buffer. Per row tile a
 //     warp computes S^T = K Q^T and dPd^T = V G^T on tensor cores (mma.sync
-//     m16n8k8, 3xTF32 as in attention_common.cuh; bf16 inputs are widened
-//     to fp32 in shared memory, where q, g, k and v are exact in TF32, so
-//     S^T and dPd^T take one TF32 product each; dV, dK and dQ keep three,
-//     as leaving out their zero products made the E = 32 instantiation
-//     spill), forms Pd and dS in registers, and adds
+//     m16n8k8, 3xTF32 as in attention_common.cuh), forms Pd and dS in
+//     registers, and adds
 //     Pd^T G and dS^T Q to dV and dK in registers (the score fragments are
 //     the A operands as they are; each row tile's products go to a fresh
 //     fragment first, since the tensor cores truncate when they add to an
@@ -60,13 +59,10 @@
 // after each launch, and the first error stops it.
 
 #include "attention_common.cuh"
+#include "pooled_attention_bwd_bf16.cuh"
 
 namespace seist {
 namespace {
-
-constexpr int kBwdThreads = kBwdWarps * 32;
-constexpr int kDThreads = kBwdThreads / kBwdRowTile;  // threads per row computing D
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int EP>
 struct BwdSmem {
@@ -112,11 +108,11 @@ __device__ __forceinline__ void accumulate_t(float (&acc)[KS][4], const float (&
 }
 
 // Two blocks an SM for E <= 32 (at most 128 registers a thread).
-template <typename T, int EP>
+template <int EP>
 __global__ void __launch_bounds__(kBwdThreads, EP <= 32 ? 2 : 1) bwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ g, const T* __restrict__ o, const float* __restrict__ lse,
-    T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ g, const float* __restrict__ o, const float* __restrict__ lse,
+    float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
     float* __restrict__ dq_part, float* __restrict__ dk_part, float* __restrict__ dv_part,
     int N, int L, int M, int H, int E, int ktiles, int rows_per_split, float scale,
     float rate, float out_scale, uint32_t lm, const int* __restrict__ seed, bool vec) {
@@ -124,7 +120,6 @@ __global__ void __launch_bounds__(kBwdThreads, EP <= 32 ? 2 : 1) bwd_kernel(
   constexpr int S = Sm::S, R = Sm::R, DS = Sm::DS, QT = Sm::QT, KP = Sm::KP;
   constexpr int KS = EP / 8, RN = R / 8;
   constexpr int HN = EP >= 16 ? RN / 2 : RN;  // 8-row blocks of a piece
-  constexpr bool kExact = sizeof(T) == 2;  // bf16: q, g, k and v are exact in TF32
   extern __shared__ float smem[];
   float* ks = smem;
   float* vs = ks + kKeyTile * S;
@@ -141,11 +136,11 @@ __global__ void __launch_bounds__(kBwdThreads, EP <= 32 ? 2 : 1) bwd_kernel(
   const int r_end = min(L, r_begin + rows_per_split);
   const int nrt = (r_end - r_begin + R - 1) / R;
   const size_t he = (size_t)H * E;
-  const T* qb = q + (size_t)b * L * he + (size_t)h * E;
-  const T* gb = g + (size_t)b * L * he + (size_t)h * E;
-  const T* ob = o + (size_t)b * L * he + (size_t)h * E;
-  const T* kb = k + (size_t)b * M * he + (size_t)h * E;
-  const T* vb = v + (size_t)b * M * he + (size_t)h * E;
+  const float* qb = q + (size_t)b * L * he + (size_t)h * E;
+  const float* gb = g + (size_t)b * L * he + (size_t)h * E;
+  const float* ob = o + (size_t)b * L * he + (size_t)h * E;
+  const float* kb = k + (size_t)b * M * he + (size_t)h * E;
+  const float* vb = v + (size_t)b * M * he + (size_t)h * E;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, t = lane & 3;
@@ -229,18 +224,18 @@ __global__ void __launch_bounds__(kBwdThreads, EP <= 32 ? 2 : 1) bwd_kernel(
           const float ka[4] = {kr[0], kr[8 * S], kr[4], kr[8 * S + 4]};
           const float va[4] = {vr[0], vr[8 * S], vr[4], vr[8 * S + 4]};
           uint32_t kh[4], kl[4], vh[4], vl[4];
-          split<kExact>(ka, kh, kl);
-          split<kExact>(va, vh, vl);
+          split(ka, kh, kl);
+          split(va, vh, vl);
 #pragma unroll
           for (int n = 0; n < HN; ++n) {
             const float* qr = qs + ((r8 + n) * 8 + gq) * S + kk * 8 + t;
             const float* gr = gs + ((r8 + n) * 8 + gq) * S + kk * 8 + t;
             const float qf[2] = {qr[0], qr[4]}, gf[2] = {gr[0], gr[4]};
             uint32_t qh[2], ql[2], gh[2], gl[2];
-            split<kExact>(qf, qh, ql);
-            split<kExact>(gf, gh, gl);
-            mma3<kExact, kExact>(sT[n], kh, kl, qh, ql);
-            mma3<kExact, kExact>(pT[n], vh, vl, gh, gl);
+            split(qf, qh, ql);
+            split(gf, gh, gl);
+            mma3(sT[n], kh, kl, qh, ql);
+            mma3(pT[n], vh, vl, gh, gl);
           }
         }
         // Pd and dS in place of the score fragments; dS to shared memory.
@@ -346,65 +341,19 @@ __global__ void __launch_bounds__(kBwdThreads, EP <= 32 ? 2 : 1) bwd_kernel(
   }
 }
 
-// Sums the slabs of one or two fp32 part arrays into their outputs.
-template <typename T>
-cudaError_t reduce(const float* part0, void* out0, const float* part1, void* out1, int slabs,
-                   size_t n, cudaStream_t stream) {
-  const dim3 grid((unsigned)((n + kReduceThreads - 1) / kReduceThreads), part1 ? 2 : 1);
-  reduce_slabs<T><<<grid, kReduceThreads, 0, stream>>>(
-      part0, static_cast<T*>(out0), part1, static_cast<T*>(out1), slabs, n);
-  return cudaGetLastError();
-}
-
-template <typename T, int EP>
-cudaError_t launch_ep(const void* q, const void* k, const void* v, const void* g,
-                      const void* o, const float* lse, void* dq, void* dk, void* dv,
-                      float* dq_part, float* dk_part, float* dv_part, int n, int l, int m,
-                      int heads, int e, int splits, int rows_per_split, float scale,
-                      float rate, float out_scale, uint32_t lm, const int* seed,
-                      cudaStream_t stream) {
-  const int ktiles = (m + kKeyTile - 1) / kKeyTile;
-  const long long blocks = (long long)ktiles * n * heads * splits;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const bool vec = vec_rows<T>(e, {q, k, v, g, o});
-  cudaError_t err = allow_smem<bwd_kernel<T, EP>>();
-  if (err != cudaSuccess) return err;
-  bwd_kernel<T, EP><<<(unsigned)blocks, kBwdThreads,
-                      BwdSmem<EP>::kFloats * (int)sizeof(float), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<const T*>(o), lse, static_cast<T*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), ktiles > 1 ? dq_part : nullptr,
-      splits > 1 ? dk_part : nullptr, splits > 1 ? dv_part : nullptr, n, l, m, heads, e,
-      ktiles, rows_per_split, scale, rate, out_scale, lm, seed, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (ktiles > 1) {
-    err = reduce<T>(dq_part, dq, nullptr, nullptr, ktiles, (size_t)n * l * heads * e, stream);
+// The fp32 kernel, for launch_bwd (attention_common.cuh).
+template <int EP>
+struct BwdF32 {
+  using T = float;
+  template <typename... A>
+  static cudaError_t run(unsigned blocks, cudaStream_t stream, A... a) {
+    const cudaError_t err = allow_smem<bwd_kernel<EP>>();
     if (err != cudaSuccess) return err;
+    bwd_kernel<EP><<<blocks, kBwdThreads, BwdSmem<EP>::kFloats * (int)sizeof(float), stream>>>(
+        a...);
+    return cudaGetLastError();
   }
-  if (splits > 1) {
-    err = reduce<T>(dk_part, dk, dv_part, dv, splits, (size_t)n * m * heads * e, stream);
-  }
-  return err;
-}
-
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
-                   const void* o, const float* lse, void* dq, void* dk, void* dv,
-                   float* dq_part, float* dk_part, float* dv_part, int n, int l, int m,
-                   int heads, int e, int splits, int rows_per_split, float scale, float rate,
-                   float out_scale, uint32_t lm, const int* seed, cudaStream_t stream) {
-#define SEIST_LAUNCH(EP)                                                                  \
-  return launch_ep<T, EP>(q, k, v, g, o, lse, dq, dk, dv, dq_part, dk_part, dv_part, n, \
-                          l, m, heads, e, splits, rows_per_split, scale, rate,            \
-                          out_scale, lm, seed, stream)
-  if (e <= 8) SEIST_LAUNCH(8);
-  if (e <= 16) SEIST_LAUNCH(16);
-  if (e <= 32) SEIST_LAUNCH(32);
-  if (e <= 64) SEIST_LAUNCH(64);
-#undef SEIST_LAUNCH
-  return cudaErrorInvalidValue;
-}
+};
 
 }  // namespace
 }  // namespace seist
@@ -438,14 +387,21 @@ extern "C" int pooled_attention_bwd(const void* q, const void* k, const void* v,
   float* kp = static_cast<float*>(dk_part);
   float* vp = static_cast<float*>(dv_part);
   if (dtype == 0) {
-    return (int)seist::launch<float>(q, k, v, g, o, ls, dq, dk, dv, qp, kp, vp, n, l, m,
-                                     heads, e, splits, rows_per_split, scale, rate,
-                                     out_scale, lm, sd, s);
+    return (int)seist::launch_bwd<seist::BwdF32>(q, k, v, g, o, ls, dq, dk, dv, qp, kp, vp, n,
+                                                 l, m, heads, e, splits, rows_per_split, scale,
+                                                 rate, out_scale, lm, sd, s);
   }
   if (dtype == 1) {
-    return (int)seist::launch<__nv_bfloat16>(q, k, v, g, o, ls, dq, dk, dv, qp, kp, vp, n,
-                                             l, m, heads, e, splits, rows_per_split, scale,
-                                             rate, out_scale, lm, sd, s);
+    return (int)seist::launch_bwd<seist::BwdBf16>(q, k, v, g, o, ls, dq, dk, dv, qp, kp, vp,
+                                                  n, l, m, heads, e, splits, rows_per_split,
+                                                  scale, rate, out_scale, lm, sd, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// K2 bf16's row tile (rows) and the blocks that share an SM (its
+// __launch_bounds__ minimum) at head width e: what ops/_kernels.py's launch
+// plan needs of the kernel. Returns cudaErrorInvalidValue for e > 64.
+extern "C" int pooled_attention_bwd_bf16_shape(int e, int* row_tile, int* blocks_per_sm) {
+  return (int)seist::bwd_bf16_shape(e, row_tile, blocks_per_sm);
 }

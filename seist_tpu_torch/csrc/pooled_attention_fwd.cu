@@ -10,8 +10,9 @@
 //   lse = max + log(sum) of each row of the scaled scores (only when asked:
 //         the backward, csrc/pooled_attention_bwd.cu, reads it)
 // q is (N, L, H*E), k and v are (N, M, H*E), o is (N, L, H*E), all
-// contiguous, in float32 or bfloat16; arithmetic is fp32 throughout and the
-// output takes the input type. lse is fp32 (N*H, L).
+// contiguous, in float32 (this file's kernel: fp32 arithmetic throughout)
+// or bfloat16 (fwd_kernel_bf16, pooled_attention_fwd_bf16.cuh, on the bf16
+// tensor cores); the output takes the input type. lse is fp32 (N*H, L).
 //
 // What bounds it. At seist_l_dpk's shapes (L = 128..1024, M = 128, H = 3,
 // E = 8..32, N = 1..8 serving) a launch moves under 2 MB and does 4*N*H*L*M*E
@@ -23,10 +24,7 @@
 // version does; this kernel never does. Its design:
 //   * tensor cores: a warp owns 16 query rows of one (b, h) and computes
 //     S = (q scale) K^T and O = P V with mma.sync m16n8k8 in 3xTF32
-//     (attention_common.cuh), which keeps fp32-level error; bf16 inputs are
-//     widened to fp32 in shared memory and take the same path, where K and
-//     V, exact in TF32, are not split: two TF32 products, not three (q is
-//     scaled and P computed, so both are split). E is padded
+//     (attention_common.cuh), which keeps fp32-level error. E is padded
 //     with zeros to a power of two >= 8 (EP), so every width 1..64 runs;
 //   * no serial chain per key: the warp keeps the scores of 64 keys in
 //     registers (32 floats a thread), takes row max and sum by shuffles in
@@ -42,8 +40,8 @@
 //     key chunks, and merge (max, sum, O) in shared memory in a fixed order.
 //     ops/_kernels.py::fwd_plan chooses from the device's SM count;
 //   * staging: K and V tiles of 128 keys go to shared memory with cp.async
-//     in 16-byte vectors (fp32) or 8-byte loads widened to fp32 (bf16) when
-//     E % 4 == 0, scalar loads otherwise, double-buffered when M spans more
+//     in 16-byte vectors when E % 4 == 0 and the pointers are 16-byte
+//     aligned, scalar loads otherwise, double-buffered when M spans more
 //     than one tile. Rows are EP + 4 floats apart, so the fragment reads hit
 //     32 different banks.
 // Dropout is applied after the normalisation in the reference, so the row
@@ -59,6 +57,7 @@
 // and called through ctypes; the C function returns cudaGetLastError().
 
 #include "attention_common.cuh"
+#include "pooled_attention_fwd_bf16.cuh"
 
 namespace seist {
 namespace {
@@ -68,16 +67,15 @@ namespace {
 // keys numbered w % ksplit modulo ksplit. With ksplit = 2 the two warps of
 // a row group merge their (max, sum, O) in shared memory at the end, in a
 // fixed order.
-template <typename T, int EP>
+template <int EP>
 __global__ void __launch_bounds__(128) fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, int L, int M, int H, int E,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, float* __restrict__ lse, int L, int M, int H, int E,
     int row_tiles, int ksplit, float scale, float rate, float out_scale, uint32_t lm,
     const int* __restrict__ seed, bool vec) {
   constexpr int S = EP + 4;         // shared-memory row stride, floats
   constexpr int KS = EP / 8;        // MMA depth steps over E
   constexpr int NT = kFwdChunk / 8;  // 8-key column blocks of a chunk
-  constexpr bool kExact = sizeof(T) == 2;  // bf16: K and V are exact in TF32
   extern __shared__ float smem[];
   // The dropout seed lives in device memory (a captured graph replays with
   // the seed its caller writes there before each replay): read once.
@@ -91,9 +89,9 @@ __global__ void __launch_bounds__(128) fwd_kernel(
   const int b = bh / H, h = bh - b * H;
   const int row0 = (rt * row_warps + rw) * kWarpRows;
   const size_t he = (size_t)H * E;
-  const T* qb = q + (size_t)b * L * he + (size_t)h * E;
-  const T* kb = k + (size_t)b * M * he + (size_t)h * E;
-  const T* vb = v + (size_t)b * M * he + (size_t)h * E;
+  const float* qb = q + (size_t)b * L * he + (size_t)h * E;
+  const float* kb = k + (size_t)b * M * he + (size_t)h * E;
+  const float* vb = v + (size_t)b * M * he + (size_t)h * E;
   const int ntiles = (M + kKeyTile - 1) / kKeyTile;
 
   // The warp's 16 scaled q rows as split A fragments.
@@ -103,7 +101,7 @@ __global__ void __launch_bounds__(128) fwd_kernel(
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = row0 + g + (i & 1) * 8, c = kk * 8 + t + (i >> 1) * 4;
-      const float x = (r < L && c < E) ? to_f32(qb[(size_t)r * he + c]) * scale : 0.0f;
+      const float x = (r < L && c < E) ? qb[(size_t)r * he + c] * scale : 0.0f;
       split(x, qh[kk][i], ql[kk][i]);
     }
   }
@@ -148,8 +146,8 @@ __global__ void __launch_bounds__(128) fwd_kernel(
           const float* kr = ks + (n * 8 + g) * S + kk * 8 + t;
           const float bf[2] = {kr[0], kr[4]};
           uint32_t bhi[2], blo[2];
-          split<kExact>(bf, bhi, blo);
-          mma3<false, kExact>(s[n], qh[kk], ql[kk], bhi, blo);
+          split(bf, bhi, blo);
+          mma3(s[n], qh[kk], ql[kk], bhi, blo);
         }
       }
       // Row max over the chunk (quad shuffles), one rescale per chunk.
@@ -204,8 +202,8 @@ __global__ void __launch_bounds__(128) fwd_kernel(
         for (int kk = 0; kk < KS; ++kk) {
           const float bf[2] = {vr[kk * 8], vr[S + kk * 8]};
           uint32_t bhi[2], blo[2];
-          split<kExact>(bf, bhi, blo);
-          mma3<false, kExact>(pv[kk], ahi, alo, bhi, blo);
+          split(bf, bhi, blo);
+          mma3(pv[kk], ahi, alo, bhi, blo);
         }
       }
 #pragma unroll
@@ -274,41 +272,23 @@ __global__ void __launch_bounds__(128) fwd_kernel(
   }
 }
 
-template <typename T, int EP>
-cudaError_t launch_ep(const void* q, const void* k, const void* v, void* o, float* lse,
-                      int n, int l, int m, int heads, int e, int row_warps, int ksplit,
-                      float scale, float rate, float out_scale, uint32_t lm,
-                      const int* seed, cudaStream_t stream) {
-  const int row_tiles = (l + kWarpRows * row_warps - 1) / (kWarpRows * row_warps);
-  const long long blocks = (long long)row_tiles * n * heads;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const int stages = m > kKeyTile ? 2 : 1;
-  const int smem = stages * 2 * kKeyTile * (EP + 4) * (int)sizeof(float);
-  const bool vec = vec_rows<T>(e, {k, v});
-  const cudaError_t err = allow_smem<fwd_kernel<T, EP>>();
-  if (err != cudaSuccess) return err;
-  fwd_kernel<T, EP><<<(unsigned)blocks, 32 * row_warps * ksplit, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, l, m, heads, e, row_tiles, ksplit, scale, rate, out_scale,
-      lm, seed, vec);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                   int n, int l, int m, int heads, int e, int row_warps, int ksplit,
-                   float scale, float rate, float out_scale, uint32_t lm, const int* seed,
-                   cudaStream_t stream) {
-#define SEIST_LAUNCH(EP)                                                               \
-  return launch_ep<T, EP>(q, k, v, o, lse, n, l, m, heads, e, row_warps, ksplit, scale, \
-                          rate, out_scale, lm, seed, stream)
-  if (e <= 8) SEIST_LAUNCH(8);
-  if (e <= 16) SEIST_LAUNCH(16);
-  if (e <= 32) SEIST_LAUNCH(32);
-  if (e <= 64) SEIST_LAUNCH(64);
-#undef SEIST_LAUNCH
-  return cudaErrorInvalidValue;
-}
+// The fp32 kernel, for launch_fwd (attention_common.cuh): q read from
+// device memory, K and V tiles of EP + 4 floats a row.
+template <int EP>
+struct FwdF32 {
+  using T = float;
+  static constexpr bool kStagesQ = false;
+  static int smem(int stages, int) {
+    return stages * 2 * kKeyTile * (EP + 4) * (int)sizeof(float);
+  }
+  template <typename... A>
+  static cudaError_t run(unsigned blocks, int threads, int smem, cudaStream_t stream, A... a) {
+    const cudaError_t err = allow_smem<fwd_kernel<EP>>();
+    if (err != cudaSuccess) return err;
+    fwd_kernel<EP><<<blocks, threads, smem, stream>>>(a...);
+    return cudaGetLastError();
+  }
+};
 
 }  // namespace
 }  // namespace seist
@@ -334,12 +314,13 @@ extern "C" int pooled_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ls = static_cast<float*>(lse);
   if (dtype == 0) {
-    return (int)seist::launch<float>(q, k, v, o, ls, n, l, m, heads, e, row_warps, ksplit,
-                                     scale, rate, out_scale, lm, sd, s);
+    return (int)seist::launch_fwd<seist::FwdF32>(q, k, v, o, ls, n, l, m, heads, e, row_warps,
+                                                 ksplit, scale, rate, out_scale, lm, sd, s);
   }
   if (dtype == 1) {
-    return (int)seist::launch<__nv_bfloat16>(q, k, v, o, ls, n, l, m, heads, e, row_warps,
-                                             ksplit, scale, rate, out_scale, lm, sd, s);
+    return (int)seist::launch_fwd<seist::FwdBf16>(q, k, v, o, ls, n, l, m, heads, e,
+                                                  row_warps, ksplit, scale, rate, out_scale,
+                                                  lm, sd, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -19,7 +19,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -163,22 +163,52 @@ def fwd_plan(n: int, l: int, m: int, h: int, sms: int) -> Tuple[int, int]:
     return 1, ksplit
 
 
-def bwd_plan(n: int, l: int, m: int, h: int, sms: int) -> Tuple[int, int]:
+class BwdCost(NamedTuple):
+    """What :func:`bwd_plan` models of a K2 kernel: the rows of its row
+    tile, the blocks that run at once on an SM, and a block's fixed cost
+    (staging K and V, writing dK and dV and, when split, summing the parts)
+    in row tiles."""
+
+    row_tile: int
+    slots_per_sm: int
+    fixed_tiles: int
+
+
+#: The fp32 K2: one slot an SM and a fixed cost of two row tiles, fitted to
+#: sweeps of every split count on an H100.
+FP32_BWD_COST = BwdCost(BWD_ROW_TILE, 1, 2)
+
+
+def bwd_cost(lib: ctypes.CDLL, dtype: torch.dtype, e: int) -> BwdCost:
+    """The cost model of the K2 kernel that ``dtype`` at head width ``e``
+    takes. The bf16 kernel's row tile and blocks an SM are read from the
+    built library (``pooled_attention_bwd_bf16_shape``); its fixed cost is
+    one row tile, fitted to sweeps of every split count at seist_l_dpk's
+    b64 shapes on an H100."""
+    if dtype == torch.float32:
+        return FP32_BWD_COST
+    tile, blocks = ctypes.c_int(), ctypes.c_int()
+    if lib.pooled_attention_bwd_bf16_shape(e, ctypes.byref(tile), ctypes.byref(blocks)):
+        raise ValueError(f"K2 bf16 takes head widths up to 64, got {e}")
+    return BwdCost(tile.value, blocks.value, 1)
+
+
+def bwd_plan(n: int, l: int, m: int, h: int, sms: int,
+             cost: BwdCost = FP32_BWD_COST) -> Tuple[int, int]:
     """(splits, rows_per_split) of K2: a block owns a key tile of one (b, h)
-    and a range of rows, in whole 32-row tiles. The split count minimises
-    the busiest SM's work: the blocks it runs, ceil(blocks * splits / sms),
-    times each block's row tiles plus two (a block's fixed cost: staging K
-    and V, writing dK and dV and, when split, summing the parts, measured on
-    an H100 at about two row tiles'); the fewest splits win a tie."""
+    and a range of rows, in whole row tiles. The split count minimises the
+    busiest SM's work under ``cost`` (:func:`bwd_cost`): the rounds of
+    blocks it runs, ceil(blocks * splits / (slots_per_sm * sms)), times each
+    block's row tiles plus its fixed cost; the fewest splits win a tie."""
     blocks = -(-m // KEY_TILE) * n * h
-    tiles = -(-l // BWD_ROW_TILE)
+    tiles = -(-l // cost.row_tile)
     best = None
     for want in range(1, tiles + 1):
         per = -(-tiles // want)  # row tiles of a range
         splits = -(-tiles // per)
-        cost = -(-blocks * splits // sms) * (per + 2)
-        if best is None or cost < best[0]:
-            best = (cost, splits, per * BWD_ROW_TILE)
+        work = -(-blocks * splits // (cost.slots_per_sm * sms)) * (per + cost.fixed_tiles)
+        if best is None or work < best[0]:
+            best = (work, splits, per * cost.row_tile)
     return best[1], best[2]
 
 
@@ -264,7 +294,7 @@ def pooled_attention_bwd(
     lib = build("pooled_attention_bwd")
     n, l, h, e = q.shape
     m = k.shape[1]
-    splits, rows = bwd_plan(n, l, m, h, sm_count(q.device))
+    splits, rows = bwd_plan(n, l, m, h, sm_count(q.device), bwd_cost(lib, q.dtype, e))
     dq_n, dkv_n = bwd_scratch(n, l, m, h, e, splits)
     dq_part, dk_part, dv_part = (
         torch.empty(c, dtype=torch.float32, device=q.device) if c else None

@@ -7,8 +7,10 @@ are (L x M) with M = L/r. ``fused_pooled_attention`` is a
 ``torch.autograd.Function`` whose forward launches the hand-written CUDA
 kernel ``csrc/pooled_attention_fwd.cu`` and whose backward launches
 ``csrc/pooled_attention_bwd.cu`` (both built and bound by
-``ops/_kernels.py``) on CUDA tensors; each takes its plain version only
-for tensors that lie on the CPU. The forward also writes each row's
+``ops/_kernels.py``; bf16 inputs go to their bf16 kernels,
+``csrc/pooled_attention_fwd_bf16.cuh`` and ``..._bwd_bf16.cuh``, on the
+bf16 tensor cores) on CUDA tensors; each takes its plain version only for
+tensors that lie on the CPU. The forward also writes each row's
 log-sum-exp when a gradient will be needed, and saves it with q, k, v, its
 output and the seed; the backward rebuilds the probabilities from it in
 one pass, and the dropout mask from the seed.
@@ -40,13 +42,14 @@ import torch
 launches = 0
 #: Launches of the backward kernel, incremented in :func:`_backward`.
 bwd_launches = 0
-#: The launches of each kernel's bf16 instantiation, counted beside the
-#: totals above (the bf16 precision policy's share of them).
+#: The launches of the bf16 kernels (``csrc/pooled_attention_fwd_bf16.cuh``
+#: and ``csrc/pooled_attention_bwd_bf16.cuh``, which take every bf16 call),
+#: counted beside the totals above.
 bf16_launches = 0
 bf16_bwd_launches = 0
 
 _M32 = 0xFFFFFFFF
-E_MAX = 64  # largest head width the kernel takes (csrc/pooled_attention_fwd.cu)
+E_MAX = 64  # largest head width the kernels take (csrc/pooled_attention_*.cu*)
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:

@@ -2,7 +2,9 @@
 
 * The launch planner of ``ops/_kernels.py``: K1's block shape and K2's row
   splits from a given SM count, the scratch sizes, and the tile constants
-  it shares with ``csrc/attention_common.cuh`` (read from both files).
+  it shares with ``csrc/attention_common.cuh`` (read from both files); the
+  bf16 kernels' shared-memory row strides, their head-width dispatch and
+  their seed mix, read from their sources.
 * K1's row statistics: the plain forward's lse against the logsumexp of
   the JAX package's scores, atol 1e-6 (fp32, the same formula).
 * K2's function from the forward's (o, lse): the plain version against
@@ -27,6 +29,12 @@ from seist_tpu_torch.ops import _kernels as K
 from seist_tpu_torch.ops import pooled_attention as tpa
 
 
+#: The sources of the four attention kernels: K1 and K2 in fp32 (with the
+#: C entry points) and in bf16.
+KERNEL_SOURCES = ("pooled_attention_fwd.cu", "pooled_attention_bwd.cu",
+                  "pooled_attention_fwd_bf16.cuh", "pooled_attention_bwd_bf16.cuh")
+
+
 def _cuh_constants() -> dict:
     text = (K.CSRC / "attention_common.cuh").read_text()
     return {name: int(value) for name, value in
@@ -37,19 +45,52 @@ def test_python_tiles_equal_the_kernels():
     c = _cuh_constants()
     assert (c["kKeyTile"], c["kWarpRows"], c["kFwdChunk"], c["kBwdRowTile"]) == (
         K.KEY_TILE, K.WARP_ROWS, K.FWD_CHUNK, K.BWD_ROW_TILE)
-    # Both kernels dispatch head widths up to E_MAX.
-    for name in ("pooled_attention_fwd", "pooled_attention_bwd"):
-        text = (K.CSRC / f"{name}.cu").read_text()
-        assert max(int(x) for x in re.findall(r"if \(e <= (\d+)\)", text)) == tpa.E_MAX
+    # One dispatch of head widths, up to E_MAX, which all four kernels (fp32
+    # and bf16, forward and backward) take through their launchers.
+    common = (K.CSRC / "attention_common.cuh").read_text()
+    widths = [int(x) for x in re.findall(r"if \(e <= (\d+)\) return f\(", common)]
+    assert max(widths) == tpa.E_MAX and widths == sorted(widths)
+    assert "with_padded_width(e, " in common.split("cudaError_t launch_fwd(")[1]
+    assert "with_padded_width(e, " in common.split("cudaError_t launch_bwd(")[1]
+    entries = "".join((K.CSRC / f"pooled_attention_{d}.cu").read_text() for d in ("fwd", "bwd"))
+    for traits, name in (("FwdF32", "fwd_kernel<EP>"), ("FwdBf16", "fwd_kernel_bf16<EP>"),
+                         ("BwdF32", "bwd_kernel<EP>"), ("BwdBf16", "bwd_kernel_bf16<EP>")):
+        kind = traits[:3].lower()
+        assert f"launch_{kind}<seist::{traits}>(" in entries, traits
+        text = next((K.CSRC / src).read_text() for src in KERNEL_SOURCES
+                    if f"struct {traits} {{" in (K.CSRC / src).read_text())
+        assert f"{name}<<<" in text.split(f"struct {traits} {{")[1], traits
+
+
+def test_bf16_rows_are_aligned_and_free_of_bank_conflicts():
+    """The bf16 kernels' shared-memory row strides (kBf16Stride for q, g,
+    o, k and v rows of EP elements; R + 8 for K2's dS^T rows of R = 32 or 64
+    rows):
+    ldmatrix and cp.async need 16-byte aligned rows, and the 16-byte
+    segments that one ldmatrix reads from eight consecutive rows must lie in
+    eight different groups of four banks."""
+    common = (K.CSRC / "attention_bf16.cuh").read_text()
+    m = re.search(r"constexpr int kBf16Stride = EP == (\d+) \? (\d+) : EP \+ (\d+);", common)
+    ep8, s8, pad = (int(x) for x in m.groups())
+    bwd = (K.CSRC / "pooled_attention_bwd_bf16.cuh").read_text()
+    ds_pad = int(re.search(r"static constexpr int DS = R \+ (\d+);", bwd).group(1))
+    strides = {ep: s8 if ep == ep8 else ep + pad for ep in (8, 16, 32, 64)}
+    for rows in (K.BWD_ROW_TILE, 2 * K.BWD_ROW_TILE):  # kBf16RowTile's 32 and 64
+        strides[f"dS^T of {rows} rows"] = rows + ds_pad
+    for name, stride in strides.items():
+        assert (2 * stride) % 16 == 0, name
+        assert len({(r * 2 * stride // 16) % 8 for r in range(8)}) == 8, name
+        if isinstance(name, int):
+            assert stride >= name, name
 
 
 def test_counter_hash_constants_match_the_plain_version():
     hash_src = (K.CSRC / "attention_common.cuh").read_text()
     for const in (0x85EBCA6B, 0xC2B2AE35):
         assert f"0x{const:X}u" in hash_src
-    for name in ("pooled_attention_fwd", "pooled_attention_bwd"):  # the seed mix, of
-        # the seed read from device memory (once a block in K1, a row tile in K2)
-        text = (K.CSRC / f"{name}.cu").read_text()
+    for name in KERNEL_SOURCES:  # the seed mix, of the seed read from device
+        # memory (once a block in K1, a row tile in K2)
+        text = (K.CSRC / name).read_text()
         assert re.search(r"\(uint32_t\)[^;]*\(seed\)+ \* 0x9E3779B9u", text), name
     src = (K.CSRC.parent / "ops" / "pooled_attention.py").read_text()
     assert all(f"0x{c:X}" in src for c in (0x85EBCA6B, 0xC2B2AE35, 0x9E3779B9))
@@ -100,6 +141,30 @@ def test_bwd_plan_balances_the_sms():
     assert K.bwd_plan(2, 1000, 125, 3, 132) == (16, 64)
     assert K.bwd_plan(2, 1000, 125, 3, 16)[0] < 16
     assert K.bwd_plan(256, 1024, 128, 3, 132) == (1, 1024)
+
+
+@pytest.mark.parametrize("cost", [K.BwdCost(32, 3, 1), K.BwdCost(64, 2, 1), K.BwdCost(32, 2, 1),
+                                  K.BwdCost(32, 1, 1)])
+@pytest.mark.parametrize("n,l,m,h", [(64, 1024, 128, 3), (2, 1000, 125, 3), (1, 200, 200, 2),
+                                     (3, 33, 65, 2), (1, 1, 1, 1)])
+def test_bwd_plan_covers_the_rows_in_whole_tiles_of_any_cost(n, l, m, h, cost):
+    """Under another kernel's cost (the bf16 K2's row tiles of 32 or 64 rows,
+    two or three blocks an SM, a fixed cost of one tile)."""
+    splits, rows = K.bwd_plan(n, l, m, h, 132, cost)
+    assert rows % cost.row_tile == 0 and splits * rows >= l > (splits - 1) * rows
+
+
+def test_the_bf16_kernel_gives_the_plan_its_launch_bounds_and_row_tile():
+    """The C query that the plan reads (bwd_bf16_shape) returns the constants
+    that the kernel's __launch_bounds__ and its shared-memory tiles use."""
+    text = (K.CSRC / "pooled_attention_bwd_bf16.cuh").read_text()
+    assert "__launch_bounds__(kBwdThreads, kBf16BwdBlocks<EP>) bwd_kernel_bf16(" in text
+    assert "static constexpr int R = kBf16RowTile<EP>;" in text
+    query = text.split("inline cudaError_t bwd_bf16_shape(")[1].split("\n}\n")[0]
+    assert "*row_tile = kBf16RowTile<" in query and "*blocks_per_sm = kBf16BwdBlocks<" in query
+    entry = (K.CSRC / "pooled_attention_bwd.cu").read_text()
+    assert 'extern "C" int pooled_attention_bwd_bf16_shape(' in entry
+    assert K.FP32_BWD_COST.row_tile == K.BWD_ROW_TILE  # the fp32 kernel's
 
 
 @pytest.mark.parametrize("n,l,m,h,e,splits,want", [

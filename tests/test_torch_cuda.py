@@ -147,6 +147,96 @@ def test_autograd_through_both_kernels_matches_plain_autograd(dev):
         assert float((a - b).abs().max()) <= _bwd_limit(torch.float32, b)
 
 
+# ------------------------------------------- the bf16 kernels (K1 and K2)
+# fwd_kernel_bf16 and bwd_kernel_bf16 against the plain versions at the
+# bf16 limits above: ragged L and M, M = 1024 (several key tiles: K1's
+# double buffer, K2's dQ parts summed by the reduce launch), rows split
+# (K2's dK/dV parts: batch 2 at L = 1000 and the main path's b64 at
+# L = 1024), E = 20 and E = 1 (scalar staging), E = 64, and seist_l_dpk's
+# five shapes.
+BF16_SHAPES = [(2, 64, 8, 1, 8), (3, 130, 65, 3, 16), (1, 200, 200, 2, 33),
+               (2, 50, 7, 3, 64), (1, 300, 512, 2, 1), (1, 1000, 1024, 1, 20),
+               (2, 1000, 125, 3, 8), (2, 77, 200, 3, 8), (64, 1024, 128, 3, 8),
+               (64, 512, 128, 3, 8), (64, 256, 128, 3, 16), (64, 128, 128, 3, 32)]
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` one element into a larger buffer: not
+    16-byte aligned, so the kernels take their scalar staging."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("n,l,m,h,e", BF16_SHAPES)
+def test_bf16_forward_kernel_matches_plain(dev, n, l, m, h, e, rate):
+    q, k, v = _qkv(dev, n, l, m, h, e, torch.bfloat16, seed=l + m)
+    scale = 1.0 / math.sqrt(e)
+    before = pa.counts()
+    got, lse = pa._forward(q, k, v, scale, rate, 99, True)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and pa.counts()[2] == before[2] + 1
+    want, want_lse = pa.pooled_attention_plain(q, k, v, scale, rate, 99, return_lse=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2.0 ** -6)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
+    assert torch.equal(pa._forward(q, k, v, scale, rate, 99, False)[0], got)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("n,l,m,h,e", BF16_SHAPES)
+def test_bf16_backward_kernel_matches_plain(dev, n, l, m, h, e, rate):
+    q, k, v, g, o, lse = _qkvg_o_lse(dev, n, l, m, h, e, torch.bfloat16, rate, 1234)
+    scale = 1.0 / math.sqrt(e)
+    before = pa.counts()
+    got = pa._backward(q, k, v, g, o, lse, scale, rate, 1234)
+    torch.cuda.synchronize()
+    assert pa.counts()[3] == before[3] + 1
+    want = pa.pooled_attention_bwd_plain(q, k, v, g, o, lse, scale, rate, 1234)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= _bwd_limit(torch.bfloat16, b)
+    again = pa._backward(q, k, v, g, o, lse, scale, rate, 1234)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.parametrize("n,l,m,h,e", [(2, 130, 65, 3, 16), (1, 300, 200, 2, 8)])
+def test_bf16_kernels_take_misaligned_pointers(dev, n, l, m, h, e):
+    q, k, v, g, o, lse = _qkvg_o_lse(dev, n, l, m, h, e, torch.bfloat16, 0.3, 5)
+    scale = 1.0 / math.sqrt(e)
+    q1, k1, v1, g1, o1 = (_misaligned(t) for t in (q, k, v, g, o))
+    assert q1.data_ptr() % 16 != 0 and q1.is_contiguous()
+    got_o, got_lse = pa._forward(q1, k1, v1, scale, 0.3, 5, True)
+    want_o, want_lse = pa.pooled_attention_plain(q, k, v, scale, 0.3, 5, return_lse=True)
+    torch.testing.assert_close(got_o.float(), want_o.float(), rtol=0, atol=2.0 ** -6)
+    torch.testing.assert_close(got_lse, want_lse, rtol=0, atol=1e-5)
+    got = pa._backward(q1, k1, v1, g1, o1, lse, scale, 0.3, 5)
+    want = pa.pooled_attention_bwd_plain(q, k, v, g, o, lse, scale, 0.3, 5)
+    for a, b in zip(got, want):
+        assert float((a.float() - b.float()).abs().max()) <= _bwd_limit(torch.bfloat16, b)
+
+
+def test_bf16_kernels_drop_the_plain_versions_elements(dev):
+    """Rate 0.3. The forward with V the identity (M <= E) writes the dropped
+    probabilities themselves, so its zeros are the mask; the backward with
+    g the identity (L <= E) writes dV = Pd^T, whose zeros are the mask too."""
+    n, l, m, h, e = 2, 32, 32, 3, 32
+    q, k, _ = _qkv(dev, n, l, m, h, e, torch.bfloat16, seed=8)
+    eye = torch.eye(32, device=dev, dtype=torch.bfloat16).reshape(1, 32, 1, 32)
+    eye = eye.expand(n, 32, h, 32).contiguous()
+    scale = 1.0 / math.sqrt(e)
+    o, lse = pa._forward(q, k, eye, scale, 0.3, 77, True)
+    want = pa.pooled_attention_plain(q, k, eye, scale, 0.3, 77)
+    assert torch.equal(o == 0, want == 0)
+    frac = float((want == 0).float().mean())
+    assert 0.2 < frac < 0.4
+    _, _, dv = pa._backward(q, k, eye, eye, o, lse, scale, 0.3, 77)
+    _, _, want_dv = pa.pooled_attention_bwd_plain(q, k, eye, eye, o, lse, scale, 0.3, 77)
+    assert torch.equal(dv == 0, want_dv == 0)
+    assert torch.equal(dv.permute(0, 2, 3, 1) == 0, want.permute(0, 2, 1, 3) == 0)
+
+
 def test_a_captured_kernel_reads_the_seed_written_before_each_replay(dev):
     """K1 and K2 read the dropout seed from device memory: one captured
     forward and backward, replayed with another seed written into the same
