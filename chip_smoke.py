@@ -26,7 +26,8 @@ non-zero before the last line):
    autograd function against ``torch.autograd.grad`` through the plain
    forward;
 5. serve ``seist_l_dpk`` at window 8192 with seeded weights through the
-   port's server, answer concurrent ``/predict`` requests with the plain
+   port's server (fp32, each bucket a captured program),
+   answer concurrent ``/predict`` requests with the plain
    versions patched to raise, count K1's launches over exactly that run
    (5 per forward), and hold one response against the same trace run
    through the port on the CPU;
@@ -115,6 +116,25 @@ non-zero before the last line):
     MiB, the step mode's host feed rate, and waveforms/s through the train
     entry beside phase 8's Loader.
 
+12. compiled serving programs, plain attention patched to raise:
+    ``serve --model seist_l_dpk=W --model-group seist_l=dpk,emg,dis
+    --variants fp32,bf16,int8`` through the serve entry's argument parser
+    (60 CUDA graphs: 4 buckets x 3 variants of the full forward, and of
+    the group's trunk and three heads; the group's emg and dis weights
+    carry dpk's trunk), with the ready time, each program's capture
+    seconds, FLOPs and K1 launches per replay, and the memory of each
+    entry's graph pools and variant weights; both parity gates pass;
+    every program's replay against its function run eagerly (1e-4 of
+    max(1, |eager|)); ``/predict`` x24 concurrent in fp32, bf16 and int8
+    and to the group, K1's launches (fp32 and bf16) equal to the replays'
+    captured launches, no request without a program; bf16 and int8 picks
+    as many as fp32's, each within 0.1 s of fp32's or moved across a
+    near-tie (fp32 probabilities within the variant's gate tolerance: the
+    seeded weights' outputs are flat, std ~2e-4); the group's heads
+    against the single-task models; replayed against eager forwards per
+    bucket and variant (wall, device busy, idle share, kernels); a reload
+    that swaps (version 2) and one of NaN weights refused (409).
+
 It prints one ``{"kernels": [...]}`` line (the fp32 K1 and K2, their bf16
 kernels, K3) and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -154,6 +174,7 @@ from seist_tpu_torch.models.common import RandomSource
 from seist_tpu_torch.ops import _kernels
 from seist_tpu_torch.ops import pooled_attention as pa
 from seist_tpu_torch.ops import threefry as tf
+from seist_tpu_torch.serve import aot
 from seist_tpu_torch.serve import server as srv
 from seist_tpu_torch.serve.pool import decode_outputs, load_model_entry
 from seist_tpu_torch.serve.protocol import PredictOptions
@@ -166,7 +187,7 @@ from seist_tpu_torch.train.checkpoint import (
     state_path_for,
 )
 from seist_tpu_torch.models.seist import AttentionBlock
-from seist_tpu_torch.train.graph import capture_train_step
+from seist_tpu_torch.train.graph import _flat, capture_train_step
 from seist_tpu_torch.train.step import (
     TrainState,
     make_eval_step,
@@ -2159,6 +2180,310 @@ def device_aug_phase(name_power: str, logs: str, n_shapes: int, weights: str, de
     return {"k3": k3, "counts": entry["counts"]}
 
 
+# ------------------------------------------------------------- phase 12
+GROUP = "seist_l"
+GROUP_TASKS = ("dpk", "emg", "dis")
+SERVE_VARIANTS = ("fp32", "bf16", "int8")
+SERVE_BUCKETS = (1, 2, 4, 8)
+# A replayed program against the same function run eagerly on the card, per
+# output, relative to max(1, max|eager|): phase 5's limit (the distance head
+# answers in the hundreds, where one fp32 ulp is 3e-5).
+REPLAY_TOL = PROB_TOL
+
+
+@torch.no_grad()
+def group_weights(dpk_weights: str, out_dir: str) -> Dict[str, str]:
+    """Weights of the group's tasks: dpk's file, and for each other task
+    dpk's trunk with a head drawn as :func:`seeded_weights` draws, so the
+    group (trunk of its first task) computes what each single-task model
+    computes."""
+    trunk = torch.load(dpk_weights, weights_only=True)
+    paths = {"dpk": dpk_weights}
+    for i, task in enumerate(GROUP_TASKS[1:], start=1):
+        model = api.create_model(f"{GROUP}_{task}", in_samples=WINDOW, seed=SEED)
+        g = torch.Generator().manual_seed(SEED + i)
+        state = model.state_dict()
+        for name, t in state.items():
+            if not name.startswith("out_head."):
+                t.copy_(trunk[name])
+            elif t.ndim >= 2:
+                t.copy_(torch.randn(t.shape, generator=g) * (0.5 / math.sqrt(t[0].numel())))
+            elif name.endswith(("running_var", ".weight")):
+                t.copy_(torch.rand(t.shape, generator=g) + 0.5)
+            else:
+                t.copy_(torch.randn(t.shape, generator=g) * 0.1)
+        paths[task] = os.path.join(out_dir, f"{GROUP}_{task}_seed{SEED}.pt")
+        torch.save(state, paths[task])
+    return paths
+
+
+def rel_err(got, want) -> float:
+    return max(max_err(a, b) / max(1.0, float(b.float().abs().max()))
+               for a, b in zip(_flat(got), _flat(want)))
+
+
+def picks_agree(a: dict, b: dict, probs: np.ndarray, tol: float) -> Tuple[bool, int]:
+    """A variant's picks ``b`` against fp32's ``a`` at the decision level of
+    the parity gate: the same count of each kind, and each pick within
+    PICK_TOL_S of fp32's, or moved between two samples whose fp32
+    probabilities (``probs`` (L, 3): det, ppk, spk) differ by at most the
+    variant's gate tolerance ``tol`` (a near-tie). Returns (agree, near-ties)."""
+    tol_samples = PICK_TOL_S * 50
+    ties = 0
+    pairs = []
+    for kind, ch in (("ppk", 1), ("spk", 2)):
+        sa = sorted(p["sample"] for p in a[kind])
+        sb = sorted(p["sample"] for p in b[kind])
+        if len(sa) != len(sb):
+            return False, ties
+        pairs += [(x, y, ch) for x, y in zip(sa, sb)]
+    da = sorted((d["onset"], d["offset"]) for d in a["det"])
+    db = sorted((d["onset"], d["offset"]) for d in b["det"])
+    if len(da) != len(db):
+        return False, ties
+    pairs += [(x[j], y[j], 0) for x, y in zip(da, db) for j in (0, 1)]
+    for x, y, ch in pairs:
+        if abs(x - y) <= tol_samples:
+            continue
+        if abs(float(probs[x, ch]) - float(probs[y, ch])) > tol:
+            return False, ties
+        ties += 1
+    return True, ties
+
+
+def profile_calls(fn, iters: int = 5) -> dict:
+    """torch.profiler over ``iters`` calls: wall and device-busy ms per call,
+    the idle share of the wall time, and kernels per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    return {"wall_ms": wall_ms / iters, "busy_ms": busy_ms / iters,
+            "idle_share": 1.0 - busy_ms / wall_ms,
+            "kernels": sum(e.count for e in events) / iters}
+
+
+def program_calls(service) -> Dict[str, int]:
+    return {p.key: p.calls for e in service.entries.values() for p in e.all_programs()}
+
+
+def storm(url: str, bodies: List[dict]) -> Tuple[List[Tuple[int, dict]], float, float]:
+    """The bodies as concurrent /predict requests: the responses, and the
+    client p50 and p99 in ms."""
+    results: List[Tuple[int, dict, float]] = [None] * len(bodies)
+
+    def one(i: int) -> None:
+        t0 = time.perf_counter()
+        status, body = post(url + "/predict", bodies[i])
+        results[i] = (status, body, (time.perf_counter() - t0) * 1e3)
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if any(r is None for r in results):
+        fail("a /predict request did not finish")
+    for status, body, _ in results:
+        if status != 200:
+            fail(f"bad /predict response: {status} {str(body)[:300]}")
+    lat = np.array([r[2] for r in results])
+    return ([(r[0], r[1]) for r in results], float(np.percentile(lat, 50)),
+            float(np.percentile(lat, 99)))
+
+
+def check_programs(service, n_shapes: int) -> None:
+    """Every program's replay against its function run eagerly on the card,
+    on the capture's own kind of input; and the attention launches each
+    replay adds (per forward: n_shapes fp32 K1, of them bf16 in bf16)."""
+    rng = np.random.default_rng(SEED + 1)
+    worst: Dict[str, float] = {}
+    for name, entry in service.entries.items():
+        for prog in entry.all_programs():
+            variant = prog.key.rsplit("/", 1)[1]
+            b = int(prog.key.rsplit("/", 2)[1][1:])
+            kind = prog.key.split("/")[1]
+            x = torch.from_numpy(rng.standard_normal((b, WINDOW, 3)).astype(np.float32)).cuda()
+            with torch.inference_mode():
+                if kind.startswith("head:"):
+                    feats = entry.programs[(variant, "trunk", b)](x)
+                    inputs = [feats.clone()]
+                else:
+                    inputs = [x]
+                got = prog(*inputs)
+                got = [t.clone() for t in _flat(got)]
+                want = prog.fn(*inputs)
+            err = rel_err(got, want)
+            worst[variant] = max(worst.get(variant, 0.0), err)
+            want_k1 = (0, 0) if kind.startswith("head:") else (
+                n_shapes, n_shapes if variant == "bf16" else 0)
+            if prog.launches != want_k1:
+                fail(f"{prog.key}: K1 launches per replay {prog.launches} != {want_k1}")
+            if not err <= REPLAY_TOL:
+                fail(f"{prog.key}: replay vs eager {err:.3e} > {REPLAY_TOL:.0e}")
+    print(f"[programs] every program's replay against its eager run on the card (max error "
+          f"relative to max(1, |eager|), limit {REPLAY_TOL:.0e}): "
+          f"{', '.join(f'{v} {e:.3e}' for v, e in worst.items())}", flush=True)
+
+
+def programs_phase(name_power: str, weights: str, n_shapes: int) -> dict:
+    """Phase 12 (module docstring)."""
+    paths = group_weights(weights, os.path.dirname(weights))
+    argv = ["--model", f"{MODEL}={weights}", "--model-group",
+            GROUP + "=" + ",".join(f"{t}:{paths[t]}" for t in GROUP_TASKS),
+            "--variants", ",".join(SERVE_VARIANTS), "--window", str(WINDOW),
+            "--max-batch", str(BATCH), "--max-delay-ms", "20", "--device", "cuda"]
+    real_plain = pa.pooled_attention_plain
+
+    def plain_off_path(*a, **k):
+        raise AssertionError("pooled_attention_plain reached on the served path")
+
+    pa.pooled_attention_plain = plain_off_path
+    mem0 = allocated_gib()
+    service = srv.service_from_args(srv.get_serve_args(argv))
+    server = srv.start_http_server(service, "127.0.0.1", 0)
+    url = "http://127.0.0.1:%d" % server.server_address[1]
+    stats = service.pool.program_stats
+    print(f"[programs] {name_power} | serve {' '.join(argv)}: ready in {service.ready_s:.2f} s; "
+          + "; ".join(f"{n}: {int(st['graph_programs'])} programs, capture "
+                      f"{st['graph_capture_s']:.2f} s, graph pools and variant weights "
+                      f"{st['graph_memory_mib']:.1f} MiB" for n, st in stats.items())
+          + f"; allocated {allocated_gib() - mem0:.3f} GiB more than before", flush=True)
+    for r in service.pool.warmup_report:
+        print(f"[programs]   {r['program']}: {r['seconds']:.3f} s, {r['flops']:.6g} flops, K1 "
+              f"launches per call {r['k1_launches_per_call']}", flush=True)
+    single, group = service.entries[MODEL], service.entries[GROUP]
+    print(f"[programs] parity gates: {MODEL} {single.variant_ok} (errors {single.parity_err}); "
+          f"{GROUP} {group.variant_tasks} (errors {group.parity_err})", flush=True)
+    if not all(single.variant_ok.get(v) for v in SERVE_VARIANTS[1:]):
+        fail(f"a variant of {MODEL} failed its parity gate: {single.variant_ok}")
+    if any(set(group.variant_tasks.get(v, ())) != set(GROUP_TASKS) for v in SERVE_VARIANTS):
+        fail(f"a variant of {GROUP} failed its parity gate: {group.variant_tasks}")
+    check_programs(service, n_shapes)
+
+    # The main path: /predict x24 per variant and for the group, counted.
+    data = traces(N_REQUESTS)
+    opts = {"max_events": 1}
+    calls0 = program_calls(service)
+    fallback0 = service.metrics()["fallback_runs"]
+    pa.launches = pa.bf16_launches = 0
+    runs = {}
+    for variant in SERVE_VARIANTS:
+        runs[variant] = storm(url, [{"model": MODEL, "data": data[i].tolist(),
+                                     "options": dict(opts, variant=variant)}
+                                    for i in range(N_REQUESTS)])
+    runs["group"] = storm(url, [{"model": GROUP, "data": data[i].tolist(), "options": opts}
+                                for i in range(N_REQUESTS)])
+    counts = {"K1": pa.launches, "K1_bf16": pa.bf16_launches}
+    metrics = service.metrics()
+    calls = {k: c - calls0[k] for k, c in program_calls(service).items()}
+    progs = {p.key: p for e in service.entries.values() for p in e.all_programs()}
+    want = {"K1": sum(calls[k] * progs[k].launches[0] for k in calls),
+            "K1_bf16": sum(calls[k] * progs[k].launches[1] for k in calls)}
+    print(f"[programs] main path: K1 {counts['K1']} launches (bf16 {counts['K1_bf16']}), "
+          f"replays x captured launches {want}; program calls "
+          f"{ {k: c for k, c in calls.items() if c} }; fallback runs "
+          f"{metrics['fallback_runs'] - fallback0}; /metrics kernels {metrics['kernels']}",
+          flush=True)
+    if counts != want or counts["K1_bf16"] < 1 or counts["K1"] <= counts["K1_bf16"]:
+        fail(f"served K1 launches {counts} != the replays' {want}, or a type never launched")
+    if metrics["fallback_runs"] != fallback0:
+        fail("a served request ran without a program")
+    ref = runs["fp32"][0]
+    ties = {}
+    for variant in SERVE_VARIANTS[1:]:
+        ties[variant] = 0
+        for i, ((_, a), (_, b)) in enumerate(zip(ref, runs[variant][0])):
+            x = normalize(data[i].T, "std", axis=0).astype(np.float32)[None]
+            probs = single.run(x, "fp32")[0].cpu().numpy()
+            agree, n_ties = picks_agree(a, b, probs, aot._PARITY_TOL[variant]["abs"])
+            ties[variant] += n_ties
+            if not agree:
+                fail(f"{variant} picks of trace {i} differ from fp32's: {b} vs {a}")
+    for i, ((_, a), (_, g)) in enumerate(zip(ref, runs["group"][0])):
+        if g["trunk_runs"] != 1 or sorted(g["tasks"]) != sorted(GROUP_TASKS):
+            fail(f"group response {i}: {str(g)[:300]}")
+        if not picks_close(g["tasks"]["dpk"], a, PICK_TOL_S * 50):
+            fail(f"group dpk picks of trace {i} differ from {MODEL}'s")
+    n_picks = sum(len(a[k]) for _, a in ref for k in ("ppk", "spk", "det"))
+    for name, (_, p50, p99) in runs.items():
+        print(f"[time] {name_power} | /predict x{N_REQUESTS} concurrent, "
+              f"{MODEL if name != 'group' else GROUP + ' (' + ','.join(GROUP_TASKS) + ')'} "
+              f"{name if name != 'group' else 'fp32'}: client p50 {p50:.1f} ms p99 {p99:.1f} ms",
+              flush=True)
+    print(f"[programs] bf16 and int8 picks: the same count as fp32's ({n_picks} over "
+          f"{N_REQUESTS} traces), each within {PICK_TOL_S} s of fp32's or on a near-tie "
+          f"(fp32 probabilities at the two samples within the variant's gate tolerance): "
+          f"near-ties {ties}; fan-out {metrics['fanout']}", flush=True)
+
+    # The group's heads against the single-task models on the card.
+    x = np.stack([normalize(d.T, "std", axis=0) for d in data[:BATCH]]).astype(np.float32)
+    outs = group.fanout(x, GROUP_TASKS, "fp32", account=False)
+    for task in GROUP_TASKS:
+        one = single if task == "dpk" else load_model_entry(
+            f"{GROUP}_{task}", paths[task], window=WINDOW, device="cuda")
+        err = rel_err(outs[task], one.run(x))
+        print(f"[programs] {GROUP} head {task} (replayed) vs {GROUP}_{task} "
+              f"({'replayed' if task == 'dpk' else 'eager'}): {err:.3e}", flush=True)
+        if not err <= REPLAY_TOL:
+            fail(f"group head {task} differs from {GROUP}_{task} by {err:.3e}")
+        del one
+
+    # Replayed against eager forwards, per bucket and variant.
+    rows = []
+    for variant in SERVE_VARIANTS:
+        for b in SERVE_BUCKETS:
+            xb = torch.from_numpy(np.random.default_rng(b).standard_normal(
+                (b, WINDOW, 3)).astype(np.float32)).cuda()
+            prog = single.programs[variant][b]
+            with torch.inference_mode():
+                replay = profile_calls(lambda: prog(xb))
+                eager = profile_calls(lambda: prog.fn(xb))
+            rows.append((variant, b, replay, eager))
+            print(f"[time] {name_power} | {MODEL} window {WINDOW} b{b} {variant} forward: "
+                  f"replayed wall {replay['wall_ms']:.3f} ms, device busy "
+                  f"{replay['busy_ms']:.3f} ms, idle share {replay['idle_share']:.3f}, "
+                  f"{replay['kernels']:.0f} kernels; eager wall {eager['wall_ms']:.3f} ms, "
+                  f"device busy {eager['busy_ms']:.3f} ms, idle share "
+                  f"{eager['idle_share']:.3f}, {eager['kernels']:.0f} kernels", flush=True)
+
+    # Reload: one that swaps (new weights, version 2), one refused (NaN).
+    status, body = post(url + "/admin/reload", {"model": MODEL, "checkpoint": paths["dpk"]})
+    if status != 200 or body.get("version") != 2:
+        fail(f"reload refused: {status} {body}")
+    status2, one_resp = post(url + "/predict", {"model": MODEL, "data": data[0].tolist(),
+                                                "options": opts})
+    nan_path = os.path.join(os.path.dirname(weights), f"{MODEL}_nan.pt")
+    torch.save({k: torch.full_like(v, float("nan")) for k, v in
+                torch.load(weights, weights_only=True).items()}, nan_path)
+    status3, refused = post(url + "/admin/reload", {"model": MODEL, "checkpoint": nan_path})
+    refused = json.loads(refused["error"]) if status3 != 200 else refused
+    status4, after = post(url + "/predict", {"model": MODEL, "data": data[0].tolist(),
+                                             "options": opts})
+    print(f"[programs] {name_power} | reload {MODEL} -> version {body['version']}: "
+          f"{body['reload_s']:.2f} s for {body['programs']} programs, then /predict "
+          f"model_version {one_resp.get('model_version')}; reload of NaN weights: {status3} "
+          f"{refused.get('error')} ({str(refused.get('message'))[:160]}); then /predict "
+          f"{status4} model_version {after.get('model_version')}", flush=True)
+    if (status2 != 200 or one_resp.get("model_version") != 2 or status3 != 409
+            or status4 != 200 or after.get("model_version") != 2):
+        fail("the reloads did not swap and refuse as they should")
+    server.shutdown()
+    service.shutdown()
+    pa.pooled_attention_plain = real_plain
+    counts.update(K2=0, K3=0, K2_bf16=0)
+    return {"counts": counts, "rows": rows, "runs": {k: v[1:] for k, v in runs.items()},
+            "ready_s": service.ready_s, "reload_s": body["reload_s"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this drives the "
@@ -2240,10 +2565,10 @@ def main() -> int:
               f"{' '.join(f'{x:.4f}' for x in r['ms1'])}", flush=True)
     fwd = time_forward(served["entry"])
     for b, ms in fwd.items():
-        print(f"[time] {name_power} | {MODEL} window {WINDOW} forward b{b}: {ms:.3f} ms",
-              flush=True)
+        print(f"[time] {name_power} | {MODEL} window {WINDOW} forward b{b} (its captured "
+              f"program): {ms:.3f} ms", flush=True)
     prof = profile_forward(served["entry"])
-    print(f"[profile] {name_power} | {MODEL} window {WINDOW} b{BATCH}: wall "
+    print(f"[profile] {name_power} | {MODEL} window {WINDOW} b{BATCH} (its captured program): wall "
           f"{prof['wall_ms_per_forward']:.3f} ms/forward, device busy "
           f"{prof['device_busy_ms_per_forward']:.3f} ms, idle share "
           f"{prof['device_idle_share']:.3f}, {prof['kernels_per_forward']:.0f} "
@@ -2289,6 +2614,8 @@ def main() -> int:
     augmented = device_aug_phase(name_power, logs, len(shapes), weights, dev, packed, step_ms,
                                  loader_rows)
     path_counts += augmented["counts"]
+    programs = programs_phase(name_power, weights, len(shapes))
+    path_counts.append(programs["counts"])
 
     fp32 = [r for r in rows if r["dtype"] == "fp32"]  # the serving path is fp32
     bf16_rows = [r for r in rows if r["dtype"] == "bf16"]
@@ -2309,7 +2636,9 @@ def main() -> int:
           f"{grouped['counts_accum']['K2']}; device-aug (phase 11, six runs): K1 "
           f"{sum(c['K1'] for c in augmented['counts'])}, K2 "
           f"{sum(c['K2'] for c in augmented['counts'])}, K3 "
-          f"{sum(c['K3'] for c in augmented['counts'])}; all paths: K1 {launches['K1']} (bf16 "
+          f"{sum(c['K3'] for c in augmented['counts'])}; served programs (phase 12): K1 "
+          f"{programs['counts']['K1']} (bf16 {programs['counts']['K1_bf16']}); all paths: K1 "
+          f"{launches['K1']} (bf16 "
           f"{launches['K1_bf16']}), K2 {launches['K2']} (bf16 {launches['K2_bf16']}), K3 "
           f"{launches['K3']}", flush=True)
     bounds = {}

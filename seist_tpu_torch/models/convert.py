@@ -79,6 +79,26 @@ def _convert_param(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndar
     raise KeyError(f"no rule maps param '{'/'.join(path)}' of shape {arr.shape}")
 
 
+def flax_last_axis(key: str, ndim: int) -> int:
+    """The axis of the ``state_dict`` leaf ``key`` (of ``ndim`` axes) that
+    holds the last axis of the flax leaf it converts from: the output
+    channel of a kernel, over which the JAX package's weight-only int8
+    takes its scales. The layout rules above, inverted: a Dense or Conv
+    ``weight`` has it first, PhaseNet's ``convt`` second (Cin, Cout, K), a
+    leaf kept as it is (``_RAW``) last, and an LSTM's stacked ``weight_ih`` /
+    ``weight_hh`` first (row ``g * H + j`` is gate g's output j)."""
+    module, _, leaf = key.rpartition(".")
+    if leaf in _RAW:
+        return ndim - 1
+    if leaf.startswith(("weight_ih_l0", "weight_hh_l0")) and ndim == 2:
+        return 0
+    if leaf == "weight" and ndim == 3 and module.rpartition(".")[2] == "convt":
+        return 1
+    if leaf == "weight" and ndim in (2, 3):
+        return 0
+    raise KeyError(f"no rule maps the output axis of '{key}' ({ndim} axes)")
+
+
 def _lstm_params(cells: Dict[Tuple[str, ...], Dict[str, np.ndarray]]
                  ) -> Iterator[Tuple[str, np.ndarray]]:
     """The torch leaves of the gathered LSTM cells (module docstring)."""

@@ -37,8 +37,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from seist_tpu_torch.ops import launch_counts
+
 #: Launches of the forward kernel since import (or since a caller reset
-#: it). Incremented in :func:`_forward` right where it launches.
+#: it). Incremented in :func:`_forward` right where it launches (through
+#: ``ops/launch_counts.py``, which diverts a graph capture's launches).
 launches = 0
 #: Launches of the backward kernel, incremented in :func:`_backward`.
 bwd_launches = 0
@@ -238,7 +241,6 @@ def _forward(q, k, v, scale, rate, seed, with_lse: bool):
     """K1 on CUDA tensors, the plain version on CPU tensors: o, and the
     fp32 (N, H, L) row statistics when ``with_lse`` (else None). ``seed``
     is an int or the int32 seed tensor on q's device."""
-    global launches, bf16_launches
     if q.device.type == "cpu":
         seed = _seed_int(seed)
         if with_lse:
@@ -251,9 +253,8 @@ def _forward(q, k, v, scale, rate, seed, with_lse: bool):
     n, l, h, _ = q.shape
     lse = torch.empty(n, h, l, dtype=torch.float32, device=q.device) if with_lse else None
     _kernels.pooled_attention_fwd(q, k, v, o, lse, scale, rate, seed_tensor(seed, q.device))
-    launches += 1
-    if q.dtype == torch.bfloat16:
-        bf16_launches += 1
+    launch_counts.bump(__name__, q.device, *(("launches", "bf16_launches")
+                                             if q.dtype == torch.bfloat16 else ("launches",)))
     return o, lse
 
 
@@ -262,7 +263,6 @@ def _backward(q, k, v, g, o, lse, scale, rate, seed):
     gradient arrives strided from the reshape and ``out_proj`` backward:
     it is made contiguous here, since the kernel reads the (N, L, H*E)
     layout."""
-    global bwd_launches, bf16_bwd_launches
     if q.device.type == "cpu":
         return pooled_attention_bwd_plain(q, k, v, g, o, lse, scale, rate, _seed_int(seed))
     g = g.to(q.dtype).contiguous()
@@ -281,9 +281,8 @@ def _backward(q, k, v, g, o, lse, scale, rate, seed):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _kernels.pooled_attention_bwd(q, k, v, g, o, lse, dq, dk, dv, scale, rate,
                                   seed_tensor(seed, q.device))
-    bwd_launches += 1
-    if q.dtype == torch.bfloat16:
-        bf16_bwd_launches += 1
+    launch_counts.bump(__name__, q.device, *(("bwd_launches", "bf16_bwd_launches")
+                                             if q.dtype == torch.bfloat16 else ("bwd_launches",)))
     return dq, dk, dv
 
 

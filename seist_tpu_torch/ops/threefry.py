@@ -41,6 +41,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from seist_tpu_torch.ops import launch_counts
+
 #: Launches of K3 since import (or since a caller reset it), incremented in
 #: :func:`aug_draws` right where it launches.
 launches = 0
@@ -179,7 +181,6 @@ def aug_draws(
     """:func:`aug_draws_plain`'s function: its plain version on CPU tensors,
     K3 on CUDA tensors (one launch for the whole batch). ``out`` receives
     the draws when given."""
-    global launches
     if idx.device.type == "cpu":
         got = aug_draws_plain(seed, epoch, idx, slots, field_tags, field_len)
         if out is None:
@@ -208,5 +209,5 @@ def aug_draws(
     from seist_tpu_torch.ops import _kernels
 
     _kernels.aug_draws(seed, epoch, idx, slots, field_tags, field_len, *out)
-    launches += 1
+    launch_counts.bump(__name__, idx.device, "launches")
     return out

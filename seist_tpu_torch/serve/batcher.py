@@ -1,6 +1,6 @@
 """Micro-batcher: coalesce concurrent single-trace requests into bucketed
 fixed-shape forwards (the port's copy of ``seist_tpu/serve/batcher.py``,
-without the tracing, shedding and multi-task hooks).
+without the tracing and shedding hooks).
 
 Requests queue, and one worker thread flushes when ``max_batch`` requests
 wait, when the oldest has waited ``max_delay_ms``, or when draining. A
@@ -12,7 +12,13 @@ before the forward (``DeadlineExceeded``).
 
 The forward runs on the worker thread under ``torch.inference_mode()``;
 its output stays where the model put it, and each caller gets its own
-row (a view with a leading dimension of 1).
+row (a view with a leading dimension of 1) of a tensor, of each tensor of
+a tuple, or of each task's outputs of a task group's ``{task: outputs}``.
+
+Task groups batch by input shape, not by task: a flush runs the union of
+its items' ``tasks`` (the shared trunk once, then each head in the union),
+calling ``forward(batch, tasks)``; each caller decodes the tasks it asked
+for.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,13 +58,26 @@ class BatcherConfig:
     max_batch: int = 8
     max_delay_ms: float = 10.0
     max_queue: int = 64
+    buckets: Optional[Sequence[int]] = None  # None = default_buckets
+
+    def resolved_buckets(self) -> Tuple[int, ...]:
+        if self.buckets is None:
+            return default_buckets(self.max_batch)
+        buckets = tuple(sorted(set(int(b) for b in self.buckets)))
+        if not buckets or buckets[0] < 1:
+            raise ValueError(f"bad buckets {self.buckets}")
+        if buckets[-1] != self.max_batch:
+            raise ValueError(f"largest bucket {buckets[-1]} != max_batch {self.max_batch}")
+        return buckets
 
 
 class _Pending:
-    __slots__ = ("x", "enqueued_at", "deadline", "event", "result", "error", "abandoned")
+    __slots__ = ("x", "tasks", "enqueued_at", "deadline", "event", "result", "error",
+                 "abandoned")
 
-    def __init__(self, x: np.ndarray, deadline: float):
+    def __init__(self, x: np.ndarray, deadline: float, tasks: Optional[frozenset] = None):
         self.x = x
+        self.tasks = tasks  # a task group's heads this caller wants
         self.enqueued_at = time.monotonic()
         self.deadline = deadline
         self.event = threading.Event()
@@ -70,7 +89,9 @@ class _Pending:
 class MicroBatcher:
     """See module docstring. ``forward`` maps a ``(B, ...)`` stacked numpy
     batch (B always one of the buckets) to a tensor with leading dimension
-    B; :meth:`submit` returns the caller's row."""
+    B, a tuple of them, or (``forward(batch, tasks)`` when the items name
+    tasks) a ``{task: outputs}`` dict; :meth:`submit` returns the caller's
+    row of it."""
 
     def __init__(
         self,
@@ -80,7 +101,7 @@ class MicroBatcher:
     ):
         self._forward = forward
         self.config = config or BatcherConfig()
-        self.buckets = default_buckets(self.config.max_batch)
+        self.buckets = self.config.resolved_buckets()
         self.name = name
         self._queue: List[_Pending] = []
         self._cond = threading.Condition()
@@ -101,11 +122,13 @@ class MicroBatcher:
         )
         self._thread.start()
 
-    def submit(self, x: np.ndarray, timeout_ms: float = 5000.0) -> Any:
+    def submit(self, x: np.ndarray, timeout_ms: float = 5000.0,
+               tasks: Optional[frozenset] = None) -> Any:
         """Block until the trace's batch is served; returns the caller's
-        output row. Raises QueueFull / DeadlineExceeded / ShuttingDown."""
+        output row. ``tasks`` (task groups only) names the heads this caller
+        wants. Raises QueueFull / DeadlineExceeded / ShuttingDown."""
         t0 = time.monotonic()
-        item = _Pending(np.asarray(x), deadline=t0 + timeout_ms / 1000.0)
+        item = _Pending(np.asarray(x), deadline=t0 + timeout_ms / 1000.0, tasks=tasks)
         with self._cond:
             if self._fatal is not None:
                 raise ServeError(f"batcher {self.name} worker died: {self._fatal!r}")
@@ -191,8 +214,11 @@ class MicroBatcher:
         batch = np.stack([item.x for item in live], axis=0)
         if bucket > n:  # pad by repeating the last trace: same warm shape
             batch = np.concatenate([batch, np.repeat(batch[-1:], bucket - n, axis=0)])
+        # A group's flush runs the union of its items' heads: the trunk once.
+        task_sets = [item.tasks for item in live if item.tasks is not None]
+        union = frozenset().union(*task_sets) if task_sets else None
         try:
-            out = self._forward(batch)
+            out = self._forward(batch) if union is None else self._forward(batch, union)
         except Exception as e:  # noqa: BLE001 — a failed forward fails its batch only
             err = e if isinstance(e, ServeError) else ServeError(f"forward failed: {e!r}")
             with self._cond:
@@ -207,7 +233,7 @@ class MicroBatcher:
             self._batch_items += n
             self._batch_slots += bucket
             for i, item in enumerate(live):
-                item.result = out[i : i + 1]
+                item.result = slice_outputs(out, i)
                 if not item.abandoned:
                     self._completed += 1
                 item.event.set()
@@ -247,3 +273,13 @@ class MicroBatcher:
                 "buckets": list(self.buckets),
                 "latency_ms": self.latency_ms.summary(),
             }
+
+
+def slice_outputs(out: Any, i: int) -> Any:
+    """Row ``i`` (leading dimension 1) of a tensor, of each tensor of a
+    tuple or list, or of each value of a task group's ``{task: outputs}``."""
+    if isinstance(out, dict):
+        return {k: slice_outputs(v, i) for k, v in out.items()}
+    if isinstance(out, (tuple, list)):
+        return type(out)(o[i : i + 1] for o in out)
+    return out[i : i + 1]

@@ -5,13 +5,17 @@ codes. A predict request body is::
 
     {"model": "seist_l_dpk",              # optional when one model is loaded
      "data": [[...], ...],                # (C, L) or (L, C) floats
+     "tasks": ["dpk", "emg"],             # task groups only; default all
      "options": {"ppk_threshold": 0.3, "spk_threshold": 0.3,
                  "det_threshold": 0.5, "min_peak_dist": 1.0,
                  "sampling_rate": 50, "norm_mode": "std",
-                 "max_events": 8, "timeout_ms": 5000}}
+                 "max_events": 8, "timeout_ms": 5000,
+                 "variant": "fp32"}}
 
 Windows shorter than the model's window are right-padded with zeros AFTER
-normalization; longer ones are rejected.
+normalization; longer ones are rejected. A reload request (``POST
+/admin/reload``) is ``{"model": ..., "checkpoint": PATH | "checkpoints":
+{task: PATH}, "version": N}``.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from __future__ import annotations
 import json
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -63,6 +67,39 @@ class ShuttingDown(ServeError):
     code = "shutting_down"
 
 
+class IncompatibleCheckpoint(ServeError):
+    """The checkpoint's state dict does not fit the model (a missing or
+    unexpected key, a shape or dtype mismatch). Raised by the loader before
+    anything serves or swaps, naming the first mismatching key."""
+
+    status = 400
+    code = "incompatible_checkpoint"
+
+
+class ReloadFailed(ServeError):
+    """A hot reload (``POST /admin/reload``) was refused or died before the
+    swap: the incumbent entry keeps serving, unchanged."""
+
+    status = 409
+    code = "reload_failed"
+
+
+class ParityGateFailed(ReloadFailed):
+    """A reload candidate failed a load-time gate (a variant's parity
+    against fp32, or the finite fp32 probe)."""
+
+    code = "parity_gate_failed"
+
+
+#: Serving weight variants (``serve/aot.py`` builds and parity-gates them):
+#: fp32 = the weights as loaded; bf16 = weights, statistics and activations
+#: cast; int8 = weight-only quantization. Chosen per request by
+#: ``options.variant``; a variant that is not loaded, or that failed its
+#: parity gate, is a 400.
+VARIANTS = ("fp32", "bf16", "int8")
+DEFAULT_VARIANT = "fp32"
+
+
 @dataclass
 class PredictOptions:
     """Per-request knobs."""
@@ -75,6 +112,7 @@ class PredictOptions:
     norm_mode: str = "std"
     max_events: int = 8
     timeout_ms: float = 5000.0
+    variant: str = DEFAULT_VARIANT  # weight variant (serve/aot.py)
 
     @classmethod
     def from_dict(cls, d: Optional[Dict[str, Any]]) -> "PredictOptions":
@@ -85,7 +123,7 @@ class PredictOptions:
         if unknown:
             raise BadRequest(f"unknown options: {sorted(unknown)}")
         for key, value in d.items():
-            if key == "norm_mode":
+            if key in ("norm_mode", "variant"):
                 if not isinstance(value, str):
                     raise BadRequest(f"option '{key}' must be a string")
                 continue
@@ -108,7 +146,29 @@ class PredictOptions:
             raise BadRequest(f"min_peak_dist must be >= 0, got {opts.min_peak_dist}")
         if opts.max_events < 1:
             raise BadRequest(f"max_events must be >= 1, got {opts.max_events}")
+        if opts.variant not in VARIANTS:
+            raise BadRequest(f"variant must be one of {list(VARIANTS)}, got '{opts.variant}'")
         return opts
+
+
+def parse_tasks(obj: Any) -> Optional[Tuple[str, ...]]:
+    """A request's ``tasks``: a non-empty list of unique task names, or None
+    (a single-task request, or all of a group's tasks). Which tasks exist is
+    the entry's call (``resolve_tasks``)."""
+    if obj is None:
+        return None
+    if not isinstance(obj, (list, tuple)) or not obj:
+        raise BadRequest(
+            f"'tasks' must be a non-empty list of task names, got {type(obj).__name__}"
+        )
+    out: List[str] = []
+    for t in obj:
+        if not isinstance(t, str):
+            raise BadRequest(f"'tasks' entries must be strings, got {type(t).__name__}")
+        if t in out:
+            raise BadRequest(f"duplicate task '{t}' in 'tasks'")
+        out.append(t)
+    return tuple(out)
 
 
 def parse_body(raw: bytes) -> Dict[str, Any]:

@@ -1,21 +1,34 @@
 """Online inference service of the port: ``POST /predict``,
-``GET /healthz``, ``GET /metrics``.
+``POST /admin/reload``, ``GET /healthz``, ``GET /metrics``.
 
-Counterpart of ``seist_tpu/serve/server.py``'s single-model path. Each
-``/predict`` parses one trace, normalizes it, pads it to the model's
-window and waits on the model's micro-batcher; the batcher's worker runs
-the forward on the device, and the handler thread decodes its own row
-(peak picking / event detection) into JSON. ``/metrics`` reports the
-request count, forwards, batch fill, latency percentiles and the launches
-of the attention kernel. SIGTERM drains: queued requests are served,
-new ones get 503, and the process exits 0.
+Counterpart of ``seist_tpu/serve/server.py``. Each ``/predict`` parses one
+trace, normalizes it, pads it to the model's window and waits on the
+micro-batcher of its (model, variant); the batcher's worker replays the
+bucket's captured program (``serve/aot.py``), and the handler thread
+decodes its own row (peak picking / event detection, or each requested
+head of a task group) into JSON. Every response carries the
+``model_version`` that answered it. ``POST /admin/reload`` hot-swaps one
+entry for a new checkpoint behind the gate ladder of
+``serve/pool.py::ModelPool.reload``, one reload at a time; the incumbent
+serves throughout. ``/metrics`` reports requests, forwards, batch fill,
+latency percentiles, the attention kernel's launches, the programs'
+capture seconds and memory, ``graph_captures`` and ``fallback_runs``, and
+each group's fan-out (trunk runs, head runs, trunk FLOPs saved; served
+traffic only). SIGTERM drains: queued requests are served, new ones get
+503, and the process exits 0.
 
-    python -m seist_tpu_torch serve --model seist_l_dpk[=WEIGHTS.pt] --window 8192
+    python -m seist_tpu_torch serve --model seist_l_dpk[=WEIGHTS.pt] --window 8192 \\
+        [--model-group seist_l=dpk,emg:W.pt,dis] [--variants fp32,bf16,int8]
+
+``SEIST_FAULT_SERVE_BAD_CANDIDATE=<version>`` makes that model version
+bad: a reload to it fails its gate, and an entry serving it answers every
+``/predict`` with a 500.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -25,14 +38,8 @@ import numpy as np
 
 from seist_tpu_torch.data.preprocess import NORM_MODES, normalize
 from seist_tpu_torch.ops import pooled_attention
-from seist_tpu_torch.serve.batcher import BatcherConfig, MicroBatcher, default_buckets
-from seist_tpu_torch.serve.pool import (
-    ModelEntry,
-    clip_picks,
-    decode_outputs,
-    get_entry,
-    load_model_entry,
-)
+from seist_tpu_torch.serve.batcher import BatcherConfig, MicroBatcher
+from seist_tpu_torch.serve.pool import ModelPool, clip_picks, decode_outputs
 from seist_tpu_torch.serve.protocol import (
     BadRequest,
     PredictOptions,
@@ -40,6 +47,7 @@ from seist_tpu_torch.serve.protocol import (
     ShuttingDown,
     json_bytes,
     parse_body,
+    parse_tasks,
     parse_waveform,
 )
 from seist_tpu_torch.utils.logger import logger
@@ -47,43 +55,116 @@ from seist_tpu_torch.utils.logger import logger
 MAX_BODY_BYTES = 64 * 1024 * 1024
 
 
+def bad_candidate_version() -> int:
+    """``SEIST_FAULT_SERVE_BAD_CANDIDATE``: the model version that is
+    deliberately bad (-1: none)."""
+    raw = os.environ.get("SEIST_FAULT_SERVE_BAD_CANDIDATE", "")
+    try:
+        return int(raw) if raw.strip() else -1
+    except ValueError:
+        raise ValueError(f"SEIST_FAULT_SERVE_BAD_CANDIDATE must be an integer, got {raw!r}") from None
+
+
+class _BadCandidate(ServeError):
+    """The entry serves the injected bad version: every /predict errors."""
+
+    status = 500
+    code = "bad_candidate"
+
+
 class ServeService:
     """Transport-free serving core: every public method raises ServeError
-    subclasses on failure and returns JSON-able dicts on success. The
-    entries are warmed up (every bucket once) before the service exists."""
+    subclasses on failure and returns JSON-able dicts on success. The pool
+    is warmed up (every program captured, every variant gated) before the
+    service exists; then one batcher per (entry, variant) starts, keyed by
+    the model name for fp32 and ``<model>@<variant>`` otherwise. A batcher
+    resolves its entry from the pool at every flush, so a reload takes
+    effect at the next flush."""
 
-    def __init__(self, entries: Sequence[ModelEntry], config: BatcherConfig):
-        self.entries: Dict[str, ModelEntry] = {e.name: e for e in entries}
+    def __init__(self, pool: ModelPool, config: BatcherConfig):
+        self.pool = pool
         self.config = config
-        self.buckets = default_buckets(config.max_batch)
-        self.warmup = [r for e in entries for r in e.warmup(self.buckets)]
-        self._batchers = {
-            name: MicroBatcher(e.run, config, name=name) for name, e in self.entries.items()
-        }
+        self.buckets = config.resolved_buckets()
+        t0 = time.perf_counter()
+        pool.warmup(self.buckets)
+        #: Wall seconds from the warm-up's start to ready: every capture and gate.
+        self.ready_s = time.perf_counter() - t0
+        self._bad_version = bad_candidate_version()
+        self._batchers: Dict[str, MicroBatcher] = {}
+        for name, entry in pool.entries().items():
+            for variant in entry.variants:
+                key = self._batcher_key(name, variant)
+                self._batchers[key] = MicroBatcher(self._make_forward(name, variant), config,
+                                                   name=key)
+        self._reload_lock = threading.Lock()
         self._lock = threading.Lock()
         self._requests = 0
         self._errors = 0
+        self._reloads: Dict[str, int] = {}
         self._draining = False
         self._started = time.monotonic()
 
-    def predict(
-        self, data: Any, model: Optional[str] = None, options: Optional[Dict[str, Any]] = None
-    ) -> Dict[str, Any]:
-        """One fixed-window trace through the micro-batcher."""
+    @property
+    def entries(self) -> Dict[str, Any]:
+        """The served entries by name."""
+        return self.pool.entries()
+
+    @staticmethod
+    def _batcher_key(name: str, variant: str) -> str:
+        return name if variant == "fp32" else f"{name}@{variant}"
+
+    def _make_forward(self, name: str, variant: str):
+        """The flush-time forward of one (entry, variant) batcher."""
+
+        def forward(batch, tasks=None):
+            entry = self.pool.get(name)
+            if entry.is_group:
+                return entry.fanout(batch, sorted(tasks or entry.tasks), variant)
+            return entry.run(batch, variant)
+
+        return forward
+
+    def _check_variant(self, entry: Any, variant: str, tasks: Any) -> None:
+        if variant == "fp32":
+            return
+        if variant not in entry.variants:
+            raise BadRequest(
+                f"variant '{variant}' is not loaded for model '{entry.name}' (serve "
+                f"--variants); loaded: {list(entry.variants)}")
+        supported = entry.supported_variants(tasks)
+        if variant not in supported:
+            raise BadRequest(
+                f"variant '{variant}' is not served for this request (model '{entry.name}'"
+                + (f", tasks {list(tasks)}" if tasks else "")
+                + f"); available: {supported}: variants are parity-gated against fp32 at load")
+
+    def predict(self, data: Any, model: Optional[str] = None,
+                options: Optional[Dict[str, Any]] = None,
+                tasks: Optional[Any] = None) -> Dict[str, Any]:
+        """One fixed-window trace through the micro-batcher. ``tasks``
+        (task groups only): the heads to answer with, from one trunk run;
+        by default every head of the group."""
         with self._lock:
             self._requests += 1
         try:
-            return self._predict(data, model, options)
+            return self._predict(data, model, options, tasks)
         except ServeError:
             with self._lock:
                 self._errors += 1
             raise
 
-    def _predict(self, data: Any, model: Optional[str], options: Optional[Dict[str, Any]]):
+    def _predict(self, data: Any, model: Optional[str], options: Optional[Dict[str, Any]],
+                 tasks: Optional[Any]) -> Dict[str, Any]:
         if self._draining:
             raise ShuttingDown("service is draining")
-        entry = get_entry(self.entries, model)
+        entry = self.pool.get(model)
+        version = entry.version
         opts = PredictOptions.from_dict(options)
+        req_tasks = entry.resolve_tasks(parse_tasks(tasks))
+        self._check_variant(entry, opts.variant, req_tasks)
+        if version == self._bad_version:
+            raise _BadCandidate(f"model '{entry.name}' version {version} is the injected bad "
+                                "candidate (SEIST_FAULT_SERVE_BAD_CANDIDATE)")
         if opts.norm_mode not in NORM_MODES:
             raise BadRequest(f"norm_mode must be one of {NORM_MODES}, got '{opts.norm_mode}'")
         x = parse_waveform(data, entry.in_channels)
@@ -95,23 +176,96 @@ class ServeService:
             x = np.concatenate(
                 [x, np.zeros((entry.window - n_real, x.shape[1]), np.float32)]
             )
-        raw = self._batchers[entry.name].submit(x, timeout_ms=opts.timeout_ms)
+        raw = self._batchers[self._batcher_key(entry.name, opts.variant)].submit(
+            x, timeout_ms=opts.timeout_ms,
+            tasks=frozenset(req_tasks) if req_tasks is not None else None)
+        fs = float(opts.sampling_rate)
+        if req_tasks is not None:  # a task group: one result per head asked for
+            per_task = {}
+            for task in req_tasks:
+                r = decode_outputs(entry.heads[task], raw[task], opts)
+                if n_real < entry.window:
+                    clip_picks(r, n_real, fs)
+                per_task[task] = r
+            return {"model": entry.name, "model_version": version, "tasks": per_task,
+                    "trunk_runs": 1, "variant": opts.variant}
         result = decode_outputs(entry, raw, opts)
         if n_real < entry.window:
             # The signal->zeros step at the padding boundary can fabricate
             # picks inside samples the client never sent.
-            clip_picks(result, n_real, float(opts.sampling_rate))
+            clip_picks(result, n_real, fs)
         result["model"] = entry.name
+        result["model_version"] = version
         return result
 
+    # ------------------------------------------------------------- reload
+    def reload(self, model: Optional[str] = None, checkpoint: Optional[str] = None,
+               checkpoints: Optional[Dict[str, str]] = None,
+               version: Optional[Any] = None) -> Dict[str, Any]:
+        """Hot-swap one entry for a new checkpoint (``POST
+        /admin/reload``): the candidate is built and gated beside the
+        incumbent (``ModelPool.reload``), which serves throughout; a
+        failure leaves it serving and raises the structured error."""
+        if self._draining:
+            raise ShuttingDown("service is draining; not accepting reloads")
+        entry = self.pool.get(model)
+        if checkpoint is not None and not isinstance(checkpoint, str):
+            raise BadRequest("'checkpoint' must be a string path")
+        if checkpoints is not None and not (
+                isinstance(checkpoints, dict)
+                and all(isinstance(k, str) and isinstance(v, str)
+                        for k, v in checkpoints.items())):
+            raise BadRequest("'checkpoints' must be {task: path} strings")
+        if version is not None:
+            if isinstance(version, bool) or not isinstance(version, (int, str)):
+                raise BadRequest(f"'version' must be an integer, got {version!r}")
+            try:
+                version = int(version)
+            except ValueError:
+                raise BadRequest(f"'version' must be an integer, got {version!r}") from None
+        with self._reload_lock:  # one reload at a time
+            previous = entry.version
+            target = version if version is not None else previous + 1
+            t0 = time.perf_counter()
+            try:
+                new_entry, report = self.pool.reload(
+                    entry.name, buckets=self.buckets, checkpoint=checkpoint,
+                    checkpoints=checkpoints, version=target,
+                    force_gate_failure=target == self._bad_version)
+            except ServeError as e:
+                self._count_reload(e.code)
+                logger.warning(f"[serve] reload '{entry.name}' to version {target} refused: "
+                               f"{e}")
+                raise
+            reload_s = time.perf_counter() - t0
+            self._count_reload("ok")
+            return {"model": entry.name, "version": target, "previous_version": previous,
+                    "variants": new_entry.supported_variants(), "programs": len(report),
+                    "reload_s": round(reload_s, 3)}
+
+    def _count_reload(self, outcome: str) -> None:
+        with self._lock:
+            self._reloads[outcome] = self._reloads.get(outcome, 0) + 1
+
+    # ------------------------------------------------------ health/metrics
     def healthz(self) -> Dict[str, Any]:
+        entries = {}
+        for name, e in self.entries.items():
+            info: Dict[str, Any] = {"version": e.version, "variants": e.supported_variants()}
+            if e.is_group:
+                info["tasks"] = list(e.tasks)
+            entries[name] = info
         return {
             "status": "draining" if self._draining else "ok",
-            "models": sorted(self.entries),
+            "models": self.pool.names(),
+            "entries": entries,
             "devices": {n: str(e.device) for n, e in self.entries.items()},
             "window": {n: e.window for n, e in self.entries.items()},
             "buckets": list(self.buckets),
             "healthy": self.alive(),
+            "ready_s": round(self.ready_s, 3),
+            "programs": self.pool.program_stats,
+            "warmup": self.pool.warmup_report,
         }
 
     def alive(self) -> bool:
@@ -119,14 +273,26 @@ class ServeService:
 
     def metrics(self) -> Dict[str, Any]:
         with self._lock:
-            requests, errors = self._requests, self._errors
+            requests, errors, reloads = self._requests, self._errors, dict(self._reloads)
+        entries = self.entries
         return {
             "uptime_s": round(time.monotonic() - self._started, 3),
             "requests": requests,
             "errors": errors,
+            "reloads": reloads,
             "models": {n: b.stats() for n, b in self._batchers.items()},
-            "kernels": {"pooled_attention_fwd": {"launches": pooled_attention.launches}},
-            "warmup": self.warmup,
+            "kernels": {
+                "pooled_attention_fwd": {"launches": pooled_attention.launches},
+                "pooled_attention_fwd_bf16": {"launches": pooled_attention.bf16_launches},
+            },
+            # Capture seconds stand where the JAX package reports compile ms.
+            "programs": self.pool.program_stats,
+            "graph_captures": sum(p.graph is not None for e in entries.values()
+                                  for p in e.all_programs()),
+            "fallback_runs": sum(e.fallback_runs for e in entries.values()),
+            # Task groups: trunk runs, head runs, trunk FLOPs saved, gates.
+            "fanout": {n: e.fanout_stats() for n, e in entries.items() if e.is_group},
+            "warmup": self.pool.warmup_report,
         }
 
     def begin_drain(self) -> None:
@@ -178,13 +344,20 @@ class _Handler(BaseHTTPRequestHandler):
                                   "message": f"body {length} > {MAX_BODY_BYTES} bytes"})
                 return
             raw = self.rfile.read(length)
-            if self.path != "/predict":
+            if self.path == "/predict":
+                body = parse_body(raw)
+                result = self.service.predict(body.get("data"), model=body.get("model"),
+                                              options=body.get("options"),
+                                              tasks=body.get("tasks"))
+            elif self.path == "/admin/reload":
+                body = parse_body(raw)
+                result = self.service.reload(model=body.get("model"),
+                                             checkpoint=body.get("checkpoint"),
+                                             checkpoints=body.get("checkpoints"),
+                                             version=body.get("version"))
+            else:
                 self._reply(404, {"error": "not_found", "message": self.path})
                 return
-            body = parse_body(raw)
-            result = self.service.predict(
-                body.get("data"), model=body.get("model"), options=body.get("options")
-            )
             self._reply(200, result)
         except ServeError as e:
             self._reply(e.status, e.payload())
@@ -216,19 +389,51 @@ def start_http_server(
 
 
 def build_service(
-    models: Sequence[Tuple[str, str]],
+    models: Sequence[Tuple[str, str]] = (),
     *,
+    groups: Sequence[Tuple[str, Sequence[Tuple[str, str]]]] = (),
     window: int = 8192,
     device: str = "cuda",
     max_batch: int = 8,
     max_delay_ms: float = 10.0,
+    max_queue: int = 64,
+    buckets: Optional[Sequence[int]] = None,
+    variants: Sequence[str] = ("fp32",),
+    version: int = 1,
 ) -> ServeService:
-    """Load ``(name, weights)`` entries on ``device`` and warm them up."""
-    entries = [
-        load_model_entry(name, weights, window=window, device=device)
-        for name, weights in models
-    ]
-    return ServeService(entries, BatcherConfig(max_batch=max_batch, max_delay_ms=max_delay_ms))
+    """Load ``(name, weights)`` entries and ``(prefix, [(task, weights)])``
+    groups on ``device``, capture their programs and gate their variants."""
+    pool = ModelPool(models, groups=groups, window=window, variants=variants, version=version,
+                     device=device)
+    return ServeService(pool, BatcherConfig(max_batch=max_batch, max_delay_ms=max_delay_ms,
+                                            max_queue=max_queue, buckets=buckets))
+
+
+def parse_model_flags(args: argparse.Namespace) -> List[Tuple[str, str]]:
+    """``--model NAME[=WEIGHTS]`` (repeatable) and ``--model-name`` /
+    ``--checkpoint`` -> [(name, weights)]."""
+    entries = [tuple(spec.partition("=")[::2]) for spec in args.model]
+    if args.model_name:
+        entries.append((args.model_name, args.checkpoint))
+    return entries
+
+
+def parse_group_flags(args: argparse.Namespace) -> List[Tuple[str, List[Tuple[str, str]]]]:
+    """``--model-group PREFIX=TASK[:WEIGHTS],...`` -> [(prefix, [(task, weights)])]."""
+    groups = []
+    for spec in args.model_group or []:
+        prefix, sep, rest = spec.partition("=")
+        if not sep or not prefix or not rest:
+            raise SystemExit(f"serve: bad --model-group '{spec}' "
+                             "(want PREFIX=TASK[:WEIGHTS],TASK[:WEIGHTS],...)")
+        tasks = []
+        for part in rest.split(","):
+            task, _, weights = part.partition(":")
+            if not task:
+                raise SystemExit(f"serve: empty task in --model-group '{spec}'")
+            tasks.append((task, weights))
+        groups.append((prefix, tasks))
+    return groups
 
 
 def get_serve_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -241,34 +446,72 @@ def get_serve_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         "weights (smoke/testing); WEIGHTS is a .pt state_dict "
         "(models/convert.py::save_torch_weights)",
     )
+    ap.add_argument(
+        "--model-group", action="append", default=[],
+        metavar="PREFIX=TASK[:WEIGHTS],TASK[:WEIGHTS],...",
+        help="a SeisT task group: the PREFIX_TASK models on ONE shared trunk (the first "
+        "task's), e.g. seist_l=dpk,emg:W.pt,dis; a /predict runs the trunk once and "
+        "answers each requested task",
+    )
+    ap.add_argument(
+        "--variants", default="fp32",
+        help="comma-separated weight variants to capture programs for: fp32,bf16,int8 "
+        "(chosen per request by options.variant; bf16 and int8 are parity-gated "
+        "against fp32 at load)",
+    )
+    ap.add_argument("--model-name", default="", help="single-model shorthand")
+    ap.add_argument("--checkpoint", default="", help="weights of --model-name")
+    ap.add_argument(
+        "--model-version", type=int,
+        default=int(os.environ.get("SEIST_MODEL_VERSION", "") or 1),
+        help="monotonic version of the loaded weights (default $SEIST_MODEL_VERSION or 1), "
+        "in every response and /healthz; /admin/reload installs a higher one",
+    )
     ap.add_argument("--window", type=int, default=8192)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--max-delay-ms", type=float, default=10.0)
+    ap.add_argument("--max-queue", type=int, default=64)
+    ap.add_argument(
+        "--buckets", default="",
+        help="comma-separated batch buckets (default: powers of 2 up to --max-batch); the "
+        "largest must equal --max-batch",
+    )
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if not args.model:
-        ap.error("need --model NAME[=WEIGHTS]")
+    if not args.model and not args.model_name and not args.model_group:
+        ap.error("need --model NAME[=WEIGHTS], --model-name or --model-group")
     return args
+
+
+def service_from_args(args: argparse.Namespace) -> ServeService:
+    """The service ``serve`` runs for parsed :func:`get_serve_args`."""
+    return build_service(
+        parse_model_flags(args),
+        groups=parse_group_flags(args),
+        window=args.window,
+        device=args.device,
+        max_batch=args.max_batch,
+        max_delay_ms=args.max_delay_ms,
+        max_queue=args.max_queue,
+        buckets=[int(b) for b in args.buckets.split(",")] if args.buckets else None,
+        variants=[v.strip() for v in args.variants.split(",") if v.strip()],
+        version=args.model_version,
+    )
 
 
 def main(argv: Optional[List[str]] = None) -> None:
     import signal
 
     args = get_serve_args(argv)
-    service = build_service(
-        [tuple(spec.partition("=")[::2]) for spec in args.model],
-        window=args.window,
-        device=args.device,
-        max_batch=args.max_batch,
-        max_delay_ms=args.max_delay_ms,
-    )
+    service = service_from_args(args)
     server = start_http_server(service, args.host, args.port)
     host, port = server.server_address[:2]
     logger.info(
-        f"[serve] listening on http://{host}:{port} models={sorted(service.entries)} "
-        f"buckets={list(service.buckets)} device={args.device}"
+        f"[serve] listening on http://{host}:{port} models={service.pool.names()} "
+        f"buckets={list(service.buckets)} device={args.device} ready in "
+        f"{service.ready_s:.2f} s"
     )
     stop = threading.Event()
 

@@ -56,6 +56,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from seist_tpu_torch.models.common import RandomSource
+from seist_tpu_torch.ops import launch_counts
 from seist_tpu_torch.ops import pooled_attention as pa
 from seist_tpu_torch.ops import threefry
 from seist_tpu_torch.train import step as step_lib
@@ -80,15 +81,17 @@ def _unflat(tree, leaves: List[torch.Tensor]):
     return leaves.pop(0)
 
 
+#: The launch counters of the port's kernels, in :func:`kernel_counts`'
+#: order: the attention's four (``ops/pooled_attention.py``) and K3's
+#: (``ops/threefry.py``).
+COUNTERS = tuple((pa.__name__, n) for n in ("launches", "bwd_launches", "bf16_launches",
+                                            "bf16_bwd_launches")) + ((threefry.__name__,
+                                                                      "launches"),)
+
+
 def kernel_counts() -> Tuple[int, ...]:
-    """The launch counts of the port's kernels: the attention's four
-    (``ops/pooled_attention.py``) and K3's (``ops/threefry.py``)."""
+    """The launch counts of the port's kernels (:data:`COUNTERS`)."""
     return pa.counts() + (threefry.launches,)
-
-
-def set_kernel_counts(values: Tuple[int, ...]) -> None:
-    pa.set_counts(tuple(values[:4]))
-    threefry.launches = values[4]
 
 
 def _geometry(tensors: Sequence[torch.Tensor]) -> Tuple:
@@ -115,22 +118,28 @@ class Captured:
     ``fn(*inputs, rng)`` (``fn(*inputs)`` when not ``random``: the
     function draws no randomness) returns the graph's outputs (tensors,
     or None). ``mutable`` lists every tensor ``fn`` writes, restored after
-    the warm-up runs."""
+    the warm-up runs. ``pool`` is the memory pool the graph allocates from
+    (``torch.cuda.graph_pool_handle()``; graphs that share one must never
+    replay at the same time). With ``shared_inputs`` the graph reads
+    ``inputs`` where they lie (another graph's outputs) instead of copies."""
 
     def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor], device: torch.device,
-                 mutable: Sequence[torch.Tensor] = (), random: bool = False):
+                 mutable: Sequence[torch.Tensor] = (), random: bool = False,
+                 pool: Optional[Tuple[int, int]] = None, shared_inputs: bool = False):
         self.device = device
         self.random = random
         self.generator = torch.cuda.default_generators[device.index or 0]
-        self.static = [torch.empty_like(x, device=device) for x in inputs]
-        for s, x in zip(self.static, inputs):
-            s.copy_(x)
-        before = kernel_counts()
+        if shared_inputs:
+            self.static = list(inputs)
+        else:
+            self.static = [torch.empty_like(x, device=device) for x in inputs]
+            for s, x in zip(self.static, inputs):
+                s.copy_(x)
         snapshot = [t.clone() for t in mutable]
         side = _warmup_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         self.seeds: Optional[torch.Tensor] = None
-        with torch.cuda.stream(side):
+        with launch_counts.diverted(side), torch.cuda.stream(side):  # warm-up: counted nowhere
             counting = self._source(seed_generator=torch.Generator().manual_seed(0))
             fn(*self._args(counting))
             if self.random:
@@ -142,14 +151,13 @@ class Captured:
             for t, saved in zip(mutable, snapshot):
                 t.copy_(saved)
         del snapshot
-        warm = kernel_counts()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+        with launch_counts.diverted(side) as tally, torch.cuda.graph(
+                self.graph, pool=pool, stream=side, capture_error_mode="thread_local"):
             out = fn(*self._args(self._source()))
         self.outputs = out
-        #: The kernels one replay launches (:func:`kernel_counts`).
-        self.launches = tuple(b - a for a, b in zip(warm, kernel_counts()))
-        set_kernel_counts(before)
+        #: The kernels one replay launches (:data:`COUNTERS`' order).
+        self.launches = tuple(tally.get(c, 0) for c in COUNTERS)
 
     def _source(self, seed_generator: Optional[torch.Generator] = None) -> Optional[RandomSource]:
         if not self.random:
@@ -163,7 +171,8 @@ class Captured:
 
     def replay(self, inputs: Sequence[torch.Tensor], rng: Optional[RandomSource] = None):
         for s, x in zip(self.static, inputs):
-            s.copy_(x, non_blocking=True)
+            if s is not x:
+                s.copy_(x, non_blocking=True)
         if self.random:
             if rng.generator is None or rng.droppath_uniforms is not None:
                 raise ValueError("a captured step takes a RandomSource.from_seed source: its "
@@ -175,7 +184,7 @@ class Captured:
                 self.seeds.copy_(draws, non_blocking=True)
             self.generator.manual_seed(rng.generator.initial_seed())
         self.graph.replay()
-        set_kernel_counts(tuple(a + b for a, b in zip(kernel_counts(), self.launches)))
+        launch_counts.add(COUNTERS, self.launches)
         return self.outputs
 
 

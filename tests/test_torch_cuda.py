@@ -557,3 +557,83 @@ def test_the_captured_device_aug_step_matches_the_eager_one(dev, mode):
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["captured"], losses["eager"]))
     assert rel <= 1e-4, losses
     assert k3 == {"eager": 3, "captured": 3}
+
+
+# ------------------------------------------------------- serving programs
+SERVE_WINDOW = 1024
+
+
+@pytest.fixture(scope="module")
+def serving_pool():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from seist_tpu_torch.serve.pool import ModelPool
+
+    pool = ModelPool([("seist_s_dpk", "")], groups=[("seist_s", [("dpk", ""), ("emg", "")])],
+                     window=SERVE_WINDOW, variants=("fp32", "bf16", "int8"), device="cuda")
+    pool.warmup((1, 2, 4))
+    return pool
+
+
+def _program_input(entry, key, b, dev):
+    x = torch.randn(b, SERVE_WINDOW, 3, generator=torch.Generator().manual_seed(b)).to(dev)
+    if "/head:" not in key:
+        return x
+    variant = key.rsplit("/", 1)[1]
+    return entry.programs[(variant, "trunk", b)](x).clone()
+
+
+@pytest.mark.parametrize("variant", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("b", [1, 2, 4])
+def test_a_replayed_program_matches_its_eager_run(serving_pool, variant, b):
+    """Every program of the (variant, bucket) against the same function run
+    eagerly on the card: 1e-4 of max(1, max|eager|)."""
+    dev = torch.device("cuda", 0)
+    for entry in serving_pool.entries().values():
+        for prog in entry.all_programs():
+            if not prog.key.endswith(f"/b{b}/{variant}"):
+                continue
+            x = _program_input(entry, prog.key, b, dev)
+            with torch.inference_mode():
+                got = prog(x)
+                got = got.clone() if torch.is_tensor(got) else got
+                want = prog.fn(x)
+            for g, w in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                err = float((g.float() - w.float()).abs().max())
+                assert err <= 1e-4 * max(1.0, float(w.float().abs().max())), (prog.key, err)
+
+
+def test_each_replay_adds_its_captured_attention_launches(serving_pool):
+    """A replay launches K1 without the wrapper: the program adds the
+    launches its capture recorded, fp32 and bf16, and the capture itself
+    counted none."""
+    dev = torch.device("cuda", 0)
+    model = serving_pool.get("seist_s_dpk").model
+    n_shapes = len(model.attention_shapes(SERVE_WINDOW))
+    for entry in serving_pool.entries().values():
+        for prog in entry.all_programs():
+            variant, kind = prog.key.rsplit("/", 1)[1], prog.key.split("/")[1]
+            want = (0, 0) if kind.startswith("head:") else (
+                n_shapes, n_shapes if variant == "bf16" else 0)
+            assert prog.launches == want, prog.key
+            b = int(prog.key.rsplit("/", 2)[1][1:])
+            x = _program_input(entry, prog.key, b, dev)
+            before = pa.launches, pa.bf16_launches
+            prog(x)
+            assert (pa.launches - before[0], pa.bf16_launches - before[1]) == want, prog.key
+    # a fallback (no program at batch 3) runs eagerly through the wrapper
+    entry = serving_pool.get("seist_s_dpk")
+    before = pa.launches, entry.fallback_runs
+    entry.run(torch.randn(3, SERVE_WINDOW, 3))
+    assert (pa.launches - before[0], entry.fallback_runs - before[1]) == (n_shapes, 1)
+
+
+def test_graphs_of_a_variant_share_one_pool_and_gates_pass(serving_pool):
+    entry = serving_pool.get("seist_s")
+    assert entry.variant_tasks["bf16"] == ("dpk", "emg")
+    assert entry.variant_tasks["int8"] == ("dpk", "emg")
+    single = serving_pool.get("seist_s_dpk")
+    assert single.variant_ok == {"bf16": True, "int8": True}
+    assert all(p.graph is not None for e in serving_pool.entries().values()
+               for p in e.all_programs())

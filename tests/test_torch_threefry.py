@@ -61,9 +61,13 @@ def test_normal_field_within_1e6(seed, epoch, idx):
     want = np.asarray(jax.random.normal(key, (3, 12000), jnp.float32)).reshape(-1)
     got = tf.normal(tf.fold_in(_tkey(seed, epoch, idx), 18), 36000)[0].numpy()
     d = np.abs(got - want)
-    print(f"normals: {float((d == 0).mean()):.4f} of {d.size} exact, max abs {float(d.max()):.3g}")
-    assert d.max() <= 1e-6
-    assert (d == 0).mean() >= 0.95
+    worst = np.argsort(-d)[:5]
+    report = (f"normals: {float((d == 0).mean()):.4f} of {d.size} exact, max abs "
+              f"{float(d.max()):.3g}; largest at {worst.tolist()}: port "
+              f"{got[worst].tolist()}, XLA {want[worst].tolist()}")
+    print(report)
+    assert d.max() <= 1e-6, report
+    assert (d == 0).mean() >= 0.95, report
 
 
 def test_erfinv_edges_and_torch_difference():
