@@ -39,7 +39,14 @@ non-zero before the last line):
    train step; the losses are finite, the parameters change, the test
    metrics JSON and the results CSV (one row per test event) are written,
    the interval checkpoint ``model_3.pt`` / ``state_3.pt`` exists and the
-   best checkpoint serves one trace;
+   best checkpoint serves one trace. The run has the telemetry on
+   (``--metrics-port -1 --profile-steps 2``): its ``/metrics`` is scraped
+   once while it runs, its scalars (TensorBoard event files, or
+   ``scalars.jsonl`` without the package) hold the train task metrics at
+   the ``--log-step`` calls, the profiler's Chrome trace of calls 3-4 is
+   read (its size, its kernels; K1 and K2 five times per step where CUPTI
+   lists the kernels of a replayed graph, and the output says which case
+   held), and the entry's span p50s and ``waveforms_per_sec`` are printed;
    6b. resume: ``--mode train --checkpoint .../model_3.pt`` into the same
    run, plain versions patched to raise: a mid-epoch resume from batch 3
    that runs steps 4-6 (losses within rtol 1e-4 of phase 6's: the card's
@@ -49,11 +56,17 @@ non-zero before the last line):
    metrics are finite, parameters change and stay fp32 with Adam's moments
    and the BatchNorm statistics, and a bf16 eval forward of phase 6's best
    weights lies within 0.05 of the fp32 one on the test batch;
+   6d. packs of phase 6's events, trained on; 6e. SIGTERM at step 3 of a
+   run on the float32 pack: exit 75, the checkpoint, a flight dump with
+   reason ``preempt``, steps and a ``step_dispatch`` span, and the resume;
 7. one train step of ``seist_l_dpk`` (batch 4, attention dropout 0.3, the
    other drop rates 0) on the card and on the CPU from the same weights,
    batch and attention seeds: loss, every gradient leaf and the BatchNorm
    running statistics agree within the repo's train-mode parity limits;
-8. time both kernels, their plain versions and PyTorch's
+8. (the kernels' own timing runs right after phase 4, before any
+   profiler session has traced a graph replay, after which traces of
+   eager launches lose kernels on the card) time both kernels, their
+   plain versions and PyTorch's
    ``scaled_dot_product_attention`` (forward and backward; a yardstick
    only: the port never calls it) at each shape in device ms, beside the
    bound (bytes, or operations at the faster of fp32 on the CUDA cores and
@@ -74,7 +87,9 @@ non-zero before the last line):
 9. the captured step (``train/graph.py``), which every train path above
    already runs: at batch 64, drop rates 0.3, fp32, six captured steps
    against six eager ones from the same weights, batches and (seed,
-   epoch, step): losses within RESUME_RTOL and the output-projection
+   epoch, step): losses within RESUME_RTOL, step 1's outputs copied from
+   the graph (as the worker copies them for its task metrics) within
+   RESUME_RTOL of the eager step's, and the output-projection
    dropout's decisions in the first attention block (its zeros where both
    runs' inputs are nonzero) identical at every step and new at each; a NaN batch through the graph leaves every state
    tensor bitwise; one replay under ``torch.profiler`` (K1 and K2 five
@@ -133,7 +148,15 @@ non-zero before the last line):
     seeded weights' outputs are flat, std ~2e-4); the group's heads
     against the single-task models; replayed against eager forwards per
     bucket and variant (wall, device busy, idle share, kernels); a reload
-    that swaps (version 2) and one of NaN weights refused (409).
+    that swaps (version 2) and one of NaN weights refused (409). The
+    serve entry's telemetry is on: every response's ``Server-Timing`` has
+    the five segments (parse, normalize, queue_wait, forward, decode),
+    which sum to at most ``total``, and their p50/p99 per variant and for
+    the group are printed beside the client's time outside ``total``; one
+    request's ``/traces/<id>``, ``/metrics.json`` (one trunk run per group
+    flush) and the Prometheus text (every line parses) are checked; and
+    the FLOPs the fp32 b1 program publishes equal the port's count for the
+    same entry on the CPU.
 
 It prints one ``{"kernels": [...]}`` line (the fp32 K1 and K2, their bf16
 kernels, K3) and, last,
@@ -146,6 +169,7 @@ from __future__ import annotations
 import contextlib
 import csv
 import gc
+import glob
 import io
 import json
 import logging
@@ -195,6 +219,9 @@ from seist_tpu_torch.train.step import (
     move_batch,
     step_random_source,
 )
+from seist_tpu_torch.obs import trace as obs_trace
+from seist_tpu_torch.obs.bus import BUS
+from seist_tpu_torch.utils import logger as logger_mod
 from seist_tpu_torch.utils.logger import logger
 
 MODEL = "seist_l_dpk"
@@ -213,6 +240,7 @@ TRAIN_ARGS = ["--model-name", MODEL, "--dataset-name", "synthetic", "--synthetic
               "--epochs", "1", "--seed", str(SEED), "--device", "cuda"]
 TRAIN_STEPS, VAL_BATCHES, TEST_BATCHES, TEST_EVENTS = 6, 1, 1, 27
 SAVE_EVERY = 3  # the interval save the resume phase starts from
+PROFILE_STEPS = 2  # phase 6's --profile-steps: calls 3 and 4, after the graph capture
 RESUME_RTOL = 1e-4  # resumed vs uninterrupted step losses on the card
 BF16_OUT_TOL = 0.05  # bf16 vs fp32 eval outputs, the JAX package's limit (tests/test_train.py)
 
@@ -678,11 +706,130 @@ def test_outputs(log_dir: str) -> dict:
     return payload
 
 
-def train_test_phase(log_base: str, n_shapes: int) -> dict:
-    """Train one epoch and test, through the CLI entry (phase 6)."""
-    best, counts, wall_s, _ = run_entry(TRAIN_ARGS + [
-        "--mode", "train_test", "--save-interval-steps", str(SAVE_EVERY), "--log-base", log_base])
+class Scrape(logging.Handler):
+    """Reads the train run's ``--metrics-port -1`` from its log and, at the
+    run's first loss line (printed while later calls run), scrapes
+    ``/metrics`` once: the endpoint of a live run."""
+
+    def __init__(self):
+        super().__init__()
+        self.url = ""
+        self.text = ""
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith("[obs] metrics endpoint: "):
+            self.url = msg.split(": ", 1)[1]
+        elif not self.text and self.url and "_train epoch" in msg and " loss " in msg:
+            with urllib.request.urlopen(self.url, timeout=30) as r:
+                self.text = r.read().decode()
+
+
+class SpanLog:
+    """A bus span sink keeping every span's duration (ms) by name."""
+
+    def __init__(self):
+        self.ms: Dict[str, List[float]] = {}
+
+    def __call__(self, span):
+        self.ms.setdefault(span.name, []).append((span.duration_s or 0.0) * 1e3)
+
+
+def profile_trace(log_dir: str) -> dict:
+    """The ``--profile-steps`` capture of a train run: its file's size, and
+    the device kernels it lists (all, K1's, K2's)."""
+    paths = sorted(glob.glob(os.path.join(log_dir, "profile", "*", "trace.json")))
+    if len(paths) != 1:
+        fail(f"expected one profiler trace under {log_dir}/profile, found {paths}")
+    with open(paths[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"path": paths[0], "bytes": os.path.getsize(paths[0]), "kernels": len(kernels),
+            "K1": sum("fwd_kernel" in k for k in kernels),
+            "K2": sum("bwd_kernel" in k for k in kernels)}
+
+
+def read_scalars(tb_dir: str) -> Tuple[List[dict], str]:
+    """The ``ScalarWriter``'s rows ({tag, step, value}): ``scalars.jsonl``,
+    or the TensorBoard event files where the package imported."""
+    path = os.path.join(tb_dir, "scalars.jsonl")
+    if os.path.exists(path):
+        with open(path) as f:
+            return [json.loads(x) for x in f], "scalars.jsonl"
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    acc = EventAccumulator(tb_dir, size_guidance={"scalars": 0})
+    acc.Reload()
+    return ([{"tag": tag, "step": e.step, "value": e.value}
+             for tag in acc.Tags()["scalars"] for e in acc.Scalars(tag)],
+            "TensorBoard event files")
+
+
+def check_train_telemetry(log_dir: str, scrape: Scrape, spans: SpanLog, n_shapes: int,
+                          name_power: str, wps0: float) -> Tuple[Dict[str, float], dict]:
+    """Phase 6's telemetry: the scrape of the live run's ``/metrics``, the
+    train task metrics in the scalars at the ``--log-step`` calls,
+    the profiler capture (K1 and K2 in it where CUPTI lists graph kernels)
+    and the train entry's span p50s; returns the p50s and the capture."""
+    want = ("seist_step_dispatch_ms_count", "seist_host_wait_ms_bucket", "seist_train_loss ",
+            "seist_global_step ", "seist_data_plane_reads ", "seist_loader_batches_total ")
+    missing = [w for w in want if w not in scrape.text]
+    print(f"[obs] /metrics scraped from the live run at {scrape.url}: {len(scrape.text)} bytes, "
+          f"{sum(1 for x in scrape.text.splitlines() if not x.startswith('#'))} samples; "
+          f"missing {missing}", flush=True)
+    if not scrape.text or missing:
+        fail(f"the train run's /metrics was not scraped or lacks {missing}")
+    rows, form = read_scalars(os.path.join(log_dir, "tensorboard"))
+    tags = sorted({r["tag"].rsplit("/", 1)[0] for r in rows})
+    metric_steps = sorted({r["step"] for r in rows
+                           if r["tag"].startswith("train.ppk.metrics/step/")})
+    print(f"[obs] scalars ({form}): {len(rows)} rows, tags {tags}; train.ppk.metrics/step at "
+          f"steps {metric_steps}", flush=True)
+    log_calls = list(range(0, TRAIN_STEPS, 4))  # --log-step 4, one batch per call
+    if metric_steps != log_calls or not all(np.isfinite(r["value"]) for r in rows) or any(
+            f"train.{t}.metrics/step" not in tags for t in ("det", "ppk", "spk")):
+        fail(f"the scalars lack the train task metrics at steps {log_calls}")
+    prof = profile_trace(log_dir)
+    graph_kernels = prof["K1"] + prof["K2"] > 0
+    print(f"[obs] {name_power} | --profile-steps {PROFILE_STEPS}: {os.path.relpath(prof['path'])} "
+          f"{prof['bytes']} bytes, {prof['kernels']} device kernels, K1 {prof['K1']}, K2 "
+          f"{prof['K2']}: CUPTI {'lists' if graph_kernels else 'does not list'} the kernels "
+          f"inside a replayed graph" + (f" (want {PROFILE_STEPS * n_shapes} of each)"
+                                        if graph_kernels else ""), flush=True)
+    if graph_kernels and (prof["K1"], prof["K2"]) != (PROFILE_STEPS * n_shapes,) * 2:
+        fail("the profiler listed graph kernels but not K1 and K2 five times per step")
+    p50 = {k: float(np.median(v)) for k, v in sorted(spans.ms.items())}
+    print(f"[obs] {name_power} | train entry spans, p50 ms (count): "
+          + ", ".join(f"{k} {p50[k]:.3f} ({len(spans.ms[k])})" for k in (
+              "host_wait", "step_dispatch", "log_interval", "validate", "checkpoint_save",
+              "train_epoch") if k in p50)
+          + f"; waveforms_per_sec gauge {BUS.gauge('waveforms_per_sec').value:.1f} "
+          f"(before the run {wps0:.1f}); per call (call 0 captures the step, calls "
+          f"3-{2 + PROFILE_STEPS} run under the profiler): host_wait "
+          f"{[round(x, 3) for x in spans.ms.get('host_wait', [])]}, step_dispatch "
+          f"{[round(x, 3) for x in spans.ms.get('step_dispatch', [])]}", flush=True)
+    if not {"host_wait", "step_dispatch", "validate", "checkpoint_save"} <= set(p50):
+        fail(f"the train run recorded spans {sorted(p50)} only")
+    return p50, prof
+
+
+def train_test_phase(log_base: str, n_shapes: int, name_power: str) -> dict:
+    """Train one epoch and test, through the CLI entry (phase 6), with the
+    telemetry on: the metrics endpoint scraped while the run lives, a
+    two-step profiler capture, the train task metrics in its scalars."""
+    scrape, spans = Scrape(), SpanLog()
+    logger.addHandler(scrape)
+    BUS.add_span_sink(spans)
+    wps0 = BUS.gauge("waveforms_per_sec").value
+    try:
+        best, counts, wall_s, _ = run_entry(TRAIN_ARGS + [
+            "--mode", "train_test", "--save-interval-steps", str(SAVE_EVERY), "--log-base",
+            log_base, "--metrics-port", "-1", "--profile-steps", str(PROFILE_STEPS)])
+    finally:
+        logger.removeHandler(scrape)
+        BUS.remove_span_sink(spans)
     log_dir = os.path.dirname(os.path.dirname(best))
+    p50, prof = check_train_telemetry(log_dir, scrape, spans, n_shapes, name_power, wps0)
     losses = np.load(os.path.join(log_dir, "train_losses.npy"))
     val = np.load(os.path.join(log_dir, "val_losses.npy"))
     print(f"[train_test] {MODEL} window {WINDOW} batch {TRAIN_BATCH}: {len(losses)} steps, "
@@ -711,7 +858,7 @@ def train_test_phase(log_base: str, n_shapes: int) -> dict:
     if not bool(torch.isfinite(out).all()) or res.get("task") != "picking":
         fail("the trained checkpoint does not serve")
     return {"counts": counts, "wall_s": wall_s, "log_dir": log_dir, "best": best,
-            "losses": losses, "test_loss": payload["loss"]}
+            "losses": losses, "test_loss": payload["loss"], "spans_p50": p50, "profile": prof}
 
 
 def resume_phase(run: dict, n_shapes: int) -> dict:
@@ -870,6 +1017,20 @@ def packed_phase(log_base: str, n_shapes: int, run: dict) -> dict:
             "wall_s": wall_s}
 
 
+def check_preempt_dump(run_dir: str) -> None:
+    """The preempted run's one flight dump: reason ``preempt``, at least
+    one step and a ``step_dispatch`` span."""
+    dumps = glob.glob(os.path.join(run_dir, "flight", "flight_*.json"))
+    dump = json.load(open(dumps[0])) if len(dumps) == 1 else {}
+    names = sorted({x["name"] for x in dump.get("spans", [])})
+    print(f"[preempt] flight dump {[os.path.basename(d) for d in dumps]}: reason "
+          f"{dump.get('reason')}, steps {[x['step'] for x in dump.get('steps', [])]}, spans "
+          f"{names}, last step {dump.get('last_step')}", flush=True)
+    if dump.get("reason") != "preempt" or not dump.get("steps") or "step_dispatch" not in names:
+        fail("the preemption left no flight dump with reason preempt, a step and a "
+             "step_dispatch span")
+
+
 def preempt_phase(n_shapes: int, run: dict, data: str) -> dict:
     """SIGTERM at step 3 of a train run on the float32 pack, then the
     resume from the newest checkpoint (phase 6e)."""
@@ -892,6 +1053,7 @@ def preempt_phase(n_shapes: int, run: dict, data: str) -> dict:
     if ckpt != want[0] or not os.path.exists(want[1]):
         fail(f"no model_{SAVE_EVERY}.pt / state_{SAVE_EVERY}.pt after the preemption")
     check_launches(counts, n_shapes, SAVE_EVERY, SAVE_EVERY)
+    check_preempt_dump(os.path.dirname(os.path.dirname(ckpt)))
     _, counts_r, wall_r, lines = run_entry(packed_args(data) + ["--mode", "train",
                                                                 "--checkpoint", ckpt])
     log_dir = os.path.dirname(os.path.dirname(ckpt))
@@ -1382,7 +1544,12 @@ def captured_vs_eager(weights: str, dev) -> dict:
         losses, patterns = [], []
         before = pa.counts()
         for t in range(CAPTURE_STEPS):
-            loss, _, diag = step(state, xs[t], ys[t], step_random_source(SEED, 0, t, dev))
+            # Step 1's outputs, as the worker copies them on a log-step call.
+            kw = {"keep_outputs": t == 1} if mode == "captured" else {}
+            loss, out, diag = step(state, xs[t], ys[t], step_random_source(SEED, 0, t, dev),
+                                   **kw)
+            if t == 1:
+                kept = out.clone() if mode == "eager" else out
             losses.append(float(loss))
             patterns.append((pattern[0].clone(), pattern[1].clone()))
             if not bool(diag["applied"]):
@@ -1390,9 +1557,17 @@ def captured_vs_eager(weights: str, dev) -> dict:
         launches = tuple(b - a for a, b in zip(before, pa.counts()))
         pa.set_counts(before)
         runs[mode] = {"state": state, "step": step, "losses": np.array(losses),
-                      "patterns": patterns, "launches": launches}
+                      "patterns": patterns, "launches": launches, "outputs": kept}
     eager, cap = runs["eager"], runs["captured"]
     rel = max_rel(cap["losses"], eager["losses"])
+    out_err = max_err(cap["outputs"], eager["outputs"]) / max(
+        1.0, float(eager["outputs"].abs().max()))
+    print(f"[capture] step 1's outputs copied from the graph ({tuple(cap['outputs'].shape)}, "
+          f"{cap['outputs'].numel() * 4 / 2**20:.2f} MiB, what the graph's pool keeps beyond "
+          f"PR 9's) vs the eager step's: max error {out_err:.3e} relative to max(1, |eager|) "
+          f"(limit {RESUME_RTOL:.0e})", flush=True)
+    if not out_err <= RESUME_RTOL:
+        fail("the captured step's copied outputs differ from the eager step's")
     # The dropout's decisions are compared where both runs' inputs are
     # nonzero: a product that rounds to exactly 0 in one run and not in the
     # other (cuDNN sums in another order in a graph) zeroes an output the
@@ -2275,14 +2450,44 @@ def program_calls(service) -> Dict[str, int]:
     return {p.key: p.calls for e in service.entries.values() for p in e.all_programs()}
 
 
-def storm(url: str, bodies: List[dict]) -> Tuple[List[Tuple[int, dict]], float, float]:
-    """The bodies as concurrent /predict requests: the responses, and the
-    client p50 and p99 in ms."""
+SEGMENTS = ("parse", "normalize", "queue_wait", "forward", "decode")
+# Server-Timing prints each duration rounded to 0.1 ms: the five segments'
+# sum may exceed the rounded total by half a unit per number.
+TIMING_ROUND_MS = 0.05 * (len(SEGMENTS) + 1)
+
+
+def post_timed(url: str, body: dict) -> Tuple[int, dict, Dict[str, str]]:
+    """``post`` that also returns the response's headers."""
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, {"error": e.read().decode(errors="replace")}, dict(e.headers)
+
+
+def server_timing(header: str) -> Dict[str, float]:
+    """``Server-Timing: total;dur=1.0, parse;dur=0.2, ...`` -> {name: ms}."""
+    out = {}
+    for part in header.split(", "):
+        name, _, dur = part.partition(";dur=")
+        out[name] = float(dur)
+    return out
+
+
+def storm(url: str, bodies: List[dict]) -> Tuple[List[Tuple[int, dict]], float, float, dict]:
+    """The bodies as concurrent /predict requests: the responses, the
+    client p50 and p99 in ms, and each response's Server-Timing segments
+    (``timing``: {segment: [ms]}, with ``outside`` the client's latency
+    minus the server's total and ``unspanned`` the total minus its
+    segments; ``trace_ids``)."""
     results: List[Tuple[int, dict, float]] = [None] * len(bodies)
+    headers: List[Dict[str, str]] = [None] * len(bodies)
 
     def one(i: int) -> None:
         t0 = time.perf_counter()
-        status, body = post(url + "/predict", bodies[i])
+        status, body, headers[i] = post_timed(url + "/predict", bodies[i])
         results[i] = (status, body, (time.perf_counter() - t0) * 1e3)
 
     threads = [threading.Thread(target=one, args=(i,)) for i in range(len(bodies))]
@@ -2295,9 +2500,25 @@ def storm(url: str, bodies: List[dict]) -> Tuple[List[Tuple[int, dict]], float, 
     for status, body, _ in results:
         if status != 200:
             fail(f"bad /predict response: {status} {str(body)[:300]}")
+    timing: Dict[str, List[float]] = {k: [] for k in ("total",) + SEGMENTS
+                                      + ("outside", "unspanned")}
+    trace_ids = []
+    for (_, _, client_ms), h in zip(results, headers):
+        seg = server_timing(h.get("Server-Timing", ""))
+        if not set(SEGMENTS) <= set(seg) or "total" not in seg:
+            fail(f"a /predict response lacks Server-Timing segments: {h.get('Server-Timing')}")
+        spanned = sum(seg[k] for k in SEGMENTS)
+        if spanned > seg["total"] + TIMING_ROUND_MS:
+            fail(f"Server-Timing segments sum to {spanned} ms > total {seg['total']} ms")
+        for k in ("total",) + SEGMENTS:
+            timing[k].append(seg[k])
+        timing["outside"].append(client_ms - seg["total"])
+        timing["unspanned"].append(seg["total"] - spanned)
+        trace_ids.append(obs_trace.parse_traceparent(h.get("traceparent"))[0])
+    timing["trace_ids"] = trace_ids
     lat = np.array([r[2] for r in results])
     return ([(r[0], r[1]) for r in results], float(np.percentile(lat, 50)),
-            float(np.percentile(lat, 99)))
+            float(np.percentile(lat, 99)), timing)
 
 
 def check_programs(service, n_shapes: int) -> None:
@@ -2348,6 +2569,8 @@ def programs_phase(name_power: str, weights: str, n_shapes: int) -> dict:
 
     pa.pooled_attention_plain = plain_off_path
     mem0 = allocated_gib()
+    logger_mod.set_logdir(os.path.join(str(_kernels.BUILD_DIR), "serve_logs"))
+    events = srv.start_telemetry()  # serve's flight recorder, trace collector, events
     service = srv.service_from_args(srv.get_serve_args(argv))
     server = srv.start_http_server(service, "127.0.0.1", 0)
     url = "http://127.0.0.1:%d" % server.server_address[1]
@@ -2414,11 +2637,21 @@ def programs_phase(name_power: str, weights: str, n_shapes: int) -> dict:
         if not picks_close(g["tasks"]["dpk"], a, PICK_TOL_S * 50):
             fail(f"group dpk picks of trace {i} differ from {MODEL}'s")
     n_picks = sum(len(a[k]) for _, a in ref for k in ("ppk", "spk", "det"))
-    for name, (_, p50, p99) in runs.items():
+    for name, (_, p50, p99, timing) in runs.items():
         print(f"[time] {name_power} | /predict x{N_REQUESTS} concurrent, "
               f"{MODEL if name != 'group' else GROUP + ' (' + ','.join(GROUP_TASKS) + ')'} "
               f"{name if name != 'group' else 'fp32'}: client p50 {p50:.1f} ms p99 {p99:.1f} ms",
               flush=True)
+        print(f"[trace] {name_power} | /predict x{N_REQUESTS} {name}: Server-Timing p50/p99 ms "
+              + ", ".join(f"{k} {np.percentile(timing[k], 50):.1f}/"
+                          f"{np.percentile(timing[k], 99):.1f}"
+                          for k in ("total",) + SEGMENTS)
+              + f"; client minus total {np.percentile(timing['outside'], 50):.1f}/"
+              f"{np.percentile(timing['outside'], 99):.1f}; total minus segments "
+              f"{np.percentile(timing['unspanned'], 50):.1f}/"
+              f"{np.percentile(timing['unspanned'], 99):.1f}", flush=True)
+    telemetry_checks(url, runs, name_power)
+    host_stages(single, data, name_power)
     print(f"[programs] bf16 and int8 picks: the same count as fp32's ({n_picks} over "
           f"{N_REQUESTS} traces), each within {PICK_TOL_S} s of fp32's or on a near-tie "
           f"(fp32 probabilities at the two samples within the variant's gate tolerance): "
@@ -2478,10 +2711,99 @@ def programs_phase(name_power: str, weights: str, n_shapes: int) -> dict:
         fail("the reloads did not swap and refuse as they should")
     server.shutdown()
     service.shutdown()
+    events.close()
     pa.pooled_attention_plain = real_plain
+    flops_check(service, weights)  # the CPU count runs the plain attention
     counts.update(K2=0, K3=0, K2_bf16=0)
     return {"counts": counts, "rows": rows, "runs": {k: v[1:] for k, v in runs.items()},
             "ready_s": service.ready_s, "reload_s": body["reload_s"]}
+
+
+def telemetry_checks(url: str, runs: dict, name_power: str) -> None:
+    """After phase 12's storms: one request's trace from ``/traces/<id>``
+    (its spans, the forward's replayed program), the bus snapshot from
+    ``/metrics.json`` (one trunk run per group flush) and the Prometheus
+    text, every line of which parses."""
+    tid = runs["group"][3]["trace_ids"][0]
+    with urllib.request.urlopen(f"{url}/traces/{tid}", timeout=30) as r:
+        trace = json.loads(r.read())
+    spans = {x["name"]: x for x in trace["spans"]}
+    fwd = spans.get("forward", {}).get("annotations", {})
+    print(f"[trace] /traces/{tid}: spans {sorted(spans)}; forward {fwd}", flush=True)
+    if not set(SEGMENTS) <= set(spans) or fwd.get("aot") is not True or not str(
+            fwd.get("program", "")).startswith(f"{GROUP}/trunk/b"):
+        fail("the group request's trace lacks its spans or a replayed trunk program")
+    with urllib.request.urlopen(url + "/metrics.json", timeout=30) as r:
+        snap = json.loads(r.read())
+    trunk = snap["counters"].get(f"serve_trunk_runs{{model={GROUP}}}", 0.0)
+    flushes = snap["collectors"].get(f"serve_batcher_forwards{{model={GROUP}}}", -1.0)
+    print(f"[trace] /metrics.json: {len(snap['counters'])} counters, {len(snap['gauges'])} "
+          f"gauges, {len(snap['histograms'])} histograms, {len(snap['collectors'])} collector "
+          f"samples; {GROUP} trunk runs {trunk} over {flushes} flushes; serve_aot_programs "
+          f"{ {k: v for k, v in snap['gauges'].items() if k.startswith('serve_aot_programs')} }",
+          flush=True)
+    if trunk != flushes or trunk < 1:
+        fail(f"the group's trunk ran {trunk} times over {flushes} flushes")
+    with urllib.request.urlopen(url + "/metrics?format=prometheus", timeout=30) as r:
+        text = r.read().decode()
+    sample = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? [-+0-9.eEinfINFa]+$')
+    bad = [x for x in text.splitlines() if not (x.startswith("# TYPE ") or sample.match(x))]
+    print(f"[trace] /metrics?format=prometheus: {len(text.splitlines())} lines, "
+          f"{len(bad)} that do not parse", flush=True)
+    if bad or "seist_serve_trunk_runs_total" not in text:
+        fail(f"Prometheus text lines do not parse: {bad[:3]}")
+
+
+def host_stages(entry, data: np.ndarray, name_power: str) -> None:
+    """The host's stages of one ``/predict``, each alone on one thread (ms,
+    median over the traces), beside the storm's spans, which are wall
+    time on 24 handler threads sharing one interpreter with their
+    clients: the request body's JSON encode and decode, ``parse``,
+    ``normalize``, and ``decode`` of the row on the host (as served) and on
+    the card (where the outputs were before the batcher's copy)."""
+    from seist_tpu_torch.serve.batcher import slice_outputs, to_host
+    from seist_tpu_torch.serve.protocol import parse_waveform
+
+    opts = PredictOptions.from_dict({"max_events": 1})
+    ms: Dict[str, List[float]] = {k: [] for k in ("json_encode", "json_decode", "parse",
+                                                  "normalize", "decode_host", "decode_card")}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        ms[key].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for d in data:
+        body = timed("json_encode", lambda: json.dumps({"data": d.tolist()}))
+        lists = timed("json_decode", lambda: json.loads(body))["data"]
+        x = timed("parse", lambda: parse_waveform(lists, entry.in_channels))
+        x = timed("normalize", lambda: np.asarray(normalize(x, "std", axis=0), np.float32))
+        out = entry.run(x[None], "fp32")
+        torch.cuda.synchronize()
+        host = to_host(out)
+        timed("decode_host", lambda: decode_outputs(entry, slice_outputs(host, 0), opts))
+        timed("decode_card", lambda: decode_outputs(entry, slice_outputs(out, 0), opts))
+    print(f"[trace] {name_power} | /predict's host stages alone, one thread, median ms over "
+          f"{len(data)} traces: " + ", ".join(f"{k} {np.median(v):.2f}" for k, v in ms.items()),
+          flush=True)
+
+
+def flops_check(service, weights: str) -> None:
+    """The FLOPs the served fp32 b1 program of seist_l_dpk publishes
+    (``/metrics``' warm-up table) against the count the port makes for the
+    same entry on the CPU, where the plain attention is counted instead of
+    K1."""
+    row = next(r for r in service.metrics()["warmup"]
+               if r["program"] == f"{MODEL}/full/b1/fp32")
+    cpu = load_model_entry(MODEL, weights, window=WINDOW, device="cpu")
+    x = torch.zeros(1, WINDOW, 3)
+    with torch.inference_mode():
+        want = aot.program_flops(cpu._fn("fp32"), [x])
+    print(f"[programs] {MODEL}/full/b1/fp32 FLOPs on the card {row['flops']:.9g}, on the CPU "
+          f"{want:.9g}", flush=True)
+    if abs(row["flops"] - want) > 1e-9 * want or want <= 0:
+        fail("the served program's FLOPs differ from the CPU's count")
 
 
 def main() -> int:
@@ -2509,26 +2831,10 @@ def main() -> int:
     print(f"[shapes] {MODEL} window {WINDOW}: (L, M, H, E) per launch {shapes}", flush=True)
     errs = check_kernel(shapes, dev)
     bwd_abs = check_kernel_bwd(shapes, dev)
-
-    weights = os.path.join(str(_kernels.BUILD_DIR), f"{MODEL}_seed{SEED}.pt")
-    seeded_weights(weights)
-    served = serve_phase(weights, len(shapes))
-    logs = os.path.join(str(_kernels.BUILD_DIR), "train_logs")
-    mem_before_train = allocated_gib()
-    trained = train_test_phase(logs, len(shapes))
-    resumed = resume_phase(trained, len(shapes))
-    bf16 = bf16_phase(logs, len(shapes), trained["best"], dev)
-    packed = packed_phase(logs, len(shapes), trained)
-    preempted = preempt_phase(len(shapes), trained, packed["f32"])
-    grouped = grouped_entry_phase(logs, len(shapes), trained)
-    path_counts = [trained["counts"], resumed["counts"], bf16["counts"], packed["counts"],
-                   packed["counts_i8"], preempted["counts"], preempted["counts_resumed"],
-                   grouped["counts"], grouped["counts_accum"]]
-    gpu_vs_cpu_step(weights)
-    captured = captured_vs_eager(weights, dev)
-    print(f"[memory] allocated on the card after gc: {mem_before_train:.3f} GiB before the "
-          f"train runs, {allocated_gib():.3f} GiB after them and phase 9", flush=True)
-
+    # The kernels' device times come first: once a CPU+CUDA profiler session
+    # has traced graph replays (phase 6's --profile-steps capture, phase 8's
+    # profiles), later CUDA-only traces of eager launches lose kernels on
+    # this card (PR 8's phase 11 saw it for K3).
     ones = torch.ones(1024, device=dev)
     device_ms(lambda: ones.add_(1.0), attempts=10)  # the profiler's first traces
     rows = time_shapes(shapes, dev)
@@ -2563,6 +2869,26 @@ def main() -> int:
               f"E={r['E']} fp32: device ms with (row_warps, ksplit) {r['plan']}: "
               f"{' '.join(f'{x:.4f}' for x in r['ms'])}; with {r['plan1']}: "
               f"{' '.join(f'{x:.4f}' for x in r['ms1'])}", flush=True)
+
+    weights = os.path.join(str(_kernels.BUILD_DIR), f"{MODEL}_seed{SEED}.pt")
+    seeded_weights(weights)
+    served = serve_phase(weights, len(shapes))
+    logs = os.path.join(str(_kernels.BUILD_DIR), "train_logs")
+    mem_before_train = allocated_gib()
+    trained = train_test_phase(logs, len(shapes), name_power)
+    resumed = resume_phase(trained, len(shapes))
+    bf16 = bf16_phase(logs, len(shapes), trained["best"], dev)
+    packed = packed_phase(logs, len(shapes), trained)
+    preempted = preempt_phase(len(shapes), trained, packed["f32"])
+    grouped = grouped_entry_phase(logs, len(shapes), trained)
+    path_counts = [trained["counts"], resumed["counts"], bf16["counts"], packed["counts"],
+                   packed["counts_i8"], preempted["counts"], preempted["counts_resumed"],
+                   grouped["counts"], grouped["counts_accum"]]
+    gpu_vs_cpu_step(weights)
+    captured = captured_vs_eager(weights, dev)
+    print(f"[memory] allocated on the card after gc: {mem_before_train:.3f} GiB before the "
+          f"train runs, {allocated_gib():.3f} GiB after them and phase 9", flush=True)
+
     fwd = time_forward(served["entry"])
     for b, ms in fwd.items():
         print(f"[time] {name_power} | {MODEL} window {WINDOW} forward b{b} (its captured "

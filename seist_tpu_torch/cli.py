@@ -36,9 +36,15 @@ its budget ``--device-aug-hbm-gb``); ``--ingest auto|direct|host`` chooses
 how the step mode's raw rows arrive (straight from a pack's shards, or a
 resident store). Both resolve and fall back as in the JAX package.
 
+Telemetry (``obs/``, ``train/worker.py``): ``--metrics-port`` serves the
+metrics bus (``/metrics``, ``/metrics.json``, ``/flight``, ``/traces``,
+``POST /profile``), ``--flight-steps`` sizes the flight recorder dumped on
+every death path, ``--profile-steps`` captures steady-state updates with
+``torch.profiler``, ``--use-tensorboard`` writes the loss and the train and
+val task metrics as scalars.
+
 A flag of the JAX CLI whose non-default value the port does not run yet
-raises and names ``ROADMAP.md``: ``--seq-shards``. Flags of the telemetry
-plane are not accepted at all.
+raises and names ``ROADMAP.md``: ``--seq-shards``.
 """
 
 from __future__ import annotations
@@ -107,11 +113,30 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     "shards when the dataset is packed; 'host': always a resident RawStore; "
                     "'direct': demand the shard feed, error instead of falling back. Default auto")
 
+    ap.add_argument("--profile-steps", default=0, type=int, dest="profile_steps",
+                    help="capture a torch.profiler trace of this many steady-state train "
+                    "steps (first epoch, from the third call, after the step's graph "
+                    "capture) into a unique <logdir>/profile/<timestamp>_p<pid> dir (a "
+                    "relaunched supervise attempt never clobbers the previous capture); "
+                    "a Chrome trace (trace.json). Later captures can be re-armed live via "
+                    "SIGUSR2 or POST /profile on --metrics-port. Default 0 = off")
+    ap.add_argument("--metrics-port", default=0, type=int, dest="metrics_port",
+                    help="serve the telemetry plane on this loopback port: GET /metrics is "
+                    "Prometheus text exposition of the metrics bus (step spans, loss/wps "
+                    "gauges, data-plane counters), /metrics.json + /flight are JSON views, "
+                    "POST /profile triggers an on-demand torch.profiler capture. -1 binds "
+                    "an ephemeral port (logged). Default 0 = off")
+    ap.add_argument("--flight-steps", default=256, type=int, dest="flight_steps",
+                    help="flight-recorder ring size: the last N steps' metrics and span "
+                    "events are dumped to <logdir>/flight/*.json on every death path "
+                    "(rollback, stall, preempt, quarantine overflow, crash). Default 256")
+
     ap.add_argument("--seed", default=0, type=int)
 
     # Logs
     ap.add_argument("--log-base", default="./logs", type=str)
     ap.add_argument("--log-step", default=4, type=int)
+    ap.add_argument("--use-tensorboard", default=True, type=bool_)
 
     # Save results
     ap.add_argument("--save-test-results", default=True, type=bool_)

@@ -20,8 +20,9 @@ feeds it straight from the shards:
   quarantines the sample, replaced by the fallback keyed ``(seed, epoch,
   logical idx)`` of the dataset's :class:`~io_guard.Quarantine`, so a
   resumed run reads what the first one read;
-* **counters**: ``data_ingest_batches``, ``_samples``, ``_bytes`` and
-  ``_int8_rows`` are plain attributes, printed by :func:`describe`.
+* **telemetry**: the metrics bus's ``data_ingest_batches``, ``_samples``,
+  ``_bytes`` and ``_int8_rows`` counters and the ``data_ingest_fill`` span
+  of each batch's row fills (``obs/bus.py``), as in the JAX package.
 
 Staging: the feed copies each batch out of its slab
 (``pipeline.raw_batch_tensors``) before the next fill, so one slab is
@@ -46,6 +47,7 @@ from seist_tpu_torch.data import io_guard
 from seist_tpu_torch.data.packed import INT8_POISON, PackedDataset, read_waveform_slice
 from seist_tpu_torch.data.pipeline import RawStore, SeismicDataset, _tree_map
 from seist_tpu_torch.data.preprocess import pad_phases
+from seist_tpu_torch.obs.bus import BUS
 
 # The invalid phase-slot sentinel of device_aug._BIG.
 _BIG = 2**30
@@ -99,10 +101,10 @@ class PackedRawStore(RawStore):
         # One slab: the feed copies each batch out before the next fill.
         self._slab = (np.empty((self._batch_size, self.n_ch, self.raw_len), np.float32)
                       if self._reuse else None)
-        self.data_ingest_batches = 0
-        self.data_ingest_samples = 0
-        self.data_ingest_bytes = 0
-        self.data_ingest_int8_rows = 0
+        self._c_batches = BUS.counter("data_ingest_batches")
+        self._c_samples = BUS.counter("data_ingest_samples")
+        self._c_bytes = BUS.counter("data_ingest_bytes")
+        self._c_int8 = BUS.counter("data_ingest_int8_rows")
 
     # ------------------------------------------------------------- build
     @classmethod
@@ -276,16 +278,17 @@ class PackedRawStore(RawStore):
             raise ValueError(f"batch {batch} exceeds the staging slab's {self._batch_size}")
         buf = self._staging(batch)
         actual = np.empty(batch, np.int64)
-        for j in range(batch):
-            key = int(idx[j]) if idx is not None else int(raw_idx[j])
-            actual[j] = self._fill_row(buf[j], int(raw_idx[j]), epoch=int(epoch), key=key)
+        with BUS.span("data_ingest_fill"):
+            for j in range(batch):
+                key = int(idx[j]) if idx is not None else int(raw_idx[j])
+                actual[j] = self._fill_row(buf[j], int(raw_idx[j]), epoch=int(epoch), key=key)
         rows = _tree_map(lambda a: a[actual], self.arrays)
         rows["data"] = buf
-        self.data_ingest_batches += 1
-        self.data_ingest_samples += batch
-        self.data_ingest_bytes += batch * self.row_nbytes
+        self._c_batches.inc()
+        self._c_samples.inc(batch)
+        self._c_bytes.inc(batch * self.row_nbytes)
         if self.pack_dtype == "int8":
-            self.data_ingest_int8_rows += batch
+            self._c_int8.inc(batch)
         return rows
 
     def row_batch(self, raw_idx: np.ndarray) -> Dict[str, Any]:
@@ -301,8 +304,6 @@ def describe(store: PackedRawStore) -> str:
     return (
         f"packed direct ingest: {store.n_raw} samples, {store.disk_bytes / 2**20:.1f} MiB "
         f"on-disk waveforms, {store.nbytes / 2**20:.2f} MiB resident metadata, staging "
-        f"{'one reused slab' if store._reuse else 'per-batch'} ({store.n_ch}x{store.raw_len} float32 rows "
-        f"from {store.pack_dtype}); counters: batches {store.data_ingest_batches}, samples "
-        f"{store.data_ingest_samples}, bytes {store.data_ingest_bytes}, int8 rows "
-        f"{store.data_ingest_int8_rows}"
+        f"{'one reused slab' if store._reuse else 'per-batch'} ({store.n_ch}x{store.raw_len} "
+        f"float32 rows from {store.pack_dtype})"
     )

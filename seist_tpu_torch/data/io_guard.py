@@ -333,9 +333,18 @@ class Quarantine:
 
 
 def _flight_dump(reason: str, **fields) -> None:
-    """The record of a death path. The port has no flight recorder yet
-    (the telemetry plane, ``ROADMAP.md``), so the record is one log line."""
-    logger.error(f"[io-guard] {reason}: {fields}")
+    """The record of a death path: one log line, and the installed flight
+    recorder's dump (``obs/flight.py``; a no-op without one, as in library
+    use outside the train worker). Never raises: the exit matters more
+    than the artifact."""
+    shown = {k: v for k, v in fields.items() if k not in ("dedup_s", "thread_stacks")}
+    logger.error(f"[io-guard] {reason}: {shown}")
+    try:
+        from seist_tpu_torch.obs import flight
+
+        flight.dump_on_death(reason, **fields)
+    except Exception:  # noqa: BLE001 - a death path: the exit must proceed
+        pass
 
 
 def hard_exit(code: int) -> None:
@@ -343,7 +352,9 @@ def hard_exit(code: int) -> None:
     non-daemon loader threads may be wedged, where ``sys.exit`` would hang
     in ``threading._shutdown`` joining a thread stuck inside a dead read.
     A function of its own so in-process tests can replace it."""
-    _flight_dump("hard_exit", exit_code=code)
+    # The funnel every hard death drains through: deduplicated against a
+    # richer dump seconds before (a stall trip with its thread stacks).
+    _flight_dump("hard_exit", dedup_s=5.0, exit_code=code)
     logging.shutdown()
     os._exit(code)
 
@@ -442,7 +453,10 @@ class StallWatchdog:
             f"(timeout {self.timeout_s}s); dumping thread stacks and "
             f"exiting {self.exit_code} for supervised relaunch"
         )
-        dump_thread_stacks()
+        stacks = dump_thread_stacks()
+        # Dumped here (hard_exit would dump too) so the record carries the
+        # stacks and the wait even under a test's exit_fn.
+        _flight_dump("stall_watchdog", waited_s=round(waited, 1), thread_stacks=stacks)
         self._exit_fn(self.exit_code)
 
 

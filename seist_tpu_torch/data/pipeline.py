@@ -548,6 +548,11 @@ class Loader:
         return out
 
     def __iter__(self) -> Iterator[Batch]:
+        from seist_tpu_torch.obs.bus import BUS
+
+        # Bus counters resolved once per epoch (scraped on --metrics-port).
+        c_batches = BUS.counter("loader_batches")
+        c_samples = BUS.counter("loader_samples")
         indices = self._indices()
         start, self._start_batch = self._start_batch, 0  # one-shot
         for b in range(start, len(self)):
@@ -566,6 +571,8 @@ class Loader:
             mask = np.ones(self.batch_size, dtype=np.float32)
             if pad:
                 mask[-pad:] = 0.0
+            c_batches.inc()
+            c_samples.inc(len(samples) - pad)
             yield Batch(inputs, loss_targets, metrics_targets, meta, mask)
 
 

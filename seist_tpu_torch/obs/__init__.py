@@ -1,0 +1,54 @@
+"""The telemetry plane of the port (counterpart of ``seist_tpu/obs/``).
+
+* **Metrics bus** (:mod:`~seist_tpu_torch.obs.bus`): process-wide
+  counters, gauges and histograms and the span API, Prometheus text
+  exposition and the JSONL event log.
+* **Flight recorder** (:mod:`~seist_tpu_torch.obs.flight`): a ring of the
+  last N steps' records and spans, dumped to JSON on every death path.
+* **Request tracing** (:mod:`~seist_tpu_torch.obs.trace`): W3C
+  ``traceparent`` IDs, per-request spans with tail-based retention,
+  ``Server-Timing`` and ``GET /traces``.
+* :mod:`~seist_tpu_torch.obs.http` serves the bus on the train worker's
+  ``--metrics-port``.
+
+The JAX package's per-op attribution (``attribute_step``,
+``jaxpr_op_costs``) and fleet aggregation (``obs/fleet.py``) have no
+counterpart here yet (``ROADMAP.md``). Metric names, span names, header
+formats and JSON shapes are the JAX package's, so one scraper reads both.
+"""
+
+from seist_tpu_torch.obs import flight, trace
+from seist_tpu_torch.obs.bus import (
+    BUS,
+    EventLog,
+    MetricsBus,
+    register_default_collectors,
+    render_prometheus,
+    stopwatch,
+    timed_iter,
+)
+from seist_tpu_torch.obs.flight import FlightRecorder
+from seist_tpu_torch.obs.http import (
+    MetricsHTTPServer,
+    ProfileTrigger,
+    start_metrics_server,
+)
+from seist_tpu_torch.obs.trace import RequestTrace, TraceBuffer
+
+__all__ = [
+    "BUS",
+    "EventLog",
+    "FlightRecorder",
+    "MetricsBus",
+    "MetricsHTTPServer",
+    "ProfileTrigger",
+    "RequestTrace",
+    "TraceBuffer",
+    "flight",
+    "register_default_collectors",
+    "render_prometheus",
+    "start_metrics_server",
+    "stopwatch",
+    "timed_iter",
+    "trace",
+]

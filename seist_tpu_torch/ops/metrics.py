@@ -311,3 +311,15 @@ class Metrics:
                         out[f"{k}.{i}"] = vi
         out.update(self._all())
         return out
+
+
+def data_plane_counters() -> Dict[str, int]:
+    """Snapshot of the data-plane guard's counters (reads, retries, handle
+    reopens, quarantined samples, fallback reads, stall trips, loader
+    deaths): the one reader of ``data/io_guard.py::COUNTERS`` behind the
+    metrics bus's ``data_plane`` collector (``obs/bus.py``), as
+    ``seist_tpu/ops/metrics.py::data_plane_counters`` is in the JAX
+    package."""
+    from seist_tpu_torch.data.io_guard import COUNTERS
+
+    return COUNTERS.snapshot()

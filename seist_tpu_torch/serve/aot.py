@@ -15,6 +15,10 @@ trunk program hands its output buffer to the head graphs of its bucket,
 which read it where it lies. On the CPU a program is its function run
 eagerly, with the same keys and the same call accounting.
 
+Each program adds its load time (ms) to the metrics bus's
+``serve_aot_compile_ms{model=...}`` gauge and one to
+``serve_aot_programs{model=...}``, the JAX package's compile gauges.
+
 Graph memory: the graphs of one (entry, variant) share one memory pool,
 and only that variant's batcher thread replays them, one at a time; a
 reload candidate captures into pools of its own.
@@ -57,6 +61,7 @@ from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Sequence, T
 import numpy as np
 import torch
 
+from seist_tpu_torch.obs.bus import BUS
 from seist_tpu_torch.ops import launch_counts
 from seist_tpu_torch.serve.protocol import VARIANTS
 from seist_tpu_torch.train.graph import COUNTERS, Captured, _flat, _warmup_stream
@@ -143,6 +148,10 @@ class Program:
                 torch.cuda.synchronize(device)
         #: Wall seconds of the load: FLOP count, warm-up runs and capture.
         self.capture_s = time.perf_counter() - t0
+        # The JAX package's compile-time gauges, here the capture's (ms).
+        model = key.split("/", 1)[0]
+        BUS.gauge("serve_aot_compile_ms", model=model).inc(self.capture_s * 1e3)
+        BUS.gauge("serve_aot_programs", model=model).inc(1)
         counts = dict(zip(COUNTERS, self.graph.launches)) if self.graph else {}
         #: Attention forward launches per call: (all, of them bf16).
         self.launches = (counts.get(COUNTERS[0], 0), counts.get(COUNTERS[2], 0))

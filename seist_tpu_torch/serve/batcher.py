@@ -1,6 +1,6 @@
 """Micro-batcher: coalesce concurrent single-trace requests into bucketed
 fixed-shape forwards (the port's copy of ``seist_tpu/serve/batcher.py``,
-without the tracing and shedding hooks).
+without the shedding hooks).
 
 Requests queue, and one worker thread flushes when ``max_batch`` requests
 wait, when the oldest has waited ``max_delay_ms``, or when draining. A
@@ -11,9 +11,19 @@ bounded (``QueueFull``); requests that expire while queued are dropped
 before the forward (``DeadlineExceeded``).
 
 The forward runs on the worker thread under ``torch.inference_mode()``;
-its output stays where the model put it, and each caller gets its own
-row (a view with a leading dimension of 1) of a tensor, of each tensor of
-a tuple, or of each task's outputs of a task group's ``{task: outputs}``.
+its output is copied to the host once per flush, and each caller gets its
+own row (a view with a leading dimension of 1) of a tensor, of each tensor
+of a tuple, or of each task's outputs of a task group's ``{task:
+outputs}``.
+
+Tracing: a request submitted with a ``trace`` (``obs/trace.py``) gets a
+``queue_wait`` span (enqueue to flush start, with the flush's number,
+bucket and fill; ``expired`` when it expired queued) and a ``forward``
+span (flush start until the outputs are on the host, with what the pool
+annotated on the flush's scope: program, replayed graph or not, variant).
+The batcher's stats are a collector on the metrics bus
+(``seist_serve_batcher_*{model=...}``), and a death of its worker thread
+dumps the flight recorder (``batcher_flush_death``).
 
 Task groups batch by input shape, not by task: a flush runs the union of
 its items' ``tasks`` (the shared trunk once, then each head in the union),
@@ -31,6 +41,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from seist_tpu_torch.obs import trace as obs_trace
+from seist_tpu_torch.obs.bus import BUS
 from seist_tpu_torch.serve.protocol import (
     DeadlineExceeded,
     QueueFull,
@@ -72,12 +84,14 @@ class BatcherConfig:
 
 
 class _Pending:
-    __slots__ = ("x", "tasks", "enqueued_at", "deadline", "event", "result", "error",
+    __slots__ = ("x", "tasks", "trace", "enqueued_at", "deadline", "event", "result", "error",
                  "abandoned")
 
-    def __init__(self, x: np.ndarray, deadline: float, tasks: Optional[frozenset] = None):
+    def __init__(self, x: np.ndarray, deadline: float, tasks: Optional[frozenset] = None,
+                 trace: Optional[Any] = None):
         self.x = x
         self.tasks = tasks  # a task group's heads this caller wants
+        self.trace = trace  # obs.trace.RequestTrace (None: untraced)
         self.enqueued_at = time.monotonic()
         self.deadline = deadline
         self.event = threading.Event()
@@ -117,18 +131,26 @@ class MicroBatcher:
         self._batch_items = 0  # real traces forwarded
         self._batch_slots = 0  # bucket slots forwarded (incl. padding)
         self.latency_ms = LatencyHistogram()
+        # Keyed by the batcher's name only: a fresh batcher replaces the
+        # registration of the one it succeeds (two with identical labels
+        # would render duplicate series, which Prometheus refuses).
+        self._collector_key = f"serve_batcher:{name}"
+        BUS.register_collector(self._collector_key, self.stats, name="serve_batcher", model=name)
         self._thread = threading.Thread(
             target=self._loop, name=f"batcher-{name}", daemon=True
         )
         self._thread.start()
 
     def submit(self, x: np.ndarray, timeout_ms: float = 5000.0,
-               tasks: Optional[frozenset] = None) -> Any:
+               tasks: Optional[frozenset] = None, trace: Optional[Any] = None) -> Any:
         """Block until the trace's batch is served; returns the caller's
         output row. ``tasks`` (task groups only) names the heads this caller
-        wants. Raises QueueFull / DeadlineExceeded / ShuttingDown."""
+        wants; ``trace`` records the request's ``queue_wait`` and
+        ``forward`` spans (module docstring). Raises QueueFull /
+        DeadlineExceeded / ShuttingDown."""
         t0 = time.monotonic()
-        item = _Pending(np.asarray(x), deadline=t0 + timeout_ms / 1000.0, tasks=tasks)
+        item = _Pending(np.asarray(x), deadline=t0 + timeout_ms / 1000.0, tasks=tasks,
+                        trace=trace)
         with self._cond:
             if self._fatal is not None:
                 raise ServeError(f"batcher {self.name} worker died: {self._fatal!r}")
@@ -169,6 +191,11 @@ class MicroBatcher:
                     item.error = err
                     item.event.set()
                 self._queue.clear()
+            # A dead worker ends the replica (the server exits 1): leave the
+            # record the train plane's deaths leave (a no-op with no recorder).
+            from seist_tpu_torch.obs import flight
+
+            flight.dump_on_death("batcher_flush_death", batcher=self.name, error=repr(e))
             raise
 
     def _loop_inner(self) -> None:
@@ -198,11 +225,15 @@ class MicroBatcher:
         now = time.monotonic()
         live: List[_Pending] = []
         with self._cond:
+            flush_id = self._forwards + 1
             for item in pending:
                 if item.abandoned:
                     continue  # caller already raised DeadlineExceeded
                 if item.deadline < now:
                     self._expired += 1
+                    if item.trace is not None:
+                        item.trace.add_child("queue_wait", (now - item.enqueued_at) * 1e3,
+                                             expired=True)
                     item.error = DeadlineExceeded("expired while queued (server overloaded?)")
                     item.event.set()
                     continue
@@ -217,10 +248,23 @@ class MicroBatcher:
         # A group's flush runs the union of its items' heads: the trunk once.
         task_sets = [item.tasks for item in live if item.tasks is not None]
         union = frozenset().union(*task_sets) if task_sets else None
+        t_fwd0 = time.monotonic()
+        for item in live:
+            if item.trace is not None:
+                item.trace.add_child("queue_wait", (t_fwd0 - item.enqueued_at) * 1e3,
+                                     flush=flush_id, bucket=bucket, batch_n=n)
         try:
-            out = self._forward(batch) if union is None else self._forward(batch, union)
+            # The scope carries the members' traces through the forward, so
+            # the pool annotates their shared span.
+            with obs_trace.flush_scope([item.trace for item in live]) as scope:
+                out = self._forward(batch) if union is None else self._forward(batch, union)
+                out = to_host(out)
         except Exception as e:  # noqa: BLE001 — a failed forward fails its batch only
             err = e if isinstance(e, ServeError) else ServeError(f"forward failed: {e!r}")
+            for item in live:
+                if item.trace is not None:
+                    item.trace.add_child("forward", (time.monotonic() - t_fwd0) * 1e3,
+                                         flush=flush_id, error=type(e).__name__)
             with self._cond:
                 for item in live:
                     item.error = err
@@ -228,6 +272,11 @@ class MicroBatcher:
                         self._failed += 1
                     item.event.set()
             return
+        flush_ms = (time.monotonic() - t_fwd0) * 1e3
+        for item in live:
+            if item.trace is not None:
+                item.trace.add_child("forward", flush_ms, flush=flush_id, bucket=bucket,
+                                     occupancy=round(n / bucket, 3), **scope.annotations)
         with self._cond:
             self._forwards += 1
             self._batch_items += n
@@ -250,6 +299,7 @@ class MicroBatcher:
                 self._queue.clear()
             self._cond.notify_all()
         self._thread.join(timeout=timeout_s)
+        BUS.unregister_collector(self._collector_key, fn=self.stats)
 
     @property
     def healthy(self) -> bool:
@@ -273,6 +323,17 @@ class MicroBatcher:
                 "buckets": list(self.buckets),
                 "latency_ms": self.latency_ms.summary(),
             }
+
+
+def to_host(out: Any) -> Any:
+    """The flush's outputs on the host, structure kept (a tensor, a tuple
+    or list of them, or a group's ``{task: outputs}``): one copy per
+    tensor, so the callers' rows are host views."""
+    if isinstance(out, dict):
+        return {k: to_host(v) for k, v in out.items()}
+    if isinstance(out, (tuple, list)):
+        return type(out)(to_host(o) for o in out)
+    return out.cpu() if torch.is_tensor(out) else out
 
 
 def slice_outputs(out: Any, i: int) -> Any:

@@ -30,6 +30,8 @@ import numpy as np
 import torch
 
 from seist_tpu_torch import taskspec
+from seist_tpu_torch.obs import trace as obs_trace
+from seist_tpu_torch.obs.bus import BUS
 from seist_tpu_torch.ops.postprocess import process_outputs
 from seist_tpu_torch.serve import aot
 from seist_tpu_torch.serve.batcher import slice_outputs
@@ -226,12 +228,19 @@ class ModelEntry:
     def run(self, batch: Any, variant: str = "fp32") -> Any:
         """The request-path forward: (B, window, C) -> outputs on the
         entry's device, through the (variant, B) program, or eagerly when
-        there is none (counted in ``fallback_runs``)."""
+        there is none (counted in ``fallback_runs``). Inside a batcher
+        flush the program and ``aot`` (a program served it: a replayed
+        graph on the card, the program's function on the CPU; False for a
+        counted fallback) land on the flush's ``forward`` span."""
         with torch.inference_mode():
             inputs = _flat(self._stage(_to_device(batch, self.device)))
-            prog = self.programs.get(variant, {}).get(int(inputs[0].shape[0]))
+            b = int(inputs[0].shape[0])
+            prog = self.programs.get(variant, {}).get(b)
             if prog is not None:
+                obs_trace.annotate_flush(program=prog.key, aot=True, variant=variant)
                 return prog(*inputs)
+            obs_trace.annotate_flush(program=f"{self.name}/full/b{b}/{variant}:eager",
+                                     aot=False, variant=variant)
             with self._lock:
                 self.fallback_runs += 1
             return self._fn(variant)(*inputs)
@@ -395,17 +404,32 @@ class MultiTaskEntry:
         x = _to_device(batch, self.device)
         b = int(x.shape[0])
         feats, trunk = self._program_or_fallback("trunk", variant, b, x)
-        outs = {t: self._program_or_fallback(t, variant, b, feats)[0] for t in tasks}
+        outs, heads = {}, []
+        for t in tasks:
+            outs[t], prog = self._program_or_fallback(t, variant, b, feats)
+            heads.append(prog)
+        # Inside a batcher flush the trunk-once fan-out lands on every
+        # member's forward span.
+        obs_trace.annotate_flush(
+            program=trunk.key if trunk is not None else f"{self.name}/trunk/b{b}/{variant}:eager",
+            aot=trunk is not None and all(h is not None for h in heads), variant=variant,
+            heads=",".join(tasks))
         if account:
             self._account(tuple(tasks), trunk.flops if trunk is not None else 0.0)
         return outs
 
     def _account(self, tasks: Tuple[str, ...], trunk_flops: float) -> None:
+        saved = trunk_flops * max(len(tasks) - 1, 0)
         with self._lock:
             self._trunk_runs += 1
             for t in tasks:
                 self._head_runs[t] = self._head_runs.get(t, 0) + 1
-            self._flops_saved += trunk_flops * max(len(tasks) - 1, 0)
+            self._flops_saved += saved
+        BUS.counter("serve_trunk_runs", model=self.name).inc()
+        for t in tasks:
+            BUS.counter("serve_head_runs", model=self.name, task=t).inc()
+        if saved:
+            BUS.counter("serve_trunk_flops_saved", model=self.name).inc(saved)
 
     def fanout_stats(self) -> Dict[str, Any]:
         with self._lock:
@@ -614,6 +638,8 @@ class ModelPool:
                 variants=variants)
         for entry in self._entries.values():
             entry.version = int(version)
+        for name, v in self.versions().items():
+            BUS.gauge("serve_model_version", model=name).set(v)
         self.warmup_report: List[Dict[str, Any]] = []
         #: name -> {"graph_programs", "graph_capture_s", "graph_memory_mib"} of the
         #: served entry (the JAX package's aot_programs and aot_compile_ms)
@@ -724,6 +750,7 @@ class ModelPool:
                 self.warmup_report = [r for r in self.warmup_report if r.get("model") != name] + [
                     dict(r, reload_version=target) for r in report]
                 self.program_stats[name] = stats
+            BUS.gauge("serve_model_version", model=name).set(target)
             logger.info(f"[serve] reload '{name}': version {incumbent.version} -> {target} "
                         f"({len(report)} programs captured)")
             return candidate, report
@@ -784,10 +811,11 @@ class ModelPool:
 
 
 def decode_outputs(entry: Any, outputs: Any, opts: PredictOptions) -> Dict[str, Any]:
-    """One request's raw model outputs (leading dim 1, on the entry's
-    device) -> JSON-able result. ``entry`` is a ModelEntry or a group's
-    TaskHead (name, spec, is_picker). Picking heads run ops/postprocess on
-    the device and come back in one transfer; the other heads go through
+    """One request's raw model outputs (leading dim 1; on the host when
+    the batcher hands them over, or on the entry's device) -> JSON-able
+    result. ``entry`` is a ModelEntry or a group's TaskHead (name, spec,
+    is_picker). Picking heads run ops/postprocess where the outputs lie and
+    come back in one transfer; the other heads go through
     the task spec's results transform (MagNet's mean, BAZNetwork's
     degrees, DiTingMotion's softmax), then value heads report their
     scalar, one-hot heads the argmax class and the scores."""

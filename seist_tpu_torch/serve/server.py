@@ -1,5 +1,6 @@
 """Online inference service of the port: ``POST /predict``,
-``POST /admin/reload``, ``GET /healthz``, ``GET /metrics``.
+``POST /admin/reload``, ``GET /healthz``, ``GET /metrics``,
+``GET /metrics.json``, ``GET /traces[/<id>]``.
 
 Counterpart of ``seist_tpu/serve/server.py``. Each ``/predict`` parses one
 trace, normalizes it, pads it to the model's window and waits on the
@@ -14,8 +15,19 @@ serves throughout. ``/metrics`` reports requests, forwards, batch fill,
 latency percentiles, the attention kernel's launches, the programs'
 capture seconds and memory, ``graph_captures`` and ``fallback_runs``, and
 each group's fan-out (trunk runs, head runs, trunk FLOPs saved; served
-traffic only). SIGTERM drains: queued requests are served, new ones get
-503, and the process exits 0.
+traffic only); ``/metrics?format=prometheus`` is the metrics bus in
+Prometheus text (``obs/bus.py``), ``/metrics.json`` its JSON snapshot.
+SIGTERM drains: queued requests are served, new ones get 503, and the
+process exits 0.
+
+Tracing (``obs/trace.py``): every ``/predict`` continues the request's
+``traceparent`` or mints one, and records the spans ``parse``,
+``normalize``, ``queue_wait``, ``forward`` and ``decode``; every reply to
+it, errors included, carries ``Server-Timing`` (``total`` and each span)
+and the ``traceparent`` echo, and ``GET /traces/<trace id>`` returns the
+spans. ``serve`` also writes ``events<replica>.jsonl`` and installs a
+flight recorder in its log directory (``./logs``), dumped when a batcher
+thread dies or a handler raises.
 
     python -m seist_tpu_torch serve --model seist_l_dpk[=WEIGHTS.pt] --window 8192 \\
         [--model-group seist_l=dpk,emg:W.pt,dis] [--variants fp32,bf16,int8]
@@ -32,11 +44,15 @@ import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlparse
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from seist_tpu_torch.data.preprocess import NORM_MODES, normalize
+from seist_tpu_torch.obs import flight as obs_flight
+from seist_tpu_torch.obs import trace as obs_trace
+from seist_tpu_torch.obs.bus import BUS, EventLog, render_prometheus
 from seist_tpu_torch.ops import pooled_attention
 from seist_tpu_torch.serve.batcher import BatcherConfig, MicroBatcher
 from seist_tpu_torch.serve.pool import ModelPool, clip_picks, decode_outputs
@@ -50,6 +66,7 @@ from seist_tpu_torch.serve.protocol import (
     parse_tasks,
     parse_waveform,
 )
+from seist_tpu_torch.utils import logger as logger_mod
 from seist_tpu_torch.utils.logger import logger
 
 MAX_BODY_BYTES = 64 * 1024 * 1024
@@ -103,6 +120,9 @@ class ServeService:
         self._reloads: Dict[str, int] = {}
         self._draining = False
         self._started = time.monotonic()
+        # The service's half of /metrics on the bus (batchers publish their
+        # own, labelled); a restarted service replaces its predecessor.
+        BUS.register_collector("serve", self._bus_metrics)
 
     @property
     def entries(self) -> Dict[str, Any]:
@@ -140,21 +160,24 @@ class ServeService:
 
     def predict(self, data: Any, model: Optional[str] = None,
                 options: Optional[Dict[str, Any]] = None,
-                tasks: Optional[Any] = None) -> Dict[str, Any]:
+                tasks: Optional[Any] = None,
+                trace: Optional[obs_trace.RequestTrace] = None) -> Dict[str, Any]:
         """One fixed-window trace through the micro-batcher. ``tasks``
         (task groups only): the heads to answer with, from one trunk run;
-        by default every head of the group."""
+        by default every head of the group. ``trace`` (minted by the HTTP
+        handler) records the stages as spans."""
         with self._lock:
             self._requests += 1
         try:
-            return self._predict(data, model, options, tasks)
+            return self._predict(data, model, options, tasks, trace)
         except ServeError:
             with self._lock:
                 self._errors += 1
             raise
 
     def _predict(self, data: Any, model: Optional[str], options: Optional[Dict[str, Any]],
-                 tasks: Optional[Any]) -> Dict[str, Any]:
+                 tasks: Optional[Any], trace: Optional[obs_trace.RequestTrace]) -> Dict[str, Any]:
+        t = obs_trace.ensure(trace)
         if self._draining:
             raise ShuttingDown("service is draining")
         entry = self.pool.get(model)
@@ -167,29 +190,33 @@ class ServeService:
                                 "candidate (SEIST_FAULT_SERVE_BAD_CANDIDATE)")
         if opts.norm_mode not in NORM_MODES:
             raise BadRequest(f"norm_mode must be one of {NORM_MODES}, got '{opts.norm_mode}'")
-        x = parse_waveform(data, entry.in_channels)
+        with t.span("parse"):
+            x = parse_waveform(data, entry.in_channels)
         if x.shape[0] > entry.window:
             raise BadRequest(f"trace length {x.shape[0]} > window {entry.window}")
-        x = np.asarray(normalize(x, opts.norm_mode, axis=0), np.float32)
-        n_real = x.shape[0]
-        if n_real < entry.window:  # pad AFTER normalize: zeros stay 0
-            x = np.concatenate(
-                [x, np.zeros((entry.window - n_real, x.shape[1]), np.float32)]
-            )
+        with t.span("normalize"):
+            x = np.asarray(normalize(x, opts.norm_mode, axis=0), np.float32)
+            n_real = x.shape[0]
+            if n_real < entry.window:  # pad AFTER normalize: zeros stay 0
+                x = np.concatenate(
+                    [x, np.zeros((entry.window - n_real, x.shape[1]), np.float32)]
+                )
         raw = self._batchers[self._batcher_key(entry.name, opts.variant)].submit(
             x, timeout_ms=opts.timeout_ms,
-            tasks=frozenset(req_tasks) if req_tasks is not None else None)
+            tasks=frozenset(req_tasks) if req_tasks is not None else None, trace=trace)
         fs = float(opts.sampling_rate)
         if req_tasks is not None:  # a task group: one result per head asked for
             per_task = {}
-            for task in req_tasks:
-                r = decode_outputs(entry.heads[task], raw[task], opts)
-                if n_real < entry.window:
-                    clip_picks(r, n_real, fs)
-                per_task[task] = r
+            with t.span("decode", heads=",".join(req_tasks)):
+                for task in req_tasks:
+                    r = decode_outputs(entry.heads[task], raw[task], opts)
+                    if n_real < entry.window:
+                        clip_picks(r, n_real, fs)
+                    per_task[task] = r
             return {"model": entry.name, "model_version": version, "tasks": per_task,
                     "trunk_runs": 1, "variant": opts.variant}
-        result = decode_outputs(entry, raw, opts)
+        with t.span("decode"):
+            result = decode_outputs(entry, raw, opts)
         if n_real < entry.window:
             # The signal->zeros step at the padding boundary can fabricate
             # picks inside samples the client never sent.
@@ -295,6 +322,13 @@ class ServeService:
             "warmup": self.pool.warmup_report,
         }
 
+    def _bus_metrics(self) -> Dict[str, Any]:
+        """The bus collector's payload: :meth:`metrics` without the
+        per-model stats, which each batcher publishes itself, labelled."""
+        m = self.metrics()
+        m.pop("models", None)
+        return m
+
     def begin_drain(self) -> None:
         self._draining = True
 
@@ -302,6 +336,9 @@ class ServeService:
         self.begin_drain()
         for b in self._batchers.values():
             b.shutdown(drain=drain)
+        # A shut-down service neither pins the pool through the bus nor
+        # reports stale counters as live.
+        BUS.unregister_collector("serve", fn=self._bus_metrics)
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -315,26 +352,65 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, format: str, *args: Any) -> None:
         logger.debug(f"[serve] {self.address_string()} {format % args}")
 
-    def _reply(self, status: int, payload: Dict[str, Any]) -> None:
-        body = json_bytes(payload)
+    def _reply(self, status: int, payload: Dict[str, Any],
+               extra_headers: Optional[Dict[str, str]] = None) -> None:
+        self._send(status, json_bytes(payload), "application/json", extra_headers)
+
+    def _send(self, status: int, body: bytes, ctype: str,
+              extra_headers: Optional[Dict[str, str]] = None) -> None:
         self.send_response(status)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(body)))
+        for k, v in (extra_headers or {}).items():
+            self.send_header(k, v)
         if self.close_connection:
             self.send_header("Connection", "close")
         self.end_headers()
         self.wfile.write(body)
 
     def do_GET(self) -> None:  # noqa: N802 (http.server API)
-        path = self.path.split("?", 1)[0]
-        if path == "/healthz":
-            self._reply(200, self.service.healthz())
-        elif path == "/metrics":
-            self._reply(200, self.service.metrics())
-        else:
-            self._reply(404, {"error": "not_found", "message": self.path})
+        try:
+            path = self.path.split("?", 1)[0]
+            if path == "/healthz":
+                self._reply(200, self.service.healthz())
+            elif path == "/metrics.json":
+                self._reply(200, BUS.snapshot())
+            elif path.startswith("/traces"):
+                routed = obs_trace.handle_traces_path(self.path)
+                if routed is None:
+                    self._reply(404, {"error": "not_found", "message": self.path})
+                else:
+                    self._reply(*routed)
+            elif path == "/metrics":
+                # ?format=prometheus selects the text exposition whatever
+                # else the query holds; bare /metrics stays the JSON.
+                query = parse_qs(urlparse(self.path).query)
+                if "prometheus" in query.get("format", []):
+                    self._send(200, render_prometheus(BUS).encode(),
+                               "text/plain; version=0.0.4; charset=utf-8")
+                else:
+                    self._reply(200, self.service.metrics())
+            else:
+                self._reply(404, {"error": "not_found", "message": self.path})
+        except Exception as e:  # noqa: BLE001 — a handler bug answers 500, the server lives
+            logger.exception(f"[serve] unhandled error: {e!r}")
+            obs_flight.dump_on_death("serve_handler_exception", arm_dedup=False,
+                                     request_path=self.path, error=repr(e))
+            self._reply(500, {"error": "internal", "message": repr(e)})
+
+    @staticmethod
+    def _trace_headers(rt: Optional[obs_trace.RequestTrace], status: int) -> Dict[str, str]:
+        """Finish the request's trace; its ``Server-Timing`` and the
+        ``traceparent`` echo (a client that minted no id can still fetch
+        ``/traces/<id>``)."""
+        if rt is None:
+            return {}
+        rt.finish(status)
+        return {"Server-Timing": rt.server_timing(),
+                obs_trace.TRACEPARENT_HEADER: rt.traceparent}
 
     def do_POST(self) -> None:  # noqa: N802
+        rt: Optional[obs_trace.RequestTrace] = None
         try:
             length = int(self.headers.get("Content-Length") or 0)
             if length > MAX_BODY_BYTES:
@@ -345,10 +421,13 @@ class _Handler(BaseHTTPRequestHandler):
                 return
             raw = self.rfile.read(length)
             if self.path == "/predict":
+                # Continue the caller's trace, or mint one here.
+                rt = obs_trace.RequestTrace(self.headers.get(obs_trace.TRACEPARENT_HEADER),
+                                            name=f"server:{self.path}")
                 body = parse_body(raw)
                 result = self.service.predict(body.get("data"), model=body.get("model"),
                                               options=body.get("options"),
-                                              tasks=body.get("tasks"))
+                                              tasks=body.get("tasks"), trace=rt)
             elif self.path == "/admin/reload":
                 body = parse_body(raw)
                 result = self.service.reload(model=body.get("model"),
@@ -358,12 +437,15 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 self._reply(404, {"error": "not_found", "message": self.path})
                 return
-            self._reply(200, result)
+            self._reply(200, result, self._trace_headers(rt, 200))
         except ServeError as e:
-            self._reply(e.status, e.payload())
+            self._reply(e.status, e.payload(), self._trace_headers(rt, e.status))
         except Exception as e:  # noqa: BLE001 — a handler bug answers 500, the server lives
             logger.exception(f"[serve] unhandled error: {e!r}")
-            self._reply(500, {"error": "internal", "message": repr(e)})
+            obs_flight.dump_on_death("serve_handler_exception", arm_dedup=False,
+                                     request_path=self.path, error=repr(e))
+            self._reply(500, {"error": "internal", "message": repr(e)},
+                        self._trace_headers(rt, 500))
 
 
 class ServeHTTPServer(ThreadingHTTPServer):
@@ -501,10 +583,24 @@ def service_from_args(args: argparse.Namespace) -> ServeService:
     )
 
 
+def start_telemetry() -> EventLog:
+    """The serving process's telemetry (``seist_tpu/serve/server.py``
+    main): a flight recorder, whose ring takes every request span through
+    the bus and which the serve death paths dump; the trace buffer's
+    retention counters on the bus; and the returned event log,
+    ``events<replica suffix>.jsonl`` in the log directory (the suffix keeps
+    the replicas of a fleet sharing one directory apart)."""
+    obs_flight.install(obs_flight.FlightRecorder())
+    obs_trace.register_trace_collector()
+    return EventLog(os.path.join(logger_mod.logdir(),
+                                 f"events{obs_trace.replica_suffix()}.jsonl"))
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     import signal
 
     args = get_serve_args(argv)
+    events = start_telemetry()
     service = service_from_args(args)
     server = start_http_server(service, args.host, args.port)
     host, port = server.server_address[:2]
@@ -513,6 +609,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         f"buckets={list(service.buckets)} device={args.device} ready in "
         f"{service.ready_s:.2f} s"
     )
+    events.emit("serve_state", state="ok", ready_s=round(service.ready_s, 3))
     stop = threading.Event()
 
     def _term(signum, frame):
@@ -525,11 +622,18 @@ def main(argv: Optional[List[str]] = None) -> None:
     while not stop.wait(0.5):
         if not service.alive():
             logger.warning("[serve] a batcher worker died; exiting 1")
+            # The batcher's own death dumped the richer record moments ago.
+            obs_flight.dump_on_death("serve_unhealthy", dedup_s=5.0,
+                                     detail="batcher worker died")
             rc = 1
             break
     logger.info("[serve] draining...")
+    events.emit("serve_state", state="draining", rc=rc)
     service.shutdown(drain=rc == 0)
     server.shutdown()
     logger.info(f"[serve] stopped (rc={rc})")
+    events.emit("serve_state", state="stopped", rc=rc)
+    events.close()
+    obs_flight.install(None)
     if rc:
         raise SystemExit(rc)

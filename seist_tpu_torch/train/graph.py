@@ -33,8 +33,8 @@ eager step's draws from a generator seeded the same way), launches the
 graph, and adds the attention kernels it captured to their launch counts
 (``ops/pooled_attention.py``: the wrappers do not run in a replay).
 Outputs live in the graph's memory and are overwritten by the next
-replay: the train step returns copies of its loss and verdict, the eval
-step of its loss and outputs.
+replay: the train step returns copies of its loss and verdict (and of its
+outputs when asked), the eval step of its loss and outputs.
 
 A model with a ``captured_inputs(x)`` method (``models/baz_network.py``,
 whose ``torch.linalg.eigh`` synchronises with the host) computes, on the
@@ -224,11 +224,14 @@ def _on_cuda(state: TrainState) -> Optional[torch.device]:
 def capture_train_step(step: Callable) -> Callable:
     """``step(state, inputs, targets, rng) -> (loss, outputs, diag)`` (a
     :func:`~seist_tpu_torch.train.step.make_train_step` step) run as a
-    graph on CUDA: returns copies of the loss and ``diag``, and None for
-    the outputs. On the CPU, the step itself."""
+    graph on CUDA: returns copies of the loss and ``diag``, and of the
+    outputs when ``keep_outputs`` (else None; the train worker asks on its
+    log-step calls only). The graph keeps its outputs alive in its pool,
+    which holds them through the step anyway, so a copy made before the
+    next replay is the step's own. On the CPU, the step itself."""
     graphs = _Graphs()
 
-    def run(state: TrainState, inputs, targets, rng: RandomSource):
+    def run(state: TrainState, inputs, targets, rng: RandomSource, keep_outputs: bool = False):
         dev = _on_cuda(state)
         if dev is None:
             return step(state, inputs, targets, rng)
@@ -238,17 +241,20 @@ def capture_train_step(step: Callable) -> Callable:
 
         def fn(*args):
             *tensors, src = args
-            loss, _, diag = step(state, _unflat(inputs, list(tensors[:n_in])),
-                                 _unflat(targets, list(tensors[n_in:])), src)
-            return (loss, diag)
+            loss, outputs, diag = step(state, _unflat(inputs, list(tensors[:n_in])),
+                                       _unflat(targets, list(tensors[n_in:])), src)
+            return (loss, diag, outputs)
 
         def make() -> Captured:
             state.prepare()
             return Captured(fn, flat_in, dev, state.tensors(), random=True)
 
         cap = graphs.get(("train", id(state)) + _geometry(flat_in), make)
-        loss, diag = cap.replay(flat_in, rng)
-        return loss.clone(), None, {k: v.clone() for k, v in diag.items()}
+        loss, diag, outputs = cap.replay(flat_in, rng)
+        if keep_outputs:
+            outputs = _unflat(outputs, [o.clone() for o in _flat(outputs)])
+        return loss.clone(), outputs if keep_outputs else None, {
+            k: v.clone() for k, v in diag.items()}
 
     run.graphs = graphs
     return run

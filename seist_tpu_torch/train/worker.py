@@ -69,7 +69,29 @@ step's graph (``train/graph.py``); the randomness of the augmentation is
 keyed by (seed, epoch, sample index), that of the step as on the host path.
 Saves, preemption and mid-epoch resume work as on the host path.
 
-Not ported: train-time metrics and the telemetry plane (``ROADMAP.md``).
+Telemetry (``obs/``, as ``seist_tpu/train/worker.py:874-912`` sets it
+up): a flight recorder of the last ``--flight-steps`` steps, dumped to
+``<log dir>/flight/`` on every death path (an uncaught exception, a
+rollback, a preemption, the data-plane guard's deaths); ``events.jsonl``;
+the metrics bus's spans (``train_epoch``, ``log_interval``, ``host_wait``
+around each batch wait, ``step_dispatch`` around each call's dispatch,
+``validate``, ``checkpoint_save``) and gauges (``train_loss``,
+``waveforms_per_sec``, ``epoch``, ``global_step``, ``val_loss``), served
+on ``--metrics-port``; ``--profile-steps N`` captures N steady-state
+updates with ``torch.profiler`` from the third call on (after the step's
+graph capture), re-armed by SIGUSR2 or ``POST /profile``. None of it reads
+the device: the ``step_dispatch`` span times the host's dispatch of an
+asynchronous call, and ``train_loss`` is the late-read loss.
+
+Train-time task metrics: on the host path with one batch per update, the
+outputs of every ``--log-step`` call are copied on the device (the
+captured step's are graph buffers the next replay overwrites), then
+decoded (``ops/postprocess.py``) and scored against the batch's metrics
+targets when the call's loss is read, two calls late. The per-batch
+metrics and their running sum go to the log and to the ``ScalarWriter``
+(``--use-tensorboard``: ``train-loss/step``, ``train.<task>.metrics/step``
+and the epoch's scalars); ``--steps-per-call`` and ``--grad-accum-steps``
+runs log the loss only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -120,9 +142,13 @@ from seist_tpu_torch.train.step import (
     move_batch,
     step_random_source,
 )
+from seist_tpu_torch import obs
 from seist_tpu_torch.utils import faults as faults_lib
+from seist_tpu_torch.utils import logger as logger_mod
+from seist_tpu_torch.utils import profiling
 from seist_tpu_torch.utils.logger import logger
 from seist_tpu_torch.utils.misc import get_safe_path
+from seist_tpu_torch.utils.tb import ScalarWriter
 
 
 class _PreemptionHandler:
@@ -350,6 +376,52 @@ def _postprocess_batch(args: Any, spec: taskspec.TaskSpec, outputs, fs: int):
     )
 
 
+def _update_task_metrics(metrics_merged: Dict[str, Metrics], batch_metrics: Dict[str, Metrics],
+                         results: Dict[str, Any], metrics_targets: Dict[str, np.ndarray],
+                         valid: int) -> None:
+    """Score one batch into fresh per-batch metrics and add them to the
+    running ones (``seist_tpu/train/worker.py::_update_task_metrics``);
+    ``valid`` trims padding rows."""
+    for task, m in batch_metrics.items():
+        prd = results[task][:valid]
+        if prd.ndim < 2:
+            prd = prd[:, None]
+        m.compute(metrics_targets[task][:valid], prd)
+        metrics_merged[task].add(m)
+
+
+#: Teardown callbacks of the running train worker (its telemetry plane),
+#: drained on every way out of it (:func:`_dump_flight_on_exception`).
+_OBS_CLEANUP: List[Any] = []
+
+
+def _dump_flight_on_exception(fn):
+    """An uncaught exception out of the wrapped worker leaves a flight
+    dump (reason ``exception``, deduplicated against a managed death that
+    dumped seconds before) before it propagates; every exit, exceptions
+    and ``SystemExit`` included, tears the telemetry plane down, so a
+    crashed run leaks no metrics port, events file or SIGUSR2 handler into
+    the process's next run."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapper(*a, **k):
+        try:
+            return fn(*a, **k)
+        except Exception as e:
+            obs.flight.dump_on_death("exception", dedup_s=5.0, error=repr(e))
+            raise
+        finally:
+            while _OBS_CLEANUP:
+                cb = _OBS_CLEANUP.pop()
+                try:
+                    cb()
+                except Exception:  # noqa: BLE001 - must not mask the exception propagating
+                    pass
+
+    return wrapper
+
+
 def validate(
     args: Any,
     state: TrainState,
@@ -504,8 +576,10 @@ def _resolve_device_aug(args: Any, sds: pipeline.SeismicDataset, device: torch.d
     return mode, (store if mode != "off" else None), spc
 
 
+@_dump_flight_on_exception
 def train_worker(args: Any) -> str:
     """The full run; returns the best checkpoint's weights path."""
+    logger_mod.set_logdir(args.log_dir)
     device = resolve_device(args.device)
     _disable_tf32(device)
     spec = taskspec.get_task_spec(args.model_name)
@@ -671,6 +745,60 @@ def train_worker(args: Any) -> str:
         logger.warning(f"Fault injection ACTIVE: {faults.plan}")
     watchdog = _start_watchdog(args)
 
+    # -- the telemetry plane (module docstring) ---------------------------
+    fsteps = int(getattr(args, "flight_steps", 0) or 0)
+    recorder = obs.FlightRecorder(capacity=fsteps if fsteps > 0 else 256)
+    obs.flight.install(recorder)
+    obs.register_default_collectors()
+    events = obs.EventLog(os.path.join(args.log_dir, "events.jsonl"))
+    writer = (ScalarWriter(os.path.join(args.log_dir, "tensorboard"))
+              if getattr(args, "use_tensorboard", False) else None)
+    # --metrics-port: > 0 binds that loopback port, -1 an ephemeral one
+    # (logged), 0 none.
+    profile_trigger = obs.ProfileTrigger()
+    mport = int(getattr(args, "metrics_port", 0) or 0)
+    metrics_server = (obs.start_metrics_server(mport, profile_trigger=profile_trigger)
+                      if mport else None)
+    prev_usr2 = None
+    if threading.current_thread() is threading.main_thread() and hasattr(signal, "SIGUSR2"):
+        def _on_usr2(signum, frame):
+            # The trigger is lock-free: the interrupted thread may be inside
+            # its consume().
+            profile_trigger.request()
+            logger.info("[obs] SIGUSR2: profiler capture requested "
+                        f"({obs.http.DEFAULT_PROFILE_STEPS} steps)")
+
+        prev_usr2 = signal.signal(signal.SIGUSR2, _on_usr2)
+    obs_closed = [False]
+
+    def obs_close() -> None:
+        """Tear the telemetry plane down (idempotent): uninstalling the
+        recorder unhooks its span sink, so runs in one process never stack
+        sinks."""
+        if obs_closed[0]:
+            return
+        obs_closed[0] = True
+        if profiling.active():
+            profiling.trace_stop()
+        obs.flight.install(None)
+        events.close()
+        if writer is not None:
+            writer.close()
+        if metrics_server is not None:
+            metrics_server.shutdown()
+            metrics_server.server_close()
+        if prev_usr2 is not None:
+            try:
+                signal.signal(signal.SIGUSR2, prev_usr2)
+            except ValueError:  # not the main thread any more
+                pass
+
+    _OBS_CLEANUP.append(obs_close)
+
+    def emit_event(kind: str, **fields) -> None:
+        recorder.record_event(kind, **fields)
+        events.emit(kind, **fields)
+
     def save(gstep: int, epoch: int, batches_done: int, val_loss: Optional[float] = None) -> str:
         """Checkpoint at global batch ``gstep``; the data position saved is
         the NEXT batch to consume."""
@@ -678,11 +806,13 @@ def train_worker(args: Any) -> str:
             d_epoch, d_off = epoch + 1, 0
         else:
             d_epoch, d_off = epoch, batches_done
-        return ckpt_mgr.save(
-            gstep, state, epoch=epoch, data_epoch=d_epoch, data_batch_offset=d_off,
-            seed=args.seed, steps_per_epoch=steps_per_epoch, batch_size=int(args.batch_size),
-            val_loss=val_loss, best_loss=best_loss, patience=patience,
-        )
+        with obs.BUS.span("checkpoint_save"):
+            return ckpt_mgr.save(
+                gstep, state, epoch=epoch, data_epoch=d_epoch, data_batch_offset=d_off,
+                seed=args.seed, steps_per_epoch=steps_per_epoch,
+                batch_size=int(args.batch_size), val_loss=val_loss, best_loss=best_loss,
+                patience=patience,
+            )
 
     def preempt_exit(epoch: int, batches_done: int, hard: bool = False) -> None:
         """Make the checkpoint of the position reached durable, then exit
@@ -698,6 +828,9 @@ def train_worker(args: Any) -> str:
         path = save(gstep, epoch, batches_done)
         logger.warning(f"Preempted: checkpoint step {gstep} durable ({path}); "
                        f"exiting {PREEMPT_EXIT_CODE}")
+        emit_event("preempt", gstep=int(gstep), hard=bool(hard))
+        obs.flight.dump_on_death("preempt", gstep=int(gstep))
+        obs_close()
         if hard:
             io_guard.hard_exit(PREEMPT_EXIT_CODE)
         sys.exit(PREEMPT_EXIT_CODE)
@@ -735,6 +868,13 @@ def train_worker(args: Any) -> str:
             f"Bad-update guard: {monitor.bad_run} consecutive non-finite updates; "
             f"rolling back to checkpoint step {step_r}"
         )
+        # The run goes on, but the steps into the rollback are what a
+        # post-mortem wants; the dump is not fatal, so it arms no dedup that
+        # could swallow the record of a crash seconds later.
+        emit_event("bad_update_rollback", rollback_to_step=int(step_r),
+                    consecutive_bad=int(monitor.bad_run))
+        obs.flight.dump_on_death("bad_update_rollback", arm_dedup=False,
+                                 rollback_to_step=int(step_r))
         ckpt_mgr.restore(state, step_r)
         monitor.reset()
         mirror.update(base=state.step, dispatched=0, skipped=monitor.total_skipped)
@@ -752,13 +892,20 @@ def train_worker(args: Any) -> str:
     pin = device.type == "cuda"
     mixture_t = _mixture_temperature(args, "train")
     src_ids = sds_train.source_ids() if mixture_t > 0 else None
+    # Train-time task metrics need each update's outputs and the host
+    # batch's metrics targets: the host path with one batch per call.
+    task_metrics = device_mode == "off" and kpack == 1
+    tasks = list(spec.eval)
+    fs = sds_train.sampling_rate()
 
     def epoch_calls(epoch: int, skip: int, on_death):
         """The epoch's calls from batch ``skip`` on: an iterator of what
-        each call consumes, and ``dispatch(item, gstep, rngs)`` running the
-        call. Host path: stacked loader batches (the NaN injector corrupts
-        them). Step mode: raw rows gathered by a thread, copied to pinned
-        memory, two batches ahead. Cached mode: (k, B) index arrays."""
+        each call consumes, and ``dispatch(item, gstep, rngs, keep)``
+        running the call (``keep``: return a copy of the step's outputs).
+        Host path: stacked loader batches (the NaN injector corrupts them)
+        with the metrics targets of each. Step mode: raw rows gathered by a
+        thread, copied to pinned memory, two batches ahead. Cached mode:
+        (k, B) index arrays."""
         epoch_t = torch.tensor(epoch, dtype=torch.int32)
         order = dict(seed=args.seed, shuffle=args.shuffle, batch_size=args.batch_size,
                      start_batch=skip, source_ids=src_ids, mixture_temperature=mixture_t)
@@ -766,27 +913,76 @@ def train_worker(args: Any) -> str:
             chunks = dev_cache.epoch_index_chunks(epoch, steps_per_call=kpack, **order)
             items = (torch.from_numpy(c).pin_memory() if pin else torch.from_numpy(c)
                      for c in chunks)
-            return items, lambda idx_k, gstep, rngs: train_call(
+            return items, lambda idx_k, gstep, rngs, keep: train_call(
                 state, dev_cache.arrays, idx_k, epoch_t, rngs)
         if device_mode == "step":
             raw = pipeline.iter_raw_batches(dev_store, epoch, **order)
             items = _prefetch(pipeline.raw_batch_tensors(item, pin) for item in raw)
-            return io_guard.watch(items, watchdog), lambda item, gstep, rngs: train_call(
+            return io_guard.watch(items, watchdog), lambda item, gstep, rngs, keep: train_call(
                 state, *item, epoch_t, rngs)
 
-        def host(item, gstep, rngs):
-            xk, yk = item
+        def host(item, gstep, rngs, keep):
+            (xk, yk), _ = item
             xk = faults.corrupt_inputs(gstep, xk, n_steps=kpack)
-            x, y = (xk, yk) if kpack > 1 else (_first(xk), _first(yk))
-            return train_call(state, x, y, rngs)
+            if kpack > 1:
+                return train_call(state, xk, yk, rngs)
+            return train_call(state, _first(xk), _first(yk), rngs, keep_outputs=keep)
 
-        groups = pipeline.group_batches(train_loader, kpack, pin=pin)
-        return io_guard.watch(_prefetch(groups), watchdog, on_death=on_death), host
+        def with_targets():
+            """The loader's groups, each with its batches' metrics targets
+            (read on the prefetch thread, in the order the groups form)."""
+            targets: "collections.deque" = collections.deque()
+
+            def noted(batches):
+                for b in batches:
+                    targets.append(b.metrics_targets)
+                    yield b
+
+            for group in pipeline.group_batches(noted(train_loader), kpack, pin=pin):
+                yield group, [targets.popleft() for _ in range(kpack)]
+
+        return io_guard.watch(_prefetch(with_targets()), watchdog, on_death=on_death), host
+
+    # --profile-steps N: torch.profiler over N steady-state updates from the
+    # third call on, after the step's graph capture; SIGUSR2 and POST
+    # /profile re-arm it. Counted in updates (a call makes updates_per_call).
+    profile_steps = int(getattr(args, "profile_steps", 0) or 0)
+    profile_from = 2 * updates_per_call
+    trace_dir = ""
+
+    def maybe_trace(opt_step: int) -> None:
+        """After a call's dispatch; ``opt_step``: the updates before it."""
+        nonlocal profile_steps, profile_from, trace_dir
+        if not profiling.active():
+            # A request that lands mid-capture waits in the trigger and
+            # opens its own window once this one closes.
+            req = profile_trigger.consume()
+            if req:
+                profile_steps, profile_from = req, opt_step + updates_per_call
+                emit_event("profile_requested", steps=req)
+        if not profile_steps:
+            return
+        if not profiling.active() and opt_step >= profile_from:
+            trace_dir = get_safe_path(os.path.join(
+                args.log_dir, "profile", f"{time.strftime('%Y%m%d-%H%M%S')}_p{os.getpid()}"))
+            profiling.trace_start(trace_dir)
+        elif profiling.active() and opt_step >= profile_from + profile_steps:
+            profiling.trace_stop()
+            profile_steps = 0  # one-shot; the trigger re-arms it
+            logger.info(f"Profiler trace saved: {trace_dir}")
+
+    # Bus handles resolved once: a gauge set per call is one lock.
+    g_loss = obs.BUS.gauge("train_loss")
+    g_wps = obs.BUS.gauge("waveforms_per_sec")
+    g_epoch = obs.BUS.gauge("epoch")
+    g_gstep = obs.BUS.gauge("global_step")
 
     preempt = _PreemptionHandler().__enter__()
     try:
         for epoch in range(start_epoch, epochs):
             t_epoch = time.perf_counter()
+            epoch_span = obs.BUS.begin("train_epoch")
+            g_epoch.set(epoch)
             train_loader.set_epoch(epoch)
             skip = start_batch if epoch == start_epoch else 0
             if skip and skip % kpack:
@@ -803,41 +999,75 @@ def train_worker(args: Any) -> str:
                 logger.info(f"Mid-epoch resume: epoch {epoch} from batch {skip}")
             epoch_losses: List[torch.Tensor] = []
             late_logs: "collections.deque" = collections.deque()
+            metrics_merged = _make_metrics(args, tasks, fs)
             batches_done = skip
+            rate_span = obs.BUS.begin("log_interval")
 
             def on_death(e: io_guard.LoaderDeathError) -> None:
                 loader_death_exit(e, epoch, batches_done)
 
             def log_late(upto: Optional[int]) -> None:
-                """Print the loss lines of calls before ``upto`` (all when
-                None): their losses are read once the device is past them."""
+                """Print the loss lines (and score the task metrics) of calls
+                before ``upto`` (all when None): their losses are read once
+                the device is past them."""
                 while late_logs and (upto is None or late_logs[0][0] < upto):
-                    _, prefix, loss_t, lr = late_logs.popleft()
-                    logger.info(f"{prefix} loss {float(loss_t):.4e} lr {lr:.3e}")
+                    _, prefix, gstep_l, loss_t, lr, outputs, targets = late_logs.popleft()
+                    loss_f = float(loss_t)
+                    g_loss.set(loss_f)
+                    logger.info(f"{prefix} loss {loss_f:.4e} lr {lr:.3e}")
+                    if writer is not None:
+                        writer.add_scalar("train-loss/step", loss_f, gstep_l)
+                    if outputs is None:
+                        continue
+                    batch_metrics = _make_metrics(args, tasks, fs)
+                    _update_task_metrics(metrics_merged, batch_metrics,
+                                         _postprocess_batch(args, spec, outputs, fs), targets,
+                                         args.batch_size)
+                    for task, m in batch_metrics.items():
+                        logger.info(f"{prefix} [train] {task}: {m}")
+                        if writer is not None:
+                            writer.add_scalars(f"train.{task}.metrics/step",
+                                               m.get_all_metrics(), gstep_l)
 
             calls, dispatch = epoch_calls(epoch, skip, on_death)
-            for call, item in enumerate(calls, start=skip // kpack):
+            for call, item in enumerate(obs.timed_iter(calls, "host_wait"), start=skip // kpack):
                 first_b = call * kpack
                 gstep = epoch * steps_per_epoch + first_b
+                log_call = call % args.log_step == 0
+                recorder.record_step(gstep)  # before this call's spans end
+                g_gstep.set(gstep)
                 faults.on_step(gstep, n_steps=kpack)
                 if preempt.triggered:  # before this call's dispatch
                     preempt_exit(epoch, first_b)
-                loss, _, diag = dispatch(item, gstep, random_sources(epoch))
+                with obs.BUS.span("step_dispatch"):
+                    loss, outputs, diag = dispatch(item, gstep, random_sources(epoch),
+                                                   task_metrics and log_call)
                 mirror["dispatched"] += updates_per_call
                 batches_done = first_b + kpack
                 epoch_losses.append(loss)
                 if diag and monitor.push(diag["applied"]):
                     rollback()
+                maybe_trace(call * updates_per_call)
                 if save_every and batches_done // save_every > (batches_done - kpack) // save_every:
                     save(epoch * steps_per_epoch + batches_done, epoch, batches_done)
                 if preempt.triggered:  # SIGTERM during the call
                     preempt_exit(epoch, batches_done)
-                if call % args.log_step == 0:
+                if log_call:
+                    interval = rate_span.end()
+                    rate_span = obs.BUS.begin("log_interval")
+                    calls_done = min(args.log_step, call) or 1
+                    g_wps.set(args.batch_size * kpack * calls_done / max(interval, 1e-9))
+                    keep = task_metrics and outputs is not None
                     late_logs.append((call, f"{args.model_name}_train epoch {epoch} step "
-                                      f"{first_b}/{steps_per_epoch}", loss,
-                                      schedule(max(next_count() - 1, 0))))
+                                      f"{first_b}/{steps_per_epoch}", gstep, loss,
+                                      schedule(max(next_count() - 1, 0)),
+                                      outputs if keep else None, item[1][0] if keep else None))
                 log_late(call - monitor.lag)
             log_late(None)
+            if profiling.active():  # an epoch shorter than the capture window
+                profiling.trace_stop()
+                profile_steps = 0
+                logger.info(f"Profiler trace saved (short epoch): {trace_dir}")
             if monitor.flush():  # the verdicts of the epoch's last calls
                 rollback()
             losses = [float(x) for x in torch.stack(epoch_losses).cpu()] if epoch_losses else []
@@ -845,6 +1075,9 @@ def train_worker(args: Any) -> str:
             train_losses.extend(losses)
             finite = [x for x in losses if np.isfinite(x)]
             epoch_train_loss = float(np.mean(finite)) if finite else 0.0
+            if task_metrics:
+                for task, m in metrics_merged.items():
+                    logger.info(f"[train] {args.model_name} {task}: {m}")
 
             # The data plane's epoch report: a slowly rotting dataset shows
             # long before --max-quarantine-frac aborts the run.
@@ -853,15 +1086,28 @@ def train_worker(args: Any) -> str:
                 logger.warning(
                     f"[data-plane] epoch {epoch} quarantine report: {json.dumps(q_report)}"
                 )
+                emit_event("quarantine_report", epoch=epoch,
+                           quarantined=len(q_report["quarantined"]), frac=q_report["frac"])
             if io_guard.COUNTERS.any_faults():
                 logger.info(f"[data-plane] counters: {io_guard.COUNTERS.snapshot()}")
 
             try:
-                val_loss, _ = validate(args, state, eval_step, spec, val_loader, device,
-                                       watchdog=watchdog)
+                with obs.BUS.span("validate"):
+                    val_loss, val_metrics = validate(args, state, eval_step, spec, val_loader,
+                                                     device, watchdog=watchdog)
             except io_guard.LoaderDeathError as e:
                 loader_death_exit(e, epoch, steps_per_epoch)
+            obs.BUS.gauge("val_loss").set(val_loss)
             val_losses.append(val_loss)
+            if writer is not None:
+                writer.add_scalar("train-loss/epoch", epoch_train_loss, epoch)
+                writer.add_scalar("val-loss/epoch", val_loss, epoch)
+                if task_metrics:
+                    for task, m in metrics_merged.items():
+                        writer.add_scalars(f"train.{task}.metrics/epoch", m.get_all_metrics(),
+                                           epoch)
+                for task, m in val_metrics.items():
+                    writer.add_scalars(f"val.{task}.metrics/epoch", m.get_all_metrics(), epoch)
             if val_loss < best_loss:
                 best_loss, patience = val_loss, 0
                 best_path = save((epoch + 1) * steps_per_epoch, epoch, steps_per_epoch, val_loss)
@@ -876,11 +1122,16 @@ def train_worker(args: Any) -> str:
                     break
             if preempt.triggered:  # SIGTERM during validation
                 preempt_exit(epoch, steps_per_epoch)
+            epoch_s = epoch_span.end()
             logger.info(
                 f"Epoch {epoch}: train-loss {epoch_train_loss:.4e} val-loss {val_loss:.4e} "
                 f"best {best_loss:.4e} time {time.perf_counter() - t_epoch:.1f} s (train "
                 f"{train_s:.3f} s, {len(losses) * updates_per_call} steps)"
             )
+            emit_event("epoch_summary", epoch=epoch, train_loss=round(epoch_train_loss, 6),
+                       val_loss=round(float(val_loss), 6), best_loss=round(float(best_loss), 6),
+                       epoch_time_s=round(epoch_s, 3), wps=round(g_wps.value, 1),
+                       data_plane=io_guard.COUNTERS.snapshot())
     finally:
         preempt.__exit__()
         if watchdog is not None:
@@ -894,6 +1145,8 @@ def train_worker(args: Any) -> str:
                        "update(s) this run")
     np.save(os.path.join(args.log_dir, "train_losses.npy"), np.asarray(train_losses))
     np.save(os.path.join(args.log_dir, "val_losses.npy"), np.asarray(val_losses))
+    emit_event("train_done", best_loss=round(float(best_loss), 6))
+    obs_close()
     return best_path
 
 

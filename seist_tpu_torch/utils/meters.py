@@ -1,11 +1,11 @@
-"""Latency histogram behind the server's /metrics (the port's copy of
-``seist_tpu/utils/meters.py::LatencyHistogram``)."""
+"""Latency histogram behind the server's /metrics and the metrics bus's
+histograms (the port's copy of ``seist_tpu/utils/meters.py::LatencyHistogram``)."""
 
 from __future__ import annotations
 
 import bisect
 import threading
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 #: Default latency buckets (ms): roughly log-spaced from sub-ms dispatch to
 #: multi-second stalls, the range an online inference service spans.
@@ -45,6 +45,15 @@ class LatencyHistogram:
             if value > self._max:
                 self._max = value
 
+    def percentile(self, q: float) -> float:
+        """Estimate the ``q``-quantile (q in [0, 1])."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"q must be in [0, 1], got {q}")
+        with self._lock:
+            counts = list(self._counts)
+            total, mx = self._count, self._max
+        return self._percentile_from(q, counts, total, mx)
+
     def _percentile_from(
         self, q: float, counts: List[int], total: int, mx: float
     ) -> float:
@@ -63,6 +72,23 @@ class LatencyHistogram:
                 return min(est, mx)
             seen += c
         return mx
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @property
+    def mean(self) -> float:
+        with self._lock:
+            return self._sum / self._count if self._count else 0.0
+
+    def buckets(self) -> Tuple[List[float], List[int], int, float]:
+        """Consistent snapshot ``(bounds, counts, count, sum)``; counts has
+        ``len(bounds) + 1`` entries (the last is the overflow), the raw view
+        that ``obs/bus.py`` renders as cumulative Prometheus buckets."""
+        with self._lock:
+            return list(self._bounds), list(self._counts), self._count, self._sum
 
     def summary(self) -> Dict[str, float]:
         """{count, mean, p50, p90, p99, max} from ONE locked snapshot, so

@@ -13,6 +13,7 @@ the largest output)."""
 from __future__ import annotations
 
 import math
+import os
 
 import pytest
 import torch
@@ -311,6 +312,69 @@ def test_the_captured_train_step_matches_the_eager_one(dev, dtype):
     assert not bool(diag["applied"]) and state.step == 3
     for k, v in state.model.state_dict().items():
         assert torch.equal(v, params[k]), k
+
+
+def test_a_captured_steps_copied_outputs_match_the_eager_steps(dev):
+    """The outputs a captured step copies on a log-step call (the train
+    worker's task metrics) against the eager step's, within the loss
+    limit above; a later replay leaves the copy as it was."""
+    from seist_tpu_torch import taskspec
+    from seist_tpu_torch.models import api
+    from seist_tpu_torch.train.graph import capture_train_step
+    from seist_tpu_torch.train.optim import build_optimizer
+    from seist_tpu_torch.train.schedule import constant
+    from seist_tpu_torch.train.step import TrainState, make_train_step, step_random_source
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init = api.create_model("seist_s_dpk", in_samples=1024, seed=0).state_dict()
+    g = torch.Generator().manual_seed(1)
+    xs = [torch.randn(8, 1024, 3, generator=g).to(dev) for _ in range(3)]
+    ys = [torch.rand(8, 1024, 3, generator=g).to(dev) for _ in range(3)]
+    outs = {}
+    for mode in ("eager", "captured"):
+        model = api.create_model("seist_s_dpk", in_samples=1024)
+        model.load_state_dict(init)
+        state = TrainState(model.to(dev), build_optimizer("adam", model.parameters()),
+                           constant(1e-4))
+        step = make_train_step(taskspec.make_loss("seist_s_dpk"))
+        if mode == "captured":
+            step = capture_train_step(step)
+        kept = []
+        for t in range(3):
+            kw = {"keep_outputs": t == 1} if mode == "captured" else {}
+            _, out, _ = step(state, xs[t], ys[t], step_random_source(0, 0, t, dev), **kw)
+            if mode == "captured":
+                assert (out is None) == (t != 1)
+            if t == 1:
+                kept = out.clone() if mode == "eager" else out
+                snapshot = kept.clone()
+        torch.cuda.synchronize()
+        assert torch.equal(kept, snapshot)  # step 2's replay did not overwrite the copy
+        outs[mode] = kept
+    err = float((outs["captured"] - outs["eager"]).abs().max())
+    assert err <= 1e-4 * max(1.0, float(outs["eager"].abs().max())), err
+
+
+def test_no_profiler_capture_starts_during_a_graph_capture(dev, tmp_path):
+    from seist_tpu_torch.utils import profiling
+
+    x = torch.ones(1024, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        x.add_(1.0)  # warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        with pytest.raises(RuntimeError, match="during a CUDA graph capture"):
+            profiling.trace_start(str(tmp_path / "p"))
+        x.add_(1.0)
+    assert not profiling.active()
+    profiling.trace_start(str(tmp_path / "p"))  # after the capture: a replay is traced
+    graph.replay()
+    path = profiling.trace_stop()
+    assert path and os.path.getsize(path) > 0
 
 
 # ------------------------------------------------- the baseline families

@@ -113,3 +113,17 @@ def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path):
         )
         assert proc.returncode != 0, (cwd, proc.stdout[-500:])
         assert '"ok"' not in proc.stdout
+
+
+def test_the_telemetry_plane_is_covered_and_needs_no_torch():
+    """``obs/`` is among the modules checked above, and importing it (the
+    bus, traces, flight recorder, metrics endpoint) loads neither torch nor
+    numpy: a scraper or a supervisor can read it cheaply."""
+    assert {"seist_tpu_torch.obs", "seist_tpu_torch.obs.bus", "seist_tpu_torch.obs.trace",
+            "seist_tpu_torch.obs.flight", "seist_tpu_torch.obs.http"} <= set(_modules())
+    code = ("import sys, seist_tpu_torch.obs\n"
+            "assert 'torch' not in sys.modules and 'numpy' not in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]

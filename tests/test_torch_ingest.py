@@ -22,12 +22,14 @@ from seist_tpu import native
 from seist_tpu import taskspec as jts
 from seist_tpu.data import ingest as jing
 from seist_tpu.data import pipeline as jp
+from seist_tpu.obs.bus import BUS as JBUS
 
 import seist_tpu_torch
 from seist_tpu_torch import taskspec as tts
 from seist_tpu_torch.data import ingest as ting
 from seist_tpu_torch.data import packed as tpk
 from seist_tpu_torch.data import pipeline as tp
+from seist_tpu_torch.obs.bus import BUS as TBUS
 
 AUG = dict(augmentation=True, shift_event_rate=0.3, add_noise_rate=0.4, add_gap_rate=0.4,
            drop_channel_rate=0.4, scale_amplitude_rate=0.4, pre_emphasis_rate=0.4,
@@ -116,6 +118,13 @@ def test_packed_raw_store_is_byte_identical(packs, dtype):
     every = np.arange(ts.n_raw)
     _same(tp.RawStore.build(td).row_batch(every),
           ting.PackedRawStore.build(td, reuse_staging=False).row_batch(every))
+    names = ("data_ingest_batches", "data_ingest_samples", "data_ingest_bytes",
+             "data_ingest_int8_rows")
+
+    def counts(bus):
+        return {n: bus.counter(n).value for n in names}
+
+    jbefore, tbefore = counts(JBUS), counts(TBUS)
     for epoch in (0, 1):
         for (jr, ji, ja), (tr, ti, ta) in zip(
                 jp.iter_raw_batches(js, epoch, seed=3, shuffle=True, batch_size=5),
@@ -123,8 +132,11 @@ def test_packed_raw_store_is_byte_identical(packs, dtype):
                 strict=True):
             _same(jr, tr)
             assert ji.tobytes() == ti.tobytes() and ja.tobytes() == ta.tobytes()
-    assert ts.data_ingest_batches == 2 * (len(ts) // 5)
-    assert ts.data_ingest_int8_rows == (ts.data_ingest_samples if dtype == "int8" else 0)
+    # The bus counters move as the JAX package's do over the same batches.
+    got = {n: v - tbefore[n] for n, v in counts(TBUS).items()}
+    assert got == {n: v - jbefore[n] for n, v in counts(JBUS).items()}
+    assert got["data_ingest_batches"] == 2 * (len(ts) // 5)
+    assert got["data_ingest_int8_rows"] == (got["data_ingest_samples"] if dtype == "int8" else 0)
     assert f"from {dtype}" in ting.describe(ts)
 
 
