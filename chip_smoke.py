@@ -113,8 +113,11 @@ non-zero before the last line):
     phase 6's events, the CLI's default rates: (a) K3 against its plain
     version at b64 and b256 of traces of 12000 (keys, uniforms and the
     integer draws made from them bitwise, the two normal fields within
-    1e-6), with its time (CUDA events over back-to-back launches) beside its
-    bound (threefry blocks at the int32 rate), and a processed b64 batch on the card against the port on
+    1e-6), with its time (CUDA events around a captured run of back-to-back
+    launches) beside its bound (threefry blocks at the int32 rate, each
+    block's integer instructions counted in the built kernel's SASS), its
+    grid and the key chain's share of the blocks its warps issue, and a
+    processed b64 batch on the card against the port on
     the CPU (phases, counts and gates exactly, windows and labels within
     1e-5); (b) ``--device-aug step`` through the train entry on the
     synthetic events, on their float32 pack with ``--ingest direct``
@@ -166,6 +169,7 @@ Without a CUDA device it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import csv
 import gc
@@ -183,7 +187,8 @@ import threading
 import time
 import urllib.error
 import urllib.request
-from typing import Dict, List, Tuple
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -195,7 +200,7 @@ from seist_tpu_torch.data import pipeline
 from seist_tpu_torch.data.preprocess import normalize
 from seist_tpu_torch.models import api
 from seist_tpu_torch.models.common import RandomSource
-from seist_tpu_torch.ops import _kernels
+from seist_tpu_torch.ops import _kernels, launch_counts
 from seist_tpu_torch.ops import pooled_attention as pa
 from seist_tpu_torch.ops import threefry as tf
 from seist_tpu_torch.serve import aot
@@ -1957,13 +1962,21 @@ def baseline_phase(name_power: str, log_base: str, dev) -> None:
 # The int32 rate of one H100 SXM: its 132 SMs have 64 INT32 lanes each
 # beside 128 FP32 lanes (Hopper architecture white paper), so a quarter of
 # the published fp32 FLOP/s (which counts an FMA as two). K3's bound counts
-# the threefry2x32 blocks its draws need, 77 integer operations each (20
-# rounds of add, funnel-shift rotate and xor; five key injections of three
-# adds; two initial adds), and 40 fp32 operations per normal (log1p, sqrt,
-# nine FMAs of the erfinv polynomial, the scaling).
+# the threefry2x32 blocks its draws need at that rate, each block the
+# integer instructions the built kernel issues to the int32 pipe for it
+# (:func:`sass_threefry_block`: its SHF rotates, LOP3 xors and IADD3 adds;
+# the adds compiled to IMAD run on the FMA pipe, beside the float work),
+# and 40 fp32 operations per normal (log1p, sqrt, nine FMAs of the erfinv
+# polynomial, the scaling). Counted by hand from the algorithm, a block is
+# 77 operations (20 rounds of add, rotate and xor; five key injections of
+# three adds; two initial adds): that bound is printed beside it.
 PEAK_INT32_S = PEAK_FP32_S / 4
-THREEFRY_OPS = 77
+THREEFRY_OPS_BY_HAND = 77
 NORMAL_FLOPS = 40
+#: SASS opcodes of the int32 (ALU) pipe among a threefry block's
+#: instructions; IMAD runs on the FMA pipe, and VIADD's pipe is not
+#: documented (it is left out of the bound).
+INT32_PIPE = ("SHF", "LOP3", "IADD3", "PRMT")
 DA_STEPS = 3  # captured against eager device-aug steps, from the same state
 
 
@@ -1986,12 +1999,76 @@ def aug_batch(store, batch: int, epoch: int = 0, pin: bool = True):
     return pipeline.raw_batch_tensors(item, pin)
 
 
-def k3_bound(batch: int, cfg) -> Tuple[float, str, float, float]:
+def _sass_instructions(text: str) -> List[Tuple[str, List[str]]]:
+    """(opcode, operands) of each instruction of ``cuobjdump -sass`` output."""
+    out = []
+    for line in text.splitlines():
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);", line)
+        if m:
+            out.append((m.group(1), [o.strip() for o in m.group(2).split(",")]))
+    return out
+
+
+def _sass_reg(token: str) -> Optional[str]:
+    m = re.fullmatch(r"-?\|?(R\d+)\|?(?:\.reuse)?", token.strip())
+    return m.group(1) if m else None
+
+
+def sass_threefry_block(text: str) -> Dict[str, int]:
+    """Opcode counts of one threefry block in K3's SASS (``text``, the
+    library's ``cuobjdump -sass``): in the field path's first group, from
+    the row key's shared-memory load to the first store, each output's bits
+    (the register ``LEA.HI ..., 0x3f800000`` turns into a float) are traced
+    back through the instructions that computed them; a block is what the
+    later outputs' traces add to the earlier ones' (the first also holds
+    the key schedule it shares). Every later block must count the same."""
+    ins = _sass_instructions(text)
+    start = next(i for i, (op, _) in enumerate(ins) if op.startswith("LDS"))
+    end = next(i for i in range(start, len(ins)) if ins[i][0].startswith("STG"))
+
+    def dest(i: int) -> Optional[str]:
+        op, ops = ins[i]
+        return None if op.startswith(("ST", "BRA", "BSSY", "BSYNC")) else _sass_reg(ops[0])
+
+    def trace(i: int, reg: str) -> set:
+        found, todo = set(), [(i, reg)]
+        while todo:
+            at, want = todo.pop()
+            j = next((j for j in range(at - 1, start, -1) if dest(j) == want), None)
+            if j is not None and j not in found:
+                found.add(j)
+                todo += [(j, r) for r in map(_sass_reg, ins[j][1][1:]) if r and r != "RZ"]
+        return found
+
+    traces = [trace(i, _sass_reg(ins[i][1][1])) for i in range(start, end)
+              if ins[i][0] == "LEA.HI" and "0x3f800000" in ins[i][1]]
+    seen, blocks = set(traces[0]), []
+    for t in traces[1:]:
+        blocks.append(dict(collections.Counter(ins[j][0] for j in t - seen)))
+        seen |= t
+    if not blocks or any(b != blocks[0] for b in blocks):
+        fail(f"K3's SASS: {len(traces)} outputs in the first group, blocks {blocks}")
+    return blocks[0]
+
+
+def k3_sass(lib_path: Path) -> Dict[str, int]:
+    """One threefry block of the built K3 (:func:`sass_threefry_block`),
+    from ``cuobjdump -sass`` beside nvcc; fails without it."""
+    cuobjdump = Path(_kernels._nvcc()).parent / "cuobjdump"
+    proc = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        fail(f"cuobjdump -sass failed ({proc.returncode}): {proc.stderr[-500:]}")
+    return sass_threefry_block(proc.stdout)
+
+
+def k3_bound(batch: int, cfg, int_ops: int) -> Tuple[float, str, float, float]:
     """(bound_ms, bound_by, bytes_ms, ops_ms) of one K3 launch over a batch:
     its outputs written once and the indices read once, against the
     threefry blocks (two for the key chain and one per named draw of each
-    sample, one per output element) at the int32 rate or the normals'
-    float work at the fp32 rate, whichever is longer."""
+    sample, one per output element) at ``int_ops`` integer operations each
+    at the int32 rate, or the normals' float work at the fp32 rate,
+    whichever is longer."""
     from seist_tpu_torch.data import device_aug as da
 
     uniforms, fields = da._draw_layout(cfg)
@@ -1999,10 +2076,49 @@ def k3_bound(batch: int, cfg) -> Tuple[float, str, float, float]:
     normals = len(fields) * cfg.channels * cfg.raw_len
     nbytes = 4 * batch * (slots + normals) + 4 * (batch + 1)
     blocks = batch * (2 + len(uniforms) + len(fields) + slots + normals)
-    int_ms = blocks * THREEFRY_OPS / PEAK_INT32_S * 1e3
+    int_ms = blocks * int_ops / PEAK_INT32_S * 1e3
     fp_ms = batch * normals * NORMAL_FLOPS / PEAK_FP32_S * 1e3
     bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, max(int_ms, fp_ms)
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", bytes_ms, ops_ms
+
+
+def k3_chain_share(geometry: Dict[str, int], batch: int, n_slots: int, n_fields: int,
+                   field_len: int) -> float:
+    """The key chain's share of the threefry blocks K3's warps issue (a warp
+    pays for a block once, however many of its lanes need it): three a
+    field block (its thread 0 folds the row key) and three of every slot
+    thread's four, against one per output group member of every active
+    warp."""
+    threads, per = geometry["threads"], geometry["per_thread"]
+    chain = outputs = 0
+    slot_warps = -(-batch * n_slots // 32)
+    chain += 3 * slot_warps
+    outputs += slot_warps
+    rows = batch * n_fields
+    for start in range(0, field_len, geometry["tile"]):
+        groups = -(-min(geometry["tile"], field_len - start) // per)
+        chain += 3 * rows
+        for first in range(0, groups, threads):
+            outputs += rows * per * -(-min(threads, groups - first) // 32)
+    return chain / max(chain + outputs, 1)
+
+
+def graph_ms(fn, launches: int = 50, iters: int = 20) -> float:
+    """Device time per launch of ``fn``: CUDA events around replays of a
+    graph that captured ``launches`` back-to-back calls (so the host's
+    time to issue a call is not in it); the capture's launch counts go to
+    a discarded tally."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream), launch_counts.diverted(stream):
+        fn()  # warm: the library is loaded, the first launch made
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(launches):
+                fn()
+    torch.cuda.synchronize()
+    return time_ms(graph.replay, iters, warmup=2) / launches
 
 
 def check_k3(store, cfg, dev, name_power: str) -> dict:
@@ -2010,13 +2126,19 @@ def check_k3(store, cfg, dev, name_power: str) -> dict:
     of phase 6's train split (trace 12000, the CLI's default rates: both
     normal fields): keys of the plain version on the card and the CPU,
     uniforms and the integer draws made from them bitwise, normals within
-    1e-6; then times beside the bound."""
+    1e-6; then its grid, the key chain's share, one threefry block's SASS
+    and times beside the bound from it (and from the hand count)."""
     from seist_tpu_torch.data import device_aug as da
 
     uniforms, fields = da._draw_layout(cfg)
     slots = [(tag, pos) for _, tag, n, _ in uniforms for pos in range(n)]
     tags = [tag for _, tag in fields]
     flen = cfg.channels * cfg.raw_len
+    block = k3_sass(_kernels.library_path(KERNEL_K3))
+    int_ops = sum(n for op, n in block.items() if op.split(".")[0] in INT32_PIPE)
+    print(f"[k3] SASS of one threefry block: {sum(block.values())} integer instructions "
+          f"({', '.join(f'{op} {n}' for op, n in sorted(block.items()))}); {int_ops} of them on "
+          f"the int32 pipe (counted by hand: {THREEFRY_OPS_BY_HAND} operations)", flush=True)
     epoch = torch.tensor(0, dtype=torch.int32)
     out = {}
     for batch in (TRAIN_BATCH, 256):
@@ -2033,20 +2155,36 @@ def check_k3(store, cfg, dev, name_power: str) -> dict:
                          for s in range(len(slots)) for n in (2, 40, cfg.raw_len, 2**30 - 1))
         err = float((f - pf).abs().max())
         exact = float((f == pf).float().mean())
-        bound_ms, bound_by, bytes_ms, ops_ms = k3_bound(batch, cfg)
-        # CUDA events around back-to-back launches: a K3 launch outlasts its
-        # host call, and the profiler's one-call traces lose its kernel.
-        ms = time_ms(lambda: tf.aug_draws(SEED, ep_d, idx_d, slots, tags, flen, out=(u, f)), 100)
+        bound_ms, bound_by, bytes_ms, ops_ms = k3_bound(batch, cfg, int_ops)
+        bound77_ms = k3_bound(batch, cfg, THREEFRY_OPS_BY_HAND)[0]
+        geo = _kernels.aug_draws_shape(_kernels.build(KERNEL_K3), batch, len(slots), len(tags),
+                                       flen)
+        share = k3_chain_share(geo, batch, len(slots), len(tags), flen)
+
+        def call():
+            tf.aug_draws(SEED, ep_d, idx_d, slots, tags, flen, out=(u, f))
+
+        # The profiler's one-call traces lose K3's kernel, and a wrapper call
+        # takes the host longer than the kernel takes the card: CUDA events
+        # around a captured run of back-to-back launches.
+        ms = graph_ms(call)
+        call_ms = time_ms(call, 100)
         plain_ms = time_ms(lambda: tf.aug_draws_plain(SEED, ep_d, idx_d, slots, tags, flen), 5,
                            warmup=1)
         tf.launches = before
         print(f"[k3] {name_power} | b{batch}: {len(slots)} uniforms and {len(tags)} normal fields "
               f"of {cfg.channels}x{cfg.raw_len} a sample; keys (card vs CPU) equal {keys_equal}, "
               f"uniforms equal {torch.equal(u, pu)}, integer draws equal {ints_equal}, normals "
-              f"max abs err {err:.3g} ({exact:.4f} exact, limit 1e-6); ms per call (CUDA events, "
-              f"back to back): kernel {ms:.4f}, plain {plain_ms:.4f}; bound {bound_ms:.4f} ms by {bound_by} (bytes "
-              f"{bytes_ms:.4f}, operations {ops_ms:.4f}); bound / kernel "
-              f"{bound_ms / ms:.3f}", flush=True)
+              f"max abs err {err:.3g} ({exact:.4f} exact, limit 1e-6); grid {geo['blocks']} "
+              f"blocks of {geo['threads']} threads ({geo['slot_blocks']} for the uniforms), "
+              f"{geo['per_thread']} outputs a thread at once, {geo['tile'] // geo['threads']} a "
+              f"thread a tile of {geo['tile']}; key chain {share:.2%} of the threefry blocks the "
+              f"warps issue; ms per call: kernel {ms:.4f} (CUDA events over a captured run of "
+              f"back-to-back launches; {call_ms:.4f} a wrapper call back to back), plain "
+              f"{plain_ms:.4f}; bound {bound_ms:.4f} ms by {bound_by} (bytes {bytes_ms:.4f}, "
+              f"operations {ops_ms:.4f}: {int_ops} int32-pipe instructions a block); bound / "
+              f"kernel {bound_ms / ms:.3f}; with the hand count of {THREEFRY_OPS_BY_HAND} a block: "
+              f"bound {bound77_ms:.4f}, bound / kernel {bound77_ms / ms:.3f}", flush=True)
         if not (keys_equal and torch.equal(u, pu) and ints_equal and err <= 1e-6):
             fail("K3 disagrees with its plain version")
         out[batch] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,

@@ -335,3 +335,18 @@ def aug_draws(seed: int, epoch: torch.Tensor, idx: torch.Tensor, slots, field_ta
     if err != 0:
         raise RuntimeError(f"aug_draws launch failed: CUDA error {err} (batch {idx.shape[0]}, "
                            f"{n} slots, {len(field_tags)} fields of {field_len})")
+
+
+def aug_draws_shape(lib: ctypes.CDLL, batch: int, n_slots: int, n_fields: int,
+                    field_len: int) -> Dict[str, int]:
+    """K3's launch geometry at a call's shapes, read from the built library
+    (``aug_draws_shape``), so Python mirrors no constant of the kernel:
+    ``blocks`` of the grid, of them ``slot_blocks`` for the uniforms,
+    ``threads`` a block, ``per_thread`` outputs a thread draws at once and
+    ``tile`` outputs of one (sample, field) row a field block covers."""
+    blocks = ctypes.c_longlong()
+    ints = [ctypes.c_int() for _ in range(4)]
+    lib.aug_draws_shape(batch, n_slots, n_fields, field_len, ctypes.byref(blocks),
+                        *(ctypes.byref(i) for i in ints))
+    return dict(blocks=blocks.value, **{k: i.value for k, i in
+                                        zip(("slot_blocks", "threads", "per_thread", "tile"), ints)})

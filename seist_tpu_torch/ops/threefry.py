@@ -31,7 +31,10 @@ hand-written kernel ``csrc/aug_draws.cu`` (K3, built by
 ``ops/_kernels.py``), or an exception. K3 replaces no TPU kernel: the JAX
 package leaves these draws to XLA. It takes the epoch and the sample
 indices as device tensors, so a captured CUDA graph draws anew for the
-indices written into them before each replay.
+indices written into them before each replay. Its one launch does one
+threefry block per output: a field block folds its (sample, field) row's
+key once and shares it, and each thread draws four consecutive normals at
+a time into one float4 (the source's note says why that is the floor).
 """
 
 from __future__ import annotations
@@ -125,7 +128,11 @@ def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 erfinv (module docstring)."""
     w = -torch.log1p(-x * x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    # The root in float64, rounded once: the float32 root correctly rounded.
+    # torch's first float32 sqrt of a process on the CPU (2.13, 8 threads)
+    # returned one thread's share of the elements a few 1e-4 off in some
+    # fresh processes.
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
     lo, hi = torch.from_numpy(_W_LT5).to(x.device), torch.from_numpy(_W_GE5).to(x.device)
     p = torch.where(lt, lo[0], hi[0])
     w64 = w.double()
@@ -179,8 +186,10 @@ def aug_draws(
     out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`aug_draws_plain`'s function: its plain version on CPU tensors,
-    K3 on CUDA tensors (one launch for the whole batch). ``out`` receives
-    the draws when given."""
+    K3 on CUDA tensors: one launch for the whole batch, whose first blocks
+    draw the uniforms (a thread per sample and slot) and whose others each
+    cover a tile of one (sample, field) row under the row's key, folded
+    once a block. ``out`` receives the draws when given."""
     if idx.device.type == "cpu":
         got = aug_draws_plain(seed, epoch, idx, slots, field_tags, field_len)
         if out is None:

@@ -1,5 +1,6 @@
 // A CPU stand-in of the CUDA runtime, enough to run the port's bf16
-// attention kernels on the host (tests/test_torch_kernel_emulation.py): a
+// attention kernels (tests/test_torch_kernel_emulation.py) and the
+// augmentation draws K3 (tests/test_torch_k3_emulation.py) on the host: a
 // block's threads are std::threads and __syncthreads a std::barrier; the
 // warp collectives (shuffles, ldmatrix, mma.sync) exchange their operands
 // through per-warp buffers between two warp barriers and compute each
@@ -43,6 +44,13 @@ inline thread_local Idx3 threadIdx, blockIdx, blockDim;
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
 inline float __fdividef(float a, float b) { return a / b; }
+inline float __int_as_float(int32_t i) { float f; std::memcpy(&f, &i, 4); return f; }
+// The rounded float32 operations K3 spells out (csrc/aug_draws.cu); the
+// tests compile with -ffp-contract=off, so none of them fuses.
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline unsigned long long __cvta_generic_to_shared(const void* p) { return (unsigned long long)p; }
 

@@ -496,23 +496,33 @@ def _aug_setup(window=512, raw_len=1200, n_events=16):
     return sds, store, cfg
 
 
-@pytest.mark.parametrize("b,field_len", [(64, 36000), (3, 7), (5, 1)])
-def test_k3_matches_plain(dev, b, field_len):
+_K3_SLOTS = [(1, 0), (3, 0), (3, 1), (11, 0), (11, 1), (17, 2), (23, 0)]
+
+
+@pytest.mark.parametrize("b,field_len,tags,n_slots", [
+    (64, 36000, [2, 18], 7), (3, 7, [2, 18], 7), (5, 1, [2, 18], 7),
+    (4, 36001, [2, 18], 7),   # ragged tiles, rows misaligned from row 1: scalar stores
+    (3, 36000, [18], 7),      # one field
+    (6, 12000, [2, 18], 0),   # no slots
+    (5, 4099, [2, 18], 128),  # every slot of the table, a ragged tail
+])
+def test_k3_matches_plain(dev, b, field_len, tags, n_slots):
     """Uniforms bit for bit, normal fields within 1e-6 (log1p's rounding),
     one launch counted; epoch and indices read on the device."""
     from seist_tpu_torch.ops import threefry as tf
 
     idx = torch.arange(b, dtype=torch.int32) * 977 + 2**31 - 1 - 977 * b
     epoch = torch.tensor(7, dtype=torch.int32)
-    slots = [(1, 0), (3, 0), (3, 1), (11, 0), (11, 1), (17, 2), (23, 0)]
+    slots = _K3_SLOTS[:n_slots] if n_slots <= len(_K3_SLOTS) else [
+        (t * 7 + 1, p) for t in range(32) for p in range(4)][:n_slots]
     before = tf.launches
-    u, f = tf.aug_draws(5, epoch.to(dev), idx.to(dev), slots, [2, 18], field_len)
+    u, f = tf.aug_draws(5, epoch.to(dev), idx.to(dev), slots, tags, field_len)
     torch.cuda.synchronize()
     assert tf.launches == before + 1
-    want_u, want_f = tf.aug_draws_plain(5, epoch.to(dev), idx.to(dev), slots, [2, 18], field_len)
+    want_u, want_f = tf.aug_draws_plain(5, epoch.to(dev), idx.to(dev), slots, tags, field_len)
     assert torch.equal(u, want_u)
     torch.testing.assert_close(f, want_f, rtol=0, atol=1e-6)
-    cpu_u, cpu_f = tf.aug_draws_plain(5, epoch, idx, slots, [2, 18], field_len)
+    cpu_u, cpu_f = tf.aug_draws_plain(5, epoch, idx, slots, tags, field_len)
     assert torch.equal(u.cpu(), cpu_u)
     torch.testing.assert_close(f.cpu(), cpu_f, rtol=0, atol=1e-6)
 
