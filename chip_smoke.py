@@ -81,8 +81,8 @@ non-zero before the last line):
    captured; time K1 with
    and without two warps sharing a row group where its planner shares them;
    the train Loader's waveforms/s at window 8192 with augmentation on over
-   2048 synthetic events, on the synthetic dataset and its float32, bfloat16
-   and int8 packs, at batch 64 and 500, with 8 threads and with 4 processes,
+   2048 synthetic events, on the synthetic dataset and its float32 pack, at
+   batch 64 and 500, with 4 processes,
    beside the fp32 train step's consumption at b64 and b256;
 9. the captured step (``train/graph.py``), which every train path above
    already runs: at batch 64, drop rates 0.3, fp32, six captured steps
@@ -161,6 +161,29 @@ non-zero before the last line):
     the FLOPs the fp32 b1 program publishes equal the port's count for the
     same entry on the CPU.
 
+13. the long-record and stream planes, plain attention patched to raise:
+    ``serve --model seist_l_dpk=W --model phasenet=W --model-group
+    seist_l=dpk,emg,dis --shed-batch-delay-ms 1 --stream-journal-dir D``
+    through the serve entry's argument parser (fp32 programs);
+    ``/healthz/live`` and ``/healthz/ready`` answer 200 with every
+    model's version; ``/annotate`` of a 10-minute record (30,000 x 3
+    samples, four P/S burst pairs) to seist_l_dpk, the seist_l group and
+    PhaseNet, with the card's stitched curve within 1e-4 of the port's
+    CPU run and the picks within the stream-smoke tolerance of the CPU's
+    (at most a tenth of the union stranded, matched picks within 2
+    samples; the thresholds sit at the 0.999 quantile of the CPU's
+    curve, since the seeded weights' outputs are flat), and of a 1-hour
+    record (wall ms, windows/s); ``/stream`` of 16 stations' 10-minute
+    records in 10-s packets on 8 client threads, each station's picks
+    within that tolerance of ``/annotate`` of its record, with as many
+    windows, no refused packet, no dropped window, no degraded session,
+    while a batch-tier ``/predict`` flood beside it is shed (503 with
+    ``Retry-After``); four stations journaled half-way, the service shut
+    down and a second one over the journal directory resuming them, with
+    the picks of the uninterrupted run; K1's launches over the phase
+    equal to 5 per replay of a SeisT program. Prints the packet and
+    window latencies and the shed counts per tier.
+
 It prints one ``{"kernels": [...]}`` line (the fp32 K1 and K2, their bf16
 kernels, K3) and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -202,6 +225,7 @@ from seist_tpu_torch.models import api
 from seist_tpu_torch.models.common import RandomSource
 from seist_tpu_torch.ops import _kernels, launch_counts
 from seist_tpu_torch.ops import pooled_attention as pa
+from seist_tpu_torch.ops import stream as stream_ops
 from seist_tpu_torch.ops import threefry as tf
 from seist_tpu_torch.serve import aot
 from seist_tpu_torch.serve import server as srv
@@ -453,6 +477,11 @@ def seeded_weights(path: str) -> None:
     torch.save(model.state_dict(), path)
 
 
+# Phases 5, 10 and 12 time the forward under 24 concurrent requests, whose
+# queueing the default tiers could shed; phase 13 exercises the shedding.
+NO_SHED = srv.ShedConfig(batch_delay_ms=float("inf"), interactive_delay_ms=float("inf"))
+
+
 def post(url: str, body: dict) -> Tuple[int, dict]:
     req = urllib.request.Request(
         url, data=json.dumps(body).encode(), headers={"Content-Type": "application/json"}
@@ -494,7 +523,7 @@ def picks_close(a: dict, b: dict, tol_samples: float) -> bool:
 
 def serve_phase(weights: str, n_shapes: int) -> dict:
     service = srv.build_service([(MODEL, weights)], window=WINDOW, device="cuda",
-                                max_batch=BATCH, max_delay_ms=20.0)
+                                max_batch=BATCH, max_delay_ms=20.0, shed_config=NO_SHED)
     server = srv.start_http_server(service, "127.0.0.1", 0)
     url = "http://127.0.0.1:%d" % server.server_address[1]
     data = traces(N_REQUESTS)
@@ -1459,11 +1488,11 @@ def loader_rate(dataset: str, data: str, batch: int, processes: int) -> Tuple[fl
 
 def loader_phase(name_power: str, step_ms: Dict[int, float]) -> List[dict]:
     """The train Loader's throughput on the synthetic dataset and on its
-    float32, bfloat16 and int8 packs, at batch 64 and 500, with threads and
-    with processes, beside the fp32 train step's consumption."""
+    float32 pack (which phase 11 trains on), at batch 64 and 500, with 4
+    processes, beside the fp32 train step's consumption."""
     packs = os.path.join(str(_kernels.BUILD_DIR), "packs")
     sources = [("synthetic", "", "generated at first touch, cached per process")]
-    for dtype in ("float32", "bfloat16", "int8"):
+    for dtype in ("float32",):
         out = os.path.join(packs, f"{dtype}_{LOADER_EVENTS}")
         pack_entry(out, dtype, events=LOADER_EVENTS, shard_mb=512, workers=os.cpu_count() or 4)
         sources.append(("packed", out, dtype))
@@ -1471,7 +1500,7 @@ def loader_phase(name_power: str, step_ms: Dict[int, float]) -> List[dict]:
     rows = []
     for batch in (TRAIN_BATCH, 500):
         for dataset, data, label in sources:
-            for processes in (0, 4):
+            for processes in (4,):
                 rate, n = loader_rate(dataset, data, batch, processes)
                 mode = "4 processes" if processes else "8 threads"
                 rows.append({"source": label, "batch": batch, "mode": mode, "wps": rate})
@@ -1738,7 +1767,7 @@ def serve_phasenet(name_power: str) -> None:
     weights = os.path.join(str(_kernels.BUILD_DIR), f"phasenet_seed{SEED}.pt")
     torch.save(api.create_model("phasenet", in_samples=WINDOW, seed=SEED).state_dict(), weights)
     service = srv.build_service([("phasenet", weights)], window=WINDOW, device="cuda",
-                                max_batch=BATCH, max_delay_ms=20.0)
+                                max_batch=BATCH, max_delay_ms=20.0, shed_config=NO_SHED)
     server = srv.start_http_server(service, "127.0.0.1", 0)
     url = "http://127.0.0.1:%d/predict" % server.server_address[1]
     data, opts = traces(N_REQUESTS), {"max_events": 1}
@@ -2699,7 +2728,8 @@ def programs_phase(name_power: str, weights: str, n_shapes: int) -> dict:
     argv = ["--model", f"{MODEL}={weights}", "--model-group",
             GROUP + "=" + ",".join(f"{t}:{paths[t]}" for t in GROUP_TASKS),
             "--variants", ",".join(SERVE_VARIANTS), "--window", str(WINDOW),
-            "--max-batch", str(BATCH), "--max-delay-ms", "20", "--device", "cuda"]
+            "--max-batch", str(BATCH), "--max-delay-ms", "20", "--device", "cuda",
+            "--shed-batch-delay-ms", "inf", "--shed-interactive-delay-ms", "inf"]
     real_plain = pa.pooled_attention_plain
 
     def plain_off_path(*a, **k):
@@ -2944,6 +2974,364 @@ def flops_check(service, weights: str) -> None:
         fail("the served program's FLOPs differ from the CPU's count")
 
 
+# ------------------------------------------------------------- phase 13
+RECORD = 30000  # a 10-minute record at 50 Hz
+HOUR = 180000
+STATIONS = 16
+PACKET = 500  # 10 s
+STREAM_CLIENTS = 8
+RESTART_STATIONS = 4
+FLOOD_CLIENTS = 4
+# /stream against /annotate of the same record, and the card's /annotate
+# against the CPU's (tools/stream_smoke.py): the two run the windows in
+# batches of other sizes, so a pick whose peak sits within rounding of the
+# threshold may show on one side only. At most a tenth of the union (at
+# least one) may be stranded, and matched picks lie within 2 samples.
+MATCH_SAMPLES = 2
+STRAND_SHARE = 0.1
+# The seeded weights' outputs are flat (std ~2e-4 around 0.5): at the
+# default thresholds every local maximum is a candidate, and /annotate's
+# pick capacity would bind. The thresholds sit at this quantile of the CPU
+# reference's stitched curve instead, so a record has a few dozen samples
+# above them; the capacity (RECORD_EVENTS) then never binds, which the
+# phase checks.
+PICK_QUANTILE = 0.999
+RECORD_EVENTS = 256
+
+
+def long_record(seed: int, n: Optional[int] = None) -> np.ndarray:
+    """Seeded noise with four P/S-like burst pairs, (n, 3) (n: RECORD)."""
+    n = n or RECORD
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 3)).astype(np.float32)
+    t = np.arange(n)
+    seg = n // 4
+    for k in range(4):
+        p = k * seg + int(rng.integers(seg // 10, seg // 2))
+        for onset, amp in ((p, 6.0), (p + int(rng.integers(300, 1500)), 10.0)):
+            env = np.where(t >= onset, np.exp(-np.maximum(t - onset, 0) / 200.0), 0.0)[:, None]
+            x += (amp * env * rng.standard_normal((n, 3))).astype(np.float32)
+    return x
+
+
+def matched(a: List[int], b: List[int], tol: int = MATCH_SAMPLES) -> int:
+    """Greedy one-to-one matching of two pick lists within ``tol`` samples."""
+    n = i = j = 0
+    a, b = sorted(a), sorted(b)
+    while i < len(a) and j < len(b):
+        if abs(a[i] - b[j]) <= tol:
+            n, i, j = n + 1, i + 1, j + 1
+        elif a[i] < b[j]:
+            i += 1
+        else:
+            j += 1
+    return n
+
+
+def picks_match(a: Dict[str, List[int]], b: Dict[str, List[int]]) -> Tuple[bool, str]:
+    """P and S picks of two runs within the stream-smoke tolerance."""
+    ok, notes = True, []
+    for kind in ("ppk", "spk"):
+        m = matched(a[kind], b[kind])
+        union = len(a[kind]) + len(b[kind]) - m
+        stranded = union - m
+        ok = ok and (union == 0 or stranded <= max(1, int(STRAND_SHARE * union)))
+        notes.append(f"{kind} {len(a[kind])}/{len(b[kind])} matched {m}")
+    return ok, ", ".join(notes)
+
+
+def sample_picks(body: dict) -> Dict[str, List[int]]:
+    return {k: [p["sample"] for p in body[k]] for k in ("ppk", "spk")}
+
+
+def cpu_annotate(entry, rec: np.ndarray) -> Tuple[np.ndarray, Dict[str, List[int]], dict]:
+    """The port's CPU run of ``rec`` through ``entry`` (one forward per
+    batch), the pick thresholds at PICK_QUANTILE of its stitched curve, and
+    its picks at them: (curve, picks, options)."""
+    outs = []
+
+    def forward(x):
+        outs.append(entry.run(x))
+        return outs[-1]
+
+    kw = dict(window=WINDOW, batch_size=BATCH, channel0=entry.channel0, combine="max",
+              max_events=RECORD_EVENTS)
+    prob = stream_ops.annotate(forward, rec, **kw)["prob"]
+    det = prob[:, 0] if entry.channel0 == "det" else 1.0 - prob[:, 0]
+    opts = {"ppk_threshold": float(np.quantile(prob[:, 1], PICK_QUANTILE)),
+            "spk_threshold": float(np.quantile(prob[:, 2], PICK_QUANTILE)),
+            "det_threshold": float(np.quantile(det, PICK_QUANTILE)),
+            "combine": "max", "record_max_events": RECORD_EVENTS, "timeout_ms": 60000}
+    replay = iter(outs)
+    got = stream_ops.annotate(lambda x: next(replay), rec, **dict(
+        kw, ppk_threshold=opts["ppk_threshold"], spk_threshold=opts["spk_threshold"],
+        det_threshold=opts["det_threshold"]))
+    picks = {k: got[k].tolist() for k in ("ppk", "spk")}
+    return prob, picks, opts
+
+
+def stream_station(url: str, station: dict, rec: np.ndarray, opts: dict, seqs: range,
+                   end: bool, lat_ms: List[float], statuses: List[int]) -> dict:
+    """POST a station's packets (seq numbers ``seqs``, 1-based packet
+    indices into ``rec``) and, with ``end``, the closing packet; returns
+    the merged picks, the windows and the responses' flags."""
+    out = {"ppk": [], "spk": [], "windows": 0, "degraded": False, "closed": False}
+    bodies = [{"model": MODEL, "station": station, "seq": s, "options": opts,
+               "data": rec[(s - 1) * PACKET : s * PACKET].tolist()} for s in seqs]
+    if end:
+        bodies.append({"model": MODEL, "station": station, "seq": seqs.stop, "end": True,
+                       "options": opts})
+    for body in bodies:
+        t0 = time.perf_counter()
+        status, r = post(url + "/stream", body)
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+        statuses.append(status)
+        if status != 200:
+            fail(f"/stream {station['id']} seq {body['seq']}: {status} {str(r)[:300]}")
+        for k in ("ppk", "spk"):
+            out[k] += [p["sample"] for p in r[k]]
+        out["windows"] += r["windows"]
+        out["degraded"] |= r["degraded"]
+        out["closed"] = r["closed"]
+    return out
+
+
+def run_clients(jobs: List, n_threads: int) -> List:
+    """``jobs`` (callables) on ``n_threads`` client threads, each taking
+    every n-th job in turn; returns their results in job order."""
+    results: List = [None] * len(jobs)
+    errors: List[BaseException] = []
+
+    def client(k: int) -> None:
+        try:
+            for i in range(k, len(jobs), n_threads):
+                results[i] = jobs[i]()
+        except BaseException as e:  # noqa: BLE001 — re-raised below, on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"a client failed: {errors[:1]}")
+    return results
+
+
+def streams_phase(name_power: str, weights: str) -> dict:
+    """Phase 13 (module docstring)."""
+    t_phase = time.perf_counter()
+    paths = group_weights(weights, os.path.dirname(weights))
+    pn_weights = os.path.join(str(_kernels.BUILD_DIR), f"phasenet_seed{SEED}.pt")
+    torch.save(api.create_model("phasenet", in_samples=WINDOW, seed=SEED).state_dict(),
+               pn_weights)
+    # The port's CPU references, before the plain attention is patched out
+    # (the CPU runs it). The group's trunk and dpk head are seist_l_dpk's
+    # weights, so seist_l_dpk's reference is the group's too.
+    rec = long_record(SEED)
+    t0 = time.perf_counter()
+    cpu = {MODEL: load_model_entry(MODEL, weights, window=WINDOW, device="cpu"),
+           "phasenet": load_model_entry("phasenet", pn_weights, window=WINDOW, device="cpu")}
+    refs = {name: cpu_annotate(e, rec) for name, e in cpu.items()}
+    refs[GROUP] = refs[MODEL]
+    del cpu
+    cpu_s = time.perf_counter() - t0
+    opts = refs[MODEL][2]
+    journal = os.path.join(str(_kernels.BUILD_DIR), "stream_journal")
+    shutil.rmtree(journal, ignore_errors=True)
+    common = ["--window", str(WINDOW), "--max-batch", str(BATCH), "--max-delay-ms", "20",
+              "--device", "cuda", "--shed-batch-delay-ms", "1", "--stream-journal-dir", journal,
+              "--stream-journal-every-s", "5", "--assoc-min-stations", "4"]
+    argv = (["--model", f"{MODEL}={weights}", "--model", f"phasenet={pn_weights}",
+             "--model-group", GROUP + "=" + ",".join(f"{t}:{paths[t]}" for t in GROUP_TASKS)]
+            + common)
+    real_plain = pa.pooled_attention_plain
+
+    def plain_off_path(*a, **k):
+        raise AssertionError("pooled_attention_plain reached on the served path")
+
+    pa.pooled_attention_plain = plain_off_path
+    service = srv.service_from_args(srv.get_serve_args(argv))
+    server = srv.start_http_server(service, "127.0.0.1", 0)
+    url = "http://127.0.0.1:%d" % server.server_address[1]
+    services = [service]
+    # The main path of the phase, counted: every request below.
+    calls0 = program_calls(service)
+    pa.launches = pa.bf16_launches = 0
+
+    with urllib.request.urlopen(url + "/healthz/live", timeout=30) as r:
+        live = (r.status, json.loads(r.read()))
+    with urllib.request.urlopen(url + "/healthz/ready", timeout=30) as r:
+        ready = (r.status, json.loads(r.read()))
+    print(f"[streams] {name_power} | serve {' '.join(argv)}: ready in {service.ready_s:.2f} s; "
+          f"/healthz/live {live}; /healthz/ready {ready}; CPU references {cpu_s:.1f} s; "
+          f"thresholds at the {PICK_QUANTILE} quantile of the CPU curve: ppk "
+          f"{opts['ppk_threshold']:.6f}, spk {opts['spk_threshold']:.6f}, det "
+          f"{opts['det_threshold']:.6f}", flush=True)
+    if live[0] != 200 or ready[0] != 200 or set(ready[1].get("versions", {})) != {
+            MODEL, "phasenet", GROUP}:
+        fail("the health routes do not answer ready with every model's version")
+
+    # /annotate of the 10-minute record: each model over HTTP, and the
+    # card's stitched curve against the CPU's.
+    rows = {}
+    for name in (MODEL, GROUP, "phasenet"):
+        prob_cpu, picks_cpu, o = refs[name]
+        t0 = time.perf_counter()
+        status, body = post(url + "/annotate", {"model": name, "data": rec.tolist(),
+                                                 "options": o})
+        wall = (time.perf_counter() - t0) * 1e3
+        if status != 200:
+            fail(f"/annotate {name}: {status} {str(body)[:300]}")
+        entry = service.entries[name]
+        forward = entry.picker_forward if entry.is_group else (lambda x, e=entry: e.run(x))
+        prob = stream_ops.annotate(forward, rec, window=WINDOW, batch_size=BATCH,
+                                   channel0=entry.channel0, combine="max",
+                                   max_events=RECORD_EVENTS)["prob"]
+        err = float(np.abs(prob - prob_cpu).max())
+        ok, notes = picks_match(sample_picks(body), picks_cpu)
+        rows[name] = (wall, body["windows"])
+        print(f"[streams] {name_power} | /annotate {name}, {RECORD} samples, {body['windows']} "
+              f"windows: wall {wall:.1f} ms, {body['windows'] / wall * 1e3:.1f} windows/s; card "
+              f"curve vs CPU max_abs_err {err:.3e} (limit {PROB_TOL:.0e}); picks vs CPU: "
+              f"{notes}", flush=True)
+        if not err <= PROB_TOL or not ok:
+            fail(f"/annotate {name} on the card differs from the CPU run")
+        if max(len(v) for v in picks_cpu.values()) >= RECORD_EVENTS or not picks_cpu["ppk"]:
+            fail(f"/annotate {name}: no picks, or the pick capacity binds")
+    hour = long_record(SEED + 1, HOUR)
+    t0 = time.perf_counter()
+    status, body = post(url + "/annotate", {"model": MODEL, "data": hour.tolist(),
+                                             "options": opts})
+    wall = (time.perf_counter() - t0) * 1e3
+    if status != 200:
+        fail(f"/annotate of the 1-hour record: {status} {str(body)[:300]}")
+    print(f"[streams] {name_power} | /annotate {MODEL}, 1 hour ({HOUR} samples, "
+          f"{body['windows']} windows): wall {wall:.1f} ms, {body['windows'] / wall * 1e3:.1f} "
+          f"windows/s", flush=True)
+
+    # /stream: 16 stations on 8 clients, a batch-tier /predict flood beside.
+    recs = [long_record(SEED + 10 + i) for i in range(STATIONS)]
+    offline = run_clients([lambda i=i: post(url + "/annotate", {
+        "model": MODEL, "data": recs[i].tolist(), "options": opts}) for i in range(STATIONS)],
+        STREAM_CLIENTS)
+    if any(s != 200 for s, _ in offline):
+        fail("an /annotate of a station's record failed")
+    geometry = [{"id": f"ST{i:02d}", "network": "XX", "lat": 35.0 + 0.05 * (i % 4),
+                 "lon": -117.0 + 0.05 * (i // 4)} for i in range(STATIONS)]
+    lat_ms: List[float] = []
+    statuses: List[int] = []
+    n_packets = RECORD // PACKET
+    done = threading.Event()
+    flood_traces = traces(FLOOD_CLIENTS)
+    flood: List[Tuple[int, dict, Dict[str, str]]] = []
+
+    def flooder(k: int) -> None:
+        # A well-behaved batch client: it waits out a shed's Retry-After.
+        while not done.is_set():
+            flood.append(post_timed(url + "/predict", {
+                "model": MODEL, "data": flood_traces[k].tolist(),
+                "options": {"priority": "batch", "max_events": 1}}))
+            done.wait(float(flood[-1][2].get("Retry-After", 0)))
+
+    floods = [threading.Thread(target=flooder, args=(k,)) for k in range(FLOOD_CLIENTS)]
+    for t in floods:
+        t.start()
+    t0 = time.perf_counter()
+    # Two stations per client, their packets interleaved.
+    streamed = run_clients([lambda i=i: stream_station(
+        url, geometry[i], recs[i], opts, range(1, n_packets + 1), True, lat_ms, statuses)
+        for i in range(STATIONS)], STREAM_CLIENTS)
+    stream_s = time.perf_counter() - t0
+    done.set()
+    for t in floods:
+        t.join(timeout=300)
+    metrics = service.metrics()
+    mux = metrics["stream"][MODEL]
+    shed = metrics["shed"][MODEL]["tiers"]
+    win_ms = BUS.histogram("stream_window_latency_ms", model=MODEL).summary()
+    bad = []
+    for i, (s, (status, body)) in enumerate(zip(streamed, offline)):
+        ok, notes = picks_match(s, sample_picks(body))
+        if not ok or s["windows"] != body["windows"] or s["degraded"] or not s["closed"]:
+            bad.append(f"ST{i:02d}: {notes}; windows {s['windows']} vs {body['windows']}")
+    n_shed = sum(1 for st, b, h in flood if st == 503 and "shed" in b.get("error", "")
+                 and "Retry-After" in h)
+    n_flood_ok = sum(1 for st, _, _ in flood if st == 200)
+    print(f"[streams] {name_power} | /stream: {STATIONS} stations x {n_packets} packets of "
+          f"{PACKET} samples + end on {STREAM_CLIENTS} clients in {stream_s:.2f} s; packet "
+          f"p50 {np.percentile(lat_ms, 50):.1f} ms p99 {np.percentile(lat_ms, 99):.1f} ms; "
+          f"stream_window_latency_ms p50 {win_ms['p50']:.1f} p99 {win_ms['p99']:.1f} (n "
+          f"{win_ms['count']}); windows {mux['windows']:.0f}, dropped "
+          f"{mux['windows_dropped']:.0f}, degraded sessions {mux['degraded_sessions']:.0f}, "
+          f"picks {mux['picks']:.0f}, alerts {mux['alerts']:.0f}; stations matching /annotate "
+          f"{STATIONS - len(bad)} of {STATIONS}", flush=True)
+    print(f"[streams] {name_power} | batch-tier /predict flood beside it: {len(flood)} "
+          f"requests, {n_shed} shed (503, Retry-After), {n_flood_ok} served; shed counts per "
+          f"tier {json.dumps(shed)}", flush=True)
+    if bad:
+        fail(f"/stream differs from /annotate: {bad[:4]}")
+    if (any(s != 200 for s in statuses) or mux["windows_dropped"] or mux["degraded_sessions"]
+            or shed["alert"]["shed"] or shed["alert"]["admitted"] != len(statuses)):
+        fail("an alert-tier packet or window was refused, dropped or shed")
+    if n_shed < 1 or n_shed + n_flood_ok != len(flood):
+        fail(f"the batch-tier flood was not shed with Retry-After: statuses "
+             f"{collections.Counter(st for st, _, _ in flood)}")
+
+    # Restart from the journal: four stations half-streamed, the service
+    # shut down (journaling them), a second one over the same directory.
+    half = n_packets // 2
+    restart = [dict(geometry[i], id=f"RS{i:02d}") for i in range(RESTART_STATIONS)]
+    first = run_clients([lambda i=i: stream_station(
+        url, restart[i], recs[i], opts, range(1, half + 1), False, [], [])
+        for i in range(RESTART_STATIONS)], RESTART_STATIONS)
+    server.shutdown()
+    service.shutdown()
+    t0 = time.perf_counter()
+    service2 = srv.service_from_args(srv.get_serve_args(
+        ["--model", f"{MODEL}={weights}"] + common))
+    server2 = srv.start_http_server(service2, "127.0.0.1", 0)
+    url2 = "http://127.0.0.1:%d" % server2.server_address[1]
+    services.append(service2)
+    ready2_s = time.perf_counter() - t0
+    second = run_clients([lambda i=i: stream_station(
+        url2, restart[i], recs[i], opts, range(half + 1, n_packets + 1), True, [], [])
+        for i in range(RESTART_STATIONS)], RESTART_STATIONS)
+    mux2 = service2.metrics()["stream"][MODEL]
+    server2.shutdown()
+    service2.shutdown()
+    pa.pooled_attention_plain = real_plain
+    notes = []
+    for i in range(RESTART_STATIONS):
+        merged = {k: first[i][k] + second[i][k] for k in ("ppk", "spk")}
+        ok, note = picks_match(merged, streamed[i])
+        notes.append(note)
+        if not ok or first[i]["windows"] + second[i]["windows"] != streamed[i]["windows"]:
+            fail(f"RS{i:02d}, resumed from the journal, differs from the uninterrupted run")
+    print(f"[streams] {name_power} | restart: {RESTART_STATIONS} stations journaled at packet "
+          f"{half}, a second service ready in {ready2_s:.2f} s restored {mux2['restores']:.0f}; "
+          f"against the uninterrupted run: {'; '.join(notes)}", flush=True)
+    if mux2["restores"] != RESTART_STATIONS or mux2["restores_failed"]:
+        fail("the second service did not restore every station from the journal")
+
+    counts = {"K1": pa.launches, "K1_bf16": pa.bf16_launches}
+    calls = {}
+    for s in services:
+        for key, c in program_calls(s).items():
+            calls[key] = calls.get(key, 0) + c - calls0.get(key, 0) * (s is service)
+    progs = {p.key: p for s in services for e in s.entries.values() for p in e.all_programs()}
+    want = sum(calls[k] * progs[k].launches[0] for k in calls)
+    print(f"[streams] main path: K1 {counts['K1']} launches (bf16 {counts['K1_bf16']}), "
+          f"replays x captured launches {want}; replays "
+          f"{ {k: c for k, c in calls.items() if c} }; phase {time.perf_counter() - t_phase:.1f} "
+          f"s", flush=True)
+    if counts["K1"] != want or counts["K1"] < 1 or counts["K1_bf16"]:
+        fail(f"phase 13's K1 launches {counts} != 5 x its replays ({want})")
+    counts.update(K2=0, K3=0, K2_bf16=0)
+    return {"counts": counts, "annotate": rows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this drives the "
@@ -3080,6 +3468,8 @@ def main() -> int:
     path_counts += augmented["counts"]
     programs = programs_phase(name_power, weights, len(shapes))
     path_counts.append(programs["counts"])
+    streams = streams_phase(name_power, weights)
+    path_counts.append(streams["counts"])
 
     fp32 = [r for r in rows if r["dtype"] == "fp32"]  # the serving path is fp32
     bf16_rows = [r for r in rows if r["dtype"] == "bf16"]
@@ -3101,7 +3491,8 @@ def main() -> int:
           f"{sum(c['K1'] for c in augmented['counts'])}, K2 "
           f"{sum(c['K2'] for c in augmented['counts'])}, K3 "
           f"{sum(c['K3'] for c in augmented['counts'])}; served programs (phase 12): K1 "
-          f"{programs['counts']['K1']} (bf16 {programs['counts']['K1_bf16']}); all paths: K1 "
+          f"{programs['counts']['K1']} (bf16 {programs['counts']['K1_bf16']}); long-record and "
+          f"stream planes (phase 13): K1 {streams['counts']['K1']}; all paths: K1 "
           f"{launches['K1']} (bf16 "
           f"{launches['K1_bf16']}), K2 {launches['K2']} (bf16 {launches['K2_bf16']}), K3 "
           f"{launches['K3']}", flush=True)

@@ -357,6 +357,7 @@ class RequestTrace:
         )
         self._lock = threading.Lock()
         self._segments: List[Tuple[str, float]] = []
+        self._annotations: Dict[str, Any] = {}  # the root span's (model, tier, ...)
         self._finished = False
         self.dur_ms: Optional[float] = None
         self._t0_mono = monotonic()
@@ -413,6 +414,11 @@ class RequestTrace:
             span["annotations"] = annotations
         self._buffer.add_span(self.trace_id, span)
 
+    def annotate(self, **fields: Any) -> None:
+        """Annotate the root span (the request's model, tier, station)."""
+        with self._lock:
+            self._annotations.update(fields)
+
     def flag(self, *flags: str) -> None:
         with self._lock:
             if self._finished:
@@ -433,7 +439,7 @@ class RequestTrace:
             self._finished = True
             dur_ms = (monotonic() - self._t0_mono) * 1e3
             self.dur_ms = dur_ms
-        annotations: Dict[str, Any] = {}
+            annotations: Dict[str, Any] = dict(self._annotations)
         if status is not None:
             annotations["status"] = int(status)
         span = {
@@ -488,6 +494,9 @@ class NullTrace:
         yield _SpanHandle(name, {})
 
     def add_child(self, name: str, dur_ms: float, **annotations) -> None:
+        pass
+
+    def annotate(self, **fields: Any) -> None:
         pass
 
     def flag(self, *flags: str) -> None:

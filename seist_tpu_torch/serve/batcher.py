@@ -1,6 +1,5 @@
 """Micro-batcher: coalesce concurrent single-trace requests into bucketed
-fixed-shape forwards (the port's copy of ``seist_tpu/serve/batcher.py``,
-without the shedding hooks).
+fixed-shape forwards (the port's copy of ``seist_tpu/serve/batcher.py``).
 
 Requests queue, and one worker thread flushes when ``max_batch`` requests
 wait, when the oldest has waited ``max_delay_ms``, or when draining. A
@@ -9,6 +8,14 @@ flush pads the n collected traces up to the smallest bucket ``>= n``
 device sees a handful of shapes, each run once at warm-up. The queue is
 bounded (``QueueFull``); requests that expire while queued are dropped
 before the forward (``DeadlineExceeded``).
+
+The queue is rank-ordered: each request carries a rank (the server maps
+its tier, ``alert`` < ``interactive`` < ``batch``, through
+``protocol.PRIORITIES``), and a flush takes the lowest ranks first, FIFO
+within a rank, so low-tier work admitted before the shedder tripped never
+stands ahead of an alert. :meth:`MicroBatcher.queue_delay_ms` is the
+overload signal ``serve/shed.py`` sheds on: the head of the queue's age
+plus the flush waves queued behind it at the EWMA of a flush's time.
 
 The forward runs on the worker thread under ``torch.inference_mode()``;
 its output is copied to the host once per flush, and each caller gets its
@@ -84,12 +91,13 @@ class BatcherConfig:
 
 
 class _Pending:
-    __slots__ = ("x", "tasks", "trace", "enqueued_at", "deadline", "event", "result", "error",
-                 "abandoned")
+    __slots__ = ("x", "rank", "tasks", "trace", "enqueued_at", "deadline", "event", "result",
+                 "error", "abandoned")
 
-    def __init__(self, x: np.ndarray, deadline: float, tasks: Optional[frozenset] = None,
-                 trace: Optional[Any] = None):
+    def __init__(self, x: np.ndarray, deadline: float, rank: int = 1,
+                 tasks: Optional[frozenset] = None, trace: Optional[Any] = None):
         self.x = x
+        self.rank = rank  # flush order: lower rank first, FIFO within
         self.tasks = tasks  # a task group's heads this caller wants
         self.trace = trace  # obs.trace.RequestTrace (None: untraced)
         self.enqueued_at = time.monotonic()
@@ -130,6 +138,7 @@ class MicroBatcher:
         self._forwards = 0
         self._batch_items = 0  # real traces forwarded
         self._batch_slots = 0  # bucket slots forwarded (incl. padding)
+        self._flush_ewma_ms = 0.0  # EWMA of a flush's wall time
         self.latency_ms = LatencyHistogram()
         # Keyed by the batcher's name only: a fresh batcher replaces the
         # registration of the one it succeeds (two with identical labels
@@ -142,15 +151,17 @@ class MicroBatcher:
         self._thread.start()
 
     def submit(self, x: np.ndarray, timeout_ms: float = 5000.0,
-               tasks: Optional[frozenset] = None, trace: Optional[Any] = None) -> Any:
+               tasks: Optional[frozenset] = None, trace: Optional[Any] = None,
+               rank: int = 1) -> Any:
         """Block until the trace's batch is served; returns the caller's
-        output row. ``tasks`` (task groups only) names the heads this caller
+        output row. ``rank`` orders the queue (lower first, FIFO within a
+        rank); ``tasks`` (task groups only) names the heads this caller
         wants; ``trace`` records the request's ``queue_wait`` and
         ``forward`` spans (module docstring). Raises QueueFull /
         DeadlineExceeded / ShuttingDown."""
         t0 = time.monotonic()
-        item = _Pending(np.asarray(x), deadline=t0 + timeout_ms / 1000.0, tasks=tasks,
-                        trace=trace)
+        item = _Pending(np.asarray(x), deadline=t0 + timeout_ms / 1000.0, rank=rank,
+                        tasks=tasks, trace=trace)
         with self._cond:
             if self._fatal is not None:
                 raise ServeError(f"batcher {self.name} worker died: {self._fatal!r}")
@@ -162,7 +173,12 @@ class MicroBatcher:
                     f"batcher {self.name} queue full ({self.config.max_queue} waiting)"
                 )
             self._submitted += 1
-            self._queue.append(item)
+            # Stable rank-ordered insert, scanning from the tail: a burst is
+            # mostly of the same or a lower rank, so this is short.
+            pos = len(self._queue)
+            while pos > 0 and self._queue[pos - 1].rank > item.rank:
+                pos -= 1
+            self._queue.insert(pos, item)
             self._cond.notify_all()
         if not item.event.wait(timeout=timeout_ms / 1000.0 + 0.05):
             # Decide success-vs-expired once, under the lock the worker
@@ -281,11 +297,26 @@ class MicroBatcher:
             self._forwards += 1
             self._batch_items += n
             self._batch_slots += bucket
+            # The service time behind queue_delay_ms; the first flush seeds it.
+            self._flush_ewma_ms = (flush_ms if self._flush_ewma_ms == 0.0
+                                   else 0.8 * self._flush_ewma_ms + 0.2 * flush_ms)
             for i, item in enumerate(live):
                 item.result = slice_outputs(out, i)
                 if not item.abandoned:
                     self._completed += 1
                 item.event.set()
+
+    def queue_delay_ms(self) -> float:
+        """The queueing delay a request admitted now would see: the head of
+        the queue's age (grows without bound under sustained overload,
+        clears after a burst) plus the flush waves queued ahead at the
+        EWMA flush time. An empty queue reads 0."""
+        with self._cond:
+            if not self._queue:
+                return 0.0
+            head_age_ms = (time.monotonic() - self._queue[0].enqueued_at) * 1e3
+            waves = -(-len(self._queue) // self.config.max_batch)
+            return head_age_ms + waves * self._flush_ewma_ms
 
     def shutdown(self, drain: bool = True, timeout_s: float = 30.0) -> None:
         """Stop accepting work; with ``drain`` the queued requests are
@@ -312,6 +343,7 @@ class MicroBatcher:
             slots = self._batch_slots
             return {
                 "queue_depth": len(self._queue),
+                "queue_delay_ms": round(self.queue_delay_ms(), 3),
                 "healthy": self.healthy,
                 "submitted": self._submitted,
                 "completed": self._completed,

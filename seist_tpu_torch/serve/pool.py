@@ -114,10 +114,18 @@ def _load_parts(model_name: str, weights: str, *, window: int, seed: int,
     return model.to(device).eval(), spec, in_channels
 
 
-def _is_picker(spec: Any) -> bool:
-    """Dense per-sample heads (det/ppk/spk) decode to picks."""
+def _channel0(spec: Any) -> Optional[str]:
+    """A picking head's first channel, ``'non'`` or ``'det'`` (its dense
+    per-sample (non|det, ppk, spk) outputs decode to picks); None for every
+    other head."""
     first = spec.labels[0]
-    return isinstance(first, tuple) and len(first) == 3 and first[0] in ("non", "det")
+    if isinstance(first, tuple) and len(first) == 3 and first[0] in ("non", "det"):
+        return first[0]
+    return None
+
+
+def _is_picker(spec: Any) -> bool:
+    return _channel0(spec) is not None
 
 
 def _head_scale(model: torch.nn.Module) -> float:
@@ -175,10 +183,21 @@ class ModelEntry:
     buckets: Tuple[int, ...] = (1,)
     _fns: Dict[str, Callable] = field(default_factory=dict)
     _lock: threading.Lock = field(default_factory=threading.Lock)
+    #: variant -> the lock its programs' calls take (a program is called
+    #: from one thread at a time: the batcher's, or /annotate's)
+    _run_locks: Dict[str, threading.Lock] = field(default_factory=dict)
+
+    def __post_init__(self):
+        self._run_locks = {v: threading.Lock() for v in aot.VARIANTS}
 
     @property
     def is_picker(self) -> bool:
         return _is_picker(self.spec)
+
+    @property
+    def channel0(self) -> Optional[str]:
+        """'non' or 'det' for a picking model (``ops/stream.annotate``)."""
+        return _channel0(self.spec)
 
     @property
     def is_group(self) -> bool:
@@ -232,7 +251,7 @@ class ModelEntry:
         flush the program and ``aot`` (a program served it: a replayed
         graph on the card, the program's function on the CPU; False for a
         counted fallback) land on the flush's ``forward`` span."""
-        with torch.inference_mode():
+        with torch.inference_mode(), self._run_locks[variant]:
             inputs = _flat(self._stage(_to_device(batch, self.device)))
             b = int(inputs[0].shape[0])
             prog = self.programs.get(variant, {}).get(b)
@@ -310,6 +329,10 @@ class TaskHead:
     def is_picker(self) -> bool:
         return _is_picker(self.spec)
 
+    @property
+    def channel0(self) -> Optional[str]:
+        return _channel0(self.spec)
+
 
 @dataclass
 class MultiTaskEntry:
@@ -343,13 +366,31 @@ class MultiTaskEntry:
     _trunk_runs: int = 0
     _head_runs: Dict[str, int] = field(default_factory=dict)
     _flops_saved: float = 0.0
+    #: variant -> the lock a fan-out takes (ModelEntry._run_locks)
+    _run_locks: Dict[str, threading.Lock] = field(default_factory=dict)
 
     def __post_init__(self):
         self.variant_tasks.setdefault("fp32", tuple(self.tasks))
+        self._run_locks = {v: threading.Lock() for v in aot.VARIANTS}
 
     @property
     def is_group(self) -> bool:
         return True
+
+    @property
+    def is_picker(self) -> bool:
+        """A group picks over records (``/annotate``) when it serves dpk."""
+        return "dpk" in self.heads and self.heads["dpk"].is_picker
+
+    @property
+    def channel0(self) -> Optional[str]:
+        return self.heads["dpk"].channel0 if "dpk" in self.heads else None
+
+    def picker_forward(self, x: Any) -> Any:
+        """(N, window, C) -> (N, window, 3) dpk probabilities on the entry's
+        device: the trunk's and the dpk head's programs replayed, the
+        forward ``ops/stream.annotate`` drives for a group's ``/annotate``."""
+        return self.fanout(x, ("dpk",), "fp32")["dpk"]
 
     def resolve_tasks(self, tasks: Optional[Sequence[str]]) -> Tuple[str, ...]:
         if tasks is None:
@@ -403,11 +444,12 @@ class MultiTaskEntry:
         served traffic."""
         x = _to_device(batch, self.device)
         b = int(x.shape[0])
-        feats, trunk = self._program_or_fallback("trunk", variant, b, x)
-        outs, heads = {}, []
-        for t in tasks:
-            outs[t], prog = self._program_or_fallback(t, variant, b, feats)
-            heads.append(prog)
+        with self._run_locks[variant]:  # the heads read the trunk's buffer
+            feats, trunk = self._program_or_fallback("trunk", variant, b, x)
+            outs, heads = {}, []
+            for t in tasks:
+                outs[t], prog = self._program_or_fallback(t, variant, b, feats)
+                heads.append(prog)
         # Inside a batcher flush the trunk-once fan-out lands on every
         # member's forward span.
         obs_trace.annotate_flush(

@@ -1,21 +1,25 @@
-"""Wire protocol of the port's server (its own copy of the parts of
-``seist_tpu/serve/protocol.py`` that ``/predict`` uses): request parsing,
-the options, and the error taxonomy the HTTP front end maps to status
-codes. A predict request body is::
+"""Wire protocol of the port's server (its own copy of
+``seist_tpu/serve/protocol.py``): request parsing, the options, and the
+error taxonomy the HTTP front end maps to status codes. A predict request
+body is::
 
     {"model": "seist_l_dpk",              # optional when one model is loaded
      "data": [[...], ...],                # (C, L) or (L, C) floats
      "tasks": ["dpk", "emg"],             # task groups only; default all
+     "station": {"id": "STA1"},           # optional; echoed back
      "options": {"ppk_threshold": 0.3, "spk_threshold": 0.3,
                  "det_threshold": 0.5, "min_peak_dist": 1.0,
                  "sampling_rate": 50, "norm_mode": "std",
                  "max_events": 8, "timeout_ms": 5000,
-                 "variant": "fp32"}}
+                 "priority": "interactive", "variant": "fp32"}}
 
 Windows shorter than the model's window are right-padded with zeros AFTER
-normalization; longer ones are rejected. A reload request (``POST
-/admin/reload``) is ``{"model": ..., "checkpoint": PATH | "checkpoints":
-{task: PATH}, "version": N}``.
+normalization; longer ones are rejected toward ``POST /annotate``, which
+takes a record of any length at least one window long (options
+``stride``, ``combine`` and ``record_max_events``). ``POST /stream``
+takes one packet of a station's stream (``station`` required, ``seq``,
+``end``). A reload request (``POST /admin/reload``) is ``{"model": ...,
+"checkpoint": PATH | "checkpoints": {task: PATH}, "version": N}``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,10 @@ class ServeError(Exception):
 
     def payload(self) -> Dict[str, Any]:
         return {"error": self.code, "message": str(self)}
+
+    def headers(self) -> Dict[str, str]:
+        """Extra HTTP response headers (the shed path's ``Retry-After``)."""
+        return {}
 
 
 class BadRequest(ServeError):
@@ -61,7 +69,10 @@ class DeadlineExceeded(ServeError):
 
 
 class ShuttingDown(ServeError):
-    """The server is draining (SIGTERM): nothing is wrong with the request."""
+    """The server is draining (SIGTERM), or its stream mux is closed
+    (``MuxClosed``): nothing is wrong with the request, and a router
+    retries it on another replica, which restores the station's session
+    from its journal."""
 
     status = 503
     code = "shutting_down"
@@ -99,6 +110,36 @@ class ParityGateFailed(ReloadFailed):
 VARIANTS = ("fp32", "bf16", "int8")
 DEFAULT_VARIANT = "fp32"
 
+#: Priority tiers, highest first; the order is the shed order reversed:
+#: ``batch`` (backfill) is shed first under overload, ``alert`` (the
+#: stream's early-warning windows) last. The number is the batcher's rank.
+PRIORITIES = {"alert": 0, "interactive": 1, "batch": 2}
+DEFAULT_PRIORITY = "interactive"
+
+
+class Overloaded(ServeError):
+    """Load shedding (``serve/shed.py``): the queue delay says this
+    request's tier cannot be served within its budget. A policy drop of a
+    low tier, answered 503 with ``Retry-After`` (QueueFull's 429 stays
+    the hard bound of the queue)."""
+
+    status = 503
+    code = "shed"
+
+    def __init__(self, message: str, retry_after_s: float = 1.0):
+        super().__init__(message)
+        # The shed policy owns the floor (ShedConfig.min_retry_after_s).
+        self.retry_after_s = max(0.0, float(retry_after_s))
+
+    def payload(self) -> Dict[str, Any]:
+        p = super().payload()
+        p["retry_after_s"] = round(self.retry_after_s, 1)
+        return p
+
+    def headers(self) -> Dict[str, str]:
+        # Retry-After is delta-seconds, integral (RFC 9110).
+        return {"Retry-After": str(int(math.ceil(self.retry_after_s)))}
+
 
 @dataclass
 class PredictOptions:
@@ -112,7 +153,12 @@ class PredictOptions:
     norm_mode: str = "std"
     max_events: int = 8
     timeout_ms: float = 5000.0
+    priority: str = DEFAULT_PRIORITY  # admission tier (serve/shed.py)
     variant: str = DEFAULT_VARIANT  # weight variant (serve/aot.py)
+    # /annotate (and /stream's session) only:
+    stride: int = 0  # 0 = window // 2
+    combine: str = "max"
+    record_max_events: int = 0  # 0 = scale with the record's length
 
     @classmethod
     def from_dict(cls, d: Optional[Dict[str, Any]]) -> "PredictOptions":
@@ -123,7 +169,7 @@ class PredictOptions:
         if unknown:
             raise BadRequest(f"unknown options: {sorted(unknown)}")
         for key, value in d.items():
-            if key in ("norm_mode", "variant"):
+            if key in ("norm_mode", "combine", "priority", "variant"):
                 if not isinstance(value, str):
                     raise BadRequest(f"option '{key}' must be a string")
                 continue
@@ -133,7 +179,7 @@ class PredictOptions:
                 )
             if not math.isfinite(value):
                 raise BadRequest(f"option '{key}' must be finite")
-            if key in ("sampling_rate", "max_events"):
+            if key in ("sampling_rate", "max_events", "stride", "record_max_events"):
                 if float(value) != int(value):
                     raise BadRequest(f"option '{key}' must be an integer, got {value}")
                 d[key] = int(value)
@@ -146,6 +192,13 @@ class PredictOptions:
             raise BadRequest(f"min_peak_dist must be >= 0, got {opts.min_peak_dist}")
         if opts.max_events < 1:
             raise BadRequest(f"max_events must be >= 1, got {opts.max_events}")
+        if opts.stride < 0 or opts.record_max_events < 0:
+            raise BadRequest("stride and record_max_events must be >= 0")
+        if opts.combine not in ("max", "mean"):
+            raise BadRequest(f"combine must be 'max' or 'mean', got '{opts.combine}'")
+        if opts.priority not in PRIORITIES:
+            raise BadRequest(
+                f"priority must be one of {sorted(PRIORITIES)}, got '{opts.priority}'")
         if opts.variant not in VARIANTS:
             raise BadRequest(f"variant must be one of {list(VARIANTS)}, got '{opts.variant}'")
         return opts
@@ -201,6 +254,51 @@ def parse_waveform(obj: Any, in_channels: int) -> np.ndarray:
     if not np.all(np.isfinite(arr)):
         raise BadRequest("'data' contains non-finite values")
     return arr
+
+
+_STATION_FIELDS = {"id", "network", "lat", "lon"}
+
+
+def parse_station(obj: Any, required: bool = False) -> Optional[Dict[str, Any]]:
+    """A request's ``station`` block: ``{"id": str, "network": str?, "lat":
+    float?, "lon": float?}``, ``id`` mandatory, ``lat`` and ``lon``
+    together or not at all (the associator needs both). Returns the
+    normalized dict, or None when the block is absent and not required."""
+    if obj is None:
+        if required:
+            raise BadRequest("'station' metadata is required: {'id': ...}")
+        return None
+    if not isinstance(obj, dict):
+        raise BadRequest(f"'station' must be an object, got {type(obj).__name__}")
+    unknown = set(obj) - _STATION_FIELDS
+    if unknown:
+        raise BadRequest(f"unknown station fields: {sorted(unknown)}")
+    sid = obj.get("id")
+    if not isinstance(sid, str) or not sid:
+        raise BadRequest("'station.id' must be a non-empty string")
+    if len(sid) > 64:
+        # Journal file names slug the id; a bounded id keeps them apart.
+        raise BadRequest("'station.id' must be <= 64 characters")
+    out: Dict[str, Any] = {"id": sid, "network": ""}
+    net = obj.get("network")
+    if net is not None:
+        if not isinstance(net, str):
+            raise BadRequest("'station.network' must be a string")
+        out["network"] = net
+    lat, lon = obj.get("lat"), obj.get("lon")
+    if (lat is None) != (lon is None):
+        raise BadRequest("'station.lat' and 'station.lon' must come together")
+    if lat is not None:
+        for key, val in (("lat", lat), ("lon", lon)):
+            if isinstance(val, bool) or not isinstance(val, (int, float)) \
+                    or not math.isfinite(val):
+                raise BadRequest(f"'station.{key}' must be a finite number")
+        if not -90.0 <= float(lat) <= 90.0:
+            raise BadRequest("'station.lat' out of range [-90, 90]")
+        if not -180.0 <= float(lon) <= 360.0:
+            raise BadRequest("'station.lon' out of range [-180, 360]")
+        out["lat"], out["lon"] = float(lat), float(lon)
+    return out
 
 
 def json_bytes(payload: Dict[str, Any]) -> bytes:

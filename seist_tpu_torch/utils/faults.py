@@ -1,5 +1,5 @@
-"""Fault injection for the train and data planes (the port's copy of the
-train- and data-plane half of ``seist_tpu/utils/faults.py``).
+"""Fault injection for the train, data, serving and streaming planes (the
+port's copy of those parts of ``seist_tpu/utils/faults.py``).
 
 The train worker consults :class:`FaultInjector` at every step boundary and
 the data plane consults :class:`IoFaultInjector` on every sample read, so
@@ -34,14 +34,55 @@ Data-plane knobs (sample indices are RAW post-split dataset indices)::
     SEIST_FAULT_IO_STALL_BATCH  the Loader sleeps before producing this batch
     SEIST_FAULT_IO_STALL_SEC    stall duration in seconds (default 3600)
 
-The serving, streaming and batch-fleet knobs of the JAX package belong to
-planes the port does not run yet.
+Serving-plane knobs (``serve/server.py``; request numbers are 1-based
+per-process ``/predict`` ordinals)::
+
+    SEIST_FAULT_SERVE_KILL_REQ        SIGKILL the replica when its k-th
+                                      /predict arrives
+    SEIST_FAULT_SERVE_SLOW_MS         sleep this long inside every flush's
+                                      forward (the 504 deadline path)
+    SEIST_FAULT_SERVE_BLACKHOLE_AFTER accept the requests after the k-th but
+                                      never answer them (hold the socket)
+    SEIST_FAULT_SERVE_BLACKHOLE_COUNT ...for this many requests (default:
+                                      forever)
+    SEIST_FAULT_SERVE_BLACKHOLE_HOLD_S how long a black-holed request is
+                                      held (default 3600)
+    SEIST_FAULT_SERVE_BAD_CANDIDATE   the model VERSION that is bad: a
+                                      reload to it fails its gate, and a
+                                      replica serving it answers every
+                                      /predict with a 500
+    SEIST_FAULT_SERVE_REPLICA         fire only in the replica whose
+                                      SEIST_SERVE_REPLICA matches (-1 or
+                                      absent: any)
+
+Streaming-plane knobs (``/stream`` and ``stream/journal.py``; a packet's
+fate is a pure function of (station, seq), the JAX package's, so a
+schedule replays identically)::
+
+    SEIST_FAULT_STREAM_DROP_P       probability a packet is swallowed
+                                    server-side (the client sees success)
+    SEIST_FAULT_STREAM_DUP_P        probability a packet is fed twice
+    SEIST_FAULT_STREAM_REORDER_P    probability a packet is held and fed
+                                    after the station's next one (it then
+                                    arrives stale and is dropped)
+    SEIST_FAULT_STREAM_KILL_PACKET  SIGKILL the replica when its k-th
+                                    /stream packet arrives
+    SEIST_FAULT_STREAM_JOURNAL_CORRUPT_P
+                                    probability, one verdict per station,
+                                    that every journal write of that
+                                    station is truncated (torn journal ->
+                                    fresh session)
+
+The serving kill and the stream kill share ``SEIST_FAULT_STAMP`` with the
+train plane, so each fires at most once across relaunches.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import signal
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Mapping, Optional, Set
@@ -281,3 +322,222 @@ class FaultInjector:
         if torch.is_tensor(inputs):
             return inputs * float("nan")
         return type(inputs)(x * float("nan") for x in inputs)
+
+
+# --------------------------------------------------------------- serve plane
+@dataclass(frozen=True)
+class ServeFaultPlan:
+    """Parsed serving-plane fault schedule (inert by default). Request
+    numbers are 1-based per-process ``/predict`` ordinals."""
+
+    kill_req: int = -1
+    slow_ms: float = 0.0
+    blackhole_after: int = -1
+    blackhole_count: int = 1 << 30  # default: never recovers
+    blackhole_hold_s: float = 3600.0
+    bad_candidate_version: int = -1
+    replica: int = -1  # only fire in this SEIST_SERVE_REPLICA; -1 = any
+    stamp_path: str = ""
+
+    @classmethod
+    def from_env(cls, env: Optional[Mapping[str, str]] = None) -> "ServeFaultPlan":
+        env = os.environ if env is None else env
+        return cls(
+            kill_req=_env_int(env, "SEIST_FAULT_SERVE_KILL_REQ", -1),
+            slow_ms=_env_float(env, "SEIST_FAULT_SERVE_SLOW_MS", 0.0),
+            blackhole_after=_env_int(env, "SEIST_FAULT_SERVE_BLACKHOLE_AFTER", -1),
+            blackhole_count=max(1, _env_int(env, "SEIST_FAULT_SERVE_BLACKHOLE_COUNT", 1 << 30)),
+            blackhole_hold_s=_env_float(env, "SEIST_FAULT_SERVE_BLACKHOLE_HOLD_S", 3600.0),
+            bad_candidate_version=_env_int(env, "SEIST_FAULT_SERVE_BAD_CANDIDATE", -1),
+            replica=_env_int(env, "SEIST_FAULT_SERVE_REPLICA", -1),
+            stamp_path=env.get("SEIST_FAULT_STAMP", ""),
+        )
+
+    @property
+    def enabled(self) -> bool:
+        return (self.kill_req >= 0 or self.slow_ms > 0 or self.blackhole_after >= 0
+                or self.bad_candidate_version >= 0)
+
+
+class ServeFaultInjector:
+    """Serving-plane fault driver of ``ServeService``: :meth:`on_request`
+    at a request's arrival (kill, black hole), :meth:`forward_delay` inside
+    the batcher's forward (the flush thread sleeps, so queued requests age
+    as behind a slow card), :meth:`is_bad_candidate` at reloads and
+    requests. A plan with ``replica >= 0`` fires only in the replica whose
+    ``SEIST_SERVE_REPLICA`` matches."""
+
+    def __init__(self, plan: Optional[ServeFaultPlan] = None,
+                 replica_index: Optional[int] = None):
+        self.plan = plan or ServeFaultPlan()
+        if replica_index is None:
+            replica_index = _env_int(os.environ, "SEIST_SERVE_REPLICA", -1)
+        self.replica_index = replica_index
+        self._stamps = _Stamps(self.plan.stamp_path)
+        self._lock = threading.Lock()
+        self._blackholed = 0
+
+    @classmethod
+    def from_env(cls, env: Optional[Mapping[str, str]] = None) -> "ServeFaultInjector":
+        return cls(ServeFaultPlan.from_env(env))
+
+    @property
+    def enabled(self) -> bool:
+        """True when a fault is scheduled AND targets this replica."""
+        if not self.plan.enabled:
+            return False
+        return self.plan.replica < 0 or self.plan.replica == self.replica_index
+
+    def on_request(self, n: int) -> None:
+        """Fire the arrival faults of the ``n``-th (1-based) request. The
+        kill fires at ``n >= k`` (concurrent arrivals cannot skip it), once
+        across relaunches with a stamp file."""
+        if not self.enabled:
+            return
+        p = self.plan
+        if p.kill_req >= 0 and n >= p.kill_req and self._stamps.armed("serve_kill"):
+            self._stamps.mark("serve_kill")
+            logger.warning(f"[faults] serve SIGKILL at request {n}")
+            os.kill(os.getpid(), signal.SIGKILL)
+        if p.blackhole_after >= 0 and n > p.blackhole_after:
+            with self._lock:
+                fire = self._blackholed < p.blackhole_count
+                if fire:
+                    self._blackholed += 1
+                    n_holed = self._blackholed
+            if fire:
+                logger.warning(f"[faults] serve black-hole: request {n} accepted, never "
+                               f"answered ({n_holed}/{p.blackhole_count})")
+                # The handler thread (and the client's socket) stays open and
+                # silent: a wedged replica, as a health probe cannot see it.
+                time.sleep(p.blackhole_hold_s)
+
+    def forward_delay(self) -> None:
+        """Sleep inside the model forward (the batcher's flush thread)."""
+        if self.enabled and self.plan.slow_ms > 0:
+            time.sleep(self.plan.slow_ms / 1000.0)
+
+    def is_bad_candidate(self, version: int) -> bool:
+        """``SEIST_FAULT_SERVE_BAD_CANDIDATE=<version>``: a reload to that
+        version fails its gate, and an entry serving it answers every
+        ``/predict`` with a 500."""
+        return (self.enabled and self.plan.bad_candidate_version >= 0
+                and int(version) == self.plan.bad_candidate_version)
+
+
+# -------------------------------------------------------------- stream plane
+@dataclass(frozen=True)
+class StreamFaultPlan:
+    """Parsed streaming-plane fault schedule (inert by default). Packet
+    ordinals are 1-based per-process ``/stream`` counts."""
+
+    drop_p: float = 0.0
+    dup_p: float = 0.0
+    reorder_p: float = 0.0
+    kill_packet: int = -1
+    journal_corrupt_p: float = 0.0
+    replica: int = -1  # only fire in this SEIST_SERVE_REPLICA; -1 = any
+    stamp_path: str = ""
+
+    @classmethod
+    def from_env(cls, env: Optional[Mapping[str, str]] = None) -> "StreamFaultPlan":
+        env = os.environ if env is None else env
+        return cls(
+            drop_p=_env_float(env, "SEIST_FAULT_STREAM_DROP_P", 0.0),
+            dup_p=_env_float(env, "SEIST_FAULT_STREAM_DUP_P", 0.0),
+            reorder_p=_env_float(env, "SEIST_FAULT_STREAM_REORDER_P", 0.0),
+            kill_packet=_env_int(env, "SEIST_FAULT_STREAM_KILL_PACKET", -1),
+            journal_corrupt_p=_env_float(env, "SEIST_FAULT_STREAM_JOURNAL_CORRUPT_P", 0.0),
+            replica=_env_int(env, "SEIST_FAULT_SERVE_REPLICA", -1),
+            stamp_path=env.get("SEIST_FAULT_STAMP", ""),
+        )
+
+    @property
+    def enabled(self) -> bool:
+        return (self.drop_p > 0 or self.dup_p > 0 or self.reorder_p > 0
+                or self.kill_packet >= 0 or self.journal_corrupt_p > 0)
+
+
+class StreamFaultInjector:
+    """Streaming-plane fault driver: ``ServeService.stream`` consults
+    :meth:`on_packet` (kill) and :meth:`packet_fate` (drop, dup, reorder)
+    per packet, ``stream/journal.py`` :meth:`corrupt_journal` per write.
+    A fate is a pure function of (station id, seq), the same as the JAX
+    package's: the station's SHA-1 key and a ``SeedSequence`` uniform."""
+
+    def __init__(self, plan: Optional[StreamFaultPlan] = None,
+                 replica_index: Optional[int] = None):
+        self.plan = plan or StreamFaultPlan()
+        if replica_index is None:
+            replica_index = _env_int(os.environ, "SEIST_SERVE_REPLICA", -1)
+        self.replica_index = replica_index
+        self._stamps = _Stamps(self.plan.stamp_path)
+
+    @classmethod
+    def from_env(cls, env: Optional[Mapping[str, str]] = None) -> "StreamFaultInjector":
+        return cls(StreamFaultPlan.from_env(env))
+
+    @property
+    def enabled(self) -> bool:
+        """True when a fault is scheduled AND targets this replica."""
+        if not self.plan.enabled:
+            return False
+        return self.plan.replica < 0 or self.plan.replica == self.replica_index
+
+    @staticmethod
+    def _uniform(*key: int) -> float:
+        return float(np.random.default_rng(
+            np.random.SeedSequence([0x57F4_17, *[int(k) for k in key]])).random())
+
+    @staticmethod
+    def _station_key(station_id: str) -> int:
+        digest = hashlib.sha1(str(station_id).encode()).digest()
+        return int.from_bytes(digest[:8], "big")
+
+    def on_packet(self, n: int) -> None:
+        """Fire the arrival faults of the ``n``-th (1-based) packet (the
+        kill at ``n >= k``, once across relaunches with a stamp file)."""
+        if not self.enabled:
+            return
+        p = self.plan
+        if p.kill_packet >= 0 and n >= p.kill_packet and self._stamps.armed("stream_kill"):
+            self._stamps.mark("stream_kill")
+            logger.warning(f"[faults] stream SIGKILL at packet {n}")
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    def packet_fate(self, station_id: str, seq: Optional[int]) -> str:
+        """'ok' | 'drop' | 'dup' | 'reorder': one uniform per (station,
+        seq) against the three rates in that order, so the fates exclude
+        each other. A packet without a seq is never faulted."""
+        if not self.enabled or seq is None:
+            return "ok"
+        p = self.plan
+        if p.drop_p <= 0 and p.dup_p <= 0 and p.reorder_p <= 0:
+            return "ok"
+        u = self._uniform(self._station_key(station_id), int(seq))
+        if u < p.drop_p:
+            return "drop"
+        if u < p.drop_p + p.dup_p:
+            return "dup"
+        if u < p.drop_p + p.dup_p + p.reorder_p:
+            return "reorder"
+        return "ok"
+
+    def corrupt_journal(self, station_id: str) -> bool:
+        """One verdict per station id: every journal write of a selected
+        station is truncated, so its restore takes the torn-file path."""
+        if not self.enabled or self.plan.journal_corrupt_p <= 0:
+            return False
+        return self._uniform(self._station_key(station_id), 0x0C0_44) < self.plan.journal_corrupt_p
+
+
+_STREAM_FAULTS: Optional[StreamFaultInjector] = None
+
+
+def stream_faults() -> StreamFaultInjector:
+    """The process's stream injector, read from the environment once:
+    ``stream/journal.py`` and the server share it, and so its kill stamp."""
+    global _STREAM_FAULTS
+    if _STREAM_FAULTS is None:
+        _STREAM_FAULTS = StreamFaultInjector.from_env()
+    return _STREAM_FAULTS

@@ -352,7 +352,11 @@ def test_phasenet_serves_and_decodes_like_jax(tmp_path):
     weights = str(tmp_path / "phasenet.pt")
     save_torch_weights(jax.device_get(variables), weights)
     service = tserver.build_service([("phasenet", weights)], window=WINDOW, device="cpu",
-                                    max_batch=4, max_delay_ms=200.0)
+                                    max_batch=4, max_delay_ms=200.0,
+                                    # a batching delay, not an overload: no shedding
+                                    shed_config=tserver.ShedConfig(
+                                        batch_delay_ms=float("inf"),
+                                        interactive_delay_ms=float("inf")))
     server = tserver.start_http_server(service, "127.0.0.1", 0)
     url = "http://127.0.0.1:%d/predict" % server.server_address[1]
     try:

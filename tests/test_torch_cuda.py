@@ -711,3 +711,38 @@ def test_graphs_of_a_variant_share_one_pool_and_gates_pass(serving_pool):
     assert single.variant_ok == {"bf16": True, "int8": True}
     assert all(p.graph is not None for e in serving_pool.entries().values()
                for p in e.all_programs())
+
+
+@pytest.mark.parametrize("combine", ["max", "mean"])
+def test_annotate_on_the_card_matches_the_cpu(dev, combine):
+    """``ops/stream.annotate`` with its stitching and picking on the card,
+    over an elementwise envelope picker that gives the same bits on both
+    devices: the same picks as on the CPU, and the curve within 1e-6 (a
+    sum of overlapping windows may add in another order under ``mean``)."""
+    import numpy as np
+
+    from seist_tpu_torch.ops.stream import annotate
+
+    rng = np.random.default_rng(0)
+    rec = (0.1 * rng.standard_normal((3000, 3))).astype(np.float32)
+    for e in range(100, 2900, 350):
+        rec[e : e + 4, 0] += 40.0
+        rec[e + 30, 1] += 6.0
+    kw = dict(window=256, batch_size=4, min_peak_dist=0.2, combine=combine,
+              ppk_threshold=0.3, spk_threshold=0.3, channel0="non")
+
+    def run(device):
+        def fwd(x):
+            x = torch.from_numpy(x).to(device)
+            a = x[..., 0].abs()
+            p = a / (a.amax(dim=1, keepdim=True) + 1e-9)
+            s = (x[..., 1].abs() / 3.0).clamp(0.0, 1.0)
+            return torch.stack([1.0 - p, p, s], dim=-1)
+
+        return annotate(fwd, rec, **kw)
+
+    on_card, on_cpu = run(dev), run("cpu")
+    assert len(on_cpu["ppk"]) >= 5
+    for k in ("ppk", "spk", "det"):
+        np.testing.assert_array_equal(np.sort(on_card[k], axis=0), np.sort(on_cpu[k], axis=0))
+    np.testing.assert_allclose(on_card["prob"], on_cpu["prob"], rtol=0, atol=1e-6)

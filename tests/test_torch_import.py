@@ -127,3 +127,14 @@ def test_the_telemetry_plane_is_covered_and_needs_no_torch():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_the_serving_planes_are_covered():
+    """The long-record and stream planes are among the modules checked
+    above, each its own copy (no module of the JAX package's name)."""
+    mods = set(_modules())
+    for m in ("seist_tpu_torch.ops.stream", "seist_tpu_torch.serve.shed",
+              "seist_tpu_torch.stream", "seist_tpu_torch.stream.session",
+              "seist_tpu_torch.stream.mux", "seist_tpu_torch.stream.assoc",
+              "seist_tpu_torch.stream.journal", "seist_tpu_torch.utils.faults"):
+        assert m in mods, m

@@ -66,7 +66,11 @@ def served(tmp_path_factory):
         channel0="det", forward=jax.jit(apply_fn), apply=apply_fn,
     )
     service = tserver.build_service(
-        [(NAME, weights)], window=WINDOW, device="cpu", max_batch=8, max_delay_ms=300.0
+        [(NAME, weights)], window=WINDOW, device="cpu", max_batch=8, max_delay_ms=300.0,
+        # A 300 ms batching delay is itself a queue delay the default tiers
+        # would shed on: these tests measure batching, not admission.
+        shed_config=tserver.ShedConfig(batch_delay_ms=float("inf"),
+                                       interactive_delay_ms=float("inf")),
     )
     server = tserver.start_http_server(service, "127.0.0.1", 0)
     yield service, "http://127.0.0.1:%d" % server.server_address[1], jentry
@@ -131,7 +135,7 @@ def test_concurrent_predicts_coalesce_and_match_jax(served):
     metrics = json.loads(urllib.request.urlopen(url + "/metrics", timeout=30).read())
     stats = metrics["models"][NAME]
     forwards = stats["forwards"] - before["models"][NAME]["forwards"]
-    requests = metrics["requests"] - before["requests"]
+    requests = metrics["requests"]["predict"] - before["requests"]["predict"]
     assert requests == len(traces) and 1 <= forwards < requests
     assert 0 < stats["batch_fill_ratio"] <= 1 and stats["latency_ms"]["p99"] > 0
     assert metrics["kernels"]["pooled_attention_fwd"]["launches"] == pooled_attention.launches

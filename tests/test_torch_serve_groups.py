@@ -74,7 +74,10 @@ def service(weights):
         [("seist_s_dpk", weights["dpk"][2])],
         groups=[("seist_s", [(t, weights[t][2]) for t in TASKS])],
         window=WINDOW, device="cpu", max_batch=4, max_delay_ms=5.0,
-        variants=("fp32", "bf16", "int8"))
+        variants=("fp32", "bf16", "int8"),
+        # The storm measures programs on the CPU's slow flushes, not shedding.
+        shed_config=tserver.ShedConfig(batch_delay_ms=float("inf"),
+                                       interactive_delay_ms=float("inf")))
     yield svc
     svc.shutdown()
 
