@@ -183,6 +183,30 @@ non-zero before the last line):
     the picks of the uninterrupted run; K1's launches over the phase
     equal to 5 per replay of a SeisT program. Prints the packet and
     window latencies and the shed counts per tier.
+14. the fleet: ``python -m seist_tpu_torch supervise-fleet`` in a
+    subprocess with two replicas of ``serve --model seist_l_dpk=W
+    --window 8192 --buckets 1,8`` (fp32) on the card, each under a wrapper
+    of this script's that writes the process's K1 launches on its way out
+    (exit 75 included); four closed-loop /predict clients in this process,
+    another process than the servers, through the router. (a) Replica 0
+    is SIGKILLed at its 8th request (``SEIST_FAULT_SERVE_KILL_REQ``) and
+    relaunched; its relaunch answers a direct ``/predict``, ``/annotate``
+    and ``/stream`` while ``/healthz/ready`` says ``warming``; (b) in its
+    next life it black-holes 4 requests, and its breaker opens and
+    closes; phase 5's trace through the router gives phase 5's picks
+    (0.1 s); ``/predict`` p50/p99 through the router and direct to one
+    replica at the same concurrency; (e) ``/fleet/metrics.json`` merges
+    both replicas and the router, and adds up to what the phase sent; (c)
+    SIGHUP rolls both replicas to a second weights file as version 2 under
+    load, each drained with exit 75, the router's ready count never below
+    1, every response version 1 or 2 and all version 2 after the roll; (d)
+    replica 0 rolled alone to version 3, a bad candidate
+    (``SEIST_FAULT_SERVE_BAD_CANDIDATE``), and a 50% canary of it is
+    rolled back, after which only version 2 answers. No client request
+    fails in (a)-(d). SIGTERM stops the supervisor (exit 0, both replicas
+    drained with 75); the K1 counts of every life but the SIGKILLed one
+    are summed, each a multiple of 5. Prints the relaunch-to-ready
+    seconds, the roll's wall seconds, the attempts until the rollback.
 
 It prints one ``{"kernels": [...]}`` line (the fp32 K1 and K2, their bf16
 kernels, K3) and, last,
@@ -204,6 +228,8 @@ import math
 import os
 import re
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -459,13 +485,13 @@ def check_kernel(shapes: List[Tuple[int, int, int, int]], dev) -> Dict[str, floa
 
 # ------------------------------------------------------------- phase 5
 @torch.no_grad()
-def seeded_weights(path: str) -> None:
-    """seist_l_dpk weights drawn from SEED, with kernels at std
+def seeded_weights(path: str, seed: int = SEED) -> None:
+    """seist_l_dpk weights drawn from ``seed``, with kernels at std
     0.5/sqrt(fan_in) and random BatchNorm statistics so activations stay
     O(1) through the depth: the JAX package's std-0.02 init shrinks them
     to an output of exactly 0.5 everywhere, which has no picks to compare."""
-    model = api.create_model(MODEL, in_samples=WINDOW, seed=SEED)
-    g = torch.Generator().manual_seed(SEED)
+    model = api.create_model(MODEL, in_samples=WINDOW, seed=seed)
+    g = torch.Generator().manual_seed(seed)
     for name, t in model.state_dict().items():
         if t.ndim >= 2:
             fan_in = t[0].numel()
@@ -590,6 +616,9 @@ def serve_phase(weights: str, n_shapes: int) -> dict:
         "entry": entry,
         "launches": launches,
         "forwards": forwards,
+        "n_shapes": n_shapes,
+        "ref0": ref,  # trace 0's picks on the CPU, and the card's response
+        "resp0": results[0][1],
         "client_p50_ms": float(np.percentile(lat, 50)),
         "client_p99_ms": float(np.percentile(lat, 99)),
         "server_latency_ms": stats["latency_ms"],
@@ -3332,6 +3361,474 @@ def streams_phase(name_power: str, weights: str) -> dict:
     return {"counts": counts, "annotate": rows}
 
 
+# ------------------------------------------------------------- phase 14
+FLEET_REPLICAS = 2
+FLEET_CLIENTS = 4
+FLEET_BUCKETS = "1,8"
+# The router's per-attempt limit: a black-holed request fails after it and
+# is retried on the other replica (an honest /predict takes ~0.1 s).
+FLEET_TIMEOUT_S = 1.0
+FLEET_KILL_REQ = 8
+FLEET_BLACKHOLE_AFTER, FLEET_BLACKHOLE_COUNT, FLEET_BLACKHOLE_HOLD_S = 2, 4, 3
+FLEET_BAD_VERSION = 3  # the canary's candidate: every /predict it serves answers 500
+# The canary's budget. The candidate's breaker opens at its third failure
+# (the router's default, which the black hole needs), and from then on it
+# sees one request per cooldown; so the budget decides on those three.
+FLEET_CANARY = {"percent": 50, "max_error_delta": 0.2, "min_requests": 3}
+FLEET_LATENCY_REQUESTS = 48
+FLEET_AFTER_ROLLBACK = 20
+# The replica command: the port's serve main under a wrapper of this
+# script's own. On the process's way out (exit 75 included; a SIGKILL loses
+# it) the wrapper writes the process's K1 launch counts to the phase's
+# directory. It numbers each replica's lives there, and keeps the black
+# hole to replica 0's second life (the one after the SIGKILL), so the kill
+# and the black hole each run alone. The plain attention is patched to
+# raise, as in phase 5.
+REPLICA_WRAPPER = """\
+import atexit, glob, json, os, sys
+out, me = sys.argv[1], os.environ.get("SEIST_SERVE_REPLICA", "x")
+life = len(glob.glob(os.path.join(out, f"life_r{me}_*")))
+open(os.path.join(out, f"life_r{me}_{life}"), "w").close()
+if not (me == os.environ.get("SEIST_FAULT_SERVE_REPLICA") and life == 1):
+    for key in [k for k in os.environ if k.startswith("SEIST_FAULT_SERVE_BLACKHOLE")]:
+        del os.environ[key]
+from seist_tpu_torch.ops import pooled_attention as pa
+from seist_tpu_torch.serve import server
+
+def _plain_off_path(*a, **k):
+    raise AssertionError("pooled_attention_plain reached on the fleet path")
+
+pa.pooled_attention_plain = _plain_off_path
+
+def _dump():
+    with open(os.path.join(out, f"k1_r{me}_life{life}.json"), "w") as f:
+        json.dump({"K1": pa.launches, "K1_bf16": pa.bf16_launches}, f)
+
+atexit.register(_dump)
+server.main(sys.argv[2:])
+"""
+
+
+def free_ports(n: int) -> int:
+    """A base port with ``n`` consecutive free ports below the ephemeral
+    range, so no outgoing connection takes a replica's port first."""
+    rng = np.random.default_rng()
+    while True:
+        base = int(rng.integers(20000, 32000 - n))
+        socks = []
+        try:
+            for port in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+
+
+def get_json(url: str, timeout: float = 10.0) -> Tuple[int, dict]:
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+class FleetLog:
+    """Drains one pipe of the fleet (the supervisor's ``[fleet]`` log, or
+    its stdout with every replica's) on a thread, stamping each line with
+    its arrival on the monotonic clock."""
+
+    def __init__(self, pipe):
+        self.lines: List[Tuple[float, str]] = []
+        self._lock = threading.Lock()
+        self._t0 = time.monotonic()
+        threading.Thread(target=self._drain, args=(pipe,), daemon=True).start()
+
+    def _drain(self, pipe) -> None:
+        for line in pipe:
+            with self._lock:
+                self.lines.append((time.monotonic(), line.rstrip("\n")))
+
+    def when(self, pattern: str, after: float = 0.0) -> Optional[float]:
+        """Arrival of the first line after ``after`` that matches ``pattern``."""
+        with self._lock:
+            lines = list(self.lines)
+        for t, line in lines:
+            if t >= after and re.search(pattern, line):
+                return t
+        return None
+
+    def text(self) -> str:
+        with self._lock:
+            return "\n".join(line for _, line in self.lines)
+
+    def tail(self, n: int = 60, pattern: str = "") -> str:
+        with self._lock:
+            lines = [line for _, line in self.lines if re.search(pattern, line)]
+        return "\n".join(lines[-n:])
+
+    def save(self, path: str) -> None:
+        """The log, each line after its arrival in seconds from the start."""
+        with self._lock:
+            lines = list(self.lines)
+        with open(path, "w") as f:
+            f.writelines(f"{t - self._t0:9.3f} {line}\n" for t, line in lines)
+
+
+class FleetLoad:
+    """Closed-loop /predict clients against the router until stopped; each
+    record is (start, status, model_version, latency ms, error code)."""
+
+    def __init__(self, url: str, body: bytes, n_threads: int):
+        self.records: List[Tuple[float, int, Optional[int], float, str]] = []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._client, args=(url, body), daemon=True)
+                         for _ in range(n_threads)]
+        for t in self._threads:
+            t.start()
+
+    def _client(self, url: str, body: bytes) -> None:
+        while not self._stop.is_set():
+            t0 = time.monotonic()
+            req = urllib.request.Request(url + "/predict", data=body,
+                                         headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    status, out = r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                status, out = e.code, {"error": e.read().decode(errors="replace")[:200]}
+            except OSError as e:
+                status, out = 0, {"error": repr(e)}
+            with self._lock:
+                self.records.append((t0, status, out.get("model_version"),
+                                     (time.monotonic() - t0) * 1e3, str(out.get("error", ""))))
+
+    def since(self, t: float) -> List[Tuple[float, int, Optional[int], float, str]]:
+        with self._lock:
+            return [r for r in self.records if r[0] >= t]
+
+    def stop(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=120)
+
+
+def timed_requests(url: str, body: bytes, n: int, n_threads: int) -> np.ndarray:
+    """``n`` /predict requests on ``n_threads`` clients: their latencies (ms);
+    any non-200 fails the phase."""
+    def one() -> float:
+        t0 = time.perf_counter()
+        req = urllib.request.Request(url + "/predict", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            if r.status != 200:
+                fail(f"/predict to {url}: {r.status}")
+            r.read()
+        return (time.perf_counter() - t0) * 1e3
+
+    return np.array(run_clients([one] * n, n_threads))
+
+
+def fleet_phase(name_power: str, weights: str, served: dict) -> dict:
+    """Phase 14 (module docstring)."""
+    t_phase = time.perf_counter()
+    work = os.path.join(str(_kernels.BUILD_DIR), "fleet")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    w2 = os.path.join(work, f"{MODEL}_seed{SEED + 1}.pt")
+    seeded_weights(w2, seed=SEED + 1)
+    spec = os.path.join(work, "rollout.json")
+    base = free_ports(FLEET_REPLICAS)
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               SEIST_FAULT_SERVE_REPLICA="0", SEIST_FAULT_SERVE_KILL_REQ=str(FLEET_KILL_REQ),
+               SEIST_FAULT_STAMP=os.path.join(work, "faults.stamp"),
+               SEIST_FAULT_SERVE_BLACKHOLE_AFTER=str(FLEET_BLACKHOLE_AFTER),
+               SEIST_FAULT_SERVE_BLACKHOLE_COUNT=str(FLEET_BLACKHOLE_COUNT),
+               SEIST_FAULT_SERVE_BLACKHOLE_HOLD_S=str(FLEET_BLACKHOLE_HOLD_S),
+               SEIST_FAULT_SERVE_BAD_CANDIDATE=str(FLEET_BAD_VERSION))
+    serve_args = ["--model", f"{MODEL}={weights}", "--window", str(WINDOW), "--device", "cuda",
+                  "--buckets", FLEET_BUCKETS, "--max-batch", str(BATCH), "--max-delay-ms", "20",
+                  "--shed-batch-delay-ms", "inf", "--shed-interactive-delay-ms", "inf"]
+    cmd = [sys.executable, "-m", "seist_tpu_torch", "supervise-fleet",
+           "--replicas", str(FLEET_REPLICAS), "--base-port", str(base), "--router-port", "0",
+           "--probe-interval-s", "0.2", "--backoff", "0.5",
+           "--request-timeout-s", str(FLEET_TIMEOUT_S), "--fleet-scrape-interval-s", "0.5",
+           "--rollout-file", spec, "--rollout-ready-timeout-s", "120", "--drain-timeout-s", "60",
+           "--", sys.executable, "-c", REPLICA_WRAPPER, work, *serve_args]
+    print(f"[fleet] python -m seist_tpu_torch supervise-fleet --replicas {FLEET_REPLICAS} ... -- "
+          f"serve {' '.join(serve_args)}", flush=True)
+    t_start = time.monotonic()
+    proc = subprocess.Popen(cmd, cwd=work, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    sup, out = FleetLog(proc.stderr), FleetLog(proc.stdout)
+    load: Optional[FleetLoad] = None
+
+    def wait(pred, timeout_s: float, what: str):
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            got = pred()
+            if got:
+                return got
+            if proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        fail(f"phase 14: timed out waiting for {what}\n[fleet log]\n{sup.tail(40, r'^.fleet.')}"
+             f"\n[replicas, {work}/replicas.log]\n{out.tail(40)}")
+
+    try:
+        m = wait(lambda: re.search(r"ROUTER=(http://[\d.]+:\d+)", out.text()), 120,
+                 "the router's address")
+        url = m.group(1)
+
+        def replicas() -> List[dict]:
+            try:
+                return get_json(url + "/router/replicas")[1].get("replicas", [])
+            except OSError:
+                return []
+
+        def in_rotation(version: Optional[int] = None) -> bool:
+            reps = replicas()
+            return len(reps) == FLEET_REPLICAS and all(
+                r["probe_state"] == "ok" and r["breaker"]["state"] == "closed"
+                and (version is None or r["versions"].get(MODEL) == version) for r in reps)
+
+        wait(in_rotation, 240, "two replicas in rotation")
+        fleet_ready_s = time.monotonic() - t_start
+        print(f"[fleet] two replicas in rotation after {fleet_ready_s:.1f} s", flush=True)
+        body = json.dumps({"data": traces(1)[0].tolist(), "options": {"max_events": 1}}).encode()
+
+        # (a) SIGKILL at replica 0's 8th request under load.
+        t_load = time.monotonic()
+        load = FleetLoad(url, body, FLEET_CLIENTS)
+        t_kill = wait(lambda: sup.when(r"replica 0 crashed rc=-9", t_load), 120,
+                      "the SIGKILL of replica 0")
+        # The relaunch opens its socket before its warm-up: while it warms,
+        # /predict, /annotate and /stream sent to it directly are served.
+        r0 = f"http://127.0.0.1:{base}"
+
+        def warming() -> bool:
+            try:
+                live, ready = get_json(r0 + "/healthz/live", 2.0), get_json(r0 + "/healthz/ready", 2.0)
+            except OSError:
+                return False
+            return live[0] == 200 and ready == (503, {"status": "warming", "ready": False,
+                                                      "versions": {MODEL: 1}})
+
+        wait(warming, 120, "replica 0's relaunch warming up")
+        t_warm = time.monotonic()
+        print(f"[fleet] replica 0 warming {t_warm - t_kill:.1f} s after its SIGKILL", flush=True)
+        record = long_record(SEED, 2 * WINDOW)
+        station = {"id": "FL01", "network": "XX", "lat": 35.0, "lon": -117.0}
+        # They pay the process's first forward (the card's libraries
+        # loading) beside the warm-up's captures: a deadline of a minute.
+        opts = {"timeout_ms": 60000.0}
+        warm_calls = [
+            ("/predict", {"data": traces(1)[0].tolist(), "options": dict(opts, max_events=1)}),
+            ("/annotate", {"model": MODEL, "data": record.tolist(), "options": opts}),
+            ("/stream", {"model": MODEL, "station": station, "seq": 1, "options": opts,
+                         "data": record[:PACKET].tolist()}),
+        ]
+
+        def warm_call(path: str, b: dict) -> Tuple[int, dict, float]:
+            t0 = time.monotonic()
+            status, answer = post(r0 + path, b)
+            return status, answer, time.monotonic() - t0
+
+        warm = run_clients([lambda p=p, b=b: warm_call(p, b) for p, b in warm_calls],
+                           len(warm_calls))
+        warm_s = [round(w[2], 2) for w in warm]
+        if any(s != 200 for s, _, _ in warm):
+            fail("a request to the warming replica failed: "
+                 f"{[(p, s, t, str(b)[:200]) for (p, _), (s, b, t) in zip(warm_calls, warm)]}")
+        back = wait(lambda: in_rotation() and time.monotonic(), 240,
+                    "replica 0 back in rotation after the SIGKILL")
+        kill_relaunch_s = back - t_kill
+        r0_metrics = get_json(r0 + "/metrics")[1]
+
+        # (b) The black hole (replica 0's second life): its breaker opens,
+        # then closes, while every client request succeeds.
+        seen: List[str] = []
+
+        def breaker_cycle() -> bool:
+            reps = {r["url"]: r for r in replicas()}
+            state = reps.get(f"127.0.0.1:{base}", {}).get("breaker", {}).get("state")
+            if state and (not seen or seen[-1] != state):
+                seen.append(state)
+            return "open" in seen and seen[-1] == "closed" and in_rotation()
+
+        t_hole = time.monotonic()
+        wait(breaker_cycle, 120, "replica 0's breaker to open and close again")
+        hole_s = time.monotonic() - t_hole
+        load.stop()
+        records = load.since(0.0)
+        failed = [r for r in records if r[1] != 200]
+        print(f"[fleet] {name_power} | (a) SIGKILL at replica 0's request {FLEET_KILL_REQ} and "
+              f"(b) its black hole (requests {FLEET_BLACKHOLE_AFTER + 1}-"
+              f"{FLEET_BLACKHOLE_AFTER + FLEET_BLACKHOLE_COUNT} of its next life held "
+              f"{FLEET_BLACKHOLE_HOLD_S} s) under {FLEET_CLIENTS} clients: {len(records)} "
+              f"requests, {len(failed)} failed; relaunch to ready after the SIGKILL "
+              f"{kill_relaunch_s:.1f} s; while warming, direct /predict, /annotate, /stream: "
+              f"{[s for s, _, _ in warm]} in {warm_s} s (fallback_runs "
+              f"{r0_metrics['fallback_runs']}); breaker of replica 0: {' -> '.join(seen)} in "
+              f"{hole_s:.1f} s", flush=True)
+        if failed or not records:
+            fail(f"client requests failed under the SIGKILL or the black hole: {failed[:5]}")
+
+        # Parity: phase 5's trace through the router, phase 5's answer.
+        status, got = post(url + "/predict", json.loads(body))
+        fs = PredictOptions.from_dict({"max_events": 1}).sampling_rate
+        ok = (status == 200 and picks_close(got, served["ref0"], PICK_TOL_S * fs)
+              and picks_close(got, served["resp0"], PICK_TOL_S * fs))
+        print(f"[fleet] /predict through the router vs phase 5's CPU run of the same trace: "
+              f"{json.dumps(got)}; picks within {PICK_TOL_S} s: {ok}", flush=True)
+        if not ok:
+            fail("the fleet's answer differs from phase 5's")
+
+        # /predict latency, through the router and direct to replica 1.
+        lat_router = timed_requests(url, body, FLEET_LATENCY_REQUESTS, FLEET_CLIENTS)
+        lat_direct = timed_requests(f"http://127.0.0.1:{base + 1}", body, FLEET_LATENCY_REQUESTS,
+                                    FLEET_CLIENTS)
+        print(f"[fleet] {name_power} | /predict x{FLEET_LATENCY_REQUESTS} on {FLEET_CLIENTS} "
+              f"clients in another process: through the router p50 "
+              f"{np.percentile(lat_router, 50):.1f} ms p99 {np.percentile(lat_router, 99):.1f} ms; "
+              f"direct to one replica p50 {np.percentile(lat_direct, 50):.1f} ms p99 "
+              f"{np.percentile(lat_direct, 99):.1f} ms", flush=True)
+
+        # (e) The fleet pane merges both replicas and the router.
+        sent_router = len(records) + 1 + FLEET_LATENCY_REQUESTS
+        direct = FLEET_LATENCY_REQUESTS + 1  # replica 1's timed ones, replica 0's warming one
+
+        def pane():
+            time.sleep(0.6)  # a scrape after the last request
+            view = get_json(url + "/fleet/metrics.json", 30)[1]
+            return view if view.get("up") == FLEET_REPLICAS + 1 else None
+
+        view = wait(pane, 30, "/fleet/metrics.json with every source up")
+        agg = view["aggregate"]
+        per = {n: (s or {}).get("collectors", {}).get("serve_requests_predict", 0.0)
+               for n, s in view["replicas"].items() if n.startswith("replica-")}
+        router_req = agg["counters"].get("router_requests{path=predict}", 0.0)
+        attempts = router_req + agg["counters"].get("router_retries", 0.0)
+        after_kill = len([r for r in records if r[0] >= back]) + FLEET_LATENCY_REQUESTS + 1
+        summed = agg["collectors"].get("serve_requests_predict", 0.0)
+        print(f"[fleet] (e) /fleet/metrics.json: {view['up']} sources up; /predict counted by "
+              f"the replicas {per} (sum {summed:.0f}), by the router {router_req:.0f} "
+              f"({attempts:.0f} attempts with retries); the phase sent {sent_router} through the "
+              f"router and {direct} direct", flush=True)
+        if (len(per) != FLEET_REPLICAS or summed != sum(per.values()) or router_req != sent_router
+                or not after_kill <= summed <= attempts + direct):
+            fail("the fleet pane does not add up to the requests the phase sent")
+
+        # (c) A rolling restart to a second weights file, under load.
+        with open(spec, "w") as f:
+            json.dump({"version": 2, "checkpoint": w2}, f)
+        t_roll = time.monotonic()
+        load = FleetLoad(url, body, FLEET_CLIENTS)
+        proc.send_signal(signal.SIGHUP)
+        min_ready = [FLEET_REPLICAS]
+
+        def rolled() -> bool:
+            reps = replicas()
+            min_ready[0] = min(min_ready[0], sum(r["probe_state"] == "ok" for r in reps))
+            return bool(sup.when(r"rollout complete: version 2", t_roll)) and in_rotation(2)
+
+        wait(rolled, 300, "the roll to version 2")
+        t_done = sup.when(r"rollout complete: version 2", t_roll)
+        time.sleep(1.0)
+        load.stop()
+        roll = load.since(t_roll)
+        failed = [r for r in roll if r[1] != 200]
+        versions = collections.Counter(r[2] for r in roll)
+        late = {r[2] for r in roll if r[0] > t_done}
+        roll_relaunch = []
+        for i in range(FLEET_REPLICAS):
+            t75 = sup.when(rf"replica {i} clean preempt \(rc=75\)", t_roll)
+            t_ok = sup.when(rf"rollout: replica {i} ready \+ re-registered \(version 2\)", t_roll)
+            roll_relaunch.append(None if t75 is None or t_ok is None else t_ok - t75)
+        print(f"[fleet] {name_power} | (c) roll to version 2 under {FLEET_CLIENTS} clients: wall "
+              f"{t_done - t_roll:.1f} s; {len(roll)} requests, {len(failed)} failed, versions "
+              f"{dict(versions)}, after the roll {sorted(late)}; router ready count never below "
+              f"{min_ready[0]}; exit 75 to ready per replica "
+              f"{[None if s is None else round(s, 1) for s in roll_relaunch]} s", flush=True)
+        if (failed or min_ready[0] < 1 or not set(versions) <= {1, 2} or late != {2}
+                or None in roll_relaunch or re.search(r"crashed rc=(?!-9)", sup.text())):
+            fail(f"the rolling restart failed: {failed[:5]}\n{sup.tail(40, r'^.fleet.')}")
+
+        # (d) The canary: replica 0 alone rolled to the bad candidate (with
+        # no traffic, so its breaker is closed when the canary starts), then
+        # half the first attempts to it, under load.
+        with open(spec, "w") as f:
+            json.dump({"version": FLEET_BAD_VERSION, "checkpoint": w2, "replicas": [0]}, f)
+        t_canary_roll = time.monotonic()
+        proc.send_signal(signal.SIGHUP)
+        wait(lambda: sup.when(rf"rollout complete: version {FLEET_BAD_VERSION} on replica\(s\) "
+                              r"\[0\]", t_canary_roll), 300, "replica 0's roll to the candidate")
+        wait(lambda: sorted(r["versions"].get(MODEL, 0) for r in replicas()
+                            if r["probe_state"] == "ok") == [2, FLEET_BAD_VERSION], 60,
+             "both cohorts in rotation")
+        status, started = post(url + "/router/canary", dict(FLEET_CANARY,
+                                                            version=FLEET_BAD_VERSION))
+        if status != 200 or started.get("state") != "active":
+            fail(f"POST /router/canary: {status} {started}")
+        t_canary = time.monotonic()
+        load = FleetLoad(url, body, FLEET_CLIENTS)
+
+        def rolled_back() -> Optional[dict]:
+            c = get_json(url + "/router/canary")[1]
+            return c if c["state"] == "rolled_back" else None
+
+        canary = wait(rolled_back, 120, "the canary's rollback")
+        t_rollback = time.monotonic()
+        load.stop()
+        canary_records = load.since(t_canary)
+        after = [post(url + "/predict", json.loads(body)) for _ in range(FLEET_AFTER_ROLLBACK)]
+        until = sum(c["requests"] for c in canary["cohorts"].values())
+        failed = [r for r in canary_records if r[1] != 200]
+        after_versions = sorted({b.get("model_version") for _, b in after})
+        print(f"[fleet] {name_power} | (d) canary of version {FLEET_BAD_VERSION} at "
+              f"{FLEET_CANARY['percent']}%: {canary['state']} after {until} routed attempts "
+              f"({canary['rollback_reason']}) in {t_rollback - t_canary:.1f} s; replica 0's roll "
+              f"to it {t_canary - t_canary_roll:.1f} s; {len(canary_records)} client requests "
+              f"under the canary, {len(failed)} failed; after the rollback {len(after)} requests "
+              f"answered by version(s) {after_versions}", flush=True)
+        if failed or any(s != 200 for s, _ in after) or after_versions != [2]:
+            fail("the canary's rollback let a failure or the candidate through")
+    finally:
+        if load is not None:
+            load.stop()
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        sup.save(os.path.join(work, "supervisor.log"))
+        out.save(os.path.join(work, "replicas.log"))
+    log = sup.text()
+    counts = []
+    for path in sorted(glob.glob(os.path.join(work, "k1_r*_life*.json"))):
+        with open(path) as f:
+            counts.append((os.path.basename(path), json.load(f)))
+    k1 = sum(c["K1"] for _, c in counts)
+    lives = len(glob.glob(os.path.join(work, "life_r*")))
+    wall = time.perf_counter() - t_phase
+    print(f"[fleet] {name_power} | supervisor exit {rc}; replicas drained: "
+          f"{log.count('drained (rc=75)')}; K1 launches on the fleet path {k1} or more (a "
+          f"SIGKILLed process's count is lost): {[(n, c['K1']) for n, c in counts]}; fleet up in "
+          f"{fleet_ready_s:.1f} s; phase 14 wall {wall:.1f} s", flush=True)
+    if (rc != 0 or log.count("drained (rc=75)") != FLEET_REPLICAS or len(counts) != lives - 1
+            or k1 <= 0 or any(c["K1"] % served["n_shapes"] or c["K1_bf16"] for _, c in counts)):
+        fail(f"the fleet did not stop cleanly or lost its counts\n{sup.tail(40, r'^.fleet.')}")
+    return {"counts": {"K1": k1, "K2": 0, "K3": 0, "K1_bf16": 0, "K2_bf16": 0}, "wall_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this drives the "
@@ -3432,6 +3929,7 @@ def main() -> int:
           f"{served['client_p50_ms']:.1f} ms p99 {served['client_p99_ms']:.1f} ms; "
           f"server p50 {lat['p50']:.1f} ms p99 {lat['p99']:.1f} ms", flush=True)
     served_launches = served["launches"]
+    served_ref = {k: served[k] for k in ("ref0", "resp0", "n_shapes")}
     del served
 
     step_ms = {}
@@ -3470,6 +3968,10 @@ def main() -> int:
     path_counts.append(programs["counts"])
     streams = streams_phase(name_power, weights)
     path_counts.append(streams["counts"])
+    gc.collect()
+    torch.cuda.empty_cache()  # the replicas of phase 14 share the card
+    fleet = fleet_phase(name_power, weights, served_ref)
+    path_counts.append(fleet["counts"])
 
     fp32 = [r for r in rows if r["dtype"] == "fp32"]  # the serving path is fp32
     bf16_rows = [r for r in rows if r["dtype"] == "bf16"]
@@ -3492,7 +3994,8 @@ def main() -> int:
           f"{sum(c['K2'] for c in augmented['counts'])}, K3 "
           f"{sum(c['K3'] for c in augmented['counts'])}; served programs (phase 12): K1 "
           f"{programs['counts']['K1']} (bf16 {programs['counts']['K1_bf16']}); long-record and "
-          f"stream planes (phase 13): K1 {streams['counts']['K1']}; all paths: K1 "
+          f"stream planes (phase 13): K1 {streams['counts']['K1']}; fleet (phase 14): K1 "
+          f"{fleet['counts']['K1']} or more; all paths: K1 "
           f"{launches['K1']} (bf16 "
           f"{launches['K1_bf16']}), K2 {launches['K2']} (bf16 {launches['K2_bf16']}), K3 "
           f"{launches['K3']}", flush=True)

@@ -13,6 +13,8 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
     python -m seist_tpu_torch train --model-name seist_l_dpk --dataset-name packed --data PACK ...
     python -m seist_tpu_torch pack --dataset synthetic --out PACK ...
     python -m seist_tpu_torch supervise -- python -m seist_tpu_torch train ...
+    python -m seist_tpu_torch router --replica 127.0.0.1:18100 --replica 127.0.0.1:18101
+    python -m seist_tpu_torch supervise-fleet --replicas 2 -- python -m seist_tpu_torch serve ...
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""``python -m seist_tpu_torch serve|train|pack|supervise ...``: the port's
-command line."""
+"""``python -m seist_tpu_torch serve|train|pack|supervise|router|supervise-fleet ...``:
+the port's command line. ``router`` and ``supervise-fleet`` are model-free
+host processes: they take no device and import neither torch nor numpy."""
 
 from __future__ import annotations
 
@@ -9,7 +10,10 @@ _USAGE = (
     "usage: python -m seist_tpu_torch serve --model NAME[=WEIGHTS] ...\n"
     "       python -m seist_tpu_torch train --model-name NAME --dataset-name synthetic|packed ...\n"
     "       python -m seist_tpu_torch pack --dataset NAME --out DIR ...\n"
-    "       python -m seist_tpu_torch supervise [--retries N] [--backoff S] -- COMMAND ..."
+    "       python -m seist_tpu_torch supervise [--retries N] [--backoff S] -- COMMAND ...\n"
+    "       python -m seist_tpu_torch router --replica HOST:PORT [--replica ...] [--port P] ...\n"
+    "       python -m seist_tpu_torch supervise-fleet [--replicas N] [--router-port P] "
+    "[--rollout-file F] ... -- python -m seist_tpu_torch serve ..."
 )
 
 
@@ -31,6 +35,14 @@ def main(argv=None) -> None:
         from seist_tpu_torch.supervise import main as supervise_main
 
         sys.exit(supervise_main(argv[1:]))
+    elif argv and argv[0] == "router":
+        from seist_tpu_torch.serve.router import main as router_main
+
+        router_main(argv[1:])
+    elif argv and argv[0] == "supervise-fleet":
+        from seist_tpu_torch.supervise_fleet import main as fleet_main
+
+        sys.exit(fleet_main(argv[1:]))
     else:
         raise SystemExit(_USAGE)
 

@@ -10,10 +10,12 @@
   ``Server-Timing`` and ``GET /traces``.
 * :mod:`~seist_tpu_torch.obs.http` serves the bus on the train worker's
   ``--metrics-port``.
+* **Fleet pane** (:mod:`~seist_tpu_torch.obs.fleet`): the fleet
+  supervisor's merge of every replica's bus snapshot and the router's,
+  ``GET /fleet/metrics[.json]``.
 
 The JAX package's per-op attribution (``attribute_step``,
-``jaxpr_op_costs``) and fleet aggregation (``obs/fleet.py``) have no
-counterpart here yet (``ROADMAP.md``). Metric names, span names, header
+``jaxpr_op_costs``) has no counterpart here yet (``ROADMAP.md``). Metric names, span names, header
 formats and JSON shapes are the JAX package's, so one scraper reads both.
 """
 

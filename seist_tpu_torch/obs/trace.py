@@ -337,6 +337,7 @@ class RequestTrace:
         traceparent: Optional[str] = None,
         name: str = "request",
         buffer: Optional[TraceBuffer] = None,
+        process: Optional[str] = None,
         slo_ms: Optional[float] = None,
     ):
         parsed = parse_traceparent(traceparent)
@@ -350,6 +351,9 @@ class RequestTrace:
         self.root_span_id = _new_span_id()
         self.name = name
         self._buffer = buffer if buffer is not None else BUFFER
+        # A span's ``process`` tag when it is not the buffer's own (the
+        # router's spans in the supervisor's process say "router").
+        self._process = process
         self._slo_ms = (
             slo_ms
             if slo_ms is not None
@@ -388,14 +392,18 @@ class RequestTrace:
             self._record(name, (monotonic() - t0) * 1e3, t0_wall,
                          handle.annotations)
 
-    def add_child(self, name: str, dur_ms: float, **annotations: Any) -> None:
+    def add_child(self, name: str, dur_ms: float, span_id: Optional[str] = None,
+                  **annotations: Any) -> None:
         """Record a child span whose duration was measured elsewhere
         (the batcher's queue wait / flush forward). The wall start stamp
-        is back-dated by the measured duration."""
-        self._record(name, float(dur_ms), time.time() - dur_ms / 1e3, dict(annotations))
+        is back-dated by the measured duration. ``span_id`` keeps an id
+        the caller minted beforehand (the router's attempt span, sent
+        downstream as the replica's parent)."""
+        self._record(name, float(dur_ms), time.time() - dur_ms / 1e3, dict(annotations),
+                     span_id=span_id)
 
     def _record(self, name: str, dur_ms: float, t0_wall: float,
-                annotations: Dict[str, Any]) -> None:
+                annotations: Dict[str, Any], span_id: Optional[str] = None) -> None:
         with self._lock:
             if self._finished:
                 # A straggler (an abandoned batcher item flushing after
@@ -404,7 +412,7 @@ class RequestTrace:
                 return
             self._segments.append((name, dur_ms))
         span = {
-            "span_id": _new_span_id(),
+            "span_id": span_id or _new_span_id(),
             "parent_id": self.root_span_id,
             "name": name,
             "t0": round(t0_wall, 6),
@@ -412,6 +420,8 @@ class RequestTrace:
         }
         if annotations:
             span["annotations"] = annotations
+        if self._process:
+            span["process"] = self._process
         self._buffer.add_span(self.trace_id, span)
 
     def annotate(self, **fields: Any) -> None:
@@ -452,6 +462,8 @@ class RequestTrace:
         }
         if annotations:
             span["annotations"] = annotations
+        if self._process:
+            span["process"] = self._process
         self._buffer.add_span(self.trace_id, span)
         if status is not None and (status == 0 or status >= 500):
             # A shed 503 is a deliberate policy verdict, not a failure;

@@ -273,12 +273,15 @@ class ModelEntry:
 
     def build_programs(self, buckets: Sequence[int], report: List[Dict[str, Any]]) -> None:
         """One program per (variant, bucket), each variant's graphs in one
-        memory pool of their own; then the parity gates."""
+        memory pool of their own; then the parity gates. A variant's
+        programs are published together once all are captured: a request
+        served during an async warm-up runs eagerly and never replays a
+        graph of the pool that is being captured."""
         self.buckets = tuple(buckets)
         for variant in self.variants:
             fn = self._fn(variant)
             pool = _graph_pool(self.device)
-            progs = self.programs.setdefault(variant, {})
+            progs: Dict[int, aot.Program] = {}
             for b in buckets:
                 with torch.inference_mode():
                     x = _to_device(_probe_input(b, self.window, self.in_channels), self.device)
@@ -289,6 +292,7 @@ class ModelEntry:
                 report.append(_program_row(self.name, b, variant, prog))
                 logger.info(f"[serve] program {prog.key}: {prog.capture_s:.2f} s, "
                             f"{prog.flops:.4g} flops, K1 launches per call {prog.launches[0]}")
+            self.programs[variant] = progs
         self._gate_variants(buckets[0])
 
     def _gate_variants(self, probe_bucket: int) -> None:
@@ -486,10 +490,12 @@ class MultiTaskEntry:
     # ------------------------------------------------------------ warm-up
     def build_programs(self, buckets: Sequence[int], report: List[Dict[str, Any]]) -> None:
         """Per variant (one memory pool) and bucket: the trunk program, then
-        each head's, reading the trunk's output buffer; then the gates."""
+        each head's, reading the trunk's output buffer; then the gates. As
+        for a single model, a variant's programs are published together."""
         self.buckets = tuple(buckets)
         for variant in self.variants:
             pool = _graph_pool(self.device)
+            progs: Dict[Tuple[str, str, int], aot.Program] = {}
             for b in buckets:
                 with torch.inference_mode():
                     x = _to_device(_probe_input(b, self.window, self.in_channels), self.device)
@@ -497,7 +503,7 @@ class MultiTaskEntry:
                     f"{self.name}/trunk/b{b}/{variant}", self._fn("trunk", variant), [x],
                     pool=pool, copy_outputs=False,
                     attention=aot.attention_flops(self.trunk_model, b, self.window))
-                self.programs[(variant, "trunk", b)] = trunk
+                progs[(variant, "trunk", b)] = trunk
                 report.append(_program_row(self.name, b, variant, trunk))
                 if trunk.outputs is not None:
                     feats = trunk.outputs
@@ -508,11 +514,12 @@ class MultiTaskEntry:
                     head = aot.Program(f"{self.name}/head:{t}/b{b}/{variant}",
                                        self._fn(t, variant), [feats], pool=pool,
                                        shared_inputs=True)
-                    self.programs[(variant, t, b)] = head
+                    progs[(variant, t, b)] = head
                     report.append(_program_row(self.name, b, variant, head))
                 logger.info(f"[serve] programs {self.name} b{b} {variant}: trunk "
                             f"{trunk.capture_s:.2f} s ({trunk.flops:.4g} flops, K1 launches per "
                             f"call {trunk.launches[0]}) + {len(self.tasks)} heads")
+            self.programs.update(progs)
         self._gate_variants(buckets[0])
 
     def _gate_variants(self, probe_bucket: int) -> None:

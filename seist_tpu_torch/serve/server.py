@@ -19,8 +19,15 @@ capture seconds and memory, ``graph_captures`` and ``fallback_runs``, and
 each group's fan-out (trunk runs, head runs, trunk FLOPs saved; served
 traffic only); ``/metrics?format=prometheus`` is the metrics bus in
 Prometheus text (``obs/bus.py``), ``/metrics.json`` its JSON snapshot.
-SIGTERM drains: queued requests are served, new ones get 503, and the
-process exits 0.
+
+``serve`` opens its socket before the warm-up (``warmup_async``): while
+the programs are captured, ``/healthz/live`` answers 200 and
+``/healthz/ready`` 503 with state ``warming``, and a request that arrives
+is still served, eagerly (counted in ``fallback_runs``). A failed
+warm-up makes the replica dead, and the process exits 1. SIGTERM drains
+(queued requests are served, new ones get 503) and exits
+``PREEMPT_EXIT_CODE`` (75), the managed preemption a fleet supervisor
+relaunches at once; SIGINT drains and exits 0; a dead batcher exits 1.
 
 ``POST /annotate`` picks over a record of any length at least one window
 long: ``ops/stream.annotate`` cuts it into windows, runs them through the
@@ -90,6 +97,7 @@ from seist_tpu_torch.serve.protocol import (
     Overloaded,
     PredictOptions,
     QueueFull,
+    ReloadFailed,
     ServeError,
     ShuttingDown,
     json_bytes,
@@ -103,6 +111,7 @@ from seist_tpu_torch.stream.assoc import AssocConfig, Associator
 from seist_tpu_torch.stream.journal import AlertWAL, StationJournal
 from seist_tpu_torch.stream.mux import MuxClosed, MuxConfig, StationLimit, StationMux
 from seist_tpu_torch.stream.session import SessionConfig
+from seist_tpu_torch.train.checkpoint import PREEMPT_EXIT_CODE
 from seist_tpu_torch.utils import logger as logger_mod
 from seist_tpu_torch.utils.faults import ServeFaultInjector, stream_faults
 from seist_tpu_torch.utils.logger import logger
@@ -110,8 +119,9 @@ from seist_tpu_torch.utils.meters import LatencyHistogram
 
 MAX_BODY_BYTES = 64 * 1024 * 1024
 
-#: The replica's lifecycle as the ``serve_state_code`` gauge (the JAX
-#: package's codes; the port warms up before it serves, so never "warming").
+#: The replica's lifecycle (warming -> ok -> draining, or dead) as the
+#: ``serve_state_code`` gauge, the JAX package's codes. A replica is
+#: "warming" while its programs are captured (``warmup_async``).
 STATE_CODES = {"dead": 0, "warming": 1, "ok": 2, "draining": 3}
 
 
@@ -124,13 +134,19 @@ class _BadCandidate(ServeError):
 
 class ServeService:
     """Transport-free serving core: every public method raises ServeError
-    subclasses on failure and returns JSON-able dicts on success. The pool
-    is warmed up (every program captured, every variant gated) before the
-    service exists; then one batcher per (entry, variant) starts, keyed by
-    the model name for fp32 and ``<model>@<variant>`` otherwise, and one
-    admission controller per entry, fed by the worst ``queue_delay_ms``
-    over its batchers. A batcher resolves its entry from the pool at every
-    flush, so a reload takes effect at the next flush.
+    subclasses on failure and returns JSON-able dicts on success. One
+    batcher per (entry, variant) starts, keyed by the model name for fp32
+    and ``<model>@<variant>`` otherwise, and one admission controller per
+    entry, fed by the worst ``queue_delay_ms`` over its batchers. A batcher
+    resolves its entry from the pool at every flush, so a reload takes
+    effect at the next flush.
+
+    The warm-up (every program captured, every variant gated) runs in the
+    constructor, or with ``warmup_async`` on a thread of its own while the
+    service already serves: readiness waits for it, and a request that
+    arrives meanwhile runs eagerly (an entry publishes a variant's programs
+    once all of its buckets are captured). A failed warm-up raises from the
+    constructor, or, async, makes the service dead.
 
     ``stream_config`` holds the stream plane's serve flags:
     ``max_stations``, ``idle_timeout_s``, ``journal_dir``,
@@ -139,7 +155,8 @@ class ServeService:
     def __init__(self, pool: ModelPool, config: BatcherConfig,
                  shed_config: Optional[ShedConfig] = None,
                  stream_config: Optional[Dict[str, Any]] = None,
-                 event_log: Optional[EventLog] = None):
+                 event_log: Optional[EventLog] = None,
+                 warmup_async: bool = False):
         self.pool = pool
         self.config = config
         self.buckets = config.resolved_buckets()
@@ -150,10 +167,12 @@ class ServeService:
         self._draining = False
         self._last_state: Optional[str] = None
         self._batchers: Dict[str, MicroBatcher] = {}
-        t0 = time.perf_counter()
-        pool.warmup(self.buckets)
-        #: Wall seconds from the warm-up's start to ready: every capture and gate.
-        self.ready_s = time.perf_counter() - t0
+        # Readiness waits for the warm-up; liveness fails if it fails.
+        self._warming = True
+        self._warmup_error: Optional[Exception] = None
+        #: Wall seconds from the warm-up's start to ready: every capture and
+        #: gate (None until the warm-up is done).
+        self.ready_s: Optional[float] = None
         self._shedders: Dict[str, AdmissionController] = {}
         for name, entry in pool.entries().items():
             mine = []
@@ -185,7 +204,37 @@ class ServeService:
         # The service's half of /metrics on the bus (batchers and shedders
         # publish their own, labelled); a restarted service replaces it.
         BUS.register_collector("serve", self._bus_metrics)
+        self.publish_state("startup")
+        if warmup_async:
+            self._warmup_thread: Optional[threading.Thread] = threading.Thread(
+                target=self._run_warmup, name="serve-warmup", daemon=True)
+            self._warmup_thread.start()
+        else:
+            self._warmup_thread = None
+            self._run_warmup()
+            if self._warmup_error is not None:
+                self.shutdown(drain=False)
+                raise self._warmup_error
+
+    def _run_warmup(self) -> None:
+        t0 = time.perf_counter()
+        try:
+            self.pool.warmup(self.buckets)
+        except Exception as e:  # noqa: BLE001 - recorded: liveness fails, main exits 1
+            self._warmup_error = e
+            logger.warning(f"[serve] warm-up failed: {e!r}")
+            self.publish_state("warmup_failed")
+            return
+        self.ready_s = time.perf_counter() - t0
+        self._warming = False
+        logger.info(f"[serve] ready in {self.ready_s:.2f} s")
         self.publish_state("warmup_done")
+
+    def wait_warmup(self, timeout: Optional[float] = None) -> bool:
+        """Block until the warm-up has ended (done or failed); True if it has."""
+        if self._warmup_thread is not None:
+            self._warmup_thread.join(timeout)
+        return not self._warming or self._warmup_error is not None
 
     @property
     def entries(self) -> Dict[str, Any]:
@@ -236,6 +285,10 @@ class ServeService:
             raise BadRequest(
                 f"variant '{variant}' is not loaded for model '{entry.name}' (serve "
                 f"--variants); loaded: {list(entry.variants)}")
+        if self._warming:
+            # The gates run in the warm-up; until then a loaded variant is
+            # served eagerly, as fp32 is.
+            return
         supported = entry.supported_variants(tasks)
         if variant not in supported:
             raise BadRequest(
@@ -570,6 +623,9 @@ class ServeService:
         failure leaves it serving and raises the structured error."""
         if self._draining:
             raise ShuttingDown("service is draining; not accepting reloads")
+        if self._warming:
+            raise ReloadFailed("initial warm-up still running; retry once /healthz/ready "
+                               "reports ready")
         entry = self.pool.get(model)
         if checkpoint is not None and not isinstance(checkpoint, str):
             raise BadRequest("'checkpoint' must be a string path")
@@ -611,19 +667,20 @@ class ServeService:
 
     # ------------------------------------------------------ health/metrics
     def alive(self) -> bool:
-        """Liveness: every batcher's worker thread runs (neither can come
-        back, so the process exits 1 on it)."""
-        return all(b.healthy for b in self._batchers.values())
+        """Liveness: the warm-up did not fail and every batcher's worker
+        thread runs (neither can come back, so the process exits 1 on it)."""
+        return self._warmup_error is None and all(b.healthy for b in self._batchers.values())
 
     def ready(self) -> bool:
-        """Readiness: alive and not draining (the warm-up ends before the
-        service exists)."""
-        return self.alive() and not self._draining
+        """Readiness: alive, warmed up and not draining."""
+        return self.alive() and not self._warming and not self._draining
 
     def _state_str(self) -> str:
         if not self.alive():
             return "dead"
-        return "draining" if self._draining else "ok"
+        if self._draining:
+            return "draining"
+        return "warming" if self._warming else "ok"
 
     def model_versions(self) -> Dict[str, int]:
         """{model: served version}, on ``/healthz`` and ``/healthz/ready``
@@ -648,7 +705,7 @@ class ServeService:
             "buckets": list(self.buckets),
             "healthy": self.alive(),
             "uptime_s": round(time.monotonic() - self._started, 3),
-            "ready_s": round(self.ready_s, 3),
+            "ready_s": None if self.ready_s is None else round(self.ready_s, 3),
             "programs": self.pool.program_stats,
             "warmup": self.pool.warmup_report,
         }
@@ -893,15 +950,17 @@ def build_service(
     shed_config: Optional[ShedConfig] = None,
     stream_config: Optional[Dict[str, Any]] = None,
     event_log: Optional[EventLog] = None,
+    warmup_async: bool = False,
 ) -> ServeService:
     """Load ``(name, weights)`` entries and ``(prefix, [(task, weights)])``
-    groups on ``device``, capture their programs and gate their variants."""
+    groups on ``device``, capture their programs and gate their variants
+    (on a thread of the service's own with ``warmup_async``)."""
     pool = ModelPool(models, groups=groups, window=window, variants=variants, version=version,
                      device=device)
     return ServeService(pool, BatcherConfig(max_batch=max_batch, max_delay_ms=max_delay_ms,
                                             max_queue=max_queue, buckets=buckets),
                         shed_config=shed_config, stream_config=stream_config,
-                        event_log=event_log)
+                        event_log=event_log, warmup_async=warmup_async)
 
 
 def parse_model_flags(args: argparse.Namespace) -> List[Tuple[str, str]]:
@@ -1015,8 +1074,8 @@ def get_serve_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return args
 
 
-def service_from_args(args: argparse.Namespace,
-                      event_log: Optional[EventLog] = None) -> ServeService:
+def service_from_args(args: argparse.Namespace, event_log: Optional[EventLog] = None,
+                      warmup_async: bool = False) -> ServeService:
     """The service ``serve`` runs for parsed :func:`get_serve_args`."""
     return build_service(
         parse_model_flags(args),
@@ -1045,6 +1104,7 @@ def service_from_args(args: argparse.Namespace,
             "journal_every_s": args.stream_journal_every_s,
         },
         event_log=event_log,
+        warmup_async=warmup_async,
     )
 
 
@@ -1061,41 +1121,70 @@ def start_telemetry() -> EventLog:
                                  f"events{obs_trace.replica_suffix()}.jsonl"))
 
 
+def watch_until_shutdown(service: ServeService, stop: threading.Event,
+                         poll_s: float = 0.5) -> int:
+    """The main thread's watchdog: block until ``stop`` (a signal) or the
+    service dies (a batcher thread died, or the warm-up failed). Returns 0
+    on ``stop`` and 1 on a death, after publishing the reason and dumping
+    the flight recorder: a replica whose batcher died would otherwise sit
+    while every request times out, and nothing would restart it."""
+    while not stop.is_set():
+        if not service.alive():
+            sick = [n for n, b in service._batchers.items() if not b.healthy]
+            reason = (f"batcher flush thread(s) died: {sick}" if sick
+                      else f"warm-up failed: {service._warmup_error!r}")
+            service.publish_state(reason)
+            # The batcher's own death dumped the richer record moments ago.
+            obs_flight.dump_on_death("serve_unhealthy", dedup_s=5.0, detail=reason)
+            logger.warning(f"[serve] {reason}; exiting 1")
+            return 1
+        stop.wait(poll_s)
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     import signal
 
     args = get_serve_args(argv)
     events = start_telemetry()
-    service = service_from_args(args, event_log=events)
+    # The socket comes up before the warm-up: /healthz/live answers 200
+    # and /healthz/ready 503 "warming" while the programs are captured.
+    service = service_from_args(args, event_log=events, warmup_async=True)
     server = start_http_server(service, args.host, args.port)
     host, port = server.server_address[:2]
     logger.info(
         f"[serve] listening on http://{host}:{port} models={service.pool.names()} "
-        f"buckets={list(service.buckets)} device={args.device} ready in "
-        f"{service.ready_s:.2f} s"
+        f"buckets={list(service.buckets)} device={args.device} (warming up)"
     )
     stop = threading.Event()
+    # SIGTERM is a managed preemption (a rolling restart, a node drain):
+    # drain, then exit PREEMPT_EXIT_CODE so a fleet supervisor relaunches
+    # at once with its crash budget untouched. SIGINT is an operator's
+    # stop: drain and exit 0, and the slot is retired.
+    exit_code = {"rc": 0}
 
     def _term(signum, frame):
+        if signum == signal.SIGTERM:
+            exit_code["rc"] = PREEMPT_EXIT_CODE
         service.begin_drain()
         stop.set()
 
     signal.signal(signal.SIGTERM, _term)
     signal.signal(signal.SIGINT, _term)
-    rc = 0
-    while not stop.wait(0.5):
-        if not service.alive():
-            service.publish_state("batcher worker died")
-            logger.warning("[serve] a batcher worker died; exiting 1")
-            # The batcher's own death dumped the richer record moments ago.
-            obs_flight.dump_on_death("serve_unhealthy", dedup_s=5.0,
-                                     detail="batcher worker died")
-            rc = 1
-            break
-    logger.info("[serve] draining...")
-    service.shutdown(drain=rc == 0)
-    server.shutdown()
-    logger.info(f"[serve] stopped (rc={rc})")
+    rc = watch_until_shutdown(service, stop)
+    if rc == 0:
+        rc = exit_code["rc"]
+        logger.info("[serve] draining...")
+        # A capture still running when the process exits could hang in
+        # the CUDA teardown; a drain waits for the warm-up first.
+        service.wait_warmup()
+        service.shutdown(drain=True)
+        server.shutdown()
+        logger.info(f"[serve] stopped (rc={rc})")
+    else:
+        server.shutdown()
+        service.shutdown(drain=False)
+        logger.info("[serve] stopped (unhealthy)")
     events.emit("serve_state", state="stopped", rc=rc)
     events.close()
     obs_flight.install(None)

@@ -138,3 +138,31 @@ def test_the_serving_planes_are_covered():
               "seist_tpu_torch.stream.mux", "seist_tpu_torch.stream.assoc",
               "seist_tpu_torch.stream.journal", "seist_tpu_torch.utils.faults"):
         assert m in mods, m
+
+
+def test_the_front_tier_is_covered_and_needs_no_torch():
+    """The router, the canary, the fleet pane and the fleet supervisor are
+    among the modules checked above, and importing and constructing them
+    loads neither torch nor numpy (nor JAX): the front tier starts on a
+    box with no accelerator stack, as the JAX package's does."""
+    assert {"seist_tpu_torch.serve.router", "seist_tpu_torch.serve.canary",
+            "seist_tpu_torch.obs.fleet", "seist_tpu_torch.supervise_fleet"} <= set(_modules())
+    code = (
+        "import sys\n"
+        "import seist_tpu_torch.serve.router as router\n"
+        "import seist_tpu_torch.serve.canary as canary\n"
+        "import seist_tpu_torch.obs.fleet as fleet\n"
+        "import seist_tpu_torch.supervise_fleet as sf\n"
+        "r = router.Router(config=router.RouterConfig())\n"
+        "r.canary.start(2, 10.0); r.shadow.start(2, 0.5); r.stop()\n"
+        "agg = fleet.FleetAggregator(); agg.add_source('router', lambda: {}); agg.merged()\n"
+        "sf.rollout_cmd(['serve'], 2)\n"
+        "canary.decision_diff({'task': 'regression', 'emg': 1.0}, {'task': 'regression', 'emg': 1.0})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{('torch', 'numpy') + FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]

@@ -230,12 +230,25 @@ def test_cli_serves_and_drains_on_sigterm():
             port = int(m.group(1)) if m else None
             assert line or proc.poll() is None, "server exited before listening"
         assert port is not None
+        # The socket opens before the warm-up; a request sent meanwhile pays
+        # the process's first forward beside the captures, which on a busy
+        # CPU can outlast the default deadline: wait for ready.
+        while time.monotonic() < deadline:
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz/ready", timeout=30)
+                break
+            except urllib.error.HTTPError as e:
+                assert e.code == 503 and json.loads(e.read())["status"] == "warming"
+                time.sleep(0.2)
         status, body = _post(f"http://127.0.0.1:{port}",
                              {"data": np.random.default_rng(0).standard_normal((3, 256)).tolist()})
         assert status == 200 and body["task"] == "picking"
+        # SIGTERM is a managed preemption: drain, then exit 75 (a fleet
+        # supervisor relaunches at once), as the JAX replica does.
         proc.send_signal(signal.SIGTERM)
         out, _ = proc.communicate(timeout=60)
-        assert proc.returncode == 0 and "stopped (rc=0)" in out, out[-1000:]
+        assert proc.returncode == tserver.PREEMPT_EXIT_CODE == 75, out[-1000:]
+        assert "stopped (rc=75)" in out, out[-1000:]
     finally:
         if proc.poll() is None:
             proc.kill()

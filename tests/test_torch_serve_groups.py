@@ -377,6 +377,15 @@ def test_cli_groups_variants_and_reload(tmp_path):
             assert line or proc.poll() is None, "server exited before listening"
         assert port is not None
         url = f"http://127.0.0.1:{port}"
+        # The socket opens before the warm-up; the checks below (a reload,
+        # no fallback run) want the captured programs, so wait for ready.
+        while time.monotonic() < deadline:
+            try:
+                urllib.request.urlopen(url + "/healthz/ready", timeout=30)
+                break
+            except urllib.error.HTTPError as e:
+                assert e.code == 503 and json.loads(e.read())["status"] == "warming"
+                time.sleep(0.2)
         x = np.random.default_rng(0).standard_normal((3, 128)).tolist()
         status, body = _post(url + "/predict", {"data": x, "options": {"variant": "int8"}})
         assert status == 200 and sorted(body["tasks"]) == ["dpk", "emg"], body
@@ -400,9 +409,9 @@ def test_cli_groups_variants_and_reload(tmp_path):
         metrics = json.loads(urllib.request.urlopen(url + "/metrics", timeout=30).read())
         assert metrics["fanout"]["seist_s"]["trunk_runs"] == 1  # the candidate's own
         assert metrics["fallback_runs"] == 0
-        proc.send_signal(signal.SIGTERM)
+        proc.send_signal(signal.SIGTERM)  # a managed preemption: exit 75
         out, _ = proc.communicate(timeout=60)
-        assert proc.returncode == 0 and "stopped (rc=0)" in out, out[-1000:]
+        assert proc.returncode == 75 and "stopped (rc=75)" in out, out[-1000:]
     finally:
         if proc.poll() is None:
             proc.kill()
