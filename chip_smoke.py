@@ -16,8 +16,10 @@ non-zero before the last line):
 3. hold the forward kernel (K1) and its row statistics (lse) against the
    plain PyTorch version on the card: at the five attention shapes of one
    ``seist_l_dpk`` forward at window 8192 (batch 8) in fp32 and bf16, at
-   ragged shapes, at M = 1024, and with dropout at rate 0.1, where the zero
-   pattern must be identical;
+   ragged shapes, at M = 1024, at batch 1 at each of the five shapes (serve
+   bucket 1) and at batch 8 at the last, each under its own plan and the
+   one-warp plan, and with dropout at rate 0.1, where the zero pattern
+   must be identical;
 4. hold the backward kernel (K2), fed K1's (o, lse), against its plain
    version from the same (o, lse), and the chain against the
    recompute-everything reference, at the five shapes of a batch-64 train
@@ -72,17 +74,14 @@ non-zero before the last line):
    bound (bytes, or operations at the faster of fp32 on the CUDA cores and
    3xTF32 on the tensor cores, both printed), the model's
    forward per batch bucket, and the train step at batch 64 and 256 with
-   its peak memory, in fp32 and bf16, eager and captured as a CUDA graph
-   (with the capture's seconds); K1 in bf16 also at the train step's
+   its peak memory, in fp32 and bf16, captured as a CUDA graph (with the
+   capture's seconds) and, at batch 64, eager; K1 in bf16 also at the train step's
    batch 64; K2 in both types per shape at rate 0.3 (the train step's) and
    at rate 0 beside SDPA's backward (rate 0), its bound at the type's rate
    (the bf16 tensor cores for bf16); profile a
-   batch-8 forward and a batch-64 train step in fp32 and bf16, eager and
-   captured; time K1 with
-   and without two warps sharing a row group where its planner shares them;
+   batch-8 forward and a captured batch-64 train step in fp32 and bf16;
    the train Loader's waveforms/s at window 8192 with augmentation on over
-   2048 synthetic events, on the synthetic dataset and its float32 pack, at
-   batch 64 and 500, with 4 processes,
+   the float32 pack of 2048 synthetic events, at batch 500, with 4 processes,
    beside the fp32 train step's consumption at b64 and b256;
 9. the captured step (``train/graph.py``), which every train path above
    already runs: at batch 64, drop rates 0.3, fp32, six captured steps
@@ -150,7 +149,7 @@ non-zero before the last line):
     near-tie (fp32 probabilities within the variant's gate tolerance: the
     seeded weights' outputs are flat, std ~2e-4); the group's heads
     against the single-task models; replayed against eager forwards per
-    bucket and variant (wall, device busy, idle share, kernels); a reload
+    variant at buckets 1 and 8 (wall, device busy, idle share, kernels); a reload
     that swaps (version 2) and one of NaN weights refused (409). The
     serve entry's telemetry is on: every response's ``Server-Timing`` has
     the five segments (parse, normalize, queue_wait, forward, decode),
@@ -207,6 +206,46 @@ non-zero before the last line):
     drained with 75); the K1 counts of every life but the SIGKILLed one
     are summed, each a multiple of 5. Prints the relaunch-to-ready
     seconds, the roll's wall seconds, the attempts until the rollback.
+15. batch re-picking, plain attention patched to raise (in the worker
+    processes too, by a wrapper of this script's that also writes each
+    process's K1 launches on its way out): phase 8's 2,048 synthetic
+    events at trace 8192, packed into 8 shards of 256 as float32 and as
+    int8; phase 5's weights with each BatchNorm's scale and shift cut to
+    0.05 and its statistics set from the archive's first rows, so the
+    outputs follow the waveform (phase 5's do not); ``--batch-size 64
+    --batches-per-call 2 --commit-every 1 --max-events 1`` (128 rows a
+    replay, 2 segments a unit, one plan for every run). (a) ``repick
+    --compile-gate`` in this process: 2,048 rows with the pack's keys,
+    ``compiles_after_warmup`` 0, K1 10 launches per replay over every
+    replay, at least 1,024 distinct (ppk, spk, det) rows; waveforms/s,
+    the stage seconds, the capture seconds and graph memory; then, from
+    an engine of the same plan, one profiled replay's device busy and
+    idle share and the rate over 8 passes of the archive; (b) 12 rows of
+    (a)'s own replays (both ends of both batches of its first, middle
+    and last call, kept as the run decodes them) against the same rows
+    through the port on the CPU: outputs within 1e-4, every two rows at
+    least 1e-3 apart (so a row fed the wrong waveform fails), picks and
+    detection within 0.1 s (phase 12's rule: or moved across a near-tie
+    of the CPU's outputs); (c) ``--variant int8`` on the int8 pack
+    (``stage_raw``): the gate passes, the same 12 rows of its replays
+    within 1e-4 of the CPU's int8 weights on the same int8 rows,
+    ``batch_infer_bytes`` per row a quarter of (a)'s, picks as (a)'s
+    under phase 12's variant rule; (d)
+    two worker processes with ``--no-merge``, worker 0 slowed by
+    ``SEIST_FAULT_REPICK_SLOW_MS``, SIGKILLed after its first segment
+    commit and relaunched, then ``--merge-only``: the catalog
+    byte-identical to (a)'s, ``compiles_after_warmup`` 0 in each worker,
+    K1 10 per replay in each; (e) ``supervise-repick --workers 3`` in a
+    child process with ``tools/batch_chaos.py``'s faults (worker 0's lease
+    store partitioned from its first operation for 1.5 times (d)'s worker
+    start plus 15 s, at least 45 s, so that a relaunched peer reclaims its
+    unit first; worker 1 SIGKILLed and worker 2 SIGTERMed at their first
+    lease): exit 0, the catalog's
+    sha256 equal to (a)'s, ``double_commits`` 0, ``fence_rejects`` >= 1.
+    Each child process is bounded by a timeout whose expiry fails the
+    phase. Prints the relaunch counts and the fleet's wall seconds.
+
+Each phase's wall seconds are printed as a ``[phase-time]`` line.
 
 It prints one ``{"kernels": [...]}`` line (the fp32 K1 and K2, their bf16
 kernels, K3) and, last,
@@ -463,6 +502,29 @@ def check_kernel(shapes: List[Tuple[int, int, int, int]], dev) -> Dict[str, floa
               f"(limit {FP32_TOL:.1e}), lse {lse_err:.3e}", flush=True)
         if not (err <= FP32_TOL and lse_err <= LSE_TOL):
             fail(f"kernel disagrees with plain at ragged/long {(n, l, m, h, e)}")
+    # fwd_plan's two warps a 16-row group (ksplit 2: every batch-1 forward,
+    # serve bucket 1, and b8 at the last shape) and the one-warp plan of
+    # an M of one key chunk, each against the plain version.
+    real_plan = _kernels.fwd_plan
+
+    def one_warp(n, l, m, h, sms):
+        return real_plan(n, l, _kernels.FWD_CHUNK, h, sms)
+
+    for n, l, m, h, e in [(BATCH,) + shapes[-1]] + [(1,) + s for s in dict.fromkeys(shapes)]:
+        q, k, v = qkv(n, l, m, h, e, torch.float32, 900 + l, dev)
+        sms = _kernels.sm_count(dev)
+        for plan in (real_plan, one_warp):
+            _kernels.fwd_plan = plan
+            try:
+                err = max_err(kernel(q, k, v), plain(q, k, v))
+            finally:
+                _kernels.fwd_plan = real_plan
+            print(f"[check] N={n} L={l} M={m} H={h} E={e} fp32 plan {plan(n, l, m, h, sms)} "
+                  f"(row_warps, ksplit): max_abs_err {err:.3e} (limit {FP32_TOL:.1e})",
+                  flush=True)
+            if not err <= FP32_TOL:
+                fail(f"K1 with the plan {plan(n, l, m, h, sms)} disagrees with plain at "
+                     f"{(n, l, m, h, e)}")
     # Zero pattern: with v_h the identity (M <= E), O_h is the dropped
     # probability matrix itself, so its zeros are the dropout mask: the fp32
     # kernel's uniform test and the bf16 kernel's integer threshold.
@@ -1345,37 +1407,6 @@ def time_bwd_shapes(shapes, dev, dtype=torch.float32) -> List[dict]:
     return rows
 
 
-def time_ksplit(shapes, dev) -> List[dict]:
-    """K1 where :func:`_kernels.fwd_plan` has two warps share each 16-row
-    group (ksplit 2: batch 8 at L = 128 and every batch-1 forward), against
-    the same launch with one warp per row group (the plan of an M of one
-    key chunk), in device ms, measured in the order 2, 1, 1, 2."""
-    real = _kernels.fwd_plan
-
-    def one_warp(n, l, m, h, sms):
-        return real(n, l, _kernels.FWD_CHUNK, h, sms)
-
-    cases = [(BATCH,) + shapes[-1]] + [(1,) + s for s in dict.fromkeys(shapes)]
-    rows = []
-    for n, l, m, h, e in cases:
-        q, k, v = qkv(n, l, m, h, e, torch.float32, 900 + l, dev)
-        seed = pa.seed_tensor(0, dev)
-        sms = _kernels.sm_count(dev)
-        row = {"N": n, "L": l, "M": m, "H": h, "E": e, "plan": real(n, l, m, h, sms),
-               "plan1": one_warp(n, l, m, h, sms), "ms": [], "ms1": []}
-        for key in ("ms", "ms1", "ms1", "ms"):
-            _kernels.fwd_plan = one_warp if key == "ms1" else real
-            try:
-                row[key].append(device_ms(lambda: kernel(q, k, v, seed=seed)))
-                if max_err(kernel(q, k, v), plain(q, k, v)) > FP32_TOL:
-                    fail(f"K1 with the plan {_kernels.fwd_plan(n, l, m, h, sms)} "
-                         f"disagrees with plain at {(n, l, m, h, e)}")
-            finally:
-                _kernels.fwd_plan = real
-        rows.append(row)
-    return rows
-
-
 def time_train_step(weights: str, batch: int, steps: int = 5, dtype: str = "fp32",
                     captured: bool = False) -> dict:
     """Forward, backward and guarded update of seist_l_dpk (its drop rates
@@ -1516,18 +1547,18 @@ def loader_rate(dataset: str, data: str, batch: int, processes: int) -> Tuple[fl
 
 
 def loader_phase(name_power: str, step_ms: Dict[int, float]) -> List[dict]:
-    """The train Loader's throughput on the synthetic dataset and on its
-    float32 pack (which phase 11 trains on), at batch 64 and 500, with 4
-    processes, beside the fp32 train step's consumption."""
+    """The train Loader's throughput on the float32 pack of the synthetic
+    dataset (which phase 11 trains on), at batch 500, with 4 processes,
+    beside the fp32 train step's consumption."""
     packs = os.path.join(str(_kernels.BUILD_DIR), "packs")
-    sources = [("synthetic", "", "generated at first touch, cached per process")]
+    sources = []
     for dtype in ("float32",):
         out = os.path.join(packs, f"{dtype}_{LOADER_EVENTS}")
         pack_entry(out, dtype, events=LOADER_EVENTS, shard_mb=512, workers=os.cpu_count() or 4)
         sources.append(("packed", out, dtype))
     consume = {b: b * 1e3 / ms for b, ms in step_ms.items()}
     rows = []
-    for batch in (TRAIN_BATCH, 500):
+    for batch in (500,):
         for dataset, data, label in sources:
             for processes in (4,):
                 rate, n = loader_rate(dataset, data, batch, processes)
@@ -2867,10 +2898,10 @@ def programs_phase(name_power: str, weights: str, n_shapes: int) -> dict:
             fail(f"group head {task} differs from {GROUP}_{task} by {err:.3e}")
         del one
 
-    # Replayed against eager forwards, per bucket and variant.
+    # Replayed against eager forwards, per variant at the smallest and largest bucket.
     rows = []
     for variant in SERVE_VARIANTS:
-        for b in SERVE_BUCKETS:
+        for b in (SERVE_BUCKETS[0], SERVE_BUCKETS[-1]):
             xb = torch.from_numpy(np.random.default_rng(b).standard_normal(
                 (b, WINDOW, 3)).astype(np.float32)).cuda()
             prog = single.programs[variant][b]
@@ -3758,7 +3789,8 @@ def fleet_phase(name_power: str, weights: str, served: dict) -> dict:
               f"{[None if s is None else round(s, 1) for s in roll_relaunch]} s", flush=True)
         if (failed or min_ready[0] < 1 or not set(versions) <= {1, 2} or late != {2}
                 or None in roll_relaunch or re.search(r"crashed rc=(?!-9)", sup.text())):
-            fail(f"the rolling restart failed: {failed[:5]}\n{sup.tail(40, r'^.fleet.')}")
+            fail(f"the rolling restart failed: {failed[:5]}\n{sup.tail(40, r'^.fleet.')}\n"
+                 f"the replicas' last lines:\n{out.tail(40)}")
 
         # (d) The canary: replica 0 alone rolled to the bad candidate (with
         # no traffic, so its breaker is closed when the canary starts), then
@@ -3829,6 +3861,554 @@ def fleet_phase(name_power: str, weights: str, served: dict) -> dict:
     return {"counts": {"K1": k1, "K2": 0, "K3": 0, "K1_bf16": 0, "K2_bf16": 0}, "wall_s": wall}
 
 
+# ------------------------------------------------------------- phase 15
+REPICK_EVENTS = LOADER_EVENTS  # phase 8's synthetic events, here at trace WINDOW
+REPICK_SHARD = 256  # 8 shards: 8 work units
+REPICK_BATCH = 64
+REPICK_BPC = 2  # batches per call: 128 rows a replay, 10 K1 launches
+REPICK_ROWS_PER_CALL = REPICK_BATCH * REPICK_BPC
+# --max-events 1 is phase 5's decode option: the top pick of each kind.
+REPICK_GEOMETRY = ["--model", "", "--batch-size", str(REPICK_BATCH), "--batches-per-call",
+                   str(REPICK_BPC), "--commit-every", "1", "--max-events", "1"]
+# (b): rows of the serial run held against the CPU, taken from that run's
+# own replays: both ends of both batches of its first, middle and last call.
+REPICK_CPU_ROWS = np.array([c * REPICK_ROWS_PER_CALL + o for c in (0, 8, 15)
+                            for o in (0, REPICK_BATCH - 1, REPICK_BATCH, 2 * REPICK_BATCH - 1)])
+# The outputs of two different rows must differ by this multiple of
+# PROB_TOL, so the outputs check would see a row fed the wrong waveform.
+REPICK_SEPARATION = 10.0
+# Phase 5's weights answer every waveform alike (their outputs do not move
+# with the input); phase 15's cut each BatchNorm's scale and shift by this
+# gain and set its statistics from the archive (repick_weights), so the
+# outputs follow the waveform while the int8 weights stay inside their
+# gate. (b) prints how far apart two rows' outputs lie.
+REPICK_BN_GAIN = 0.05
+REPICK_PASSES = 8  # (a)'s timed loop: the archive 8 times, 16,384 rows
+REPICK_TIMEOUT_S = 300.0  # each child process; its expiry fails the phase
+REPICK_SLOW_MS = "1500"  # (d) worker 0's sleep per call: its kill lands after one commit
+# (e): the JAX package's chaos clocks (tools/batch_chaos.py); the partition
+# outlasts a peer's relaunch and the reclaim of worker 0's expired unit.
+CHAOS_LEASE_ENV = {
+    "SEIST_LEASE_TTL_S": "2.5", "SEIST_LEASE_HEARTBEAT_S": "0.5", "SEIST_LEASE_GRACE_S": "0.5",
+    "SEIST_LEASE_OP_TIMEOUT_S": "1.0", "SEIST_LEASE_RETRIES": "3",
+    "SEIST_LEASE_BACKOFF_MS": "30", "SEIST_LEASE_BACKOFF_CAP_MS": "200",
+    "SEIST_LEASE_PARK_S": "0.3",
+}
+CHAOS_SLOW_MS = "400"
+CHAOS_PARTITION_AFTER_S = "0.6"
+
+
+def chaos_partition_s(worker_start_s: float) -> float:
+    """(e)'s partition of worker 0, from (d)'s measured worker start (launch
+    to its first committed segment): a peer reclaims worker 0's unit about
+    one worker start plus a few seconds of scanning after the partition
+    opens (it is relaunched after a kill or a preemption), and the
+    partition must last past that, or worker 0 heals first and no zombie
+    forms. On an H100 host a worker's start has taken ~20-33 s."""
+    return max(45.0, 1.5 * worker_start_s + 15.0)
+
+# A repick worker under this script's wrapper: the plain attention patched
+# to raise, and the process's K1 launches written on its way out (exit 75
+# included; a SIGKILL loses them).
+REPICK_WRAPPER = """\
+import atexit, json, os, sys
+out = sys.argv[1]
+from seist_tpu_torch.ops import pooled_attention as pa
+from seist_tpu_torch.repick import main
+
+def _plain_off_path(*a, **k):
+    raise AssertionError("pooled_attention_plain reached on the repick path")
+
+pa.pooled_attention_plain = _plain_off_path
+
+def _dump():
+    with open(os.path.join(out, f"k1_{os.getpid()}.json"), "w") as f:
+        json.dump({"K1": pa.launches, "K1_bf16": pa.bf16_launches}, f)
+
+atexit.register(_dump)
+sys.exit(main(sys.argv[2:]))
+"""
+
+# supervise-repick's main with its workers under REPICK_WRAPPER.
+SUPERVISOR_WRAPPER = """\
+import sys
+from seist_tpu_torch import supervise_repick as sup
+out, wrapper = sys.argv[1], sys.argv[2]
+real = sup._worker_cmd
+sup._worker_cmd = lambda args, i: [sys.executable, "-c", wrapper, out] + real(args, i)[4:]
+sys.exit(sup.main(sys.argv[3:]))
+"""
+
+
+@torch.no_grad()
+def repick_weights(path: str, flat: str, rows: np.ndarray) -> None:
+    """Phase 15's weights: phase 5's (``flat``) with every BatchNorm's
+    scale and shift times REPICK_BN_GAIN and its running statistics those
+    of its input on ``rows`` (archive rows, (n, 3, WINDOW)), set layer by
+    layer in one eval forward on the CPU."""
+    from seist_tpu_torch.batch.engine import normalize_transpose
+    from seist_tpu_torch.models.common import BatchNorm
+
+    model = api.create_model(MODEL, in_samples=WINDOW, seed=SEED)
+    model.load_state_dict(torch.load(flat, map_location="cpu"))
+    model.eval()
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+
+    def calibrate(norm, args):
+        x = args[0].float()
+        dims = tuple(range(x.dim() - 1))
+        norm.running_mean.copy_(x.mean(dims))
+        norm.running_var.copy_(x.var(dims, correction=0))
+
+    for norm in norms:
+        norm.weight.mul_(REPICK_BN_GAIN)
+        norm.bias.mul_(REPICK_BN_GAIN)
+    hooks = [norm.register_forward_pre_hook(calibrate) for norm in norms]
+    try:
+        model(normalize_transpose(torch.from_numpy(rows)))
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.save(model.state_dict(), path)
+
+
+@contextlib.contextmanager
+def kept_outputs(kept: Dict[int, np.ndarray]):
+    """Keep the outputs of the rows in REPICK_CPU_ROWS from a run's own
+    replays, ``{row: (WINDOW, 3)}``: ``RepickEngine._decode_call`` is
+    patched to copy them out before decoding, so they come through the
+    run's whole feed (the fill, the pinned copy on the copy stream, the
+    replay's wait on its event, the staging slab's reuse)."""
+    from seist_tpu_torch.batch.engine import RepickEngine
+
+    real = RepickEngine._decode_call
+
+    def keep(self, out, *, n_valid, row_lo):
+        if self._warm:  # the warm-up's call decodes zeros
+            sel = [int(r) for r in REPICK_CPU_ROWS if row_lo <= r < row_lo + n_valid]
+            if sel:
+                got = out[MODEL].reshape(-1, WINDOW, 3)[[r - row_lo for r in sel]]
+                kept.update(zip(sel, got.float().cpu().numpy()))
+        return real(self, out, n_valid=n_valid, row_lo=row_lo)
+
+    RepickEngine._decode_call = keep
+    try:
+        yield kept
+    finally:
+        RepickEngine._decode_call = real
+
+
+def check_kept(what: str, kept: Dict[int, np.ndarray], want: np.ndarray) -> Tuple[float, float]:
+    """A run's kept outputs against the CPU's ``want`` of the same rows
+    (REPICK_CPU_ROWS' order): within PROB_TOL, and every row at least
+    REPICK_SEPARATION x PROB_TOL from every other row's CPU outputs.
+    Returns (max abs error, the smallest separation)."""
+    if sorted(kept) != sorted(int(r) for r in REPICK_CPU_ROWS):
+        fail(f"{what}: outputs kept of rows {sorted(kept)}, expected {REPICK_CPU_ROWS.tolist()}")
+    got = np.stack([kept[int(r)] for r in REPICK_CPU_ROWS])
+    err = float(np.abs(got - want).max())
+    sep = min(float(np.abs(got[i] - want[j]).max())
+              for i in range(len(got)) for j in range(len(want)) if i != j)
+    if err > PROB_TOL:
+        fail(f"{what}: the run's outputs lie {err:.3e} from the CPU's (limit {PROB_TOL})")
+    if sep < REPICK_SEPARATION * PROB_TOL:
+        fail(f"{what}: two rows' outputs lie only {sep:.3e} apart: the check of the "
+             f"outputs could not see a row fed the wrong waveform")
+    return err, sep
+
+
+def repick_pack(out: str, dtype: str) -> None:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = pack_cli.main(["--dataset", "synthetic", "--dataset-kwargs",
+                            json.dumps({"num_events": REPICK_EVENTS, "trace_samples": WINDOW}),
+                            "--out", out, "--dtype", dtype, "--samples-per-shard",
+                            str(REPICK_SHARD), "--workers", "1",
+                            "--no-resume"])
+    v = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or v["samples"] != REPICK_EVENTS or v["shards"] != REPICK_EVENTS // REPICK_SHARD:
+        fail(f"repick archive {dtype}: rc {rc}, {v}")
+    print(f"[repick] archive {dtype}: {v['samples']} events at trace {WINDOW} in {v['shards']} "
+          f"shards, {v['on_disk_bytes']} bytes, {v['wall_s']} s", flush=True)
+
+
+def repick_in_process(argv: List[str]) -> dict:
+    """``repick.main(argv)`` in this process: its verdicts, K1 launches
+    over exactly that run, the ``batch_infer_bytes`` it added, its wall
+    seconds and its log."""
+    from seist_tpu_torch import repick
+
+    buf, lines = io.StringIO(), []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    logger.addHandler(handler)
+    bytes0 = BUS.counter("batch_infer_bytes").value
+    pa.launches = pa.bf16_launches = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = repick.main(argv)
+    finally:
+        logger.removeHandler(handler)
+    wall = time.perf_counter() - t0
+    verdicts = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+    if rc != 0:
+        fail(f"repick {' '.join(argv)}: rc {rc}, {verdicts}")
+    return {"verdicts": {v["role"]: v for v in verdicts},
+            "counts": {"K1": pa.launches, "K1_bf16": pa.bf16_launches},
+            "bytes": BUS.counter("batch_infer_bytes").value - bytes0, "wall_s": wall,
+            "lines": lines}
+
+
+def catalog_of(out: str) -> Tuple[bytes, List[dict]]:
+    with open(os.path.join(out, "catalog.jsonl"), "rb") as f:
+        blob = f.read()
+    return blob, [json.loads(x) for x in blob.splitlines()]
+
+
+def row_picks(r: dict) -> dict:
+    """A catalog row in the ``picks_agree`` form."""
+    return {"ppk": [{"sample": s} for s in r["ppk"]], "spk": [{"sample": s} for s in r["spk"]],
+            "det": [{"onset": a, "offset": b} for a, b in r["det"]]}
+
+
+def sha256(path: str) -> str:
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def child(cmd: List[str], log: str, env: Optional[dict] = None) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=open(log, "w"), stderr=subprocess.STDOUT,
+                            env=env, cwd=str(Path(__file__).resolve().parent))
+
+
+def wait_child(proc: subprocess.Popen, what: str, expect: Tuple[int, ...] = (0,)) -> int:
+    try:
+        rc = proc.wait(timeout=REPICK_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"{what}: no exit within {REPICK_TIMEOUT_S:.0f} s")
+    if rc not in expect:
+        fail(f"{what}: exit {rc}, expected {expect}")
+    return rc
+
+
+def log_verdicts(path: str) -> List[dict]:
+    out = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("{"):
+                try:
+                    out.append(json.loads(line))
+                except ValueError:
+                    pass
+    return out
+
+
+def k1_dumps(out: str) -> List[dict]:
+    return [json.load(open(p)) for p in sorted(glob.glob(os.path.join(out, "k1_*.json")))]
+
+
+def repick_phase(name_power: str, weights: str) -> dict:
+    """Phase 15 (module docstring)."""
+    from seist_tpu_torch import repick
+    from seist_tpu_torch.batch import engine as engine_mod
+    from seist_tpu_torch.data.ingest import PackedRawStore
+    from seist_tpu_torch.ops.postprocess import decode_head_batch
+    from seist_tpu_torch.ops.results import catalog_rows
+
+    t_phase = time.perf_counter()
+    root = os.path.join(str(_kernels.BUILD_DIR), "repick")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    arch = {d: os.path.join(root, f"archive_{d}") for d in ("float32", "int8")}
+    for dtype, path in arch.items():
+        repick_pack(path, dtype)
+    keys = np.load(os.path.join(arch["float32"], "index.npz"))["key"]
+
+    # The weights, and (b)'s and (c)'s references, on the CPU (which runs
+    # the plain attention).
+    t0 = time.perf_counter()
+
+    def raw_store(path: str, stage_raw: bool = False):
+        sds = pipeline.SeismicDataset("packed", "train", seed=0, data_dir=path, input_names=[],
+                                      label_names=[], task_names=[], in_samples=WINDOW,
+                                      augmentation=False, shuffle=False, data_split=False)
+        return PackedRawStore.build(sds, batch_size=REPICK_ROWS_PER_CALL, stage_raw=stage_raw)
+
+    store = raw_store(arch["float32"])
+    ids = np.arange(4)
+    rp_weights = os.path.join(root, "weights.pt")
+    first_rows = store.row_batch_at(ids, epoch=0, idx=ids)["data"].copy()
+    repick_weights(rp_weights, weights, first_rows)
+    flat = load_model_entry(MODEL, weights, window=WINDOW, device="cpu")
+    with torch.inference_mode():
+        out5 = flat.model(engine_mod.normalize_transpose(torch.from_numpy(first_rows))).numpy()
+    print(f"[repick] phase 5's weights on the CPU: rows 0-3's outputs at most "
+          f"{float(np.abs(out5 - out5[:1]).max()):.2e} apart (they do not follow the waveform)",
+          flush=True)
+    del flat
+    geometry = list(REPICK_GEOMETRY)
+    geometry[1] = f"{MODEL}={rp_weights}"
+    cpu = load_model_entry(MODEL, rp_weights, window=WINDOW, device="cpu")
+    ids = REPICK_CPU_ROWS
+    rows_i8 = raw_store(arch["int8"], stage_raw=True).row_batch_at(ids, epoch=0, idx=ids)
+    decode = {**engine_mod.DEFAULT_DECODE, "max_events": 1}
+    with torch.inference_mode():
+        cpu_probs = cpu.model(engine_mod.normalize_transpose(
+            torch.from_numpy(store.row_batch_at(ids, epoch=0, idx=ids)["data"].copy())))
+        dec = decode_head_batch(cpu.spec, cpu_probs, is_picker=True, sampling_rate=50, **decode)
+        int8_apply = aot.make_variant_apply(lambda m, x: m(x), cpu.model, "int8")
+        cpu_i8 = int8_apply(engine_mod.normalize_transpose(engine_mod.dequant_rows(
+            torch.from_numpy(rows_i8["data"].copy()),
+            torch.from_numpy(rows_i8["data_scale"].copy())))).float().numpy()
+    cpu_rows = catalog_rows({MODEL: {k: v.numpy() for k, v in dec.items()}},
+                            n_valid=len(ids), row_ids=ids, keys=keys[ids])
+    cpu_probs = cpu_probs.numpy()
+    del cpu, int8_apply
+    cpu_s = time.perf_counter() - t0
+
+    real_plain = pa.pooled_attention_plain
+
+    def plain_off_path(*a, **k):
+        raise AssertionError("pooled_attention_plain reached on the repick path")
+
+    pa.pooled_attention_plain = plain_off_path
+    try:
+        # (a) serial, in this process, through the entry.
+        out_a = os.path.join(root, "serial")
+        with kept_outputs({}) as kept_a:
+            a = repick_in_process(["--archive", arch["float32"], "--out", out_a,
+                                   "--compile-gate", *geometry])
+        w = a["verdicts"]["worker"]
+        blob_a, rows_a = catalog_of(out_a)
+        replays = w["program_calls"]
+        print(f"[repick] {name_power} | (a) serial {MODEL} window {WINDOW} b{REPICK_BATCH}x"
+              f"{REPICK_BPC}: {w['rows']} rows in {w['calls']} calls, {w['waveforms_per_sec']} "
+              f"waveforms/s over {w['wall_s']} s; stage seconds {w['stage_seconds']}; program "
+              f"capture {w['warmup_capture_s']} s, graph memory {w['warmup_graph_memory_mib']} "
+              f"MiB, {w['warmup_flops_per_call']:.4g} FLOPs a replay; entry wall "
+              f"{a['wall_s']:.1f} s; K1 {a['counts']['K1']} launches over {replays} replays; "
+              f"compiles_after_warmup {w['compiles_after_warmup']}", flush=True)
+        if (w["rows"] != REPICK_EVENTS or len(rows_a) != REPICK_EVENTS
+                or [r["key"] for r in rows_a] != [str(k) for k in keys]
+                or [r["row"] for r in rows_a] != list(range(REPICK_EVENTS))):
+            fail("(a): the catalog's rows or keys are not the pack's")
+        if w["compiles_after_warmup"] != 0:
+            fail(f"(a): compiles_after_warmup {w['compiles_after_warmup']}")
+        if (w["warmup_k1_launches_per_call"] != 5 * REPICK_BPC
+                or a["counts"]["K1"] != 5 * REPICK_BPC * replays or a["counts"]["K1_bf16"]
+                or replays != 1 + REPICK_EVENTS // REPICK_ROWS_PER_CALL):
+            fail(f"(a): K1 launches {a['counts']} != 10 x {replays} replays")
+        # The rows' picks follow their waveforms: a catalog whose rows came
+        # from the row numbers alone would repeat one tuple.
+        distinct = len({(tuple(r["ppk"]), tuple(r["spk"]), tuple(map(tuple, r["det"])))
+                        for r in rows_a})
+        print(f"[repick] (a) {distinct} distinct (ppk, spk, det) of {len(rows_a)} rows "
+              f"(limit {REPICK_EVENTS // 2})", flush=True)
+        if distinct < REPICK_EVENTS // 2:
+            fail(f"(a): {distinct} distinct picks in {len(rows_a)} rows")
+
+        # One replay profiled, and the rate over a longer loop, from an
+        # engine of the same plan.
+        engine, units = repick.build_engine(repick.get_args(
+            ["--archive", arch["float32"], "--out", os.path.join(root, "profile"), *geometry]))
+        engine.warmup()
+        first = store.row_batch_at(np.arange(REPICK_ROWS_PER_CALL), epoch=0,
+                                   idx=np.arange(REPICK_ROWS_PER_CALL))["data"]
+        args = engine._call_args(first.reshape(REPICK_BPC, REPICK_BATCH, 3, WINDOW), None)
+        prof = profile_calls(lambda: engine._program(*args), iters=3)
+        print(f"[repick] {name_power} | one replay of {REPICK_ROWS_PER_CALL} rows (profiled): wall "
+              f"{prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms, idle share "
+              f"{prof['idle_share']:.3f}, {prof['kernels']:.0f} kernels", flush=True)
+        engine.stage = {k: 0.0 for k in engine.stage}
+        calls0, pa.launches = engine.program_calls, 0
+        rates, t0 = [], time.perf_counter()
+        for p in range(REPICK_PASSES):
+            out_p = os.path.join(root, f"pass_{p}")
+            os.makedirs(out_p)
+            rates.append(engine.run_units(units, out_p, commit_every=1)["waveforms_per_sec"])
+        loop_s = time.perf_counter() - t0
+        loop_calls = engine.program_calls - calls0
+        print(f"[repick] {name_power} | (a) timed loop, the archive {REPICK_PASSES} times "
+              f"through the engine: {REPICK_PASSES * REPICK_EVENTS / loop_s:.1f} waveforms/s "
+              f"over {loop_s:.3f} s ({loop_calls} calls), per pass {min(rates)}-{max(rates)}; "
+              f"stage seconds { {k: round(v, 3) for k, v in engine.stage.items()} }; K1 "
+              f"{pa.launches}", flush=True)
+        if pa.launches != 5 * REPICK_BPC * loop_calls:
+            fail(f"(a) timed loop: K1 {pa.launches} != 10 x {loop_calls} calls")
+
+        # (b) the card against the CPU, on rows of (a)'s own replays.
+        prob_err, sep = check_kept("(b)", kept_a, cpu_probs)
+        ties = 0
+        for k, r in enumerate(REPICK_CPU_ROWS):
+            ok, n = picks_agree(row_picks(cpu_rows[k]), row_picks(rows_a[r]), cpu_probs[k],
+                                PROB_TOL)
+            ties += n
+            if not ok:
+                fail(f"(b): row {r}: card {rows_a[r]} against the CPU {cpu_rows[k]}")
+        print(f"[repick] (b) card vs CPU, rows {REPICK_CPU_ROWS.tolist()} of (a)'s replays: "
+              f"outputs within {prob_err:.2e} (limit {PROB_TOL}), two rows at least {sep:.2e} "
+              f"apart (limit {REPICK_SEPARATION * PROB_TOL:.0e}); picks and detections within "
+              f"{PICK_TOL_S} s ({ties} moved across a near-tie of the CPU's outputs); CPU "
+              f"references {cpu_s:.1f} s", flush=True)
+
+        # (c) int8 end to end.
+        out_c = os.path.join(root, "int8")
+        with kept_outputs({}) as kept_c:
+            c = repick_in_process(["--archive", arch["int8"], "--out", out_c, "--variant",
+                                   "int8", "--compile-gate", *geometry])
+        i8_err, i8_sep = check_kept("(c)", kept_c, cpu_i8)
+        wc = c["verdicts"]["worker"]
+        gate = [x for x in c["lines"] if x.startswith("[repick] variant gate")]
+        _, rows_c = catalog_of(out_c)
+        per_row = (a["bytes"] / REPICK_EVENTS, c["bytes"] / REPICK_EVENTS)
+        tol = aot._PARITY_TOL["int8"]["abs"]
+        bad, ties_c, fp32_probs = [], 0, {}
+        for ra, rc_ in zip(rows_a, rows_c):
+            same, _ = picks_agree(row_picks(ra), row_picks(rc_), np.zeros((WINDOW, 3)), -1.0)
+            if same:
+                continue
+            call = ra["row"] // REPICK_ROWS_PER_CALL
+            if call not in fp32_probs:  # fp32's outputs of that call, for its near-ties
+                lo = call * REPICK_ROWS_PER_CALL
+                idc = np.arange(lo, lo + REPICK_ROWS_PER_CALL)
+                x = store.row_batch_at(idc, epoch=0, idx=idc)["data"]
+                out = engine._program(*engine._call_args(
+                    x.reshape(REPICK_BPC, REPICK_BATCH, 3, WINDOW), None))
+                fp32_probs[call] = out[MODEL].reshape(-1, WINDOW, 3).cpu().numpy()
+            ok, n = picks_agree(row_picks(ra), row_picks(rc_),
+                                fp32_probs[call][ra["row"] % REPICK_ROWS_PER_CALL], tol)
+            ties_c += n
+            if not ok:
+                bad.append(ra["row"])
+        print(f"[repick] {name_power} | (c) int8 archive, --variant int8: {wc['rows']} rows, "
+              f"{wc['waveforms_per_sec']} waveforms/s, stage seconds {wc['stage_seconds']}; "
+              f"{gate}; outputs of rows {REPICK_CPU_ROWS.tolist()} of its replays within "
+              f"{i8_err:.2e} of the CPU's int8 weights on the same int8 rows (limit {PROB_TOL}), "
+              f"two rows at least {i8_sep:.2e} apart; batch_infer_bytes per row "
+              f"{per_row[1]:.0f} against (a)'s {per_row[0]:.0f}; picks against (a)'s: "
+              f"{ties_c} moved across a near-tie (fp32 within {tol}), {len(bad)} rows disagree; "
+              f"K1 {c['counts']['K1']} over {wc['program_calls']} calls (gate included)",
+              flush=True)
+        if (wc["rows"] != REPICK_EVENTS or len(rows_c) != REPICK_EVENTS
+                or wc["compiles_after_warmup"] != 0 or not gate
+                or not all(" ok " in g for g in gate)):
+            fail(f"(c): int8 run {wc}, gate {gate}")
+        if per_row[1] * 4 != per_row[0]:
+            fail(f"(c): batch_infer_bytes per row {per_row} is not a quarter of (a)'s")
+        if bad:
+            fail(f"(c): int8 picks of rows {bad[:10]} disagree with fp32's")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) two worker processes, worker 0 SIGKILLed after its first commit
+        # and relaunched, then the merge.
+        out_d = os.path.join(root, "mapreduce")
+        os.makedirs(out_d)
+        base = [sys.executable, "-c", REPICK_WRAPPER, out_d, "--archive", arch["float32"],
+                "--out", out_d, "--compile-gate", "--no-merge", "--num-workers", "2", *geometry]
+        t0, launched = time.perf_counter(), time.time()
+        slow = dict(os.environ, SEIST_FAULT_REPICK_SLOW_MS=REPICK_SLOW_MS)
+        w0 = child(base + ["--worker-index", "0"], os.path.join(out_d, "w0.1.log"), slow)
+        w1 = child(base + ["--worker-index", "1"], os.path.join(out_d, "w1.log"))
+        first = os.path.join(out_d, "unit_00000.seg_0000.jsonl")
+        while not os.path.exists(first):
+            if w0.poll() is not None or time.perf_counter() - t0 > REPICK_TIMEOUT_S:
+                fail(f"(d): worker 0 ended ({w0.poll()}) or timed out before its first commit")
+            time.sleep(0.05)
+        w0.send_signal(signal.SIGKILL)
+        wait_child(w0, "(d) worker 0, SIGKILLed", (-signal.SIGKILL,))
+        segs_at_kill = len(glob.glob(os.path.join(out_d, "unit_*.seg_*.jsonl")))
+        w0b = child(base + ["--worker-index", "0"], os.path.join(out_d, "w0.2.log"))
+        wait_child(w1, "(d) worker 1")
+        wait_child(w0b, "(d) worker 0, relaunched")
+        d = repick_in_process(["--archive", arch["float32"], "--out", out_d, "--merge-only"])
+        wall_d = time.perf_counter() - t0
+        worker_start = os.path.getmtime(os.path.join(out_d, "unit_00001.seg_0000.jsonl")) - launched
+        partition = chaos_partition_s(worker_start)
+        vd = [log_verdicts(os.path.join(out_d, f)) for f in ("w0.2.log", "w1.log")]
+        workers = [v for vs in vd for v in vs if v.get("role") == "worker"]
+        dumps = k1_dumps(out_d)
+        print(f"[repick] (d) 2 workers, worker 0 SIGKILLed after its first commit "
+              f"({segs_at_kill} segments committed then) and relaunched: resumed with "
+              f"{workers[0]['segments_skipped']} segments skipped; merged {d['verdicts']['merge']}"
+              f"; byte-identical to (a): {catalog_of(out_d)[0] == blob_a}; K1 per surviving "
+              f"process {[x['K1'] for x in dumps]}; worker 1's first commit "
+              f"{worker_start:.1f} s after its launch; wall {wall_d:.1f} s", flush=True)
+        if catalog_of(out_d)[0] != blob_a:
+            fail("(d): the merged catalog differs from (a)'s")
+        if (len(workers) != 2 or any(v["compiles_after_warmup"] != 0 for v in workers)
+                or workers[0]["segments_skipped"] < 1):
+            fail(f"(d): worker verdicts {workers}")
+        if sorted(x["K1"] for x in dumps) != sorted(5 * REPICK_BPC * v["program_calls"]
+                                                    for v in workers):
+            fail(f"(d): K1 launches {dumps} != 10 x each worker's replays")
+
+        # (e) the chaos fleet.
+        out_e = os.path.join(root, "fleet")
+        os.makedirs(out_e)
+        env = dict(os.environ, SEIST_FAULT_REPICK_SLOW_MS=CHAOS_SLOW_MS, **CHAOS_LEASE_ENV)
+        cmd = [sys.executable, "-c", SUPERVISOR_WRAPPER, out_e, REPICK_WRAPPER,
+               "--archive", arch["float32"], "--out", out_e, "--workers", "3",
+               "--lease-dir", os.path.join(out_e, "leases"), "--retries", "2",
+               "--rejoin-delay-s", "1.0", "--timeout-s", str(REPICK_TIMEOUT_S - 30),
+               "--compile-gate", *geometry,
+               "--fault-env", f"0:SEIST_FAULT_BATCH_PARTITION_AFTER_S={CHAOS_PARTITION_AFTER_S}",
+               "--fault-env", f"0:SEIST_FAULT_BATCH_PARTITION_FOR_S={partition:.1f}",
+               "--fault-env", "1:SEIST_FAULT_BATCH_KILL_UNIT=1",
+               "--fault-env", "2:SEIST_FAULT_BATCH_PREEMPT_UNIT=1"]
+        t0 = time.perf_counter()
+        sup = child(cmd, os.path.join(root, "supervisor.log"), env)
+        wait_child(sup, "(e) supervise-repick")
+        wall_e = time.perf_counter() - t0
+        v = [x for x in log_verdicts(os.path.join(root, "supervisor.log"))
+             if x.get("role") == "supervisor"][-1]
+        fleet_workers = [x for f in sorted(glob.glob(os.path.join(out_e, "logs", "w*.log")))
+                         for x in log_verdicts(f) if x.get("role") == "fleet-worker"]
+        dumps = k1_dumps(out_e)
+        same = sha256(os.path.join(out_e, "catalog.jsonl")) == sha256(
+            os.path.join(out_a, "catalog.jsonl"))
+        # The zombie's window: worker 0's first park against its unit's done
+        # marker (a peer's reclaim), seconds after the supervisor's start.
+        wall0 = time.time() - wall_e
+        done0 = os.path.getmtime(os.path.join(out_e, "leases", "unit_00000.done.json")) - wall0
+        parks = [line[:23] for line in open(os.path.join(out_e, "logs", "w0.01.log"))
+                 if "parked" in line]
+        park0 = (time.mktime(time.strptime(parks[0][:19], "%Y-%m-%d %H:%M:%S"))
+                 + float("0." + parks[0][20:23]) - wall0) if parks else float("nan")
+        print(f"[repick] (e) worker 0 first parked at {park0:.1f} s, its unit's done marker "
+              f"(a peer's reclaim) at {done0:.1f} s, the partition {partition:.1f} s",
+              flush=True)
+        print(f"[repick] {name_power} | (e) chaos fleet, 3 workers (worker 0 partitioned "
+              f"{partition:.1f} s, worker 1 SIGKILLed and worker 2 SIGTERMed at their "
+              f"first lease): supervisor {v['ok']}, relaunches {v['relaunches']} (preempts "
+              f"{v['preempts']}, crashes {v['crashes']}), lease {v['lease']}, fence audit "
+              f"{v['fence_audit']}; sha256 equal to (a)'s: {same}; fleet wall {wall_e:.1f} s "
+              f"(supervisor's {v['wall_s']} s); K1 per surviving worker process "
+              f"{[x['K1'] for x in dumps]}", flush=True)
+        if not (v["ok"] and same and v["lease"]["double_commits"] == 0
+                and v["lease"]["fence_rejects"] >= 1 and v["crashes"] >= 1
+                and v["preempts"] >= 1 and v.get("compiles_after_warmup") == 0):
+            fail(f"(e): supervisor verdict {v}, catalog equal {same}")
+        if any(x["K1"] % (5 * REPICK_BPC) or x["K1_bf16"] for x in dumps) or sorted(
+                x["K1"] for x in dumps) != sorted(5 * REPICK_BPC * x["program_calls"]
+                                                  for x in fleet_workers):
+            fail(f"(e): K1 launches {dumps} against the workers' replays")
+    finally:
+        pa.pooled_attention_plain = real_plain
+    k1 = a["counts"]["K1"] + c["counts"]["K1"]
+    print(f"[repick] main path: K1 {k1} launches in this process ((a) and (c)), "
+          f"{sum(x['K1'] for x in k1_dumps(out_d) + dumps)} in the surviving worker processes "
+          f"of (d) and (e); phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"counts": {"K1": k1, "K2": 0, "K3": 0, "K1_bf16": 0, "K2_bf16": 0},
+            "wall_s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this drives the "
@@ -3841,6 +4421,14 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
+    marks = [t0]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        print(f"[phase-time] {name}: {now - marks[-1]:.1f} s (script {now - t0:.1f} s)",
+              flush=True)
+        marks.append(now)
+
     _kernels.build_all((KERNEL, KERNEL_BWD, KERNEL_K3))
     for name in (KERNEL, KERNEL_BWD, KERNEL_K3):
         print(f"[build] {name}: {_kernels.BUILD_SECONDS[name]:.2f} s "
@@ -3854,6 +4442,7 @@ def main() -> int:
     print(f"[shapes] {MODEL} window {WINDOW}: (L, M, H, E) per launch {shapes}", flush=True)
     errs = check_kernel(shapes, dev)
     bwd_abs = check_kernel_bwd(shapes, dev)
+    lap("phases 2-4 (build, the kernels against their plain versions)")
     # The kernels' device times come first: once a CPU+CUDA profiler session
     # has traced graph replays (phase 6's --profile-steps capture, phase 8's
     # profiles), later CUDA-only traces of eager launches lose kernels on
@@ -3887,15 +4476,11 @@ def main() -> int:
                   f"{r['bytes_ms']:.5f}; ops {ops_at} {r['ops_ms']:.5f}, in 3xTF32 on the "
                   f"tensor cores {r['tc_ms']:.5f}); kernel at rate 0 "
                   f"{'<=' if r['ms0'] <= r['library_ms'] else '>'} sdpa backward", flush=True)
-    for r in time_ksplit(shapes, dev):
-        print(f"[time-ksplit] {name_power} | K1 N={r['N']} L={r['L']} M={r['M']} H={r['H']} "
-              f"E={r['E']} fp32: device ms with (row_warps, ksplit) {r['plan']}: "
-              f"{' '.join(f'{x:.4f}' for x in r['ms'])}; with {r['plan1']}: "
-              f"{' '.join(f'{x:.4f}' for x in r['ms1'])}", flush=True)
-
+    lap("phase 8, the kernels' times")
     weights = os.path.join(str(_kernels.BUILD_DIR), f"{MODEL}_seed{SEED}.pt")
     seeded_weights(weights)
     served = serve_phase(weights, len(shapes))
+    lap("phase 5")
     logs = os.path.join(str(_kernels.BUILD_DIR), "train_logs")
     mem_before_train = allocated_gib()
     trained = train_test_phase(logs, len(shapes), name_power)
@@ -3907,8 +4492,10 @@ def main() -> int:
     path_counts = [trained["counts"], resumed["counts"], bf16["counts"], packed["counts"],
                    packed["counts_i8"], preempted["counts"], preempted["counts_resumed"],
                    grouped["counts"], grouped["counts_accum"]]
+    lap("phases 6 and 9c (the train paths)")
     gpu_vs_cpu_step(weights)
     captured = captured_vs_eager(weights, dev)
+    lap("phases 7 and 9")
     print(f"[memory] allocated on the card after gc: {mem_before_train:.3f} GiB before the "
           f"train runs, {allocated_gib():.3f} GiB after them and phase 9", flush=True)
 
@@ -3935,7 +4522,7 @@ def main() -> int:
     step_ms = {}
     for dtype in ("fp32", "bf16"):
         for batch in (TRAIN_BATCH, 256):
-            for mode in ("eager", "captured"):
+            for mode in (("eager", "captured") if batch == TRAIN_BATCH else ("captured",)):
                 run = time_train_step(weights, batch, dtype=dtype, captured=mode == "captured")
                 if dtype == "fp32" and mode == "captured":  # what the train worker runs
                     step_ms[batch] = run["ms"]
@@ -3946,7 +4533,7 @@ def main() -> int:
                       f"{run['ms']:.2f} ms, peak memory {run['peak_gib']:.2f} GiB above the "
                       f"{run['before_gib']:.2f} GiB allocated before{cap}",
                       flush=True)
-                if batch == TRAIN_BATCH:
+                if batch == TRAIN_BATCH and mode == "captured":
                     tp = profile_train_step(run)
                     print(f"[profile] {name_power} | {MODEL} train step b{batch} {dtype} {mode}: "
                           f"wall {tp['wall_ms_per_step']:.2f} ms/step, device busy "
@@ -3959,19 +4546,31 @@ def main() -> int:
                 del run
                 torch.cuda.empty_cache()
 
+    lap("phase 8, the forward and the train step")
     loader_rows = loader_phase(name_power, step_ms)
+    lap("phase 8, the loader")
     baseline_phase(name_power, logs, dev)
+    lap("phase 10")
     augmented = device_aug_phase(name_power, logs, len(shapes), weights, dev, packed, step_ms,
                                  loader_rows)
     path_counts += augmented["counts"]
+    lap("phase 11")
     programs = programs_phase(name_power, weights, len(shapes))
     path_counts.append(programs["counts"])
+    lap("phase 12")
     streams = streams_phase(name_power, weights)
     path_counts.append(streams["counts"])
+    lap("phase 13")
     gc.collect()
     torch.cuda.empty_cache()  # the replicas of phase 14 share the card
     fleet = fleet_phase(name_power, weights, served_ref)
     path_counts.append(fleet["counts"])
+    lap("phase 14")
+    gc.collect()
+    torch.cuda.empty_cache()
+    repicked = repick_phase(name_power, weights)
+    path_counts.append(repicked["counts"])
+    lap("phase 15")
 
     fp32 = [r for r in rows if r["dtype"] == "fp32"]  # the serving path is fp32
     bf16_rows = [r for r in rows if r["dtype"] == "bf16"]
@@ -3995,7 +4594,8 @@ def main() -> int:
           f"{sum(c['K3'] for c in augmented['counts'])}; served programs (phase 12): K1 "
           f"{programs['counts']['K1']} (bf16 {programs['counts']['K1_bf16']}); long-record and "
           f"stream planes (phase 13): K1 {streams['counts']['K1']}; fleet (phase 14): K1 "
-          f"{fleet['counts']['K1']} or more; all paths: K1 "
+          f"{fleet['counts']['K1']} or more; re-picking (phase 15, this process): K1 "
+          f"{repicked['counts']['K1']}; all paths: K1 "
           f"{launches['K1']} (bf16 "
           f"{launches['K1_bf16']}), K2 {launches['K2']} (bf16 {launches['K2_bf16']}), K3 "
           f"{launches['K3']}", flush=True)

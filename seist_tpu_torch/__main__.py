@@ -1,6 +1,7 @@
-"""``python -m seist_tpu_torch serve|train|pack|supervise|router|supervise-fleet ...``:
-the port's command line. ``router`` and ``supervise-fleet`` are model-free
-host processes: they take no device and import neither torch nor numpy."""
+"""``python -m seist_tpu_torch serve|train|pack|supervise|router|supervise-fleet|repick|
+supervise-repick ...``: the port's command line. ``router``,
+``supervise-fleet`` and ``supervise-repick`` are model-free host processes:
+they take no device and import neither torch nor numpy."""
 
 from __future__ import annotations
 
@@ -13,7 +14,11 @@ _USAGE = (
     "       python -m seist_tpu_torch supervise [--retries N] [--backoff S] -- COMMAND ...\n"
     "       python -m seist_tpu_torch router --replica HOST:PORT [--replica ...] [--port P] ...\n"
     "       python -m seist_tpu_torch supervise-fleet [--replicas N] [--router-port P] "
-    "[--rollout-file F] ... -- python -m seist_tpu_torch serve ..."
+    "[--rollout-file F] ... -- python -m seist_tpu_torch serve ...\n"
+    "       python -m seist_tpu_torch repick --archive PACK --out DIR --model NAME[=WEIGHTS] "
+    "[--workers N | --fleet --lease-dir D | --merge-only] ...\n"
+    "       python -m seist_tpu_torch supervise-repick --archive PACK --out DIR --model NAME "
+    "--workers N --lease-dir D ..."
 )
 
 
@@ -43,6 +48,14 @@ def main(argv=None) -> None:
         from seist_tpu_torch.supervise_fleet import main as fleet_main
 
         sys.exit(fleet_main(argv[1:]))
+    elif argv and argv[0] == "repick":
+        from seist_tpu_torch.repick import main as repick_main
+
+        sys.exit(repick_main(argv[1:]))
+    elif argv and argv[0] == "supervise-repick":
+        from seist_tpu_torch.supervise_repick import main as supervise_repick_main
+
+        sys.exit(supervise_repick_main(argv[1:]))
     else:
         raise SystemExit(_USAGE)
 

@@ -12,7 +12,13 @@ feeds it straight from the shards:
   O(index);
 * **row_batch_at** copies each sample's bytes out of its shard's
   ``np.memmap`` into a float32 staging batch (bfloat16 rows widened and
-  int8 rows dequantised by their scale on the way), one copy per sample;
+  int8 rows dequantised by their scale on the way), one copy per sample.
+  With ``stage_raw`` (int8 packs only) the int8 rows are staged as they
+  are stored, beside a resident per-row ``data_scale`` column that rides
+  the same gather as the labels (so a quarantine fallback keeps row and
+  scale paired), and the consuming program dequantises on the device:
+  batch re-picking's int8 path, whose rows cross the bus at a quarter of
+  the float32 bytes;
 * **the data-plane guard**: every row fill runs the fault ladder of the
   packed reader (``data/io_guard.py``): a transient ``OSError`` is
   retried with the memmap mapped anew; a short read, a non-finite value,
@@ -30,9 +36,6 @@ reused (the JAX package keeps a ring of them, which ``device_put`` reads
 while the next fills). Reuse is on where the train device is a GPU (the
 worker passes ``reuse_staging``); ``SEIST_INGEST_REUSE_STAGING=0/1``
 overrides, as in the JAX package.
-
-Not ported: ``stage_raw`` (int8 rows staged as they are and dequantised on
-the device), which serves only batch re-picking (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -72,16 +75,25 @@ class PackedRawStore(RawStore):
                  injector=None, batch_size: int = 0,
                  reuse_staging: Optional[bool] = None, pack_dtype: str = "float32",
                  storage_dtype: Optional[np.dtype] = None,
-                 scales: Optional[np.ndarray] = None) -> None:
-        super().__init__(arrays, n_raw=n_raw, augmentation=augmentation, raw_len=raw_len,
-                         phase_slots=phase_slots)
-        self.pack_dtype = pack_dtype
-        self.storage_dtype = np.dtype(storage_dtype if storage_dtype is not None else np.float32)
+                 scales: Optional[np.ndarray] = None, stage_raw: bool = False) -> None:
+        self.stage_raw = bool(stage_raw)
+        if self.stage_raw and pack_dtype != "int8":
+            raise ValueError("stage_raw staging is the int8 device-dequant path; "
+                             f"this pack stores {pack_dtype}")
         if pack_dtype == "int8":
             if scales is None:
                 raise ValueError("int8 packs need the per-row scale sidecar columns (scale_0..); "
                                  "this index has none: repack (v3)")
             scales = np.ascontiguousarray(scales, np.float32)
+            if self.stage_raw:
+                # Resident like the labels, so a quarantine fallback's gather
+                # (a[actual]) keeps each row with its own scale.
+                arrays = dict(arrays)
+                arrays["data_scale"] = scales
+        super().__init__(arrays, n_raw=n_raw, augmentation=augmentation, raw_len=raw_len,
+                         phase_slots=phase_slots)
+        self.pack_dtype = pack_dtype
+        self.storage_dtype = np.dtype(storage_dtype if storage_dtype is not None else np.float32)
         self._scales = scales
         self.n_ch = int(n_ch)
         self.row_nbytes = self.n_ch * self.raw_len * self.storage_dtype.itemsize
@@ -98,8 +110,9 @@ class PackedRawStore(RawStore):
             reuse_staging = env == "1"
         self._reuse = bool(reuse_staging) and batch_size > 0
         self._batch_size = int(batch_size)
+        self._staging_dtype = np.dtype(np.int8 if self.stage_raw else np.float32)
         # One slab: the feed copies each batch out before the next fill.
-        self._slab = (np.empty((self._batch_size, self.n_ch, self.raw_len), np.float32)
+        self._slab = (np.empty((self._batch_size, self.n_ch, self.raw_len), self._staging_dtype)
                       if self._reuse else None)
         self._c_batches = BUS.counter("data_ingest_batches")
         self._c_samples = BUS.counter("data_ingest_samples")
@@ -109,11 +122,12 @@ class PackedRawStore(RawStore):
     # ------------------------------------------------------------- build
     @classmethod
     def build(cls, sds: SeismicDataset, *, batch_size: int = 0,
-              reuse_staging: Optional[bool] = None) -> "PackedRawStore":
+              reuse_staging: Optional[bool] = None, stage_raw: bool = False) -> "PackedRawStore":
         """Construction from the index of a packed dataset alone: the
         ``host_prepare`` row contract and ``RawStore.build``'s refusals
         (each a ``ValueError``, on which the worker falls back). No
-        waveform is read."""
+        waveform is read. ``stage_raw`` stages an int8 pack's rows as
+        they are stored (class docstring)."""
         ds = packed_dataset_of(sds)
         if ds is None:
             raise ValueError("direct ingest requires a packed dataset (--dataset-name packed)")
@@ -194,7 +208,7 @@ class PackedRawStore(RawStore):
                    offsets=col["offset"], seed=sds._seed, quarantine=sds.quarantine,
                    injector=sds.io_faults, batch_size=batch_size,
                    reuse_staging=reuse_staging, pack_dtype=ds.dtype,
-                   storage_dtype=ds._storage_dtype, scales=scales)
+                   storage_dtype=ds._storage_dtype, scales=scales, stage_raw=stage_raw)
 
     # ---------------------------------------------------------- raw read
     def _read_into(self, out: np.ndarray, r: int, validate: bool) -> None:
@@ -218,7 +232,8 @@ class PackedRawStore(RawStore):
                     raise io_guard.CorruptSampleError(
                         f"packed.direct: int8 sample {r} has a non-finite dequant scale")
             out[...] = row
-            out *= self._scales[r][:, None]
+            if not self.stage_raw:  # else the bytes stay narrow: the device dequantises
+                out *= self._scales[r][:, None]
             return
         if self.pack_dtype == "bfloat16":
             # The bit patterns widened in place: exact, no intermediate copy.
@@ -264,7 +279,7 @@ class PackedRawStore(RawStore):
     # --------------------------------------------------------- batch fill
     def _staging(self, batch: int) -> np.ndarray:
         if not self._reuse:
-            return np.empty((batch, self.n_ch, self.raw_len), np.float32)
+            return np.empty((batch, self.n_ch, self.raw_len), self._staging_dtype)
         return self._slab[:batch]
 
     def row_batch_at(self, raw_idx: np.ndarray, *, epoch: int = 0,
@@ -305,5 +320,6 @@ def describe(store: PackedRawStore) -> str:
         f"packed direct ingest: {store.n_raw} samples, {store.disk_bytes / 2**20:.1f} MiB "
         f"on-disk waveforms, {store.nbytes / 2**20:.2f} MiB resident metadata, staging "
         f"{'one reused slab' if store._reuse else 'per-batch'} ({store.n_ch}x{store.raw_len} "
-        f"float32 rows from {store.pack_dtype})"
+        f"{store._staging_dtype.name} rows from {store.pack_dtype}"
+        f"{', device dequant' if store.stage_raw else ''})"
     )

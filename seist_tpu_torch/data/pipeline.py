@@ -34,6 +34,10 @@ The port's copy of the host path of ``seist_tpu/data/pipeline.py``:
   and :func:`raw_batch_tensors` (a batch copied into pinned memory by the
   worker's feed thread).
 
+* :func:`_double_buffer` — a bounded producer thread that applies a
+  ``transform`` ahead of the consumer (batch re-picking's fill feed,
+  ``batch/engine.py``), with backpressure accounting on the metrics bus.
+
 Not ported: host sharding (multi-GPU training). Host batches stay numpy;
 the train loop moves them to the device.
 """
@@ -42,6 +46,8 @@ from __future__ import annotations
 
 import collections
 import json
+import queue
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -594,6 +600,56 @@ def _proc_worker_getitem(epoch_idx):
 
 
 # ------------------------------------------------------ device augmentation
+def _double_buffer(iterator, transform, prefetch: int, account: str = ""):
+    """Producer-thread double buffering (``seist_tpu/data/pipeline.py::
+    _double_buffer``): a thread applies ``transform`` to each item of
+    ``iterator`` and queues it (at most ``prefetch`` ahead); producer
+    exceptions re-raise in the consumer. To stop early, the consumer makes
+    ``iterator`` end (the repick engine sets an abort flag its fill
+    generator reads) and drains this generator; the thread then ends.
+
+    ``account`` names a bus-counter prefix: ``<account>_backpressure_s``
+    sums the seconds the producer waited on a full queue (the consumer,
+    i.e. the device, set the pace), ``<account>_queue_full`` counts those
+    waits."""
+    buf: "queue.Queue" = queue.Queue(maxsize=prefetch)
+    sentinel = object()
+    err: List[BaseException] = []
+    if account:
+        from seist_tpu_torch.obs.bus import BUS, monotonic
+
+        c_wait = BUS.counter(f"{account}_backpressure_s")
+        c_full = BUS.counter(f"{account}_queue_full")
+
+    def _put(item) -> None:
+        if not account or not buf.full():
+            buf.put(item)
+            return
+        c_full.inc()
+        t0 = monotonic()
+        buf.put(item)
+        c_wait.inc(monotonic() - t0)
+
+    def producer():
+        try:
+            for item in iterator:
+                _put(transform(item))
+        except BaseException as e:  # the consumer re-raises it
+            err.append(e)
+        finally:
+            buf.put(sentinel)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    while True:
+        item = buf.get()
+        if item is sentinel:
+            if err:
+                raise err[0]
+            return
+        yield item
+
+
 def _guarded_raw_event(sds: SeismicDataset, i: int) -> dict:
     """A raw read for the device-augmentation store: transient faults are
     retried as on the host path; a permanently corrupt sample raises

@@ -147,3 +147,51 @@ def process_outputs(
         else:
             results[label_group] = out
     return results
+
+
+#: The decision-level picker results a catalog keeps (dense per-sample
+#: channels such as ``non`` are decode intermediates, not catalog content).
+_CATALOG_PICK_NAMES = ("ppk", "spk", "det")
+
+
+def decode_head_batch(
+    spec: Any,
+    outputs: Any,
+    *,
+    is_picker: bool,
+    sampling_rate: int,
+    ppk_threshold: float = 0.3,
+    spk_threshold: float = 0.3,
+    det_threshold: float = 0.5,
+    min_peak_dist: float = 1.0,
+    max_events: int = 8,
+) -> Dict[str, Any]:
+    """Batched decode of ONE head's raw outputs into named result tensors
+    on the outputs' device (``seist_tpu/ops/postprocess.py::decode_head_batch``).
+    The caller copies every head's results to the host at once and feeds
+    them to :func:`seist_tpu_torch.ops.results.catalog_rows`.
+
+    Pickers go through :func:`process_outputs` and keep only the
+    decision-level ``ppk``/``spk``/``det`` tensors. VALUE heads apply the
+    spec's ``outputs_transform_for_results`` (baz (cos, sin) -> degrees,
+    MagNet's mean) and give one tensor per label with leading dim N;
+    ONEHOT heads give the (N, C) scores (the argmax is taken on the host,
+    in ``catalog_rows``)."""
+    if is_picker:
+        res = process_outputs(
+            outputs,
+            spec.labels,
+            sampling_rate,
+            ppk_threshold=ppk_threshold,
+            spk_threshold=spk_threshold,
+            det_threshold=det_threshold,
+            min_peak_dist=min_peak_dist,
+            max_detect_event_num=max_events,
+        )
+        return {k: v for k, v in res.items() if k in _CATALOG_PICK_NAMES}
+    transform = spec.outputs_transform_for_results
+    outs = transform(outputs) if transform else outputs
+    outs_list = outs if isinstance(outs, (tuple, list)) else [outs]
+    if len(outs_list) != len(spec.labels):
+        raise ValueError(f"head produced {len(outs_list)} outputs for {len(spec.labels)} labels")
+    return {str(name): arr for name, arr in zip(spec.labels, outs_list)}

@@ -1,5 +1,6 @@
-"""Test-time result accumulation -> CSV (counterpart of
-``seist_tpu/ops/results.py::ResultSaver``).
+"""Test-time result accumulation -> CSV, and the re-picking catalog's rows
+(counterpart of ``seist_tpu/ops/results.py``: ``ResultSaver``,
+``catalog_rows``, ``catalog_row_lines``).
 
 ``ResultSaver`` collects per-batch meta data, targets and processed
 results and writes one CSV with ``<meta>``, ``pred_<task>`` and
@@ -13,10 +14,11 @@ the ``csv`` module: an unnamed leading index column, ``str`` of each value
 from __future__ import annotations
 
 import csv
+import json
 import math
 import os
 from collections import defaultdict
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -113,3 +115,65 @@ class ResultSaver:
             w.writerow([""] + columns)
             for i in range(n):
                 w.writerow([str(i)] + [self._cell(self._results_dict[c][i]) for c in columns])
+
+
+def catalog_rows(
+    decoded: Dict[str, Dict[str, Any]],
+    *,
+    n_valid: int,
+    row_ids: Sequence[int],
+    keys: Optional[Sequence[str]] = None,
+    stations: Optional[Dict[str, Dict[str, Any]]] = None,
+) -> List[Dict[str, Any]]:
+    """Batched head results -> JSON-able catalog rows, one per waveform
+    (``seist_tpu/ops/results.py::catalog_rows``, the same rows).
+
+    ``decoded`` is ``{task: {name: host array}}`` from
+    ``ops/postprocess.py::decode_head_batch`` after the caller's one copy
+    to the host; padding rows (``>= n_valid``) are dropped. Per name:
+
+    * ``ppk``/``spk`` -> the kept pick sample indices (padding stripped);
+    * ``det`` -> ``[onset, offset]`` sample pairs (empty pairs stripped);
+    * ONEHOT labels -> ``{"class": argmax, "scores": [...]}``;
+    * VALUE labels -> the scalar, rounded to 6 decimals (its float repr is
+      then deterministic: the catalog's byte identity).
+
+    Label names are unique across the five task heads, so a group's heads
+    flatten into one row. ``stations`` (``{key: {"id", "network", "lat",
+    "lon"}}``) adds each matched row's ``station`` block, the metadata
+    ``/predict`` and ``/stream`` carry."""
+    rows: List[Dict[str, Any]] = []
+    host = {task: {k: np.asarray(v) for k, v in outs.items()} for task, outs in decoded.items()}
+    for j in range(int(n_valid)):
+        row: Dict[str, Any] = {"row": int(row_ids[j])}
+        if keys is not None:
+            row["key"] = str(keys[j])
+            if stations is not None:
+                st = stations.get(row["key"])
+                if st is not None:
+                    row["station"] = st
+        for outs in host.values():
+            for name, arr in outs.items():
+                if name in ("ppk", "spk"):
+                    idxs = arr[j]
+                    row[name] = [int(i) for i in idxs[idxs >= 0]]
+                elif name == "det":
+                    pairs = arr[j].reshape(-1, 2)
+                    pairs = pairs[pairs[:, 1] >= pairs[:, 0]]
+                    row[name] = [[int(a), int(b)] for a, b in pairs]
+                elif name in taskspec.IO_ITEMS and taskspec.get_kind(name) == taskspec.ONEHOT:
+                    scores = arr[j].reshape(-1)
+                    row[name] = {
+                        "class": int(np.argmax(scores)),
+                        "scores": [round(float(s), 6) for s in scores],
+                    }
+                else:
+                    row[name] = round(float(arr[j].reshape(-1)[0]), 6)
+        rows.append(row)
+    return rows
+
+
+def catalog_row_lines(rows: Sequence[Dict[str, Any]]) -> List[str]:
+    """Catalog rows as canonical JSONL lines (sorted keys, compact
+    separators): the same rows give the same bytes in any process."""
+    return [json.dumps(r, sort_keys=True, separators=(",", ":")) + "\n" for r in rows]

@@ -15,6 +15,12 @@ trunk program hands its output buffer to the head graphs of its bucket,
 which read it where it lies. On the CPU a program is its function run
 eagerly, with the same keys and the same call accounting.
 
+Several batches per program (:func:`aot_compile_multi`, the counterpart of
+the JAX package's ``lax.map`` program, for batch re-picking): one graph
+runs the function over each slice of a leading ``steps`` axis of its
+static inputs, as ``train/graph.py`` captures ``--steps-per-call``; a
+replay copies the call's K batches in and the stacked outputs out once.
+
 Each program adds its load time (ms) to the metrics bus's
 ``serve_aot_compile_ms{model=...}`` gauge and one to
 ``serve_aot_programs{model=...}``, the JAX package's compile gauges.
@@ -53,6 +59,7 @@ shapes, and the count is the same on both.
 from __future__ import annotations
 
 import copy
+import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -78,6 +85,18 @@ _PARITY_TOL = {
 
 
 # ------------------------------------------------------------------ programs
+#: Programs built in this process (:func:`programs_built`).
+_BUILT = [0]
+_BUILT_LOCK = threading.Lock()
+
+
+def programs_built() -> int:
+    """How many :class:`Program` s this process has built (captured on the
+    card, made on the CPU): the repick engine's straight-line check counts
+    the ones built after its warm-up."""
+    return _BUILT[0]
+
+
 def _copy(tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: _copy(v) for k, v in tree.items()}
@@ -124,6 +143,8 @@ class Program:
     def __init__(self, key: str, fn: Callable, inputs: Sequence[torch.Tensor], *,
                  pool: Optional[Tuple[int, int]] = None, shared_inputs: bool = False,
                  copy_outputs: bool = True, attention: float = 0.0):
+        with _BUILT_LOCK:
+            _BUILT[0] += 1
         self.key = key
         self.fn = fn
         self.copy_outputs = copy_outputs
@@ -168,6 +189,43 @@ class Program:
                 return self.fn(*inputs)
             out = self.graph.replay(list(inputs))
             return _copy(out) if self.copy_outputs else out
+
+
+def _stack_steps(outs: Sequence[Any]) -> Any:
+    """The per-step outputs of a multi-batch program stacked on a new
+    leading axis, structure by structure."""
+    first = outs[0]
+    if isinstance(first, dict):
+        return {k: _stack_steps([o[k] for o in outs]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack_steps([o[i] for o in outs]) for i in range(len(first)))
+    return torch.stack(list(outs))
+
+
+def multi_step(fn: Callable, steps: int) -> Callable:
+    """``fn`` over each of ``steps`` slices of its arguments' leading axis,
+    the outputs stacked: the body of a multi-batch program."""
+    def multi(*args):
+        return _stack_steps([fn(*(a[i] for a in args)) for i in range(steps)])
+
+    return multi
+
+
+def aot_compile_multi(key: str, fn: Callable, arg_shapes: Sequence[Tuple[Tuple[int, ...], Any]],
+                      *, steps: int, device: torch.device,
+                      pool: Optional[Tuple[int, int]] = None,
+                      attention: float = 0.0) -> Program:
+    """One :class:`Program` running ``fn`` ``steps`` times (``seist_tpu/
+    serve/aot.py::aot_compile_multi``): it takes arguments with a leading
+    ``steps`` axis, so one replay feeds ``steps`` full batches and host
+    Python touches the critical path once per call. ``arg_shapes`` are
+    the PER-STEP (shape, torch dtype) pairs; ``attention`` is K1's FLOPs
+    per step (:func:`attention_flops`)."""
+    inputs = [torch.zeros((steps,) + tuple(shape), dtype=dtype, device=device)
+              for shape, dtype in arg_shapes]
+    if pool is None and device.type == "cuda":
+        pool = torch.cuda.graph_pool_handle()
+    return Program(key, multi_step(fn, steps), inputs, pool=pool, attention=attention * steps)
 
 
 # ------------------------------------------------------------------ variants

@@ -1188,5 +1188,24 @@ def main(argv: Optional[List[str]] = None) -> None:
     events.emit("serve_state", state="stopped", rc=rc)
     events.close()
     obs_flight.install(None)
-    if rc:
-        raise SystemExit(rc)
+    exit_process(rc)
+
+
+def exit_process(rc: int) -> None:
+    """End the replica with ``rc`` without finalising the interpreter. The
+    exit handlers run and the streams are flushed first; what is skipped is
+    the finalisation itself, during which a daemon thread still answering a
+    request of the drain (an HTTP handler writing its log line) can hold
+    the stdout lock and abort the process (SIGABRT, exit -6, where a fleet
+    supervisor expects 75), and CUDA objects would meet their destructors
+    after the runtime has gone."""
+    import atexit
+    import sys
+
+    atexit._run_exitfuncs()
+    for stream in (sys.stdout, sys.stderr):
+        try:
+            stream.flush()
+        except (OSError, ValueError):  # a closed or broken stream: nothing to keep
+            pass
+    os._exit(rc)

@@ -62,6 +62,31 @@ RESUME_META = {
 _WEIGHTS = re.compile(r"^model_(\d+)\.pt$")
 
 
+class ProgressFile:
+    """A small atomic JSON progress record (the JAX package's
+    ``ProgressFile``): the re-picking workers keep their position there
+    between segment commits. ``load()`` returns the last saved dict (or
+    None), ``save()`` replaces it through a temporary file and a rename,
+    so a SIGKILL leaves the previous record or the new one, never a torn
+    file. It is advisory: the committed segments are the resume state."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def load(self) -> Optional[Dict[str, Any]]:
+        try:
+            with open(self.path) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    def save(self, record: Dict[str, Any]) -> None:
+        tmp = f"{self.path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(record, f, sort_keys=True)
+        os.replace(tmp, self.path)
+
+
 def find_newest_checkpoint(log_base: str) -> Optional[str]:
     """The newest ``*/checkpoints/model_<step>.pt`` under ``log_base``
     whose ``state_<step>.pt`` exists, by mtime (the step number breaks

@@ -1,5 +1,5 @@
-"""Fault injection for the train, data, serving and streaming planes (the
-port's copy of those parts of ``seist_tpu/utils/faults.py``).
+"""Fault injection for the train, data, serving, streaming and batch-fleet
+planes (the port's copy of those parts of ``seist_tpu/utils/faults.py``).
 
 The train worker consults :class:`FaultInjector` at every step boundary and
 the data plane consults :class:`IoFaultInjector` on every sample read, so
@@ -73,8 +73,24 @@ schedule replays identically)::
                                     station is truncated (torn journal ->
                                     fresh session)
 
-The serving kill and the stream kill share ``SEIST_FAULT_STAMP`` with the
-train plane, so each fires at most once across relaunches.
+Batch-fleet knobs (``batch/fleet.py``; unit numbers are 1-based
+per-process lease acquisitions, the partition clock starts at the
+worker's first lease-store operation)::
+
+    SEIST_FAULT_BATCH_LEASE_LATENCY_MS  sleep before every lease-store op
+    SEIST_FAULT_BATCH_LEASE_ERROR_P     probability a store op raises a
+                                        transient OSError (a pure function
+                                        of the op's ordinal)
+    SEIST_FAULT_BATCH_PARTITION_AFTER_S every store op in [AFTER, AFTER +
+    SEIST_FAULT_BATCH_PARTITION_FOR_S   FOR) seconds raises (a partition)
+    SEIST_FAULT_BATCH_KILL_UNIT         SIGKILL at this lease acquisition
+    SEIST_FAULT_BATCH_PREEMPT_UNIT      SIGTERM (exit 75) at this one
+    SEIST_FAULT_BATCH_WORKER            fire only in the worker whose
+                                        SEIST_BATCH_WORKER matches
+
+The serving kill, the stream kill and the batch kill and preempt share
+``SEIST_FAULT_STAMP`` with the train plane, so each fires at most once
+across relaunches.
 """
 
 from __future__ import annotations
@@ -541,3 +557,175 @@ def stream_faults() -> StreamFaultInjector:
     if _STREAM_FAULTS is None:
         _STREAM_FAULTS = StreamFaultInjector.from_env()
     return _STREAM_FAULTS
+
+
+# --------------------------------------------------------------- batch fleet
+@dataclass(frozen=True)
+class BatchFaultPlan:
+    """Parsed batch-fleet fault schedule (inert by default). Unit
+    ordinals are 1-based per-process lease-acquisition counts; partition
+    windows are seconds after this worker's first lease-store op."""
+
+    lease_latency_ms: float = 0.0
+    lease_error_p: float = 0.0
+    partition_after_s: float = -1.0
+    partition_for_s: float = 0.0
+    kill_unit: int = -1
+    preempt_unit: int = -1
+    worker: int = -1  # only fire in this SEIST_BATCH_WORKER; -1 = any
+    stamp_path: str = ""
+
+    @classmethod
+    def from_env(
+        cls, env: Optional[Mapping[str, str]] = None
+    ) -> "BatchFaultPlan":
+        env = os.environ if env is None else env
+        return cls(
+            lease_latency_ms=_env_float(
+                env, "SEIST_FAULT_BATCH_LEASE_LATENCY_MS", 0.0
+            ),
+            lease_error_p=_env_float(
+                env, "SEIST_FAULT_BATCH_LEASE_ERROR_P", 0.0
+            ),
+            partition_after_s=_env_float(
+                env, "SEIST_FAULT_BATCH_PARTITION_AFTER_S", -1.0
+            ),
+            partition_for_s=_env_float(
+                env, "SEIST_FAULT_BATCH_PARTITION_FOR_S", 0.0
+            ),
+            kill_unit=_env_int(env, "SEIST_FAULT_BATCH_KILL_UNIT", -1),
+            preempt_unit=_env_int(env, "SEIST_FAULT_BATCH_PREEMPT_UNIT", -1),
+            worker=_env_int(env, "SEIST_FAULT_BATCH_WORKER", -1),
+            stamp_path=env.get("SEIST_FAULT_STAMP", ""),
+        )
+
+    @property
+    def enabled(self) -> bool:
+        return (
+            self.lease_latency_ms > 0
+            or self.lease_error_p > 0
+            or self.partition_after_s >= 0
+            or self.kill_unit >= 0
+            or self.preempt_unit >= 0
+        )
+
+
+class BatchFaultInjector:
+    """Batch-fleet fault driver.
+
+    The guarded lease store calls :meth:`store_op` before every raw
+    store attempt (latency / transient error / partition window); the
+    fleet worker calls :meth:`on_unit` after each lease acquisition
+    (SIGKILL / exit-75 preempt via SIGTERM). The partition clock is
+    anchored at this worker's FIRST store op — not process start — so
+    the window lands on lease traffic regardless of how long model
+    warm-up took. Transient errors are deterministic per store-op
+    ordinal, so a retry ladder sees the same fault schedule every run.
+    Worker scoping rides ``SEIST_BATCH_WORKER`` (exported per worker by
+    ``supervise_repick.py``) exactly like the serve plane's replica
+    scoping."""
+
+    def __init__(
+        self,
+        plan: Optional[BatchFaultPlan] = None,
+        worker_index: Optional[int] = None,
+    ):
+        self.plan = plan or BatchFaultPlan()
+        if worker_index is None:
+            worker_index = _env_int(os.environ, "SEIST_BATCH_WORKER", -1)
+        self.worker_index = worker_index
+        self._stamps = _Stamps(self.plan.stamp_path)
+        self._lock = threading.Lock()
+        self._t0: Optional[float] = None  # monotonic anchor, first store op
+        self._op_ordinal = 0
+
+    @classmethod
+    def from_env(
+        cls, env: Optional[Mapping[str, str]] = None
+    ) -> "BatchFaultInjector":
+        return cls(BatchFaultPlan.from_env(env))
+
+    @property
+    def enabled(self) -> bool:
+        """True when any fault is scheduled AND targets this worker."""
+        if not self.plan.enabled:
+            return False
+        return self.plan.worker < 0 or self.plan.worker == self.worker_index
+
+    # ------------------------------------------------------------- store hook
+    def store_op(self, op: str) -> None:
+        """Fire lease-store faults for one raw attempt: latency sleep,
+        then the partition window (every op inside it raises), then the
+        per-ordinal transient error draw. Called by the guarded store
+        BEFORE the real operation, so an injected failure costs no real
+        I/O."""
+        if not self.enabled:
+            return
+        p = self.plan
+        with self._lock:
+            if self._t0 is None:
+                self._t0 = time.monotonic()
+            t = time.monotonic() - self._t0
+            self._op_ordinal += 1
+            ordinal = self._op_ordinal
+        if p.lease_latency_ms > 0:
+            time.sleep(p.lease_latency_ms / 1000.0)
+        if (
+            p.partition_after_s >= 0
+            and p.partition_after_s <= t < p.partition_after_s + p.partition_for_s
+        ):
+            raise OSError(
+                f"[faults] injected lease-store partition ({op} at "
+                f"t={t:.2f}s, window [{p.partition_after_s:.1f}, "
+                f"{p.partition_after_s + p.partition_for_s:.1f})s)"
+            )
+        if p.lease_error_p > 0:
+            u = np.random.default_rng(
+                np.random.SeedSequence([0xBA7C_17, int(ordinal)])
+            ).random()
+            if u < p.lease_error_p:
+                raise OSError(
+                    f"[faults] injected transient lease-store error "
+                    f"({op}, op #{ordinal})"
+                )
+
+    # -------------------------------------------------------------- unit hook
+    def on_unit(self, ordinal: int) -> None:
+        """Fire process-level faults when the ``ordinal``-th (1-based)
+        lease is acquired. ``>=`` (not ``==``) so work-stealing can't
+        skip past the trigger; the stamp makes each fire once across
+        worker relaunches (mark-before-kill: SIGKILL never returns)."""
+        if not self.enabled:
+            return
+        p = self.plan
+        if (
+            p.preempt_unit >= 0
+            and ordinal >= p.preempt_unit
+            and self._stamps.armed("batch_preempt")
+        ):
+            self._stamps.mark("batch_preempt")
+            logger.warning(
+                f"[faults] batch SIGTERM (preempt) at unit #{ordinal}"
+            )
+            os.kill(os.getpid(), signal.SIGTERM)
+        if (
+            p.kill_unit >= 0
+            and ordinal >= p.kill_unit
+            and self._stamps.armed("batch_kill")
+        ):
+            self._stamps.mark("batch_kill")
+            logger.warning(f"[faults] batch SIGKILL at unit #{ordinal}")
+            os.kill(os.getpid(), signal.SIGKILL)
+
+
+_BATCH_FAULTS: Optional[BatchFaultInjector] = None
+
+
+def batch_faults() -> BatchFaultInjector:
+    """Process-wide batch injector, parsed from env once. The guarded
+    lease store and the fleet worker share the same instance, so the
+    partition clock and the kill stamp are consistent across both."""
+    global _BATCH_FAULTS
+    if _BATCH_FAULTS is None:
+        _BATCH_FAULTS = BatchFaultInjector.from_env()
+    return _BATCH_FAULTS

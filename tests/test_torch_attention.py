@@ -7,6 +7,7 @@ the summation order of the two contractions differs."""
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -18,6 +18,7 @@ where one bf16 rounding of P and dS would not.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import math
 
 import jax

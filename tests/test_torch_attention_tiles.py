@@ -15,6 +15,7 @@
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import re
 
 import jax

@@ -24,6 +24,7 @@ and PhaseNet served on the CPU, its decode equal to the JAX package's.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import json
 import threading
 import urllib.request

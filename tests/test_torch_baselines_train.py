@@ -33,6 +33,7 @@ sides.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ the decision-level diff of two responses."""
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import hashlib
 import json
 import time

@@ -6,6 +6,7 @@ GELU are float32 formulas evaluated in another order (1e-6)."""
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ float order is its own)."""
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import numpy as np
 import pytest
 

@@ -12,6 +12,7 @@ differ from XLA's by up to 4.8e-7, tests/test_torch_threefry.py).
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import jax
 import jax.numpy as jnp
 import numpy as np

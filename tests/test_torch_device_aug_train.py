@@ -14,6 +14,7 @@ largest); parameters after SGD updates rtol 1e-4, atol 1e-5.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import glob
 import os
 

@@ -9,6 +9,7 @@ relaunched at once with its budget untouched, a SIGHUP subset roll, and
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import http.client
 import json
 import os

@@ -12,6 +12,7 @@ window 256) behind the port's fleet supervisor and router.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import json
 import os
 import signal

@@ -5,6 +5,7 @@ The supervisor imports the standard library only."""
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import ast
 import os
 import subprocess
@@ -166,3 +167,50 @@ def test_the_front_tier_is_covered_and_needs_no_torch():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_batch_repicking_is_covered_and_its_supervisor_needs_no_torch():
+    """The re-picking modules are among the modules checked above (no JAX,
+    no seist_tpu, no tools), and the fleet supervisor's module loads
+    neither torch nor numpy, also when it parses its arguments and builds
+    a worker's command."""
+    assert {"seist_tpu_torch.batch", "seist_tpu_torch.batch.catalog",
+            "seist_tpu_torch.batch.engine", "seist_tpu_torch.batch.fleet",
+            "seist_tpu_torch.repick", "seist_tpu_torch.supervise_repick"} <= set(_modules())
+    for path in ("seist_tpu_torch/repick.py", "seist_tpu_torch/supervise_repick.py",
+                 "seist_tpu_torch/batch/engine.py", "seist_tpu_torch/batch/fleet.py"):
+        assert "tools" not in {n.split(".")[0] for n in _imported_names(ROOT / path)}, path
+    code = (
+        "import sys\n"
+        "import seist_tpu_torch.supervise_repick as sup\n"
+        "args = sup.get_args(['--archive', 'A', '--out', 'O', '--model', 'm', "
+        "'--lease-dir', 'L'])\n"
+        "sup._worker_cmd(args, 0); sup._merge_cmd(args)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{('torch', 'numpy') + FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def _imported_names(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_repick_needs_cuda_unless_cpu_is_asked_for(tmp_path):
+    from seist_tpu_torch import repick
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    args = repick.get_args(["--archive", str(tmp_path), "--out", str(tmp_path / "o"),
+                            "--model", "phasenet"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        repick.build_engine(args)

@@ -14,6 +14,7 @@ and ``ingest.PackedRawStore`` (direct shard ingest).
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import numpy as np
 import pytest
 

@@ -6,6 +6,7 @@ plans and quarantine reports as ``seist_tpu``'s on the same inputs."""
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import pickle
 import time
 

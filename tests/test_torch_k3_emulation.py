@@ -25,6 +25,7 @@ register spills, and whether nvcc accepts the code.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import ctypes
 import re
 import shutil

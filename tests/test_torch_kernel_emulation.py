@@ -37,6 +37,7 @@ an SM) is read from the compiled sources through their C query.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import ctypes
 import math
 import re

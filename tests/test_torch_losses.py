@@ -5,6 +5,7 @@ order."""
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import numpy as np
 import pytest
 import torch

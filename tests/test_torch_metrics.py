@@ -24,6 +24,7 @@ package's, on the CPU.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import csv
 import json
 

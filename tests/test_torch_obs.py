@@ -9,6 +9,7 @@ snapshots and the Prometheus texts must be identical. The units of
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import json
 import os
 import time

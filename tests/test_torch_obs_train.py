@@ -19,6 +19,7 @@ the same thing.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import glob
 import json
 import logging

@@ -22,6 +22,7 @@ optional wavekit library rounds in its own order.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import json
 import os
 import shutil

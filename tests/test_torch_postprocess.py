@@ -4,6 +4,7 @@ quantized so equal heights, equal run lengths and flat tops are common."""
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import numpy as np
 import pytest
 import torch

@@ -24,6 +24,7 @@ count, and the test asserts that q, k and v reach the attention in bf16.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import jax
 import numpy as np
 import pytest

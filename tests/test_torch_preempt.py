@@ -18,6 +18,7 @@ SIGTERM runs in a subprocess: a handler installs only in a main thread.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import json
 import os
 import subprocess
@@ -52,7 +53,7 @@ def pack(tmp_path_factory):
 def _base(pack):
     return ["--device", "cpu", "--model-name", MODEL, "--dataset-name", "packed", "--data", pack,
             "--in-samples", "256", "--batch-size", "8", "--epochs", "1", "--workers", "2",
-            "--log-step", "100", "--seed", "0"]
+            "--log-step", "100", "--seed", "0", "--use-tensorboard", "false"]
 
 
 def _files(run: Path, step: int):

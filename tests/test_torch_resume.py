@@ -20,6 +20,7 @@
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import itertools
 import json
 import logging
@@ -59,7 +60,8 @@ MODEL = "seist_s_dpk"
 # 30 events: 24 train (48 with augmentation) -> 6 batches of 8; 3 val, 3 test.
 BASE = ["--device", "cpu", "--model-name", MODEL, "--dataset-name", "synthetic",
         "--synthetic-events", "30", "--in-samples", "256", "--batch-size", "8",
-        "--epochs", "1", "--workers", "2", "--log-step", "100", "--seed", "0"]
+        "--epochs", "1", "--workers", "2", "--log-step", "100", "--seed", "0",
+        "--use-tensorboard", "false"]
 
 
 class _Lines(logging.Handler):

@@ -10,6 +10,7 @@ over sockets, and the admin routes of the HTTP shim."""
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import json
 import threading
 import time

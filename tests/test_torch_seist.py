@@ -10,6 +10,7 @@ stage) to stay within the CPU test budget; widths are the presets'.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import jax
 import numpy as np
 import pytest

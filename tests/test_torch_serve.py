@@ -10,6 +10,7 @@ repo's pick-residual convention)."""
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import json
 import os
 import re

@@ -13,6 +13,7 @@ the distance head answers in the hundreds, where one float32 ulp is
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import json
 import os
 import re

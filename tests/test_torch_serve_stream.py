@@ -10,6 +10,7 @@ replayed trunk and dpk head and holds it to the single-task model's."""
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import json
 import threading
 import urllib.error

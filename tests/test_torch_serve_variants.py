@@ -14,6 +14,7 @@ statistics) and converted for the port.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import jax
 import numpy as np
 import pytest

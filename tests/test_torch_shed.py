@@ -6,6 +6,7 @@ refused by ``PredictOptions`` and ``parse_station``."""
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import dataclasses
 import threading
 import time

@@ -15,6 +15,7 @@ command on the CPU, and the attention seed as a device tensor.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import json
 import logging
 import subprocess
@@ -35,7 +36,8 @@ ROOT = Path(__file__).resolve().parent.parent
 # 30 events: 24 train (48 with augmentation) -> 6 batches of 8; 3 val, 3 test.
 BASE = ["--device", "cpu", "--model-name", "seist_s_dpk", "--dataset-name", "synthetic",
         "--synthetic-events", "30", "--in-samples", "256", "--batch-size", "8",
-        "--epochs", "1", "--workers", "2", "--log-step", "1", "--seed", "0"]
+        "--epochs", "1", "--workers", "2", "--log-step", "1", "--seed", "0",
+        "--use-tensorboard", "false"]
 
 
 @pytest.fixture
@@ -108,12 +110,20 @@ def test_call_geometry_errors(tmp_path, extra, match):
 
 
 def test_the_command_line_takes_both_flags(tmp_path):
-    for extra in (["--steps-per-call", "2"], ["--grad-accum-steps", "2"]):
+    # Both commands at once, each in a log dir of its own.
+    procs = []
+    for i, extra in enumerate((["--steps-per-call", "2"], ["--grad-accum-steps", "2"])):
         cmd = [sys.executable, "-m", "seist_tpu_torch", "train", *BASE, "--mode", "train",
-               "--log-base", str(tmp_path), *extra]
-        proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True, text=True, timeout=600)
-        assert proc.returncode == 0, proc.stderr[-2000:]
-        assert "not ported" not in proc.stdout + proc.stderr
+               "--log-base", str(tmp_path / str(i)), *extra]
+        log = tmp_path / f"{i}.log"
+        with open(log, "w") as f:
+            procs.append((subprocess.Popen(cmd, cwd=str(ROOT), stdout=f,
+                                           stderr=subprocess.STDOUT), log))
+    for proc, log in procs:
+        proc.wait(timeout=600)
+        text = log.read_text()
+        assert proc.returncode == 0, text[-2000:]
+        assert "not ported" not in text
 
 
 def _qkvg(seed, n=2, l=40, m=10, h=2, e=8):

@@ -27,6 +27,7 @@ held bitwise: a skipped update leaves every byte of the state.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import jax
 import jax.numpy as jnp
 import numpy as np

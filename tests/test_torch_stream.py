@@ -10,6 +10,7 @@ within 1e-5 (the forwards' limit) and picks equal."""
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import jax
 import numpy as np
 import pytest

@@ -11,6 +11,7 @@ a duplicate (one sent twice) and ``end``: a session stitches what arrives
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import numpy as np
 import pytest
 

@@ -8,6 +8,7 @@ most 4.8e-7), with the exact share printed."""
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import jax
 import jax.numpy as jnp
 import numpy as np

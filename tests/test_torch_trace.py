@@ -11,6 +11,7 @@ with the JAX package's overhead bound (``TestOverhead``).
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import json
 import threading
 import time

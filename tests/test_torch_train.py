@@ -23,6 +23,7 @@ noise level.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (caps torch's threads first)
 import os
 import subprocess
 import sys
