@@ -27,12 +27,18 @@ non-zero before the last line):
    over one tile and E = 64, with two calls giving the same bits; and the
    autograd function against ``torch.autograd.grad`` through the plain
    forward;
-5. serve ``seist_l_dpk`` at window 8192 with seeded weights through the
-   port's server (fp32, each bucket a captured program),
-   answer concurrent ``/predict`` requests with the plain
-   versions patched to raise, count K1's launches over exactly that run
-   (5 per forward), and hold one response against the same trace run
-   through the port on the CPU;
+5. serve ``seist_l_dpk`` at window 8192 through the port's server (fp32,
+   each bucket a captured program) with weights whose outputs follow the
+   waveform (phase 5's seeded draw with BatchNorm's affine times 0.05, its
+   statistics set from the first 4 request traces and the output bias a
+   decisive detection channel), imported by phase
+   16 (a) from a reference-layout ``.pth``; answer concurrent ``/predict``
+   requests with the plain versions patched to raise, count K1's launches
+   over exactly that run (5 per forward), and hold the first 4 responses'
+   picks against their traces run through the port on the CPU, and those
+   traces' outputs (the b4 program) within 1e-4 of the CPU's, every two
+   traces' at least 1e-3 apart (``check_separated``: a request fed another
+   request's waveform fails);
 6. ``train_test``: train ``seist_l_dpk`` at window 8192, batch 64, through
    the entry of ``python -m seist_tpu_torch train --mode train_test`` on the
    synthetic dataset for one epoch with an interval save every 3 steps,
@@ -75,7 +81,7 @@ non-zero before the last line):
    3xTF32 on the tensor cores, both printed), the model's
    forward per batch bucket, and the train step at batch 64 and 256 with
    its peak memory, in fp32 and bf16, captured as a CUDA graph (with the
-   capture's seconds) and, at batch 64, eager; K1 in bf16 also at the train step's
+   capture's seconds); K1 in bf16 also at the train step's
    batch 64; K2 in both types per shape at rate 0.3 (the train step's) and
    at rate 0 beside SDPA's backward (rate 0), its bound at the type's rate
    (the bf16 tensor cores for bf16); profile a
@@ -142,14 +148,15 @@ non-zero before the last line):
     seconds, FLOPs and K1 launches per replay, and the memory of each
     entry's graph pools and variant weights; both parity gates pass;
     every program's replay against its function run eagerly (1e-4 of
-    max(1, |eager|)); ``/predict`` x24 concurrent in fp32, bf16 and int8
+    max(1, |eager|); the rows of a waveform or trunk program at buckets 2-8
+    at least 1e-3 apart); ``/predict`` x24 concurrent in fp32, bf16 and int8
     and to the group, K1's launches (fp32 and bf16) equal to the replays'
     captured launches, no request without a program; bf16 and int8 picks
     as many as fp32's, each within 0.1 s of fp32's or moved across a
-    near-tie (fp32 probabilities within the variant's gate tolerance: the
-    seeded weights' outputs are flat, std ~2e-4); the group's heads
+    near-tie (fp32 probabilities within the variant's gate tolerance); the
+    group's heads
     against the single-task models; replayed against eager forwards per
-    variant at buckets 1 and 8 (wall, device busy, idle share, kernels); a reload
+    variant at bucket 8 (wall, device busy, idle share, kernels); a reload
     that swaps (version 2) and one of NaN weights refused (409). The
     serve entry's telemetry is on: every response's ``Server-Timing`` has
     the five segments (parse, normalize, queue_wait, forward, decode),
@@ -168,10 +175,10 @@ non-zero before the last line):
     model's version; ``/annotate`` of a 10-minute record (30,000 x 3
     samples, four P/S burst pairs) to seist_l_dpk, the seist_l group and
     PhaseNet, with the card's stitched curve within 1e-4 of the port's
-    CPU run and the picks within the stream-smoke tolerance of the CPU's
+    CPU run (its stretches of 4,096 samples at least 1e-3 apart) and the picks within the stream-smoke tolerance of the CPU's
     (at most a tenth of the union stranded, matched picks within 2
     samples; the thresholds sit at the 0.999 quantile of the CPU's
-    curve, since the seeded weights' outputs are flat), and of a 1-hour
+    curve), and of a 1-hour
     record (wall ms, windows/s); ``/stream`` of 16 stations' 10-minute
     records in 10-s packets on 8 client threads, each station's picks
     within that tolerance of ``/annotate`` of its record, with as many
@@ -184,16 +191,19 @@ non-zero before the last line):
     window latencies and the shed counts per tier.
 14. the fleet: ``python -m seist_tpu_torch supervise-fleet`` in a
     subprocess with two replicas of ``serve --model seist_l_dpk=W
-    --window 8192 --buckets 1,8`` (fp32) on the card, each under a wrapper
-    of this script's that writes the process's K1 launches on its way out
-    (exit 75 included); four closed-loop /predict clients in this process,
+    --window 8192 --buckets 1,8`` (fp32) on the card, each run as
+    ``python -X faulthandler`` under a wrapper of this script's that keeps
+    the life's stdout and stderr in a file of its own (the last 60 lines of
+    a replica that exits with anything but 75 or the phase's -9 are
+    printed) and writes the process's K1 launches on its way out (exit 75
+    included); four closed-loop /predict clients in this process,
     another process than the servers, through the router. (a) Replica 0
     is SIGKILLed at its 8th request (``SEIST_FAULT_SERVE_KILL_REQ``) and
     relaunched; its relaunch answers a direct ``/predict``, ``/annotate``
     and ``/stream`` while ``/healthz/ready`` says ``warming``; (b) in its
     next life it black-holes 4 requests, and its breaker opens and
-    closes; phase 5's trace through the router gives phase 5's picks
-    (0.1 s); ``/predict`` p50/p99 through the router and direct to one
+    closes; phase 5's first two traces through the router give phase 5's
+    CPU picks of each (0.1 s), which differ from each other; ``/predict`` p50/p99 through the router and direct to one
     replica at the same concurrency; (e) ``/fleet/metrics.json`` merges
     both replicas and the router, and adds up to what the phase sent; (c)
     SIGHUP rolls both replicas to a second weights file as version 2 under
@@ -210,9 +220,9 @@ non-zero before the last line):
     processes too, by a wrapper of this script's that also writes each
     process's K1 launches on its way out): phase 8's 2,048 synthetic
     events at trace 8192, packed into 8 shards of 256 as float32 and as
-    int8; phase 5's weights with each BatchNorm's scale and shift cut to
+    int8; the seeded weights with each BatchNorm's scale and shift cut to
     0.05 and its statistics set from the archive's first rows, so the
-    outputs follow the waveform (phase 5's do not); ``--batch-size 64
+    outputs follow the waveform (the seeded ones' do not); ``--batch-size 64
     --batches-per-call 2 --commit-every 1 --max-events 1`` (128 rows a
     replay, 2 segments a unit, one plan for every run). (a) ``repick
     --compile-gate`` in this process: 2,048 rows with the pack's keys,
@@ -244,11 +254,33 @@ non-zero before the last line):
     sha256 equal to (a)'s, ``double_commits`` 0, ``fence_rejects`` >= 1.
     Each child process is bounded by a timeout whose expiry fails the
     phase. Prints the relaunch counts and the fleet's wall seconds.
+16. the reference's weights and offline prediction: (a), before phase 5,
+    ``python -m seist_tpu_torch import-pretrained`` in a subprocess on phase
+    5's weights written in the reference's layout (``model_dict``,
+    ``module.`` prefixes, ``num_batches_tracked``, each LSTM's bias split
+    in two): the ``.pt`` equal to the weights tensor for tensor, phases 5
+    and 12-14 serving it; (b) ``python -m seist_tpu_torch predict`` of
+    phase 13's 10-minute record on the card (a child process under a
+    wrapper that patches the plain attention to raise and writes its K1
+    launches) and with ``--device cpu`` in this process, at phase 13's
+    thresholds: P and S picks and detection onsets within 0.1 s or moved
+    across a near-tie of the CPU curve, K1 5 per replay of the b8 program;
+    (c) ``demo --device cuda`` on phase 5's first trace against the CPU
+    (probabilities within 1e-5; whether matplotlib exists, and the figure
+    where it does); (d) ``train --checkpoint W.pt --mode train`` from the
+    imported weights alone, one epoch of phase 6's events at batch 4 (drop
+    rates but the attention's 0): it starts at epoch 0, batch 0, update 0
+    with a fresh optimizer, and its first step's loss lies within 1e-4 of
+    the CPU's step from the same weights, batch and attention seeds; (e)
+    one captured b64 train step, drop rates 0.3, with and without
+    ``use_checkpoint``: losses within 1e-6 (relative), gradients within
+    phase 7's limits, K1 10 launches per step against 5, both peak
+    memories.
 
 Each phase's wall seconds are printed as a ``[phase-time]`` line.
 
 It prints one ``{"kernels": [...]}`` line (the fp32 K1 and K2, their bf16
-kernels, K3) and, last,
+kernels, K3; launches over every phase's main path) and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits 1 and prints no result.
 """
@@ -347,6 +379,10 @@ LSE_TOL = 1e-5  # K1's row statistics, fp32 in both types
 BF16_TOL = 2.0 ** -6
 PICK_TOL_S = 0.1  # per pick, GPU response vs the CPU run of the same trace
 PROB_TOL = 1e-4  # model output, GPU vs CPU: cuDNN and CPU conv sum orders differ
+# Two different inputs' outputs must differ by at least this much (ten times
+# PROB_TOL), so that a card-vs-CPU check of the outputs sees a request or a
+# row fed another one's waveform (check_separated).
+SEPARATION = 1e-3
 # K2 against its plain version, per output, relative to max(1, max|plain|):
 # fp32 sums over up to L rows in another order; bf16 may flip one rounding
 # of the largest output (one bf16 ulp is 2^-7 relative).
@@ -565,6 +601,155 @@ def seeded_weights(path: str, seed: int = SEED) -> None:
     torch.save(model.state_dict(), path)
 
 
+# The reference's list modules, by the port's (flax's) per-index prefix:
+# the inverse of tools/parity.py's table.
+REFERENCE_LISTS = {"block": "blocks", "clarity_side": "clarity_side_layers",
+                   "polarity_side": "polarity_side_layers", "fuse_clarity": "fuse_clarity",
+                   "fuse_polarity": "fuse_polarity", "resconv": "res_convs",
+                   "bilstm": "bilstms", "transformer": "transformers", "decoder": "decoders",
+                   "up": "up_convs", "down": "down_convs"}
+_LSTM_PORT_LEAF = re.compile(r"(weight_ih|weight_hh|bias_hh)_l0(_reverse)?")
+
+
+def reference_module(path: List[str]) -> List[str]:
+    """A port module path in the reference's module layout, as
+    tools/parity.py maps that layout back: ``stem.{i}``,
+    ``encoder_layers.{i}.{j}``, ``out_head.up_layers.{k}.conv|norm``,
+    ``convs|norms|projs.{k}``, DiTingMotion's ``conv_layers.{j}`` and
+    ``convs.{a}.0``, BAZNetwork's ``layers.{k}.0``, MagNet's ``lstm`` and
+    the list modules; any other name stays."""
+    out: List[str] = []
+    for i, seg in enumerate(path):
+        parent = path[i - 1] if i else ""
+        if i == 0 and (m := re.fullmatch(r"stem(\d+)", seg)):
+            out += ["stem", m[1]]
+        elif m := re.fullmatch(r"stage(\d+)_aggr", seg):
+            out += ["encoder_layers", m[1], "0"]
+        elif m := re.fullmatch(r"stage(\d+)_block(\d+)", seg):
+            out += ["encoder_layers", m[1], str(int(m[2]) + 1)]
+        elif parent == "out_head" and (m := re.fullmatch(r"(conv|norm)(\d+)", seg)):
+            out += ["up_layers", m[2], m[1]]
+        elif parent.startswith("comb") and (m := re.fullmatch(r"conv(\d+)", seg)):
+            out += ["convs", m[1], "0"]
+        elif re.fullmatch(r"block\d+", parent) and (m := re.fullmatch(r"comb(\d+)", seg)):
+            out += ["conv_layers", m[1]]
+        elif m := re.fullmatch(r"wave_conv(\d+)", seg):
+            out += ["layers", m[1], "0"]
+        elif m := re.fullmatch(r"(conv|norm|proj)(\d+)", seg):
+            out += [m[1] + "s", m[2]]
+        elif seg == "bilstm":
+            out.append("lstm")
+        elif (m := re.fullmatch(r"([a-z_]+?)(\d+)", seg)) and m[1] in REFERENCE_LISTS:
+            out += [REFERENCE_LISTS[m[1]], m[2]]
+        else:
+            out.append(seg)
+    return out
+
+
+def reference_state_dict(port: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` in the reference's layout: its keys
+    renamed by :func:`reference_module` (the port keeps torch's tensor
+    layouts, so every tensor stays as it is), each LSTM's one bias split
+    into torch's two, ``bias_ih`` and ``bias_hh`` (nonzero halves, whose
+    sum is exact), and a ``num_batches_tracked`` beside each BatchNorm's
+    statistics, as a training run leaves it."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in port.items():
+        module, _, leaf = key.rpartition(".")
+        prefix = ".".join(reference_module(module.split(".")) if module else [])
+        m = _LSTM_PORT_LEAF.fullmatch(leaf)
+        if m and m[1] == "bias_hh":
+            out[f"{prefix}.bias_ih_l0{m[2] or ''}"] = value * 0.5
+            out[f"{prefix}.{leaf}"] = value * 0.5
+            continue
+        out[f"{prefix}.{leaf}"] = value.clone()
+        if leaf == "running_var":
+            out[f"{prefix}.num_batches_tracked"] = torch.tensor(1000, dtype=torch.int64)
+    return out
+
+
+def write_reference_pth(port: Dict[str, torch.Tensor], path: str) -> None:
+    """A reference-layout ``.pth`` as a training run of the reference saves
+    it: nested under ``model_dict``, every key prefixed with ``module.``."""
+    torch.save({"model_dict": {f"module.{k}": v for k, v in reference_state_dict(port).items()},
+                "epoch": 0}, path)
+
+
+SERVE_BN_GAIN = 0.05  # phase 5's weights cut BatchNorm's affine as phase 15's do
+CALIBRATION_TRACES = 4  # phase 5's first request traces set the statistics
+# The output convolution's bias of phase 5's weights, one logit per channel
+# (det, ppk, spk): the detection channel is decisive (sigmoid ~0.92) and
+# the phase channels sit near the pick threshold 0.3-0.5, as a trained
+# model's do. Calibrated alone, the three channels lie within a few 1e-2 of
+# each other, and the variant gates of phase 12 (the per-sample argmax may
+# flip on at most 0.5% of samples in bf16) refuse every near-tie.
+SERVE_HEAD_LOGITS = (2.5, 0.0, -0.4)
+
+
+def imported_weights(flat: str) -> dict:
+    """Phase 16 (a), run before phase 5, which serves what it writes: the
+    weights of phases 5 and 12-14 (:func:`calibrated_weights` of phase 5's
+    ``flat`` on its first request traces, so their outputs follow the
+    waveform) written in the reference's layout as a training run of the
+    reference saves a ``.pth`` (nested under ``model_dict``, ``module.``
+    prefixes, ``num_batches_tracked``), then ``python -m seist_tpu_torch
+    import-pretrained`` in a subprocess. Its ``.pt`` must equal the weights
+    tensor for tensor."""
+    t0 = time.perf_counter()
+    build = str(_kernels.BUILD_DIR)
+    want = calibrated_weights(flat, traces(N_REQUESTS)[:CALIBRATION_TRACES], SERVE_BN_GAIN)
+    want["out_head.out_conv.bias"] = torch.tensor(SERVE_HEAD_LOGITS, dtype=torch.float32)
+    pth = os.path.join(build, f"{MODEL}_reference.pth")
+    out = os.path.join(build, f"{MODEL}_imported.pt")
+    write_reference_pth(want, pth)
+    raw = torch.load(pth, map_location="cpu", weights_only=True)
+    n_tracked = sum(k.endswith("num_batches_tracked") for k in raw["model_dict"])
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "seist_tpu_torch", "import-pretrained", "--pth",
+                           pth, "--model-name", MODEL, "--in-samples", str(WINDOW), "--out", out],
+                          env=env, capture_output=True, text=True, timeout=300)
+    sub_s = time.perf_counter() - t1
+    if proc.returncode != 0:
+        fail(f"import-pretrained exited {proc.returncode}: {proc.stderr[-2000:]}")
+    got = torch.load(out, map_location="cpu", weights_only=True)
+    line = proc.stdout.strip().splitlines()[-1]
+    n_params = sum(v.numel() for k, v in want.items()
+                   if not k.endswith(("running_mean", "running_var")))
+    equal = sorted(got) == sorted(want) and all(
+        got[k].dtype == v.dtype and torch.equal(got[k], v) for k, v in want.items())
+    print(f"[import] (phase 16a) {MODEL}: python -m seist_tpu_torch import-pretrained on a "
+          f"reference-layout .pth ({len(raw['model_dict'])} keys under model_dict, 'module.' "
+          f"prefixes, {n_tracked} num_batches_tracked) in {sub_s:.1f} s: {line!r}; the .pt "
+          f"equals the weights tensor for tensor: {equal} ({len(want)} tensors)", flush=True)
+    if not equal or line != f"Imported {pth} -> {out} ({n_params:,} params)":
+        fail("import-pretrained did not give back the weights the .pth was made from")
+    return {"weights": out, "pth": pth, "seconds": time.perf_counter() - t0,
+            "subprocess_s": sub_s}
+
+
+def check_separated(what: str, got: np.ndarray, want: np.ndarray,
+                    tol: float = PROB_TOL) -> Tuple[float, float]:
+    """Rows of the card's outputs ``got`` against the CPU's ``want`` of the
+    same inputs (row i of both from input i): within ``tol``, and every row
+    at least SEPARATION from every OTHER row's CPU outputs, so that a row
+    fed another row's input fails. Returns (max abs error, smallest
+    separation)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    if got.shape != want.shape or len(got) < 2:
+        fail(f"{what}: {got.shape} rows against {want.shape}: two or more rows are needed")
+    err = float(np.abs(got - want).max())
+    sep = min(float(np.abs(got[i] - want[j]).max())
+              for i in range(len(got)) for j in range(len(want)) if i != j)
+    if err > tol:
+        fail(f"{what}: the card's outputs lie {err:.3e} from the CPU's (limit {tol})")
+    if sep < SEPARATION:
+        fail(f"{what}: two rows' outputs lie only {sep:.3e} apart (limit {SEPARATION}): the "
+             f"check of the outputs could not see a row fed another row's waveform")
+    return err, sep
+
+
 # Phases 5, 10 and 12 time the forward under 24 concurrent requests, whose
 # queueing the default tiers could shed; phase 13 exercises the shedding.
 NO_SHED = srv.ShedConfig(batch_delay_ms=float("inf"), interactive_delay_ms=float("inf"))
@@ -657,30 +842,39 @@ def serve_phase(weights: str, n_shapes: int) -> dict:
     if stats["completed"] != N_REQUESTS or launches != n_shapes * forwards or forwards < 1:
         fail(f"launches {launches} != {n_shapes} x forwards {forwards}")
 
-    # The same trace through the port on the CPU, and the raw outputs of both.
+    # The first traces through the port on the CPU, and the raw outputs of
+    # both: each response's picks are its own trace's, and every trace's
+    # outputs lie at least SEPARATION from every other's, so a request fed
+    # another request's waveform fails.
     entry = service.entries[MODEL]
     cpu = load_model_entry(MODEL, weights, window=WINDOW, device="cpu")
-    x = normalize(data[0].T, "std", axis=0).astype(np.float32)[None]
+    n_cpu = CALIBRATION_TRACES
+    x = np.stack([normalize(d.T, "std", axis=0) for d in data[:n_cpu]]).astype(np.float32)
     out_gpu, out_cpu = entry.run(x), cpu.run(x)
     popts = PredictOptions.from_dict(opts)
-    ref = decode_outputs(cpu, out_cpu, popts)
-    prob_err = max_err(out_gpu.cpu(), out_cpu)
-    n_picks = sum(len(ref[k]) for k in ("ppk", "spk", "det"))
+    refs = [decode_outputs(cpu, out_cpu[i:i + 1], popts) for i in range(n_cpu)]
+    prob_err, sep = check_separated(f"phase 5, traces 0-{n_cpu - 1} (b{n_cpu} program)",
+                                    out_gpu.cpu().numpy(), out_cpu.numpy())
+    n_picks = sum(len(r[k]) for r in refs for k in ("ppk", "spk", "det"))
     print(f"[serve] response 0 vs CPU run: gpu {json.dumps(results[0][1])} cpu "
-          f"{json.dumps(ref)}; output max_abs_err {prob_err:.3e} (limit {PROB_TOL:.0e})",
-          flush=True)
-    if not picks_close(results[0][1], ref, PICK_TOL_S * popts.sampling_rate):
-        fail("GPU response picks differ from the CPU run by more than 0.1 s")
-    if not prob_err <= PROB_TOL or n_picks == 0:
-        fail(f"GPU output vs CPU {prob_err:.3e}, {n_picks} picks in the reference")
+          f"{json.dumps(refs[0])}; traces 0-{n_cpu - 1}: outputs max_abs_err {prob_err:.3e} "
+          f"(limit {PROB_TOL:.0e}), every two at least {sep:.3e} apart (limit "
+          f"{SEPARATION:.0e}); {n_picks} picks in the references", flush=True)
+    for i in range(n_cpu):
+        if not picks_close(results[i][1], refs[i], PICK_TOL_S * popts.sampling_rate):
+            fail(f"GPU response {i}'s picks differ from the CPU run of its trace by more "
+                 "than 0.1 s")
+    if n_picks == 0:
+        fail("no picks in the CPU references")
     lat = np.array([r[2] for r in results])
     return {
         "entry": entry,
         "launches": launches,
         "forwards": forwards,
         "n_shapes": n_shapes,
-        "ref0": ref,  # trace 0's picks on the CPU, and the card's response
+        "ref0": refs[0],  # trace 0's picks on the CPU, and the card's response
         "resp0": results[0][1],
+        "refs": refs,  # traces 0-3's picks on the CPU
         "client_p50_ms": float(np.percentile(lat, 50)),
         "client_p99_ms": float(np.percentile(lat, 99)),
         "server_latency_ms": stats["latency_ms"],
@@ -801,9 +995,12 @@ def run_entry(argv: List[str],
 
 
 def check_launches(counts: Dict[str, int], n_shapes: int, forwards: int, steps: int,
-                   k3: int = 0) -> None:
-    """K1 n_shapes per forward, K2 n_shapes per train step, K3 ``k3``
-    launches (one per device-augmented step)."""
+                   k3: int = 0, recomputes: int = 0) -> None:
+    """K1 n_shapes per forward and per rematerialised stage's recompute of
+    a train step (``use_checkpoint``: every attention call runs again in
+    the backward pass), K2 n_shapes per train step, K3 ``k3`` launches (one
+    per device-augmented step)."""
+    forwards += recomputes
     if (counts["K1"] != n_shapes * forwards or counts["K2"] != n_shapes * steps
             or counts["K3"] != k3):
         fail(f"K1 launches {counts['K1']} != {n_shapes} x {forwards}, K2 launches "
@@ -2754,6 +2951,7 @@ def check_programs(service, n_shapes: int) -> None:
     replay adds (per forward: n_shapes fp32 K1, of them bf16 in bf16)."""
     rng = np.random.default_rng(SEED + 1)
     worst: Dict[str, float] = {}
+    apart: Dict[str, float] = {}
     for name, entry in service.entries.items():
         for prog in entry.all_programs():
             variant = prog.key.rsplit("/", 1)[1]
@@ -2771,6 +2969,12 @@ def check_programs(service, n_shapes: int) -> None:
                 want = prog.fn(*inputs)
             err = rel_err(got, want)
             worst[variant] = max(worst.get(variant, 0.0), err)
+            g0, w0 = _flat(got)[0], _flat(want)[0]
+            if b >= 2 and g0.dim() >= 3:  # waveform or trunk outputs: rows told apart
+                scale = max(1.0, float(w0.float().abs().max()))
+                _, sep = check_separated(f"{prog.key}: replay vs eager", g0.float().cpu().numpy(),
+                                         w0.float().cpu().numpy(), tol=REPLAY_TOL * scale)
+                apart[variant] = min(apart.get(variant, math.inf), sep)
             want_k1 = (0, 0) if kind.startswith("head:") else (
                 n_shapes, n_shapes if variant == "bf16" else 0)
             if prog.launches != want_k1:
@@ -2779,7 +2983,10 @@ def check_programs(service, n_shapes: int) -> None:
                 fail(f"{prog.key}: replay vs eager {err:.3e} > {REPLAY_TOL:.0e}")
     print(f"[programs] every program's replay against its eager run on the card (max error "
           f"relative to max(1, |eager|), limit {REPLAY_TOL:.0e}): "
-          f"{', '.join(f'{v} {e:.3e}' for v, e in worst.items())}", flush=True)
+          f"{', '.join(f'{v} {e:.3e}' for v, e in worst.items())}; rows of the waveform and "
+          f"trunk programs at buckets 2-8 at least "
+          f"{', '.join(f'{v} {e:.3e}' for v, e in apart.items())} apart (limit "
+          f"{SEPARATION:.0e})", flush=True)
 
 
 def programs_phase(name_power: str, weights: str, n_shapes: int) -> dict:
@@ -2891,17 +3098,23 @@ def programs_phase(name_power: str, weights: str, n_shapes: int) -> dict:
     for task in GROUP_TASKS:
         one = single if task == "dpk" else load_model_entry(
             f"{GROUP}_{task}", paths[task], window=WINDOW, device="cuda")
-        err = rel_err(outs[task], one.run(x))
+        want_t = one.run(x)
+        err = rel_err(outs[task], want_t)
+        sep = (check_separated(f"{GROUP} head dpk vs {MODEL}", outs[task].float().cpu().numpy(),
+                               want_t.float().cpu().numpy(), tol=REPLAY_TOL)[1]
+               if task == "dpk" else None)
         print(f"[programs] {GROUP} head {task} (replayed) vs {GROUP}_{task} "
-              f"({'replayed' if task == 'dpk' else 'eager'}): {err:.3e}", flush=True)
+              f"({'replayed' if task == 'dpk' else 'eager'}): {err:.3e}"
+              + (f"; the {BATCH} traces' outputs at least {sep:.3e} apart" if sep else ""),
+              flush=True)
         if not err <= REPLAY_TOL:
             fail(f"group head {task} differs from {GROUP}_{task} by {err:.3e}")
         del one
 
-    # Replayed against eager forwards, per variant at the smallest and largest bucket.
+    # Replayed against eager forwards, per variant at the largest bucket.
     rows = []
     for variant in SERVE_VARIANTS:
-        for b in (SERVE_BUCKETS[0], SERVE_BUCKETS[-1]):
+        for b in (SERVE_BUCKETS[-1],):
             xb = torch.from_numpy(np.random.default_rng(b).standard_normal(
                 (b, WINDOW, 3)).astype(np.float32)).cuda()
             prog = single.programs[variant][b]
@@ -3049,12 +3262,12 @@ FLOOD_CLIENTS = 4
 # least one) may be stranded, and matched picks lie within 2 samples.
 MATCH_SAMPLES = 2
 STRAND_SHARE = 0.1
-# The seeded weights' outputs are flat (std ~2e-4 around 0.5): at the
-# default thresholds every local maximum is a candidate, and /annotate's
-# pick capacity would bind. The thresholds sit at this quantile of the CPU
-# reference's stitched curve instead, so a record has a few dozen samples
-# above them; the capacity (RECORD_EVENTS) then never binds, which the
-# phase checks.
+# The weights are not trained: their curves are no calibrated
+# probabilities, and at the default thresholds every local maximum could be
+# a candidate and /annotate's pick capacity bind. The thresholds sit at this
+# quantile of the CPU reference's stitched curve instead, so a record has a
+# few dozen samples above them; the capacity (RECORD_EVENTS) then never
+# binds, which the phase checks.
 PICK_QUANTILE = 0.999
 RECORD_EVENTS = 256
 
@@ -3249,13 +3462,22 @@ def streams_phase(name_power: str, weights: str) -> dict:
         prob = stream_ops.annotate(forward, rec, window=WINDOW, batch_size=BATCH,
                                    channel0=entry.channel0, combine="max",
                                    max_events=RECORD_EVENTS)["prob"]
-        err = float(np.abs(prob - prob_cpu).max())
+        # The curve in stretches of a stride: each against the CPU's, and at
+        # least SEPARATION from every other stretch's, so a window fed
+        # another window's samples fails.
+        seg = WINDOW // 2
+        n_seg = RECORD // seg
+        err, sep = check_separated(f"/annotate {name}, {n_seg} stretches of {seg} samples",
+                                   prob[:n_seg * seg].reshape(n_seg, seg, -1),
+                                   prob_cpu[:n_seg * seg].reshape(n_seg, seg, -1))
+        err = max(err, float(np.abs(prob - prob_cpu).max()))
         ok, notes = picks_match(sample_picks(body), picks_cpu)
         rows[name] = (wall, body["windows"])
         print(f"[streams] {name_power} | /annotate {name}, {RECORD} samples, {body['windows']} "
               f"windows: wall {wall:.1f} ms, {body['windows'] / wall * 1e3:.1f} windows/s; card "
-              f"curve vs CPU max_abs_err {err:.3e} (limit {PROB_TOL:.0e}); picks vs CPU: "
-              f"{notes}", flush=True)
+              f"curve vs CPU max_abs_err {err:.3e} (limit {PROB_TOL:.0e}), its {n_seg} stretches "
+              f"of {seg} samples at least {sep:.3e} apart (limit {SEPARATION:.0e}); picks vs "
+              f"CPU: {notes}", flush=True)
         if not err <= PROB_TOL or not ok:
             fail(f"/annotate {name} on the card differs from the CPU run")
         if max(len(v) for v in picks_cpu.values()) >= RECORD_EVENTS or not picks_cpu["ppk"]:
@@ -3389,7 +3611,7 @@ def streams_phase(name_power: str, weights: str) -> dict:
     if counts["K1"] != want or counts["K1"] < 1 or counts["K1_bf16"]:
         fail(f"phase 13's K1 launches {counts} != 5 x its replays ({want})")
     counts.update(K2=0, K3=0, K2_bf16=0)
-    return {"counts": counts, "annotate": rows}
+    return {"counts": counts, "annotate": rows, "record_options": refs[MODEL][2]}
 
 
 # ------------------------------------------------------------- phase 14
@@ -3420,6 +3642,12 @@ import atexit, glob, json, os, sys
 out, me = sys.argv[1], os.environ.get("SEIST_SERVE_REPLICA", "x")
 life = len(glob.glob(os.path.join(out, f"life_r{me}_*")))
 open(os.path.join(out, f"life_r{me}_{life}"), "w").close()
+# This life's stdout and stderr, faulthandler's stacks included (python -X
+# faulthandler writes them to fd 2 on a fatal signal), go to a file of its own.
+log = os.open(os.path.join(out, f"replica_r{me}_life{life}.log"),
+              os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+os.dup2(log, 1)
+os.dup2(log, 2)
 if not (me == os.environ.get("SEIST_FAULT_SERVE_REPLICA") and life == 1):
     for key in [k for k in os.environ if k.startswith("SEIST_FAULT_SERVE_BLACKHOLE")]:
         del os.environ[key]
@@ -3438,6 +3666,22 @@ def _dump():
 atexit.register(_dump)
 server.main(sys.argv[2:])
 """
+
+
+def replica_tails(work: str, supervisor_log: str, n: int = 60) -> str:
+    """The last ``n`` lines of every life of each replica that exited with
+    anything but 75 (a drain) or -9 (the phase's own SIGKILL), as the
+    supervisor logged its exit: its stdout and stderr, and the Python stack
+    of every thread that faulthandler printed on a fatal signal."""
+    bad = sorted(set(re.findall(r"replica (\d+) crashed rc=(?!-9\b)(-?\d+)", supervisor_log)))
+    parts = []
+    for replica, rc in bad:
+        for path in sorted(glob.glob(os.path.join(work, f"replica_r{replica}_life*.log"))):
+            with open(path, errors="replace") as f:
+                tail = f.read().splitlines()[-n:]
+            parts.append(f"[fleet] replica {replica} (an exit rc={rc}), "
+                         f"{os.path.basename(path)}, last {len(tail)} lines:\n" + "\n".join(tail))
+    return "\n".join(parts) or "[fleet] no replica exited with anything but 75 or -9"
 
 
 def free_ports(n: int) -> int:
@@ -3591,7 +3835,7 @@ def fleet_phase(name_power: str, weights: str, served: dict) -> dict:
            "--probe-interval-s", "0.2", "--backoff", "0.5",
            "--request-timeout-s", str(FLEET_TIMEOUT_S), "--fleet-scrape-interval-s", "0.5",
            "--rollout-file", spec, "--rollout-ready-timeout-s", "120", "--drain-timeout-s", "60",
-           "--", sys.executable, "-c", REPLICA_WRAPPER, work, *serve_args]
+           "--", sys.executable, "-X", "faulthandler", "-c", REPLICA_WRAPPER, work, *serve_args]
     print(f"[fleet] python -m seist_tpu_torch supervise-fleet --replicas {FLEET_REPLICAS} ... -- "
           f"serve {' '.join(serve_args)}", flush=True)
     t_start = time.monotonic()
@@ -3632,7 +3876,8 @@ def fleet_phase(name_power: str, weights: str, served: dict) -> dict:
         wait(in_rotation, 240, "two replicas in rotation")
         fleet_ready_s = time.monotonic() - t_start
         print(f"[fleet] two replicas in rotation after {fleet_ready_s:.1f} s", flush=True)
-        body = json.dumps({"data": traces(1)[0].tolist(), "options": {"max_events": 1}}).encode()
+        phase5 = traces(N_REQUESTS)
+        body = json.dumps({"data": phase5[0].tolist(), "options": {"max_events": 1}}).encode()
 
         # (a) SIGKILL at replica 0's 8th request under load.
         t_load = time.monotonic()
@@ -3711,15 +3956,23 @@ def fleet_phase(name_power: str, weights: str, served: dict) -> dict:
         if failed or not records:
             fail(f"client requests failed under the SIGKILL or the black hole: {failed[:5]}")
 
-        # Parity: phase 5's trace through the router, phase 5's answer.
-        status, got = post(url + "/predict", json.loads(body))
+        # Parity: phase 5's first two traces through the router, phase 5's
+        # answers; the two CPU answers differ, so a request fed the other
+        # one's waveform fails.
         fs = PredictOptions.from_dict({"max_events": 1}).sampling_rate
-        ok = (status == 200 and picks_close(got, served["ref0"], PICK_TOL_S * fs)
-              and picks_close(got, served["resp0"], PICK_TOL_S * fs))
-        print(f"[fleet] /predict through the router vs phase 5's CPU run of the same trace: "
-              f"{json.dumps(got)}; picks within {PICK_TOL_S} s: {ok}", flush=True)
-        if not ok:
-            fail("the fleet's answer differs from phase 5's")
+        status, got = post(url + "/predict", json.loads(body))
+        status1, got1 = post(url + "/predict", {"data": phase5[1].tolist(),
+                                                "options": {"max_events": 1}})
+        ok = (status == status1 == 200 and picks_close(got, served["ref0"], PICK_TOL_S * fs)
+              and picks_close(got, served["resp0"], PICK_TOL_S * fs)
+              and picks_close(got1, served["refs"][1], PICK_TOL_S * fs))
+        apart = not picks_close(served["refs"][0], served["refs"][1], PICK_TOL_S * fs)
+        print(f"[fleet] /predict through the router vs phase 5's CPU runs of the same traces: "
+              f"{json.dumps(got)}, {json.dumps(got1)}; picks within {PICK_TOL_S} s: {ok}; the "
+              f"two traces' CPU picks differ by more: {apart}", flush=True)
+        if not ok or not apart:
+            fail("the fleet's answers differ from phase 5's, or phase 5's two answers do not "
+                 "tell the traces apart")
 
         # /predict latency, through the router and direct to replica 1.
         lat_router = timed_requests(url, body, FLEET_LATENCY_REQUESTS, FLEET_CLIENTS)
@@ -3732,7 +3985,7 @@ def fleet_phase(name_power: str, weights: str, served: dict) -> dict:
               f"{np.percentile(lat_direct, 99):.1f} ms", flush=True)
 
         # (e) The fleet pane merges both replicas and the router.
-        sent_router = len(records) + 1 + FLEET_LATENCY_REQUESTS
+        sent_router = len(records) + 2 + FLEET_LATENCY_REQUESTS
         direct = FLEET_LATENCY_REQUESTS + 1  # replica 1's timed ones, replica 0's warming one
 
         def pane():
@@ -3746,7 +3999,7 @@ def fleet_phase(name_power: str, weights: str, served: dict) -> dict:
                for n, s in view["replicas"].items() if n.startswith("replica-")}
         router_req = agg["counters"].get("router_requests{path=predict}", 0.0)
         attempts = router_req + agg["counters"].get("router_retries", 0.0)
-        after_kill = len([r for r in records if r[0] >= back]) + FLEET_LATENCY_REQUESTS + 1
+        after_kill = len([r for r in records if r[0] >= back]) + FLEET_LATENCY_REQUESTS + 2
         summed = agg["collectors"].get("serve_requests_predict", 0.0)
         print(f"[fleet] (e) /fleet/metrics.json: {view['up']} sources up; /predict counted by "
               f"the replicas {per} (sum {summed:.0f}), by the router {router_req:.0f} "
@@ -3790,7 +4043,7 @@ def fleet_phase(name_power: str, weights: str, served: dict) -> dict:
         if (failed or min_ready[0] < 1 or not set(versions) <= {1, 2} or late != {2}
                 or None in roll_relaunch or re.search(r"crashed rc=(?!-9)", sup.text())):
             fail(f"the rolling restart failed: {failed[:5]}\n{sup.tail(40, r'^.fleet.')}\n"
-                 f"the replicas' last lines:\n{out.tail(40)}")
+                 f"{replica_tails(work, sup.text())}")
 
         # (d) The canary: replica 0 alone rolled to the bad candidate (with
         # no traffic, so its breaker is closed when the canary starts), then
@@ -3855,6 +4108,15 @@ def fleet_phase(name_power: str, weights: str, served: dict) -> dict:
           f"{log.count('drained (rc=75)')}; K1 launches on the fleet path {k1} or more (a "
           f"SIGKILLed process's count is lost): {[(n, c['K1']) for n, c in counts]}; fleet up in "
           f"{fleet_ready_s:.1f} s; phase 14 wall {wall:.1f} s", flush=True)
+    exits = collections.Counter(re.findall(r"replica \d+ (?:crashed rc=(-?\d+)|clean preempt "
+                                           r"\(rc=(75)\))", log))
+    exits = collections.Counter({int(a or b): n for (a, b), n in exits.items()})
+    print(f"[fleet] replica exits over the phase, by code: {dict(sorted(exits.items()))} "
+          f"(-9: the phase's SIGKILL; 75: a drain); an abort (-6): "
+          f"{'seen' if exits.get(-6) else 'not seen'}; each life's stdout and stderr "
+          f"(python -X faulthandler) in {work}/replica_r*_life*.log", flush=True)
+    if any(code not in (-9, 75) for code in exits):
+        print(replica_tails(work, log), flush=True)
     if (rc != 0 or log.count("drained (rc=75)") != FLEET_REPLICAS or len(counts) != lives - 1
             or k1 <= 0 or any(c["K1"] % served["n_shapes"] or c["K1_bf16"] for _, c in counts)):
         fail(f"the fleet did not stop cleanly or lost its counts\n{sup.tail(40, r'^.fleet.')}")
@@ -3874,10 +4136,7 @@ REPICK_GEOMETRY = ["--model", "", "--batch-size", str(REPICK_BATCH), "--batches-
 # own replays: both ends of both batches of its first, middle and last call.
 REPICK_CPU_ROWS = np.array([c * REPICK_ROWS_PER_CALL + o for c in (0, 8, 15)
                             for o in (0, REPICK_BATCH - 1, REPICK_BATCH, 2 * REPICK_BATCH - 1)])
-# The outputs of two different rows must differ by this multiple of
-# PROB_TOL, so the outputs check would see a row fed the wrong waveform.
-REPICK_SEPARATION = 10.0
-# Phase 5's weights answer every waveform alike (their outputs do not move
+# The seeded weights answer every waveform alike (their outputs do not move
 # with the input); phase 15's cut each BatchNorm's scale and shift by this
 # gain and set its statistics from the archive (repick_weights), so the
 # outputs follow the waveform while the int8 weights stay inside their
@@ -3941,11 +4200,12 @@ sys.exit(sup.main(sys.argv[3:]))
 
 
 @torch.no_grad()
-def repick_weights(path: str, flat: str, rows: np.ndarray) -> None:
-    """Phase 15's weights: phase 5's (``flat``) with every BatchNorm's
-    scale and shift times REPICK_BN_GAIN and its running statistics those
-    of its input on ``rows`` (archive rows, (n, 3, WINDOW)), set layer by
-    layer in one eval forward on the CPU."""
+def calibrated_weights(flat: str, rows: np.ndarray, gain: float) -> Dict[str, torch.Tensor]:
+    """Weights whose outputs follow the waveform: ``flat``'s (phase 5's
+    seeded draw, whose outputs do not) with every BatchNorm's scale and
+    shift times ``gain`` and its running statistics those of its input on
+    ``rows`` ((n, 3, WINDOW) traces), set layer by layer in one eval
+    forward on the CPU."""
     from seist_tpu_torch.batch.engine import normalize_transpose
     from seist_tpu_torch.models.common import BatchNorm
 
@@ -3961,15 +4221,20 @@ def repick_weights(path: str, flat: str, rows: np.ndarray) -> None:
         norm.running_var.copy_(x.var(dims, correction=0))
 
     for norm in norms:
-        norm.weight.mul_(REPICK_BN_GAIN)
-        norm.bias.mul_(REPICK_BN_GAIN)
+        norm.weight.mul_(gain)
+        norm.bias.mul_(gain)
     hooks = [norm.register_forward_pre_hook(calibrate) for norm in norms]
     try:
         model(normalize_transpose(torch.from_numpy(rows)))
     finally:
         for h in hooks:
             h.remove()
-    torch.save(model.state_dict(), path)
+    return model.state_dict()
+
+
+def repick_weights(path: str, flat: str, rows: np.ndarray) -> None:
+    """Phase 15's weights: :func:`calibrated_weights` on archive rows."""
+    torch.save(calibrated_weights(flat, rows, REPICK_BN_GAIN), path)
 
 
 @contextlib.contextmanager
@@ -4000,21 +4265,11 @@ def kept_outputs(kept: Dict[int, np.ndarray]):
 
 def check_kept(what: str, kept: Dict[int, np.ndarray], want: np.ndarray) -> Tuple[float, float]:
     """A run's kept outputs against the CPU's ``want`` of the same rows
-    (REPICK_CPU_ROWS' order): within PROB_TOL, and every row at least
-    REPICK_SEPARATION x PROB_TOL from every other row's CPU outputs.
-    Returns (max abs error, the smallest separation)."""
+    (REPICK_CPU_ROWS' order), by :func:`check_separated`. Returns (max abs
+    error, the smallest separation)."""
     if sorted(kept) != sorted(int(r) for r in REPICK_CPU_ROWS):
         fail(f"{what}: outputs kept of rows {sorted(kept)}, expected {REPICK_CPU_ROWS.tolist()}")
-    got = np.stack([kept[int(r)] for r in REPICK_CPU_ROWS])
-    err = float(np.abs(got - want).max())
-    sep = min(float(np.abs(got[i] - want[j]).max())
-              for i in range(len(got)) for j in range(len(want)) if i != j)
-    if err > PROB_TOL:
-        fail(f"{what}: the run's outputs lie {err:.3e} from the CPU's (limit {PROB_TOL})")
-    if sep < REPICK_SEPARATION * PROB_TOL:
-        fail(f"{what}: two rows' outputs lie only {sep:.3e} apart: the check of the "
-             f"outputs could not see a row fed the wrong waveform")
-    return err, sep
+    return check_separated(what, np.stack([kept[int(r)] for r in REPICK_CPU_ROWS]), want)
 
 
 def repick_pack(out: str, dtype: str) -> None:
@@ -4147,9 +4402,9 @@ def repick_phase(name_power: str, weights: str) -> dict:
     flat = load_model_entry(MODEL, weights, window=WINDOW, device="cpu")
     with torch.inference_mode():
         out5 = flat.model(engine_mod.normalize_transpose(torch.from_numpy(first_rows))).numpy()
-    print(f"[repick] phase 5's weights on the CPU: rows 0-3's outputs at most "
-          f"{float(np.abs(out5 - out5[:1]).max()):.2e} apart (they do not follow the waveform)",
-          flush=True)
+    print(f"[repick] the seeded weights (phase 5's before calibration) on the CPU: rows 0-3's "
+          f"outputs at most {float(np.abs(out5 - out5[:1]).max()):.2e} apart (they do not "
+          f"follow the waveform)", flush=True)
     del flat
     geometry = list(REPICK_GEOMETRY)
     geometry[1] = f"{MODEL}={rp_weights}"
@@ -4252,7 +4507,7 @@ def repick_phase(name_power: str, weights: str) -> dict:
                 fail(f"(b): row {r}: card {rows_a[r]} against the CPU {cpu_rows[k]}")
         print(f"[repick] (b) card vs CPU, rows {REPICK_CPU_ROWS.tolist()} of (a)'s replays: "
               f"outputs within {prob_err:.2e} (limit {PROB_TOL}), two rows at least {sep:.2e} "
-              f"apart (limit {REPICK_SEPARATION * PROB_TOL:.0e}); picks and detections within "
+              f"apart (limit {SEPARATION:.0e}); picks and detections within "
               f"{PICK_TOL_S} s ({ties} moved across a near-tie of the CPU's outputs); CPU "
               f"references {cpu_s:.1f} s", flush=True)
 
@@ -4409,6 +4664,328 @@ def repick_phase(name_power: str, weights: str) -> dict:
             "wall_s": time.perf_counter() - t_phase}
 
 
+# ------------------------------------------------------------- phase 16
+PREDICT_WRAPPER = """\
+import atexit, json, sys
+from seist_tpu_torch.ops import pooled_attention as pa
+
+def _plain_off_path(*a, **k):
+    raise AssertionError("pooled_attention_plain reached on the predict path")
+
+pa.pooled_attention_plain = _plain_off_path
+
+def _dump():
+    with open(sys.argv[1], "w") as f:
+        json.dump({"K1": pa.launches, "K1_bf16": pa.bf16_launches}, f)
+
+atexit.register(_dump)
+from seist_tpu_torch.__main__ import main
+main(sys.argv[2:])
+"""
+PICK_TIE_TOL = 10 * PROB_TOL  # (b)'s near-tie: the CPU curve at the two samples
+FINETUNE_BATCH = 4  # (d): the CPU's first step runs at this batch too
+# (d) and (e): drop rates as phase 7's (the card's and the CPU's dropout and
+# DropPath generators differ; the attention's counter hash does not).
+ATTENTION_ONLY = dict(path_drop_rate=0.0, key_drop_rate=0.0, mlp_drop_rate=0.0,
+                      other_drop_rate=0.0)
+REMAT_LOSS_RTOL = 1e-6
+
+
+@contextlib.contextmanager
+def plain_attention_off(what: str):
+    """The plain attention patched to raise, for the card's runs."""
+    real = pa.pooled_attention_plain
+
+    def off_path(*a, **k):
+        raise AssertionError(f"pooled_attention_plain reached on the {what} path")
+
+    pa.pooled_attention_plain = off_path
+    try:
+        yield
+    finally:
+        pa.pooled_attention_plain = real
+
+
+def csv_picks(path: str) -> Dict[str, List[int]]:
+    """``predict``'s CSV as sample lists: P, S and detection onsets."""
+    kinds = {"P": "ppk", "S": "spk", "detection": "det"}
+    out: Dict[str, List[int]] = {"ppk": [], "spk": [], "det": []}
+    with open(path, newline="") as f:
+        for row in csv.DictReader(f):
+            out[kinds[row["kind"]]].append(int(row["sample"]))
+    return out
+
+
+def offline_picks_agree(card: Dict[str, List[int]], cpu: Dict[str, List[int]],
+                        prob: np.ndarray) -> Tuple[bool, int, int]:
+    """The card's picks against the CPU's: as many of each kind, each
+    within PICK_TOL_S of the CPU's, or moved between two samples whose CPU
+    curve values (ppk, spk, det channels) differ by at most PICK_TIE_TOL (a
+    near-tie, phase 12's rule). Returns (agree, near-ties, largest move)."""
+    ties, worst = 0, 0
+    for kind, ch in (("ppk", 1), ("spk", 2), ("det", 0)):
+        a, b = sorted(card[kind]), sorted(cpu[kind])
+        if len(a) != len(b):
+            return False, ties, worst
+        for x, y in zip(a, b):
+            worst = max(worst, abs(x - y))
+            if abs(x - y) <= PICK_TOL_S * 50:
+                continue
+            if abs(float(prob[x, ch]) - float(prob[y, ch])) > PICK_TIE_TOL:
+                return False, ties, worst
+            ties += 1
+    return True, ties, worst
+
+
+def predict_check(work: str, weights: str, options: dict, n_shapes: int) -> dict:
+    """(b): ``predict`` of phase 13's 10-minute record on the card (a child
+    process under PREDICT_WRAPPER) and, meanwhile, on the CPU in this
+    process; phase 13's thresholds (the CPU curve's PICK_QUANTILE)."""
+    from seist_tpu_torch import predict
+
+    rec = long_record(SEED)
+    npz = os.path.join(work, "record.npz")
+    np.savez(npz, data=rec.T)  # (C, L): predict transposes it back
+    flags = ["--model-name", MODEL, "--checkpoint", weights, "--input", npz,
+             "--window", str(WINDOW), "--batch-size", str(BATCH),
+             "--ppk-threshold", repr(options["ppk_threshold"]),
+             "--spk-threshold", repr(options["spk_threshold"]),
+             "--det-threshold", repr(options["det_threshold"]),
+             "--max-events", str(RECORD_EVENTS)]
+    card_csv, cpu_csv = os.path.join(work, "card.csv"), os.path.join(work, "cpu.csv")
+    counts_json = os.path.join(work, "predict_k1.json")
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", PREDICT_WRAPPER, counts_json, "predict",
+                             *flags, "--output", card_csv], cwd=work, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        cpu = predict.main(flags + ["--output", cpu_csv, "--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    card_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"predict on the card exited {proc.returncode}: {err[-2000:]}")
+    with open(counts_json) as f:
+        k1 = json.load(f)
+    card, want = csv_picks(card_csv), csv_picks(cpu_csv)
+    agree, ties, worst = offline_picks_agree(card, want, cpu["prob"])
+    with open(card_csv, "rb") as f, open(cpu_csv, "rb") as g:
+        same_bytes = f.read() == g.read()
+    windows = len(stream_ops.window_offsets(RECORD, WINDOW, WINDOW // 2))
+    replays = -(-windows // BATCH)
+    print(f"[offline] (b) predict {MODEL}, {RECORD} samples ({windows} windows, --batch-size "
+          f"{BATCH}): card {out.strip().splitlines()[-1]!r} in {card_s:.1f} s (a process), CPU "
+          f"in this process {cpu_s:.1f} s; P/S/detection rows card "
+          f"{[len(card[k]) for k in ('ppk', 'spk', 'det')]} CPU "
+          f"{[len(want[k]) for k in ('ppk', 'spk', 'det')]}, agree within {PICK_TOL_S} s or a "
+          f"near-tie: {agree} ({ties} near-ties admitted, largest move {worst} samples), CSVs "
+          f"byte-identical: {same_bytes}; K1 in the card's process {k1['K1']} ({replays} "
+          f"replay(s) x {n_shapes}), plain attention never reached", flush=True)
+    if not agree or not want["ppk"] or k1["K1"] != n_shapes * replays or k1["K1_bf16"]:
+        fail("predict on the card differs from the CPU's, found no picks, or did not replay "
+             "its program with K1")
+    return {"K1": k1["K1"], "ties": ties}
+
+
+def demo_check(work: str, weights: str, n_shapes: int) -> dict:
+    """(c): ``demo`` of phase 5's first trace on the card against the CPU."""
+    import importlib.util
+
+    from seist_tpu_torch import demo
+
+    npz = os.path.join(work, "trace.npz")
+    np.savez(npz, data=traces(N_REQUESTS)[0])
+    argv = ["--model-name", MODEL, "--checkpoint", weights, "--input", npz,
+            "--in-samples", str(WINDOW), "--output-dir", os.path.join(work, "demo_out")]
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    before = pa.launches
+    with plain_attention_off("demo"):
+        if has_mpl:
+            card = demo.main(argv + ["--device", "cuda"])
+            figure = all(os.path.getsize(p) > 0 for p in card["paths"])
+        else:
+            try:
+                demo.main(argv + ["--device", "cuda"])
+                fail("the demo did not raise without matplotlib")
+            except ImportError as e:
+                print(f"[offline] (c) the demo without matplotlib: ImportError: {e}", flush=True)
+            card = demo.predict_trace(demo.get_args(argv + ["--device", "cuda"]))
+            figure = None
+    k1 = pa.launches - before
+    cpu = demo.predict_trace(demo.get_args(argv + ["--device", "cpu"]))
+    err = float(np.abs(card["preds"] - cpu["preds"]).max())
+    forwards = 1 if has_mpl else 2
+    print(f"[offline] (c) demo {MODEL} on phase 5's trace 0: card vs CPU probabilities "
+          f"max_abs_err {err:.3e} (limit 1e-05); picks card {json.dumps(card['picks'])} CPU "
+          f"{json.dumps(cpu['picks'])}; matplotlib on this machine: "
+          f"{'yes' if has_mpl else 'no'}; figure written: {figure}; K1 {k1}", flush=True)
+    if not err <= 1e-5 or (has_mpl and not figure) or k1 != n_shapes * forwards:
+        fail("the demo on the card differs from the CPU, wrote no figure, or missed K1")
+    return {"K1": k1}
+
+
+@contextlib.contextmanager
+def record_first_step(first: dict):
+    """The train worker's captured step, with its first call's batch kept
+    (on the host) in ``first``."""
+    real = worker.capture_train_step
+
+    def capture(step):
+        run = real(step)
+
+        def rec(state, inputs, targets, rng, keep_outputs=False):
+            if not first:
+                first.update(x=inputs.detach().cpu().clone(), y=targets.detach().cpu().clone())
+            return run(state, inputs, targets, rng, keep_outputs=keep_outputs)
+
+        rec.graphs = run.graphs
+        return rec
+
+    worker.capture_train_step = capture
+    try:
+        yield first
+    finally:
+        worker.capture_train_step = real
+
+
+@contextlib.contextmanager
+def model_overrides(**kw):
+    """``api.create_model`` with ``kw`` (the train worker builds its model
+    through it)."""
+    real = api.create_model
+
+    def create(name, *a, **k):
+        return real(name, *a, **{**kw, **k})
+
+    api.create_model = create
+    try:
+        yield
+    finally:
+        api.create_model = real
+
+
+def finetune_check(weights: str, n_shapes: int) -> dict:
+    """(d): ``train --checkpoint W.pt --mode train`` from the imported
+    weights alone, one epoch of phase 6's events at batch FINETUNE_BATCH,
+    and its first step against the same step on the CPU."""
+    run_dir = os.path.splitext(weights)[0]
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = list(TRAIN_ARGS)
+    argv[argv.index("--batch-size") + 1] = str(FINETUNE_BATCH)
+    argv += ["--mode", "train", "--checkpoint", weights, "--use-tensorboard", "false"]
+    first: dict = {}
+    with record_first_step(first), model_overrides(**ATTENTION_ONLY):
+        best, counts, wall_s, lines = run_entry(argv)
+    losses = np.load(os.path.join(run_dir, "train_losses.npy"))
+    steps = len(losses)
+    started = [x for x in lines if x.startswith(f"Resumed from {weights} (epoch 0, batch offset "
+                                                "0, loss inf, update step 0)")]
+    no_opt = [x for x in lines if "has no optimizer state; loading params only" in x]
+    record = torch.load(state_path_for(best), map_location="cpu", weights_only=True)
+    model = api.create_model(MODEL, in_samples=WINDOW, seed=SEED, **ATTENTION_ONLY)
+    model.load_state_dict(torch.load(weights, map_location="cpu", weights_only=True))
+    state = TrainState(model, build_optimizer("adam", model.parameters()), constant(1e-3))
+    loss, _, _ = make_train_step(taskspec.make_loss(MODEL))(
+        state, first["x"], first["y"], step_random_source(SEED, 0, 0, "cpu"))
+    rel = abs(float(losses[0]) - float(loss)) / abs(float(loss))
+    print(f"[offline] (d) train --checkpoint {os.path.basename(weights)} --mode train, one "
+          f"epoch at b{FINETUNE_BATCH}: {steps} steps in {wall_s:.1f} s, log dir {run_dir}; "
+          f"'no optimizer state' logged: {bool(no_opt)}; started at epoch 0, batch 0, update "
+          f"step 0: {bool(started)}; best checkpoint {os.path.basename(best)} at update "
+          f"{record['step']}; first step's loss {float(losses[0]):.7f} vs the CPU's "
+          f"{float(loss):.7f} from the same weights and batch (rel {rel:.2e}, limit 1e-04); "
+          f"K1 {counts['K1']}, K2 {counts['K2']}", flush=True)
+    if (not no_opt or not started or rel > 1e-4 or record["step"] > steps
+            or counts["K2"] != n_shapes * steps or counts["K1"] % n_shapes
+            or counts["K1"] <= counts["K2"] or not np.isfinite(losses).all()):
+        fail("the fine-tune from the weights alone did not start from step 0 or its first "
+             "step differs from the CPU's")
+    return counts
+
+
+def remat_check(flat: str, dev, n_shapes: int) -> dict:
+    """(e): one captured b64 train step, drop rates 0.3, with and without
+    ``use_checkpoint``, from the same weights, batch and randomness."""
+    loss_fn = taskspec.make_loss(MODEL)
+    g = torch.Generator().manual_seed(SEED + 16)
+    x = torch.randn(TRAIN_BATCH, WINDOW, 3, generator=g).to(dev)
+    y = torch.rand(TRAIN_BATCH, WINDOW, 3, generator=g).to(dev)
+    runs = {}
+    for remat in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model = api.create_model(MODEL, in_samples=WINDOW, seed=SEED, use_checkpoint=remat)
+        model.load_state_dict(torch.load(flat, map_location="cpu", weights_only=True))
+        state = TrainState(model.to(dev), build_optimizer("adam", model.parameters()),
+                           constant(1e-4))
+        step = capture_train_step(make_train_step(loss_fn))
+        before = pa.counts()
+        loss, _, diag = step(state, x, y, step_random_source(SEED, 0, 0, dev))
+        torch.cuda.synchronize()
+        launches = tuple(b - a for a, b in zip(before, pa.counts()))
+        graph = next(iter(step.graphs.by_key.values()))
+        runs[remat] = {
+            "loss": float(loss), "applied": bool(diag["applied"]), "launches": launches,
+            "per_replay": graph.launches[:2],
+            "grads": {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()},
+            "zero": set(model.zero_grad_parameters()),
+            "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+            "capture_s": step.graphs.capture_seconds[0]}
+        del state, step, graph, model
+    off, on = runs[False], runs[True]
+    rel = abs(on["loss"] - off["loss"]) / abs(off["loss"])
+    gscale = max(float(v.abs().max()) for v in off["grads"].values())
+    worst_cos, worst_rel = 1.0, 0.0
+    for k, go in off["grads"].items():
+        gn = on["grads"][k]
+        if k in off["zero"]:
+            if max(float(go.abs().max()), float(gn.abs().max())) >= ZERO_REL * gscale:
+                fail(f"(e) {k}: gradient should be ~0")
+            continue
+        cos = float((gn * go).sum() / (gn.norm() * go.norm()))
+        worst_cos = min(worst_cos, cos)
+        worst_rel = max(worst_rel, float((gn - go).abs().max() / max(float(go.abs().max()),
+                                                                      1e-12)))
+    print(f"[offline] (e) {MODEL} b{TRAIN_BATCH} captured train step, drop rates 0.3, "
+          f"use_checkpoint on vs off: loss {on['loss']:.8f} vs {off['loss']:.8f} (rel {rel:.2e}, "
+          f"limit {REMAT_LOSS_RTOL:.0e}); gradients worst cosine {worst_cos:.7f} (limit "
+          f"{GRAD_COS}), worst rel err {worst_rel:.2e} (limit {GRAD_REL:.0e}); K1/K2 per replay "
+          f"{on['per_replay']} vs {off['per_replay']}, over the call {on['launches'][:2]} vs "
+          f"{off['launches'][:2]}; peak memory above what was allocated before (capture and "
+          f"step) {on['peak_gib']:.2f} GiB vs {off['peak_gib']:.2f} GiB; capture "
+          f"{on['capture_s']:.2f} s vs {off['capture_s']:.2f} s", flush=True)
+    if (not on["applied"] or not off["applied"] or rel > REMAT_LOSS_RTOL
+            or worst_cos < GRAD_COS or worst_rel > GRAD_REL):
+        fail("(e) the rematerialised step differs from the plain one")
+    for r, recompute in ((off, 0), (on, 1)):
+        check_launches({"K1": r["launches"][0], "K2": r["launches"][1], "K3": 0}, n_shapes,
+                       forwards=1, steps=1, recomputes=recompute)
+    return {"K1": off["launches"][0] + on["launches"][0],
+            "K2": off["launches"][1] + on["launches"][1]}
+
+
+def offline_phase(weights: str, flat: str, options: dict, n_shapes: int, dev) -> dict:
+    """Phase 16 (module docstring); (a) ran before phase 5."""
+    work = os.path.join(str(_kernels.BUILD_DIR), "offline")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    predicted = predict_check(work, weights, options, n_shapes)
+    demoed = demo_check(work, weights, n_shapes)
+    tuned = finetune_check(weights, n_shapes)
+    remat = remat_check(flat, dev, n_shapes)
+    return {"counts": {"K1": predicted["K1"] + demoed["K1"] + tuned["K1"] + remat["K1"],
+                       "K2": tuned["K2"] + remat["K2"], "K3": 0, "K1_bf16": 0, "K2_bf16": 0},
+            "predict_K1": predicted["K1"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this drives the "
@@ -4479,7 +5056,13 @@ def main() -> int:
     lap("phase 8, the kernels' times")
     weights = os.path.join(str(_kernels.BUILD_DIR), f"{MODEL}_seed{SEED}.pt")
     seeded_weights(weights)
-    served = serve_phase(weights, len(shapes))
+    # Phases 5 and 12-14 serve weights whose outputs follow the waveform,
+    # imported from a reference-layout .pth (phase 16a); the train phases
+    # and phase 15 start from the seeded ones.
+    imported = imported_weights(weights)
+    served_weights = imported["weights"]
+    lap("phase 16a (import-pretrained)")
+    served = serve_phase(served_weights, len(shapes))
     lap("phase 5")
     logs = os.path.join(str(_kernels.BUILD_DIR), "train_logs")
     mem_before_train = allocated_gib()
@@ -4516,13 +5099,13 @@ def main() -> int:
           f"{served['client_p50_ms']:.1f} ms p99 {served['client_p99_ms']:.1f} ms; "
           f"server p50 {lat['p50']:.1f} ms p99 {lat['p99']:.1f} ms", flush=True)
     served_launches = served["launches"]
-    served_ref = {k: served[k] for k in ("ref0", "resp0", "n_shapes")}
+    served_ref = {k: served[k] for k in ("ref0", "resp0", "refs", "n_shapes")}
     del served
 
     step_ms = {}
     for dtype in ("fp32", "bf16"):
         for batch in (TRAIN_BATCH, 256):
-            for mode in (("eager", "captured") if batch == TRAIN_BATCH else ("captured",)):
+            for mode in ("captured",):
                 run = time_train_step(weights, batch, dtype=dtype, captured=mode == "captured")
                 if dtype == "fp32" and mode == "captured":  # what the train worker runs
                     step_ms[batch] = run["ms"]
@@ -4555,15 +5138,15 @@ def main() -> int:
                                  loader_rows)
     path_counts += augmented["counts"]
     lap("phase 11")
-    programs = programs_phase(name_power, weights, len(shapes))
+    programs = programs_phase(name_power, served_weights, len(shapes))
     path_counts.append(programs["counts"])
     lap("phase 12")
-    streams = streams_phase(name_power, weights)
+    streams = streams_phase(name_power, served_weights)
     path_counts.append(streams["counts"])
     lap("phase 13")
     gc.collect()
     torch.cuda.empty_cache()  # the replicas of phase 14 share the card
-    fleet = fleet_phase(name_power, weights, served_ref)
+    fleet = fleet_phase(name_power, served_weights, served_ref)
     path_counts.append(fleet["counts"])
     lap("phase 14")
     gc.collect()
@@ -4571,6 +5154,11 @@ def main() -> int:
     repicked = repick_phase(name_power, weights)
     path_counts.append(repicked["counts"])
     lap("phase 15")
+    gc.collect()
+    torch.cuda.empty_cache()
+    offline = offline_phase(served_weights, weights, streams["record_options"], len(shapes), dev)
+    path_counts.append(offline["counts"])
+    lap("phase 16")
 
     fp32 = [r for r in rows if r["dtype"] == "fp32"]  # the serving path is fp32
     bf16_rows = [r for r in rows if r["dtype"] == "bf16"]
@@ -4595,7 +5183,9 @@ def main() -> int:
           f"{programs['counts']['K1']} (bf16 {programs['counts']['K1_bf16']}); long-record and "
           f"stream planes (phase 13): K1 {streams['counts']['K1']}; fleet (phase 14): K1 "
           f"{fleet['counts']['K1']} or more; re-picking (phase 15, this process): K1 "
-          f"{repicked['counts']['K1']}; all paths: K1 "
+          f"{repicked['counts']['K1']}; offline prediction, fine-tuning and remat (phase 16): "
+          f"K1 {offline['counts']['K1']} (predict's process {offline['predict_K1']}), K2 "
+          f"{offline['counts']['K2']}; all paths: K1 "
           f"{launches['K1']} (bf16 "
           f"{launches['K1_bf16']}), K2 {launches['K2']} (bf16 {launches['K2_bf16']}), K3 "
           f"{launches['K3']}", flush=True)

@@ -1,7 +1,11 @@
 """``python -m seist_tpu_torch serve|train|pack|supervise|router|supervise-fleet|repick|
-supervise-repick ...``: the port's command line. ``router``,
-``supervise-fleet`` and ``supervise-repick`` are model-free host processes:
-they take no device and import neither torch nor numpy."""
+supervise-repick|import-pretrained|predict|demo ...``: the port's command
+line. ``router``, ``supervise-fleet`` and ``supervise-repick`` are
+model-free host processes: they take no device and import neither torch
+nor numpy. ``import-pretrained`` converts the reference's published
+``.pth`` weights into the port's weights file on the host; ``predict``
+picks a continuous record into a CSV and ``demo`` plots one trace, on the
+card unless ``--device cpu`` is passed."""
 
 from __future__ import annotations
 
@@ -18,7 +22,13 @@ _USAGE = (
     "       python -m seist_tpu_torch repick --archive PACK --out DIR --model NAME[=WEIGHTS] "
     "[--workers N | --fleet --lease-dir D | --merge-only] ...\n"
     "       python -m seist_tpu_torch supervise-repick --archive PACK --out DIR --model NAME "
-    "--workers N --lease-dir D ..."
+    "--workers N --lease-dir D ...\n"
+    "       python -m seist_tpu_torch import-pretrained --pth W.pth --model-name NAME --out W.pt "
+    "[--in-samples N] [--in-channels C]\n"
+    "       python -m seist_tpu_torch predict --model-name NAME --checkpoint W.pt --input REC.npz "
+    "[--output picks.csv] ...\n"
+    "       python -m seist_tpu_torch demo --model-name NAME [--checkpoint W.pt] [--input T.npz] "
+    "[--output-dir D] ..."
 )
 
 
@@ -56,6 +66,18 @@ def main(argv=None) -> None:
         from seist_tpu_torch.supervise_repick import main as supervise_repick_main
 
         sys.exit(supervise_repick_main(argv[1:]))
+    elif argv and argv[0] == "import-pretrained":
+        from seist_tpu_torch.import_pretrained import main as import_main
+
+        import_main(argv[1:])
+    elif argv and argv[0] == "predict":
+        from seist_tpu_torch.predict import main as predict_main
+
+        predict_main(argv[1:])
+    elif argv and argv[0] == "demo":
+        from seist_tpu_torch.demo import main as demo_main
+
+        demo_main(argv[1:])
     else:
         raise SystemExit(_USAGE)
 

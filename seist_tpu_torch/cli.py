@@ -6,7 +6,9 @@ the port runs, plus ``--device`` (default ``cuda``; it raises without a
 card unless ``--device cpu`` is given). ``--mode`` is ``train``, ``test``
 or ``train_test`` (the default): after training, the test run takes the
 best checkpoint. With ``--checkpoint`` the log directory is that
-checkpoint's run directory, and a train run resumes from it.
+checkpoint's run directory (:func:`run_dir_of`), and a train run resumes
+from it; a weights file alone (``import-pretrained``'s) starts a fine-tune
+from its weights with a fresh optimizer at epoch 0, step 0.
 
 Datasets: ``synthetic`` and ``packed`` (``--data`` a pack directory, from
 ``python -m seist_tpu_torch pack`` or the JAX package's ``python -m
@@ -81,7 +83,8 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     # Model
     ap.add_argument("--model-name", default="seist_m_dpk", type=str)
     ap.add_argument("--checkpoint", default="", type=str,
-                    help="model_<step>.pt: resume (train) or the weights to test")
+                    help="model_<step>.pt: resume (train) or the weights to test; a "
+                    "weights file alone: fine-tune from it (train)")
     ap.add_argument("--seq-shards", default=1, type=int, dest="seq_shards")
     ap.add_argument("--conv-kernel-l1-alpha", default=0.0, type=float,
                     dest="conv_kernel_l1_alpha",
@@ -272,12 +275,15 @@ def _refuse_unported(args: argparse.Namespace) -> None:
 
 
 def run_dir_of(checkpoint: str) -> str:
-    """The run directory of ``<run>/checkpoints/model_<step>.pt``; for a
-    weights file outside a ``checkpoints`` directory, its own directory."""
+    """The run directory of ``<run>/checkpoints/model_<step>.pt``. For a
+    weights file outside a ``checkpoints`` directory (an imported one), a
+    directory named after the file: ``W.pt`` -> ``W/``, as the JAX package
+    logs into the imported checkpoint's own directory
+    (``checkpoint.split("checkpoints")[0]``)."""
     parent = os.path.dirname(checkpoint)
     if os.path.basename(parent) == "checkpoints":
         return os.path.dirname(parent)
-    return parent
+    return os.path.splitext(checkpoint)[0]
 
 
 def main(argv: Optional[List[str]] = None) -> str:

@@ -21,6 +21,12 @@ precision policy; ``Dropout`` and
 forward (``F.dropout`` would read the global RNG). DropPath can instead
 consume injected uniform rows in call order, as
 ``seist_tpu/models/common.py::droppath_mask_injection`` does.
+
+Rematerialisation (:func:`remat`, SeisT's ``use_checkpoint``): a stage
+runs under ``torch.utils.checkpoint`` with a :class:`StageTape`, which
+records every draw of the stage's first forward (uniforms, DropPath rows,
+attention seeds) and hands them back, in order, to the recompute of the
+backward pass, where BatchNorm leaves its running statistics alone.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from seist_tpu_torch.train.precision import policy_dtype
+from seist_tpu_torch.train.precision import policy_dtype, precision_policy
 
 #: torch BatchNorm1d's epsilon, as ``seist_tpu/models/common.py:498``.
 BN_EPSILON = 1e-5
@@ -345,9 +351,24 @@ class RandomSource:
         self.droppath_calls = 0
 
     def uniform(self, shape, device) -> torch.Tensor:
-        if self.generator is None:
-            raise RuntimeError("this RandomSource has no generator for dropout")
-        return torch.rand(shape, generator=self.generator, device=device)
+        def draw():
+            if self.generator is None:
+                raise RuntimeError("this RandomSource has no generator for dropout")
+            return torch.rand(shape, generator=self.generator, device=device)
+
+        return _taped(draw)
+
+    def droppath_uniform(self, n: int, device) -> torch.Tensor:
+        """DropPath's (n,) uniforms: the next injected row, or a draw."""
+        if self.droppath_uniforms is None:
+            return self.uniform((n,), device)
+
+        def draw():
+            u = self.droppath_uniforms[self.droppath_calls].to(device)
+            self.droppath_calls += 1
+            return u
+
+        return _taped(draw)
 
     def draw_attention_seed(self) -> int:
         """An int32 seed in [0, 2^31 - 1), as ``jax.random.randint(key,
@@ -359,6 +380,9 @@ class RandomSource:
     def attention_seed(self, device) -> torch.Tensor:
         """The next attention call's seed: an int32 scalar tensor on
         ``device`` (class docstring)."""
+        return _taped(lambda: self._next_attention_seed(device))
+
+    def _next_attention_seed(self, device) -> torch.Tensor:
         i = self.attention_calls
         if self.attention_seeds is not None:
             if i >= self.attention_seeds.numel():
@@ -373,9 +397,84 @@ class RandomSource:
         return seed
 
 
+class StageTape:
+    """The draws of one rematerialised stage. Its first forward records
+    each draw of the stage (a uniform tensor, a DropPath row, an attention
+    seed) in call order, with the precision policy it ran under; the
+    recompute in the backward pass reads them back in the same order, so
+    it applies the same dropout masks, DropPath decisions and attention
+    seeds, and makes no draw of its own. Replaying tensors rather than
+    generator states keeps this working inside a captured CUDA graph, where
+    a generator's state can be neither read nor set."""
+
+    def __init__(self):
+        self.draws: list = []
+        self.replaying = False
+        self.at = 0
+        self.dtype: Optional[torch.dtype] = None
+
+    def take(self, draw):
+        if not self.replaying:
+            value = draw()
+            self.draws.append(value)
+            return value
+        if self.at >= len(self.draws):
+            raise RuntimeError(f"the recompute of a stage drew {self.at + 1} times; its "
+                               f"forward drew {len(self.draws)} times")
+        value = self.draws[self.at]
+        self.at += 1
+        return value
+
+
+#: The tape of the stage running now (None outside :func:`remat`). A plain
+#: global, not a thread-local: on the card the recompute runs on autograd's
+#: device thread while the caller waits in ``backward``.
+_TAPE: Optional[StageTape] = None
+
+
+def _taped(draw):
+    return draw() if _TAPE is None else _TAPE.take(draw)
+
+
+def recomputing() -> bool:
+    """True inside the backward pass's recompute of a stage."""
+    return _TAPE is not None and _TAPE.replaying
+
+
+def remat(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` without keeping its activations: they are recomputed in
+    the backward pass (``torch.utils.checkpoint``, non-reentrant), which
+    replays the forward's draws from a :class:`StageTape` (flax
+    ``nn.remat`` of the JAX package, ``seist_tpu/models/seist.py:888``)."""
+    from torch.utils.checkpoint import checkpoint
+
+    tape = StageTape()
+
+    def body(t: torch.Tensor) -> torch.Tensor:
+        global _TAPE
+        outer = _TAPE
+        _TAPE = tape
+        try:
+            if not tape.replaying:
+                tape.dtype = policy_dtype()
+                return fn(t)
+            tape.at = 0
+            with precision_policy(tape.dtype):
+                return fn(t)
+        finally:
+            _TAPE = outer
+            tape.replaying = True
+
+    return checkpoint(body, x, use_reentrant=False, preserve_rng_state=False)
+
+
 def need_source(module: nn.Module) -> RandomSource:
-    """The RandomSource attached to ``module``; raises when there is none."""
+    """The RandomSource attached to ``module``; raises when there is none.
+    A stage's recompute needs none (the train step detaches its source
+    after the forward): every draw there comes from the stage's tape."""
     src = getattr(module, "random", None)
+    if src is None and recomputing():
+        return RandomSource()
     if src is None:
         raise RuntimeError(
             f"{type(module).__name__} in training mode needs a RandomSource: "
@@ -420,11 +519,13 @@ class BatchNorm(nn.Module):
             mean = xf.mean(dims)
             var = (xf.square().mean(dims) - mean.square()).clamp_min(0.0)
             n = math.prod(x.shape[:-1])
-            with torch.no_grad():
-                unbiased = var * (n / max(n - 1, 1))
-                m = BN_MOMENTUM
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * unbiased)
+            # A stage's recompute (remat) must not move the statistics again.
+            if not recomputing():
+                with torch.no_grad():
+                    unbiased = var * (n / max(n - 1, 1))
+                    m = BN_MOMENTUM
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
@@ -466,13 +567,8 @@ class DropPath(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate <= 0.0:
             return x
-        src = need_source(self)
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        if src.droppath_uniforms is not None:
-            u = src.droppath_uniforms[src.droppath_calls].to(x.device)
-            src.droppath_calls += 1
-        else:
-            u = src.uniform((x.shape[0],), x.device)
+        u = need_source(self).droppath_uniform(x.shape[0], x.device)
         mask = (u < keep).reshape(shape)
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -14,8 +14,12 @@ kernels on the card, forward and backward. In training mode (``train()``)
 the model applies MLP, key and output-projection dropout, DropPath and
 post-softmax attention dropout, drawn from the :class:`RandomSource`
 attached with :func:`common.set_random_source`; the attention seed is
-drawn per call from its CPU generator. Stage rematerialisation
-(``use_checkpoint``) and sequence-parallel ring attention are not ported.
+drawn per call from its CPU generator. With ``use_checkpoint`` each
+stage (its aggregation and blocks) is rematerialised, as the JAX package's
+``nn.remat`` does: its activations are recomputed in the backward pass,
+which replays the stage's draws (``common.remat``), so K1 runs twice per
+attention call of a train step, once in the forward and once in the
+recompute. Sequence-parallel ring attention is not ported.
 
 Under the bf16 precision policy (``train/precision.py``) every tensor the
 forward creates takes the activation's dtype (pooling counts, pad fills,
@@ -29,6 +33,7 @@ test_torch_precision.py`` counts the bf16 share of the product FLOPs).
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, fields, replace
 from typing import List, Sequence, Tuple
@@ -373,13 +378,6 @@ class SeismogramTransformer(nn.Module):
     def __init__(self, cfg: SeisTConfig):
         super().__init__()
         self.cfg = cfg
-        if cfg.use_checkpoint:
-            raise NotImplementedError(
-                "use_checkpoint (per-stage rematerialisation, nn.remat in the "
-                "JAX package) is not ported: torch.utils.checkpoint does not "
-                "replay the explicit dropout generators; it is queued in "
-                "ROADMAP.md"
-            )
         if not (len(cfg.stem_channels) == len(cfg.stem_kernel_sizes) == len(cfg.stem_strides)):
             raise ValueError("stem_* lengths differ")
         n_stages = len(cfg.layer_blocks)
@@ -450,10 +448,17 @@ class SeismogramTransformer(nn.Module):
         """Stem + stages: (N, L, C) waveforms -> (N, L/64, C') features."""
         for i in range(len(self.cfg.stem_channels)):
             x = getattr(self, f"stem{i}")(x)
-        for i, names in enumerate(self.stage_blocks):
-            x = getattr(self, f"stage{i}_aggr")(x)
-            for name in names:
-                x = getattr(self, name)(x)
+        for i in range(len(self.stage_blocks)):
+            if self.cfg.use_checkpoint and torch.is_grad_enabled():
+                x = common.remat(functools.partial(self._stage, i), x)
+            else:
+                x = self._stage(i, x)
+        return x
+
+    def _stage(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        x = getattr(self, f"stage{i}_aggr")(x)
+        for name in self.stage_blocks[i]:
+            x = getattr(self, name)(x)
         return x
 
     def head(self, features: torch.Tensor, in_samples: int) -> torch.Tensor:

@@ -8,7 +8,9 @@ A checkpoint at ``step`` (the run's global batch counter,
 
 * ``model_<step>.pt``: the model's bare ``state_dict`` (parameters and
   BatchNorm running statistics), the file ``serve --model NAME=FILE`` and
-  ``--mode test --checkpoint FILE`` load;
+  ``--mode test --checkpoint FILE`` load (a weights file alone, such as
+  ``import-pretrained`` writes, also starts a fine-tune:
+  :func:`load_checkpoint`);
 * ``state_<step>.pt``: what a resume needs beside it, a dict of
   ``optimizer`` (its ``state_dict``: Adam's moments and step), ``step``
   (applied updates: the learning-rate schedule's position), ``meta`` (the
@@ -147,21 +149,30 @@ def load_weights(path: str) -> Dict[str, Any]:
 def load_checkpoint(weights_path: str, state) -> Dict[str, Any]:
     """Restore ``model_<step>.pt`` and its ``state_<step>.pt`` into the
     train state ``state`` (model, optimizer, step); returns the state
-    record (``meta``, ``best_loss``, ``patience``)."""
-    spath = state_path_for(weights_path)
-    if not os.path.exists(spath):
-        raise FileNotFoundError(
-            f"{weights_path} has no train state beside it ({spath}): a weights-only "
-            "file can be tested or served, not resumed"
-        )
+    record (``meta``, ``best_loss``, ``patience``, ``weights_only``).
+
+    A weights file with no train state beside it (an imported or converted
+    file, or any ``.pt`` not named ``model_<step>.pt``) restores the weights
+    only, as the JAX package restores a params-only checkpoint: the
+    optimizer stays fresh, the update count 0, and the record's meta is the
+    JAX package's ``{"epoch": -1, "loss": inf, "step": 0}``, so a run
+    fine-tunes from epoch 0, batch 0, with best loss ``inf``."""
     import torch
 
+    spath = state_path_for(weights_path) if _WEIGHTS.match(os.path.basename(weights_path)) else ""
+    if not spath or not os.path.exists(spath):
+        logger.info(f"Checkpoint {weights_path} has no optimizer state; loading params only")
+        state.model.load_state_dict(load_weights(weights_path), strict=True)
+        state.step = 0
+        return {"meta": {"epoch": -1, "loss": float("inf"), "step": 0},
+                "best_loss": float("inf"), "patience": 0, "weights_only": True}
     record = torch.load(spath, map_location="cpu", weights_only=True)
     state.model.load_state_dict(load_weights(weights_path), strict=True)
     from seist_tpu_torch.train.optim import load_state
 
     load_state(state.optimizer, record["optimizer"])  # in place: captured steps read it
     state.step = int(record["step"])
+    record["weights_only"] = False
     return record
 
 

@@ -697,7 +697,12 @@ def train_worker(args: Any) -> str:
     if args.checkpoint:
         record = load_checkpoint(args.checkpoint, state)
         meta = record["meta"]
-        start_epoch, start_batch = int(meta["data_epoch"]), int(meta["data_batch_offset"])
+        if record["weights_only"]:
+            # The JAX package's params-only restore: meta epoch -1, so the run
+            # starts at epoch 0, batch 0, with the fresh optimizer.
+            start_epoch, start_batch = int(meta["epoch"]) + 1, 0
+        else:
+            start_epoch, start_batch = int(meta["data_epoch"]), int(meta["data_batch_offset"])
         if start_batch >= steps_per_epoch:
             start_epoch, start_batch = start_epoch + 1, 0
         # The offset is expressed in the saving run's (seed, batch geometry):
@@ -710,7 +715,7 @@ def train_worker(args: Any) -> str:
             ("steps_per_epoch", steps_per_epoch),
             ("batch_size", int(args.batch_size)),
         ):
-            saved = int(meta[field])
+            saved = int(meta.get(field, current))
             if saved == current:
                 continue
             if start_batch > 0:

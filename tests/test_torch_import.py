@@ -214,3 +214,28 @@ def test_repick_needs_cuda_unless_cpu_is_asked_for(tmp_path):
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         repick.build_engine(args)
+
+
+def test_the_offline_tools_are_covered_and_load_no_pandas_or_matplotlib():
+    """The published-weights import, ``predict``, ``demo`` and the plots are
+    among the modules checked above (no JAX, no seist_tpu, no tools), and
+    importing them, and every other module, loads neither pandas nor
+    matplotlib: the plot imports matplotlib inside the call that draws."""
+    new = {"seist_tpu_torch.models.reference", "seist_tpu_torch.import_pretrained",
+           "seist_tpu_torch.predict", "seist_tpu_torch.demo",
+           "seist_tpu_torch.utils.visualization"}
+    assert new <= set(_modules())
+    for mod in new:
+        path = ROOT / (mod.replace(".", "/") + ".py")
+        assert "tools" not in {n.split(".")[0] for n in _imported_names(path)}, path
+    code = (
+        "import importlib, sys\n"
+        f"for m in {list(_modules())!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('pandas', 'matplotlib'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
