@@ -276,6 +276,33 @@ non-zero before the last line):
     ``use_checkpoint``: losses within 1e-6 (relative), gradients within
     phase 7's limits, K1 10 launches per step against 5, both peak
     memories.
+17. training on several ranks (``seist_tpu_torch/parallel/``): (a) K1 and
+    K2, fp32 and bf16, with the dropout counter's batch offset ``pid0 =
+    4*H`` on rows 4-7 of a b8 batch (a second data rank's rows): equal to
+    rows 4-7 of the ``pid0 = 0`` run and to the plain version with the
+    offset within phases 3-4's limits, and, with V and g the identity, the
+    same dropout zeros (another pattern at ``pid0 = 0``); (b) phase 6's
+    train run (``--mode train``) as one rank over NCCL, launched through
+    ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID`` in a child
+    process with the plain attention patched to raise: its steps captured
+    with their all-reduce inside, its losses within RESUME_RTOL of phase
+    6's, K1 and K2 as phase 6's; (c) two ranks in two processes on this
+    card under ``DIST_BACKEND=gloo`` (NCCL refuses two ranks on one device),
+    eager steps, through ``python -m seist_tpu_torch.parallel.check``:
+    ``data=2`` at b8 a rank against one rank at b16 on the same rows, and
+    ``seq=2`` (every attention a ring) at b8 against one rank at b8, all
+    drop rates 0.3, three steps each: losses within RESUME_RTOL, both
+    ranks' parameters byte-identical (their checksums, gathered), K1 and
+    K2 on the data-parallel run only; then the train entry itself,
+    ``train --mode train_test --seq-shards 2`` at b8 over 64 synthetic
+    events on two ranks through the env contract, against the same run on
+    one rank in this process (captured): rank 0's step losses and the
+    global test loss within RESUME_RTOL, one run directory with the test
+    metrics file, the worker's byte-identical-parameters line; (d) with two
+    cards or more, both parts of (c) over NCCL with captured steps (the
+    ring's P2P and gathers inside the train and eval graphs). Prints which
+    of (c) and (d) ran. Each child has a timeout whose expiry kills every
+    rank and fails the phase.
 
 Each phase's wall seconds are printed as a ``[phase-time]`` line.
 
@@ -480,18 +507,18 @@ def qkv(n: int, l: int, m: int, h: int, e: int, dtype, seed: int, dev):
     return [t.to(dev, dtype) for t in (q, k, v)]
 
 
-def kernel(q, k, v, rate=0.0, seed=0, with_lse=False):
+def kernel(q, k, v, rate=0.0, seed=0, with_lse=False, pid0=0):
     """One K1 launch through the wrapper, not counted against the main path:
     o, or (o, lse) with the row statistics."""
     counts = pa.counts()
-    o, lse = pa._forward(q, k, v, 1.0 / math.sqrt(q.shape[-1]), rate, seed, with_lse)
+    o, lse = pa._forward(q, k, v, 1.0 / math.sqrt(q.shape[-1]), rate, seed, with_lse, pid0)
     pa.set_counts(counts)
     return (o, lse) if with_lse else o
 
 
-def plain(q, k, v, rate=0.0, seed=0, with_lse=False):
+def plain(q, k, v, rate=0.0, seed=0, with_lse=False, pid0=0):
     return pa.pooled_attention_plain(q, k, v, 1.0 / math.sqrt(q.shape[-1]), rate, seed,
-                                     return_lse=with_lse)
+                                     return_lse=with_lse, pid0=pid0)
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -888,17 +915,17 @@ def qkvg(n: int, l: int, m: int, h: int, e: int, dtype, seed: int, dev):
     return q, k, v, g.to(dev, dtype)
 
 
-def kernel_bwd(q, k, v, g, o, lse, rate=0.0, seed=0):
+def kernel_bwd(q, k, v, g, o, lse, rate=0.0, seed=0, pid0=0):
     """One K2 launch from K1's (o, lse), not counted against the main path."""
     counts = pa.counts()
-    out = pa._backward(q, k, v, g, o, lse, 1.0 / math.sqrt(q.shape[-1]), rate, seed)
+    out = pa._backward(q, k, v, g, o, lse, 1.0 / math.sqrt(q.shape[-1]), rate, seed, pid0)
     pa.set_counts(counts)
     return out
 
 
-def plain_bwd(q, k, v, g, o, lse, rate=0.0, seed=0):
+def plain_bwd(q, k, v, g, o, lse, rate=0.0, seed=0, pid0=0):
     return pa.pooled_attention_bwd_plain(q, k, v, g, o, lse, 1.0 / math.sqrt(q.shape[-1]),
-                                         rate, seed)
+                                         rate, seed, pid0)
 
 
 def bwd_err(got, want) -> float:
@@ -4986,6 +5013,342 @@ def offline_phase(weights: str, flat: str, options: dict, n_shapes: int, dev) ->
             "predict_K1": predicted["K1"]}
 
 
+# ------------------------------------------------------------------ phase 17
+DIST_STEPS = 3  # (c) and (d): train steps per run
+DIST_BATCH = 8  # (c) and (d): one data rank's batch
+DIST_CHILD_TIMEOUT_S = 300  # each multi-rank child; expiry kills them all and fails
+# (c) and (d): the train entry at b8 over 64 synthetic events (51 train, x2
+# by augmentation -> 12 steps of 8; 6 val and 7 test events, one padded
+# batch each), the depth cut from TRAIN_ARGS' 256 events.
+DIST_TRAIN_ARGS = TRAIN_ARGS + ["--mode", "train_test", "--batch-size", str(DIST_BATCH),
+                                "--synthetic-events", "64", "--use-tensorboard", "false"]
+DIST_TRAIN_STEPS, DIST_EVAL_BATCHES = 12, 2
+ALL_DROPS = dict(path_drop_rate=0.3, attn_drop_rate=0.3, key_drop_rate=0.3, mlp_drop_rate=0.3,
+                 other_drop_rate=0.3)
+# A child of phase 17: the plain attention patched to raise, its attention
+# launches and its graph captures written to argv[1] at exit; argv[2]
+# "train" runs the train entry on argv[3:], "check" the step check
+# (seist_tpu_torch/parallel/check.py) on the spec argv[3].
+DIST_WRAPPER = """\
+import atexit, json, sys
+from seist_tpu_torch.ops import pooled_attention as pa
+from seist_tpu_torch.train import graph
+
+def _plain_off_path(*a, **k):
+    raise AssertionError("a plain attention version reached on the multi-rank path")
+
+pa.pooled_attention_plain = pa.pooled_attention_bwd_plain = _plain_off_path
+captures = [0]
+_init = graph.Captured.__init__
+
+def _counted(self, *a, **k):
+    _init(self, *a, **k)
+    captures[0] += 1
+
+graph.Captured.__init__ = _counted
+
+def _dump():
+    with open(sys.argv[1], "w") as f:
+        json.dump(dict(zip(("K1", "K2", "K1_bf16", "K2_bf16"), pa.counts()),
+                       captures=captures[0]), f)
+
+atexit.register(_dump)
+if sys.argv[2] == "train":
+    from seist_tpu_torch.__main__ import main
+    main(sys.argv[2:])
+else:
+    from seist_tpu_torch.parallel.check import main
+    sys.exit(main(sys.argv[3:]))
+"""
+
+
+def pid0_check(shapes, dev) -> Dict[str, float]:
+    """(a) K1 and K2 with ``pid0 = 4*H`` on rows 4-7 of a b8 batch against
+    rows 4-7 of the ``pid0 = 0`` b8 run (the rows a second data rank
+    holds) and against the plain version with the same offset, within
+    phases 3-4's limits, at the first and last attention shapes; then with
+    V and the upstream gradient the identity (L = M = E), where K1's
+    output is the dropped probabilities and K2's dV their transpose: the same zeros as the b8 run's rows and
+    the plain version's, and other zeros at ``pid0 = 0``. Returns the
+    largest error per type."""
+    worst = {}
+    for name, dtype, tol, btol in (("fp32", torch.float32, FP32_TOL, BWD_FP32_TOL),
+                                   ("bf16", torch.bfloat16, BF16_TOL, BWD_BF16_TOL)):
+        errs = []
+        for i, (l, m, h, e) in enumerate((shapes[0], shapes[-1], (32, 32, 3, 32))):
+            q, k, v, g = qkvg(8, l, m, h, e, dtype, 1700 + i, dev)
+            eye = i == 2
+            if eye:
+                v = g = torch.eye(e, dtype=dtype, device=dev).reshape(1, e, 1, e).expand(
+                    8, e, h, e).contiguous()
+            seed, pid0 = 1234 + i, 4 * h
+            o, lse = kernel(q, k, v, 0.3, seed, with_lse=True)
+            rows = [t[4:].contiguous() for t in (q, k, v, g)]
+            o4, lse4 = kernel(*rows[:3], 0.3, seed, with_lse=True, pid0=pid0)
+            p4, plse4 = plain(*rows[:3], 0.3, seed, with_lse=True, pid0=pid0)
+            grads = kernel_bwd(q, k, v, g, o, lse, 0.3, seed)
+            grads4 = kernel_bwd(*rows, o4, lse4, 0.3, seed, pid0)
+            want4 = plain_bwd(*rows, o4, lse4, 0.3, seed, pid0)
+            e_rows = max(max_err(o4, o[4:]), max_err(lse4, lse[4:]))
+            e_plain = max(max_err(o4, p4), max_err(lse4, plse4))
+            e_bwd = max(bwd_err(grads4, [t[4:] for t in grads]), bwd_err(grads4, want4))
+            zeros = ""
+            ok = e_rows <= tol and e_plain <= max(tol, LSE_TOL) and e_bwd <= btol
+            if eye:
+                unshifted = kernel(*rows[:3], 0.3, seed)
+                dv4, dv = grads4[2], grads[2][4:]
+                same = bool(torch.equal(o4 == 0, o[4:] == 0) and torch.equal(o4 == 0, p4 == 0)
+                            and torch.equal(dv4 == 0, dv == 0))
+                moved = not torch.equal(unshifted == 0, o4 == 0)
+                frac = float((o4 == 0).float().mean())
+                zeros = (f"; V and g the identity: dropout zeros identical to the b8 run's rows and "
+                         f"the plain version's {same} (dropped {frac:.4f}), another pattern at "
+                         f"pid0 0 {moved}")
+                ok = ok and same and moved and 0.25 < frac < 0.35
+            print(f"[dist] (a) {name} N=8 L={l} M={m} H={h} E={e} rate 0.3, rows 4-7 at pid0 "
+                  f"{pid0}: vs the b8 run's rows {e_rows:.2e} (output bitwise "
+                  f"{bool(torch.equal(o4, o[4:]))}), vs the plain version {e_plain:.2e}, "
+                  f"gradients {e_bwd:.2e}{zeros}", flush=True)
+            if not ok:
+                fail(f"(a) {name}: K1/K2 with pid0 differ from the b8 run's rows or the plain "
+                     "version")
+            errs.append(max(e_plain, e_bwd))
+        worst[name] = max(errs)
+    return worst
+
+
+def dist_children(args_per_rank: List[List[str]], env_per_rank: List[dict],
+                  work: str) -> Tuple[List[str], List[dict]]:
+    """Start one child per rank (DIST_WRAPPER), wait for all within
+    DIST_CHILD_TIMEOUT_S (killing every one on expiry or on a failure),
+    and return their stdouts and launch records."""
+    root = str(Path(__file__).resolve().parent)
+    procs, logs, counts = [], [], []
+    for r, (argv, env) in enumerate(zip(args_per_rank, env_per_rank)):
+        counts.append(os.path.join(work, f"counts_{r}.json"))
+        logs.append(os.path.join(work, f"rank{r}.log"))
+        env = dict(env, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        with open(logs[-1], "w") as out:
+            procs.append(subprocess.Popen([sys.executable, "-c", DIST_WRAPPER, counts[-1]] + argv,
+                                          cwd=root, env=env, stdout=out,
+                                          stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + DIST_CHILD_TIMEOUT_S
+    try:
+        for r, p in enumerate(procs):
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            if p.returncode != 0:
+                with open(logs[r]) as f:
+                    text = f.read()
+                frames = [x for x in text.splitlines() if "seist_tpu_torch" in x and "File" in x]
+                fail(f"rank {r} exited {p.returncode}; the port's frames:\n"
+                     + "\n".join(frames[-40:]) + f"\n{text[-3000:]}")
+    except subprocess.TimeoutExpired:
+        fail(f"the ranks did not finish within {DIST_CHILD_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for log in logs:
+        with open(log) as f:
+            outs.append(f.read())
+    records = []
+    for path in counts:
+        with open(path) as f:
+            records.append(json.load(f))
+    return outs, records
+
+
+def rank_env(world: int, rank: int, port: int, backend: Optional[str]) -> dict:
+    env = dict(os.environ, COORDINATOR_ADDRESS=f"127.0.0.1:{port}", NUM_PROCESSES=str(world),
+               PROCESS_ID=str(rank), LOCAL_RANK=str(rank))
+    env.pop("DIST_BACKEND", None)
+    if backend:
+        env["DIST_BACKEND"] = backend
+    return env
+
+
+def nccl_one_rank(run: dict, n_shapes: int, work: str) -> dict:
+    """(b) phase 6's train run (``--mode train``) as one rank over NCCL,
+    launched through the env contract: captured steps, its losses within
+    RESUME_RTOL of phase 6's, K1 5 per step and val batch, K2 5 per step."""
+    logs = os.path.join(work, "b_logs")
+    t0 = time.perf_counter()
+    outs, recs = dist_children(
+        [["train"] + TRAIN_ARGS + ["--mode", "train", "--log-base", logs,
+                                   "--use-tensorboard", "false"]],
+        [rank_env(1, 0, free_ports(1), None)], os.path.join(work))
+    wall = time.perf_counter() - t0
+    m = re.search(r"log dir: (\S+)", outs[0])
+    if m is None or "backend nccl" not in outs[0] or "run eagerly" in outs[0]:
+        fail("(b) the one-rank run did not start an NCCL group with captured steps:\n"
+             + outs[0][-2000:])
+    losses = np.load(os.path.join(m.group(1), "train_losses.npy"))
+    rel = max_rel(losses, run["losses"])
+    counts = dict(recs[0], K3=0)
+    print(f"[dist] (b) one rank over NCCL through COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID, "
+          f"{MODEL} window {WINDOW} b{TRAIN_BATCH} drop rates 0.3: {len(losses)} steps, losses "
+          f"{[round(float(x), 6) for x in losses]} vs phase 6's max rel {rel:.2e} (limit "
+          f"{RESUME_RTOL:.0e}); {recs[0]['captures']} graph captures; K1 {counts['K1']}, K2 "
+          f"{counts['K2']}; {wall:.1f} s (a process)", flush=True)
+    if not rel <= RESUME_RTOL or recs[0]["captures"] < 2:
+        fail("(b) the NCCL rank's captured run differs from phase 6's, or was not captured")
+    check_launches(counts, n_shapes, TRAIN_STEPS + VAL_BATCHES, TRAIN_STEPS)
+    return counts
+
+
+def train_one_rank(n_shapes: int, work: str) -> dict:
+    """The one-rank reference of the two-rank train entry: DIST_TRAIN_ARGS
+    in this process, captured: its step losses and test loss."""
+    best, counts, wall, _ = run_entry(DIST_TRAIN_ARGS + ["--log-base",
+                                                         os.path.join(work, "train_ref")])
+    run_dir = os.path.dirname(os.path.dirname(best))
+    losses = np.load(os.path.join(run_dir, "train_losses.npy"))
+    with open(os.path.join(run_dir, "test_metrics_synthetic.json")) as f:
+        test_loss = json.load(f)["loss"]
+    print(f"[dist] one rank (this process, captured): train_test b{DIST_BATCH}, "
+          f"{len(losses)} steps, losses {[round(float(x), 6) for x in losses]}, test loss "
+          f"{test_loss:.6f}; K1 {counts['K1']}, K2 {counts['K2']}; {wall:.1f} s", flush=True)
+    check_launches(counts, n_shapes, DIST_TRAIN_STEPS + DIST_EVAL_BATCHES, DIST_TRAIN_STEPS)
+    return {"losses": losses, "test_loss": test_loss, "counts": counts}
+
+
+def train_two_ranks(ref: dict, backend: Optional[str], work: str, label: str) -> dict:
+    """(c) or (d): the train entry itself on two ranks through the env
+    contract, DIST_TRAIN_ARGS with ``--seq-shards 2`` (both ranks hold the
+    same rows, every attention a ring): rank 0's step losses and the global
+    test loss within RESUME_RTOL of one rank's, one run directory (rank
+    0's, broadcast) holding the test metrics file, the worker's
+    byte-identical-parameters line, the steps captured under NCCL and
+    eager under gloo, and no K1 or K2 launch (the ring's blocks are
+    einsums)."""
+    logs = os.path.join(work, f"train_{label}")
+    port = free_ports(1)
+    t0 = time.perf_counter()
+    outs, recs = dist_children(
+        [["train"] + DIST_TRAIN_ARGS + ["--seq-shards", "2", "--log-base", logs]] * 2,
+        [rank_env(2, r, port, backend) for r in range(2)], work)
+    wall = time.perf_counter() - t0
+    runs = sorted(os.listdir(logs)) if os.path.isdir(logs) else []
+    m = re.search(r"log dir: (\S+)", outs[0])
+    if len(runs) != 1 or m is None or os.path.basename(m.group(1).rstrip("/")) != runs[0]:
+        fail(f"({label}) the two ranks made run directories {runs} (rank 0's log dir "
+             f"{m.group(1) if m else None}):\n{outs[0][-2000:]}")
+    run_dir = os.path.join(logs, runs[0])
+    metrics = os.path.join(run_dir, "test_metrics_synthetic.json")
+    agreed = re.search(r"parameters byte-identical over 2 ranks \(sha256 (\w+)\)", outs[0])
+    if agreed is None or not os.path.isfile(metrics):
+        fail(f"({label}) no byte-identical-parameters line or no test metrics file in "
+             f"{sorted(os.listdir(run_dir))}:\n{outs[0][-2000:]}")
+    losses = np.load(os.path.join(run_dir, "train_losses.npy"))
+    with open(metrics) as f:
+        test_loss = json.load(f)["loss"]
+    rel = max_rel(losses, ref["losses"])
+    test_rel = abs(test_loss - ref["test_loss"]) / abs(ref["test_loss"])
+    captures = [r["captures"] for r in recs]
+    launches = {k: sum(r[k] for r in recs) for k in ("K1", "K2", "K1_bf16", "K2_bf16")}
+    print(f"[dist] ({label}) train --seq-shards 2 on two ranks, {backend or 'nccl'}, "
+          f"train_test b{DIST_BATCH}: {len(losses)} steps, rank 0's losses vs one rank's max "
+          f"rel {rel:.2e}, test loss {test_loss:.6f} rel {test_rel:.2e} (limit "
+          f"{RESUME_RTOL:.0e}); one run directory {runs[0]}; parameters byte-identical "
+          f"(sha256 {agreed.group(1)}); graph captures per rank {captures}; launches "
+          f"{launches}; {wall:.1f} s (two processes)", flush=True)
+    if not rel <= RESUME_RTOL or not test_rel <= RESUME_RTOL:
+        fail(f"({label}) the two-rank train entry differs from one rank")
+    if (min(captures) < 2) if backend is None else any(captures):
+        fail(f"({label}) graph captures per rank {captures} under {backend or 'nccl'}")
+    if any(launches.values()):
+        fail(f"({label}) attention kernels launched under --seq-shards 2: {launches}")
+    return dict(launches, K3=0)
+
+
+def dist_spec(work: str, backend_tag: str) -> str:
+    spec = {"model": MODEL, "window": WINDOW, "device": "cuda", "seed": SEED,
+            "out": None, "runs": [
+                {"seq": 1, "global_batch": 2 * DIST_BATCH, "steps": DIST_STEPS,
+                 "drop": ALL_DROPS},
+                {"seq": 2, "global_batch": DIST_BATCH, "steps": DIST_STEPS, "drop": ALL_DROPS}]}
+    path = os.path.join(work, f"spec_{backend_tag}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return path
+
+
+def two_ranks(spec_path: str, refs: List[dict], backend: Optional[str], n_shapes: int,
+              work: str, label: str) -> dict:
+    """(c) or (d): the spec's two runs (data 2 at b8 a rank, then seq 2 at
+    b8) on two ranks, against ``refs`` (one rank at b16 and at b8 on the
+    same rows): losses within RESUME_RTOL, every rank's parameters
+    byte-identical after the last step, K1 and K2 on the data-parallel run
+    only (the ring's blocks are einsums)."""
+    port = free_ports(1)
+    t0 = time.perf_counter()
+    outs, recs = dist_children([["check", spec_path]] * 2,
+                               [rank_env(2, r, port, backend) for r in range(2)], work)
+    wall = time.perf_counter() - t0
+    lines = [json.loads(x) for x in outs[0].splitlines() if x.startswith('{"run"')]
+    if len(lines) != 2:
+        fail(f"({label}) rank 0 printed {len(lines)} run records:\n{outs[0][-2000:]}")
+    for line, ref in zip(lines, refs):
+        rel = max_rel(np.asarray(line["losses"]), np.asarray(ref["losses"]))
+        same = len(set(line["checksums"])) == 1
+        print(f"[dist] ({label}) data {line['data']} x seq {line['seq']}, global batch "
+              f"{line['global_batch']}, {backend or 'nccl'}, captured {line['captured']}: "
+              f"losses {[round(x, 6) for x in line['losses']]} vs one rank's max rel "
+              f"{rel:.2e} (limit {RESUME_RTOL:.0e}); parameters byte-identical over the ranks "
+              f"{same} ({line['checksums'][0][:16]}); rank 0's launches {line['launches']}",
+              flush=True)
+        if not rel <= RESUME_RTOL or not same:
+            fail(f"({label}) two ranks differ from one, or from each other")
+    dp, sp = lines[0]["launches"], lines[1]["launches"]
+    if (dp["K1"] != n_shapes * DIST_STEPS or dp["K2"] != n_shapes * DIST_STEPS
+            or sp["K1"] or sp["K2"]):
+        fail(f"({label}) attention launches: data-parallel {dp}, ring {sp}")
+    total = {k: sum(r[k] for r in recs) for k in ("K1", "K2", "K1_bf16", "K2_bf16")}
+    print(f"[dist] ({label}) both ranks' launches {total}, {sum(r['captures'] for r in recs)} "
+          f"graph captures; {wall:.1f} s (two processes)", flush=True)
+    return dict(total, K3=0)
+
+
+def dist_phase(run: dict, n_shapes: int, shapes, dev) -> dict:
+    """Phase 17: (a) the kernels' batch offset, (b) one NCCL rank captured,
+    (c) two gloo ranks on this card, (d) two NCCL ranks on two cards when
+    there are two."""
+    from seist_tpu_torch.parallel import check as pcheck
+
+    work = os.path.join(str(_kernels.BUILD_DIR), "dist")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    errs = pid0_check(shapes, dev)
+    b = nccl_one_rank(run, n_shapes, work)
+    spec_path = dist_spec(work, "ref")
+    with open(spec_path) as f:
+        spec = json.load(f)
+    refs = []
+    for one in spec["runs"]:
+        one = dict(one, seq=1)
+        ref = pcheck.run_steps(spec, one, dev)
+        refs.append({"losses": ref["losses"]})
+        del ref
+        torch.cuda.empty_cache()
+    print(f"[dist] one rank (this process, captured): b{2 * DIST_BATCH} losses "
+          f"{[round(x, 6) for x in refs[0]['losses']]}, b{DIST_BATCH} "
+          f"{[round(x, 6) for x in refs[1]['losses']]}", flush=True)
+    tref = train_one_rank(n_shapes, work)
+    counts = [b, tref["counts"], two_ranks(spec_path, refs, "gloo", n_shapes, work, "c"),
+              train_two_ranks(tref, "gloo", work, "c")]
+    ran = "(a), (b) and (c)"
+    if torch.cuda.device_count() >= 2:
+        counts += [two_ranks(spec_path, refs, None, n_shapes, work, "d"),
+                   train_two_ranks(tref, None, work, "d")]
+        ran = "(a), (b), (c) and (d)"
+    print(f"[dist] phase 17 ran {ran} ({torch.cuda.device_count()} card(s) visible)",
+          flush=True)
+    total = {k: sum(c[k] for c in counts) for k in ("K1", "K2", "K1_bf16", "K2_bf16", "K3")}
+    return {"counts": total, "errs": errs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this drives the "
@@ -5159,6 +5522,11 @@ def main() -> int:
     offline = offline_phase(served_weights, weights, streams["record_options"], len(shapes), dev)
     path_counts.append(offline["counts"])
     lap("phase 16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist = dist_phase(trained, len(shapes), shapes, dev)
+    path_counts.append(dist["counts"])
+    lap("phase 17")
 
     fp32 = [r for r in rows if r["dtype"] == "fp32"]  # the serving path is fp32
     bf16_rows = [r for r in rows if r["dtype"] == "bf16"]
@@ -5185,7 +5553,8 @@ def main() -> int:
           f"{fleet['counts']['K1']} or more; re-picking (phase 15, this process): K1 "
           f"{repicked['counts']['K1']}; offline prediction, fine-tuning and remat (phase 16): "
           f"K1 {offline['counts']['K1']} (predict's process {offline['predict_K1']}), K2 "
-          f"{offline['counts']['K2']}; all paths: K1 "
+          f"{offline['counts']['K2']}; several ranks (phase 17, (b)-(d) in their processes): "
+          f"K1 {dist['counts']['K1']}, K2 {dist['counts']['K2']}; all paths: K1 "
           f"{launches['K1']} (bf16 "
           f"{launches['K1_bf16']}), K2 {launches['K2']} (bf16 {launches['K2_bf16']}), K3 "
           f"{launches['K3']}", flush=True)

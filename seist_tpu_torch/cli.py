@@ -45,8 +45,15 @@ every death path, ``--profile-steps`` captures steady-state updates with
 ``torch.profiler``, ``--use-tensorboard`` writes the loss and the train and
 val task metrics as scalars.
 
-A flag of the JAX CLI whose non-default value the port does not run yet
-raises and names ``ROADMAP.md``: ``--seq-shards``.
+Several ranks, one process each (``parallel/``): the JAX CLI's env
+contract ``COORDINATOR_ADDRESS=host:port NUM_PROCESSES=W PROCESS_ID=i``,
+or ``torchrun --nproc-per-node W -m seist_tpu_torch train ...``, starts a
+process group (``nccl`` on ``cuda``, ``gloo`` on ``cpu``; ``DIST_BACKEND=gloo``
+lets ranks share one card, with eager steps). ``--batch-size`` is each
+data rank's; ``--seq-shards S`` runs every SeisT attention as a ring over
+S ranks, which hold the same rows (the data axis is W / S). Rank 0 picks
+the log directory and writes the run's files. With the env given, a group
+that cannot start raises: a rank never runs alone.
 """
 
 from __future__ import annotations
@@ -56,10 +63,6 @@ import os
 import time
 from typing import List, Optional
 
-#: JAX-CLI flags the port accepts only at the value it runs: dest -> value.
-_UNPORTED = {
-    "seq_shards": 1,
-}
 _MODES = ("train", "test", "train_test")
 _DATASETS = ("synthetic", "packed")
 #: The JAX package's HDF5 readers (h5py and pandas, which the port does
@@ -74,7 +77,7 @@ def bool_(x) -> bool:
 def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         prog="python -m seist_tpu_torch train",
-        description="seist_tpu_torch model training (one card)",
+        description="seist_tpu_torch model training (one card, or one rank per card)",
     )
     ap.add_argument("--mode", default="train_test", type=str,
                     help="train/test/train_test (default: 'train_test')")
@@ -85,7 +88,9 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--checkpoint", default="", type=str,
                     help="model_<step>.pt: resume (train) or the weights to test; a "
                     "weights file alone: fine-tune from it (train)")
-    ap.add_argument("--seq-shards", default=1, type=int, dest="seq_shards")
+    ap.add_argument("--seq-shards", default=1, type=int, dest="seq_shards",
+                    help="ranks of the sequence-parallel (ring attention) axis; the rest "
+                    "of the ranks form the data axis. Default 1")
     ap.add_argument("--conv-kernel-l1-alpha", default=0.0, type=float,
                     dest="conv_kernel_l1_alpha",
                     help="L1 (sign) regularization strength on eqtransformer's "
@@ -252,11 +257,6 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
-    bad = [
-        f"--{dest.replace('_', '-')} {getattr(args, dest)!r}"
-        for dest, ok in _UNPORTED.items()
-        if getattr(args, dest) != ok
-    ]
     if args.mode not in _MODES:
         raise ValueError(f"`mode` must be 'train', 'test' or 'train_test', got '{args.mode}'")
     if args.dataset_name in _HDF5_DATASETS:
@@ -267,10 +267,8 @@ def _refuse_unported(args: argparse.Namespace) -> None:
             "--out PACK), then train with --dataset-name packed --data PACK"
         )
     if args.dataset_name not in _DATASETS:
-        bad.append(f"--dataset-name {args.dataset_name!r}")
-    if bad:
         raise NotImplementedError(
-            f"not ported yet (queued in ROADMAP.md): {', '.join(bad)}"
+            f"not ported yet (queued in ROADMAP.md): --dataset-name {args.dataset_name!r}"
         )
 
 
@@ -287,28 +285,44 @@ def run_dir_of(checkpoint: str) -> str:
 
 
 def main(argv: Optional[List[str]] = None) -> str:
-    """Parse, set up the log directory, then train and/or test. Returns
+    """Parse, start the process group when a multi-rank launch is
+    described, set up the log directory, then train and/or test. Returns
     the best checkpoint's weights path (the tested one for ``--mode
     test``)."""
+    import logging
+
     import seist_tpu_torch
+    from seist_tpu_torch.parallel import dist
     from seist_tpu_torch.train.worker import test_worker, train_worker
     from seist_tpu_torch.utils.logger import logger
 
     args = get_args(argv)
-    seist_tpu_torch.load_all()
-    args.log_dir = (
-        run_dir_of(args.checkpoint) if args.checkpoint else os.path.join(
-            args.log_base,
-            f"{time.strftime('%Y%m%d-%H%M%S')}_{args.model_name}_{args.dataset_name}",
+    args.distributed = dist.init_distributed_mode(device=args.device)
+    level = logger.level
+    try:
+        seist_tpu_torch.load_all()
+        args.log_dir = (
+            run_dir_of(args.checkpoint) if args.checkpoint else os.path.join(
+                args.log_base,
+                f"{time.strftime('%Y%m%d-%H%M%S')}_{args.model_name}_{args.dataset_name}",
+            )
         )
-    )
-    os.makedirs(args.log_dir, exist_ok=True)
-    logger.info(f"pid: {os.getpid()} log dir: {args.log_dir}")
-    logger.info("\n" + "\n".join(f"  {k}: {v}" for k, v in sorted(vars(args).items())))
-    mode = args.mode.split("_")
-    if "train" in mode:
-        args.checkpoint = train_worker(args)
-        logger.info(f"best checkpoint: {args.checkpoint}")
-    if "test" in mode:
-        test_worker(args)
-    return args.checkpoint
+        # Every rank takes rank 0's directory (the ranks' clocks may
+        # straddle a second; seist_tpu/cli.py:327-329).
+        args.log_dir = dist.broadcast_object(args.log_dir)
+        os.makedirs(args.log_dir, exist_ok=True)
+        if not dist.is_main_process():
+            logger.setLevel(logging.WARNING)  # rank 0 tells the run's story
+        logger.info(f"pid: {os.getpid()} log dir: {args.log_dir}")
+        logger.info("\n" + "\n".join(f"  {k}: {v}" for k, v in sorted(vars(args).items())))
+        mode = args.mode.split("_")
+        if "train" in mode:
+            args.checkpoint = train_worker(args)
+            logger.info(f"best checkpoint: {args.checkpoint}")
+        if "test" in mode:
+            test_worker(args)
+        return args.checkpoint
+    finally:
+        logger.setLevel(level)
+        if args.distributed:
+            dist.shutdown()

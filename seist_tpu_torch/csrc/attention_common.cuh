@@ -48,8 +48,9 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // The JAX package's counter hash: murmur3's finalizer over the element
-// index pid*(L*M) + row*M + col (uint32, wrapping), seed_mix = seed *
-// 0x9E3779B9. Its top 24 bits make the uniform (uniform01).
+// index pid*(L*M) + row*M + col (uint32, wrapping), pid = pid0 + b*H + h
+// (pid0 = n0*H: a data-parallel rank's batch rows start at global row n0),
+// seed_mix = seed * 0x9E3779B9. Its top 24 bits make the uniform (uniform01).
 __device__ __forceinline__ uint32_t mix32_tail(uint32_t x) {  // after the first xor-shift
   x *= 0x85EBCA6Bu;
   x ^= x >> 13;
@@ -229,7 +230,7 @@ template <template <int> class Fwd>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                        int n, int l, int m, int heads, int e, int row_warps, int ksplit,
                        float scale, float rate, float out_scale, uint32_t lm,
-                       const int* seed, cudaStream_t stream) {
+                       const int* seed, cudaStream_t stream, uint32_t pid0 = 0) {
   const int row_tiles = (l + kWarpRows * row_warps - 1) / (kWarpRows * row_warps);
   const long long blocks = (long long)row_tiles * n * heads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -241,7 +242,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, flo
     return K::run((unsigned)blocks, 32 * row_warps * ksplit, K::smem(stages, row_warps),
                   stream, static_cast<const T*>(q), static_cast<const T*>(k),
                   static_cast<const T*>(v), static_cast<T*>(o), lse, l, m, heads, e,
-                  row_tiles, ksplit, scale, rate, out_scale, lm, seed, vec);
+                  row_tiles, ksplit, scale, rate, out_scale, lm, seed, vec, pid0);
   });
 }
 
@@ -256,7 +257,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
                        float* dq_part, float* dk_part, float* dv_part, int n, int l, int m,
                        int heads, int e, int splits, int rows_per_split, float scale,
                        float rate, float out_scale, uint32_t lm, const int* seed,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, uint32_t pid0 = 0) {
   const int ktiles = (m + kKeyTile - 1) / kKeyTile;
   const long long blocks = (long long)ktiles * n * heads * splits;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -270,7 +271,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
         static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
         ktiles > 1 ? dq_part : nullptr, splits > 1 ? dk_part : nullptr,
         splits > 1 ? dv_part : nullptr, n, l, m, heads, e, ktiles, rows_per_split, scale,
-        rate, out_scale, lm, seed, vec);
+        rate, out_scale, lm, seed, vec, pid0);
     if (err != cudaSuccess) return err;
     if (ktiles > 1) {
       err = reduce<T>(dq_part, dq, nullptr, nullptr, ktiles, (size_t)n * l * heads * e,

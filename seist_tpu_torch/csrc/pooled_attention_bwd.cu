@@ -115,7 +115,8 @@ __global__ void __launch_bounds__(kBwdThreads, EP <= 32 ? 2 : 1) bwd_kernel(
     float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
     float* __restrict__ dq_part, float* __restrict__ dk_part, float* __restrict__ dv_part,
     int N, int L, int M, int H, int E, int ktiles, int rows_per_split, float scale,
-    float rate, float out_scale, uint32_t lm, const int* __restrict__ seed, bool vec) {
+    float rate, float out_scale, uint32_t lm, const int* __restrict__ seed, bool vec,
+    uint32_t pid0) {
   using Sm = BwdSmem<EP>;
   constexpr int S = Sm::S, R = Sm::R, DS = Sm::DS, QT = Sm::QT, KP = Sm::KP;
   constexpr int KS = EP / 8, RN = R / 8;
@@ -253,7 +254,7 @@ __global__ void __launch_bounds__(kBwdThreads, EP <= 32 ? 2 : 1) bwd_kernel(
             const float p = key < kvalid ? exp2f(fmaf(sT[n][i], scale2, -ls[row])) : 0.0f;
             const bool keep =
                 !(rate > 0.0f &&
-                  uniform01((uint32_t)bh * lm + (uint32_t)(r0 + row) * (uint32_t)M +
+                  uniform01(((uint32_t)bh + pid0) * lm + (uint32_t)(r0 + row) * (uint32_t)M +
                                 (uint32_t)(k0 + key),
                             seed_mix) < rate);
             const float ds = p * ((keep ? pT[n][i] * out_scale : 0.0f) - dm[row]);
@@ -363,8 +364,9 @@ struct BwdF32 {
 // multiple of the 32-row tile). Scratch, fp32, used only when needed:
 // dq_part holds ceil(M/128) slabs of N*L*H*E (when M > 128), dk_part and
 // dv_part `splits` slabs of N*M*H*E each (when splits > 1). lm = (L*M) mod
-// 2^32, seed = a device pointer to the int32 dropout seed (as the forward's),
-// out_scale = 1/(1 - rate) (1 when rate == 0).
+// 2^32, seed = a device pointer to the int32 dropout seed and pid0 the
+// counter's first batch-head slice (as the forward's), out_scale = 1/(1 -
+// rate) (1 when rate == 0).
 extern "C" int pooled_attention_bwd(const void* q, const void* k, const void* v,
                                     const void* g, const void* o, const void* lse,
                                     void* dq, void* dk, void* dv, void* dq_part,
@@ -372,7 +374,7 @@ extern "C" int pooled_attention_bwd(const void* q, const void* k, const void* v,
                                     int heads, int e, int dtype, int splits,
                                     int rows_per_split, float scale, float rate,
                                     float out_scale, unsigned int lm, const void* seed,
-                                    void* stream) {
+                                    unsigned int pid0, void* stream) {
   if (n < 1 || l < 1 || m < 1 || heads < 1 || e < 1 || splits < 1 ||
       rows_per_split < 1 || rows_per_split % seist::kBwdRowTile != 0 ||
       (long long)splits * rows_per_split < l ||
@@ -389,12 +391,12 @@ extern "C" int pooled_attention_bwd(const void* q, const void* k, const void* v,
   if (dtype == 0) {
     return (int)seist::launch_bwd<seist::BwdF32>(q, k, v, g, o, ls, dq, dk, dv, qp, kp, vp, n,
                                                  l, m, heads, e, splits, rows_per_split, scale,
-                                                 rate, out_scale, lm, sd, s);
+                                                 rate, out_scale, lm, sd, s, pid0);
   }
   if (dtype == 1) {
     return (int)seist::launch_bwd<seist::BwdBf16>(q, k, v, g, o, ls, dq, dk, dv, qp, kp, vp,
                                                   n, l, m, heads, e, splits, rows_per_split,
-                                                  scale, rate, out_scale, lm, sd, s);
+                                                  scale, rate, out_scale, lm, sd, s, pid0);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -118,7 +118,8 @@ __global__ void __launch_bounds__(kBwdThreads, kBf16BwdBlocks<EP>) bwd_kernel_bf
     bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
     float* __restrict__ dq_part, float* __restrict__ dk_part, float* __restrict__ dv_part,
     int N, int L, int M, int H, int E, int ktiles, int rows_per_split, float scale,
-    float rate, float out_scale, uint32_t lm, const int* __restrict__ seed, bool vec) {
+    float rate, float out_scale, uint32_t lm, const int* __restrict__ seed, bool vec,
+    uint32_t pid0) {
   using Sm = BwdBf16Smem<EP>;
   constexpr int S = Sm::S, R = Sm::R, DS = Sm::DS;
   constexpr int KS = EP / 8;                  // 8-column tiles of dK, dV and dQ
@@ -311,7 +312,7 @@ __global__ void __launch_bounds__(kBwdThreads, kBf16BwdBlocks<EP>) bwd_kernel_bf
         }
         // Pd and dS in place of the score fragments. The dropout counter of
         // (row, key) is cbase + (row - first row) M + (key - first key).
-        const uint32_t cbase = (uint32_t)bh * lm +
+        const uint32_t cbase = ((uint32_t)bh + pid0) * lm +
                                (uint32_t)(r0 + r8 * 8 + 2 * t) * (uint32_t)M +
                                (uint32_t)(k0 + kw + gq);
         // Two copies of the loop, chosen per launch: at rate 0 no hash runs.

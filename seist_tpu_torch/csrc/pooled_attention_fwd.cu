@@ -72,7 +72,7 @@ __global__ void __launch_bounds__(128) fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ o, float* __restrict__ lse, int L, int M, int H, int E,
     int row_tiles, int ksplit, float scale, float rate, float out_scale, uint32_t lm,
-    const int* __restrict__ seed, bool vec) {
+    const int* __restrict__ seed, bool vec, uint32_t pid0) {
   constexpr int S = EP + 4;         // shared-memory row stride, floats
   constexpr int KS = EP / 8;        // MMA depth steps over E
   constexpr int NT = kFwdChunk / 8;  // 8-key column blocks of a chunk
@@ -109,8 +109,8 @@ __global__ void __launch_bounds__(128) fwd_kernel(
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) acc[kk][0] = acc[kk][1] = acc[kk][2] = acc[kk][3] = 0.0f;
   float mrun[2] = {-INFINITY, -INFINITY}, lrun[2] = {0.0f, 0.0f};  // rows g, g + 8
-  const uint32_t ctr[2] = {(uint32_t)bh * lm + (uint32_t)(row0 + g) * (uint32_t)M,
-                           (uint32_t)bh * lm + (uint32_t)(row0 + g + 8) * (uint32_t)M};
+  const uint32_t ctr[2] = {((uint32_t)bh + pid0) * lm + (uint32_t)(row0 + g) * (uint32_t)M,
+                           ((uint32_t)bh + pid0) * lm + (uint32_t)(row0 + g + 8) * (uint32_t)M};
 
   auto stage = [&](int tile) {
     float* ks = smem + (tile & 1) * 2 * kKeyTile * S;
@@ -298,13 +298,15 @@ struct FwdF32 {
 // row_warps groups of 16 rows, each over ksplit (1 or 2) key halves.
 // lm = (L*M) mod 2^32, seed = a device pointer to the int32 dropout seed
 // (read by every block, so a captured launch takes the seed written there
-// before each replay), out_scale = 1/(1 - rate) (1 when rate == 0).
+// before each replay), pid0 = the dropout counter's first batch-head slice
+// (n0*H for a rank whose rows start at global row n0), out_scale = 1/(1 -
+// rate) (1 when rate == 0).
 extern "C" int pooled_attention_fwd(const void* q, const void* k, const void* v,
                                     void* o, void* lse, int n, int l, int m, int heads,
                                     int e, int dtype, int row_warps, int ksplit,
                                     float scale, float rate,
                                     float out_scale, unsigned int lm, const void* seed,
-                                    void* stream) {
+                                    unsigned int pid0, void* stream) {
   if (n < 1 || l < 1 || m < 1 || heads < 1 || e < 1 || !(ksplit == 1 || ksplit == 2) ||
       !(row_warps == 1 || row_warps == 2 || row_warps == 4) || row_warps * ksplit > 4) {
     return (int)cudaErrorInvalidValue;
@@ -315,12 +317,12 @@ extern "C" int pooled_attention_fwd(const void* q, const void* k, const void* v,
   float* ls = static_cast<float*>(lse);
   if (dtype == 0) {
     return (int)seist::launch_fwd<seist::FwdF32>(q, k, v, o, ls, n, l, m, heads, e, row_warps,
-                                                 ksplit, scale, rate, out_scale, lm, sd, s);
+                                                 ksplit, scale, rate, out_scale, lm, sd, s, pid0);
   }
   if (dtype == 1) {
     return (int)seist::launch_fwd<seist::FwdBf16>(q, k, v, o, ls, n, l, m, heads, e,
                                                   row_warps, ksplit, scale, rate, out_scale,
-                                                  lm, sd, s);
+                                                  lm, sd, s, pid0);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -43,7 +43,7 @@ __global__ void __launch_bounds__(128, EP <= 16 ? 6 : EP <= 32 ? 5 : 1) fwd_kern
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ o, float* __restrict__ lse, int L, int M, int H, int E,
     int row_tiles, int ksplit, float scale, float rate, float out_scale, uint32_t lm,
-    const int* __restrict__ seed, bool vec) {
+    const int* __restrict__ seed, bool vec, uint32_t pid0) {
   constexpr int S = kBf16Stride<EP>;
   constexpr int KS = EP / 8;                  // 8-column tiles of O
   constexpr int KD = EP >= 16 ? EP / 16 : 1;  // depth steps of Q K^T
@@ -87,8 +87,8 @@ __global__ void __launch_bounds__(128, EP <= 16 ? 6 : EP <= 32 ? 5 : 1) fwd_kern
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) acc[kk][0] = acc[kk][1] = acc[kk][2] = acc[kk][3] = 0.0f;
   float mrun[2] = {-INFINITY, -INFINITY}, lrun[2] = {0.0f, 0.0f};  // rows g, g + 8
-  const uint32_t ctr[2] = {(uint32_t)bh * lm + (uint32_t)(row0 + g) * (uint32_t)M,
-                           (uint32_t)bh * lm + (uint32_t)(row0 + g + 8) * (uint32_t)M};
+  const uint32_t ctr[2] = {((uint32_t)bh + pid0) * lm + (uint32_t)(row0 + g) * (uint32_t)M,
+                           ((uint32_t)bh + pid0) * lm + (uint32_t)(row0 + g + 8) * (uint32_t)M};
 
   for (int tile = 0; tile < ntiles; ++tile) {
     if (tile + 1 < ntiles) {

@@ -13,7 +13,8 @@ The port's copy of the host path of ``seist_tpu/data/pipeline.py``:
   replaced by the ``(seed, epoch, idx)``-keyed fallback.
 * :func:`epoch_indices` / :func:`mixture_epoch_indices` — the seeded
   per-epoch order, plain or temperature-weighted over the sources of a
-  mixture pack; :func:`_epoch_order` picks between them.
+  mixture pack, sharded over the data ranks by :func:`_shard_order`;
+  :func:`_epoch_order` picks between them.
 * :class:`Loader` — batch assembly with fixed shapes by a thread pool, or
   by worker processes (``worker_processes``, started by forkserver or
   spawn): ``drop_last`` on train; eval pads the final batch and zeroes
@@ -38,8 +39,10 @@ The port's copy of the host path of ``seist_tpu/data/pipeline.py``:
   ``transform`` ahead of the consumer (batch re-picking's fill feed,
   ``batch/engine.py``), with backpressure accounting on the metrics bus.
 
-Not ported: host sharding (multi-GPU training). Host batches stay numpy;
-the train loop moves them to the device.
+Host batches stay numpy; the train loop moves them to the device. Under
+several data ranks each loader reads its rank's shard of the epoch order
+(``num_shards`` = the data axis, ``shard_index`` = the rank's place on
+it); the ranks of one seq group read the same rows.
 """
 
 from __future__ import annotations
@@ -276,13 +279,32 @@ def from_task_spec(
     )
 
 
-def epoch_indices(n: int, *, seed: int, epoch: int, shuffle: bool) -> np.ndarray:
-    """The epoch-``epoch`` sample order: a seeded permutation, a pure
-    function of (seed, epoch)."""
+def _shard_order(order: np.ndarray, num_shards: int, shard_index: int) -> np.ndarray:
+    """One data rank's shard of a global epoch order
+    (``seist_tpu/data/pipeline.py::_shard_order``): the order is first
+    wrapped around from its head to a multiple of ``num_shards`` (torch
+    ``DistributedSampler``'s rule: equal shards, so every rank makes the
+    same number of collective-bearing steps), then dealt ``rank::world``.
+    The shards cover the order and are disjoint before the wrap."""
+    if num_shards <= 1:
+        return order
+    n = len(order)
+    target = -(-n // num_shards) * num_shards
+    if target > n:
+        order = np.concatenate([order, order[: target - n]])
+    return order[shard_index::num_shards]
+
+
+def epoch_indices(n: int, *, seed: int, epoch: int, shuffle: bool, num_shards: int = 1,
+                  shard_index: int = 0) -> np.ndarray:
+    """This rank's epoch-``epoch`` sample order: a seeded permutation, a
+    pure function of (seed, epoch), sharded by :func:`_shard_order`."""
     if shuffle:
         rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
-        return rng.permutation(n)
-    return np.arange(n)
+        order = rng.permutation(n)
+    else:
+        order = np.arange(n)
+    return _shard_order(order, num_shards, shard_index)
 
 
 # Keys the mixture-draw PRNG stream apart from the shuffle/fallback ones.
@@ -290,7 +312,8 @@ _MIXTURE_SALT = 0x313C7
 
 
 def mixture_epoch_indices(
-    source_ids: np.ndarray, *, seed: int, epoch: int, temperature: float
+    source_ids: np.ndarray, *, seed: int, epoch: int, temperature: float,
+    num_shards: int = 1, shard_index: int = 0,
 ) -> np.ndarray:
     """Temperature-weighted mixture order over a multi-source pack, under
     the resume contract of :func:`epoch_indices`: a pure function of
@@ -327,7 +350,7 @@ def mixture_epoch_indices(
             for w in range(wraps)
         ])
         order[slots] = stream[: slots.size]
-    return order
+    return _shard_order(order, num_shards, shard_index)
 
 
 def _epoch_order(
@@ -336,19 +359,24 @@ def _epoch_order(
     seed: int,
     epoch: int,
     shuffle: bool,
+    num_shards: int = 1,
+    shard_index: int = 0,
     source_ids: Optional[np.ndarray] = None,
     mixture_temperature: float = 0.0,
 ) -> np.ndarray:
     """The one epoch-order dispatcher: the seeded permutation, or the
     temperature-weighted mixture order when a multi-source pack and a
-    temperature are given. Both are pure functions of (seed, epoch)."""
+    temperature are given, either sharded over the data ranks. Both are
+    pure functions of (seed, epoch)."""
     if mixture_temperature and source_ids is not None:
         if len(source_ids) != n:
             raise ValueError(f"source_ids has {len(source_ids)} entries for {n} samples")
         return mixture_epoch_indices(
-            source_ids, seed=seed, epoch=epoch, temperature=mixture_temperature
+            source_ids, seed=seed, epoch=epoch, temperature=mixture_temperature,
+            num_shards=num_shards, shard_index=shard_index,
         )
-    return epoch_indices(n, seed=seed, epoch=epoch, shuffle=shuffle)
+    return epoch_indices(n, seed=seed, epoch=epoch, shuffle=shuffle, num_shards=num_shards,
+                         shard_index=shard_index)
 
 
 def _stack(samples: List[Any]) -> Any:
@@ -411,6 +439,8 @@ class Loader:
         worker_processes: int = 0,
         seed: int = 0,
         mixture_temperature: float = 0.0,
+        num_shards: int = 1,
+        shard_index: int = 0,
     ) -> None:
         if batch_size <= 0:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
@@ -421,6 +451,7 @@ class Loader:
         self.num_workers = max(1, num_workers)
         self.worker_processes = max(0, worker_processes)
         self.seed = seed
+        self.num_shards, self.shard_index = int(num_shards), int(shard_index)
         # Mixture sampling (multi-source packs only); the per-sample
         # source ids are fixed for the dataset's lifetime.
         self.mixture_temperature = float(mixture_temperature or 0.0)
@@ -482,12 +513,14 @@ class Loader:
             seed=self.seed,
             epoch=self.epoch,
             shuffle=self.shuffle,
+            num_shards=self.num_shards,
+            shard_index=self.shard_index,
             source_ids=self._source_ids,
             mixture_temperature=self.mixture_temperature,
         )
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = -(-len(self.dataset) // self.num_shards)  # a shard's length
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size

@@ -39,6 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from seist_tpu_torch.parallel import comm
+from seist_tpu_torch.parallel import mesh as mesh_lib
 from seist_tpu_torch.train.precision import policy_dtype, precision_policy
 
 #: torch BatchNorm1d's epsilon, as ``seist_tpu/models/common.py:498``.
@@ -320,6 +322,13 @@ class RandomSource:
     the calls. :meth:`inject_droppath` routes DropPath to given uniform rows
     instead, one row per train-mode call with a positive rate, in call
     order.
+
+    Under data parallelism (an active mesh with data ranks) every draw is
+    the global batch's, of which a rank keeps its own rows (and an
+    injected row of the global batch's length is cut the same way): a run
+    over W ranks draws what one process stepping on the global batch
+    draws, as the JAX package's step over the global array does. Every
+    rank seeds its generators alike.
     """
 
     def __init__(
@@ -354,7 +363,12 @@ class RandomSource:
         def draw():
             if self.generator is None:
                 raise RuntimeError("this RandomSource has no generator for dropout")
-            return torch.rand(shape, generator=self.generator, device=device)
+            mesh = mesh_lib.data_parallel()
+            if mesh is None:
+                return torch.rand(shape, generator=self.generator, device=device)
+            full = (shape[0] * mesh.data,) + tuple(shape[1:])
+            return mesh_lib.shard_batch(mesh, torch.rand(full, generator=self.generator,
+                                                         device=device))
 
         return _taped(draw)
 
@@ -366,7 +380,8 @@ class RandomSource:
         def draw():
             u = self.droppath_uniforms[self.droppath_calls].to(device)
             self.droppath_calls += 1
-            return u
+            mesh = mesh_lib.data_parallel()
+            return mesh_lib.shard_batch(mesh, u) if mesh and u.shape[0] != n else u
 
         return _taped(draw)
 
@@ -502,7 +517,14 @@ class BatchNorm(nn.Module):
     the train step restores them when it skips an update. Under a bf16
     precision policy (``train/precision.py``) only the output is cast
     down: the fp32 statistics would otherwise promote every activation
-    after it back to fp32."""
+    after it back to fp32.
+
+    Under data parallelism (an active mesh with data ranks) the statistics
+    are the global batch's: ``(sum x, sum x^2)`` over the rank's rows are
+    summed over the data group (``parallel/comm.py::AllReduceSum``, whose
+    backward sums the gradients too), with n the global count: SyncBatchNorm,
+    what ``seist_tpu/models/common.py:519`` gets from its global batch. The
+    running statistics then follow the one-process run's."""
 
     def __init__(self, features: int, eps: float = BN_EPSILON):
         super().__init__()
@@ -516,9 +538,17 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean = xf.mean(dims)
-            var = (xf.square().mean(dims) - mean.square()).clamp_min(0.0)
             n = math.prod(x.shape[:-1])
+            mesh = mesh_lib.data_parallel()
+            if mesh is None:
+                mean = xf.mean(dims)
+                var = (xf.square().mean(dims) - mean.square()).clamp_min(0.0)
+            else:
+                sums = torch.stack([xf.sum(dims), xf.square().sum(dims)])
+                sums = comm.AllReduceSum.apply(sums, mesh.data_group)
+                n *= mesh.data
+                mean = sums[0] / n
+                var = (sums[1] / n - mean.square()).clamp_min(0.0)
             # A stage's recompute (remat) must not move the statistics again.
             if not recomputing():
                 with torch.no_grad():

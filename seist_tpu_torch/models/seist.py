@@ -53,6 +53,8 @@ from seist_tpu_torch.models.common import (
     make_divisible,
 )
 from seist_tpu_torch.ops.pooled_attention import fused_pooled_attention
+from seist_tpu_torch.ops.ring_attention import ring_attention
+from seist_tpu_torch.parallel import mesh as mesh_lib
 from seist_tpu_torch.registry import register_model
 
 
@@ -190,7 +192,15 @@ class AttentionBlock(nn.Module):
     dropout, post-softmax probability dropout inside the kernel (its int32
     seed drawn per call from the source's CPU generator, or read from the
     source's device buffer of the step's seeds, and handed to the kernel as
-    a device tensor) and output projection dropout."""
+    a device tensor) and output projection dropout.
+
+    Under an active mesh (``parallel/mesh.py``) whose ``seq`` axis has more
+    than one rank (``--seq-shards``), the attention runs as a ring over
+    that axis (``ops/ring_attention.py``) on the rank's blocks of the full
+    q, k and v, and the output is gathered back: each seq rank holds the
+    whole sequence outside attention (``seist_tpu/models/seist.py:554``).
+    With data ranks only, the kernels number the dropout mask from the
+    rank's first global batch row."""
 
     def __init__(self, io_dim: int, head_dim: int, qkv_bias: bool, attn_aggr_ratio: int,
                  attn_drop_rate: float = 0.0, key_drop_rate: float = 0.0,
@@ -222,9 +232,15 @@ class AttentionBlock(nn.Module):
         v = self.v_proj(x).view(n, m, heads, e)
         rate = self.attn_drop_rate if self.training else 0.0
         seed = common.need_source(self).attention_seed(q.device) if rate > 0.0 else 0
-        out = fused_pooled_attention(
-            q, k, v, 1.0 / math.sqrt(e), dropout_rate=rate, dropout_seed=seed
-        )
+        mesh = mesh_lib.active_mesh()
+        n0 = mesh.data_index * n if mesh_lib.data_parallel(mesh) else 0
+        if mesh_lib.seq_parallel(mesh):
+            out = ring_attention(q, k, v, mesh.seq_group, 1.0 / math.sqrt(e), rate, seed, n0)
+        else:
+            out = fused_pooled_attention(
+                q, k, v, 1.0 / math.sqrt(e), dropout_rate=rate, dropout_seed=seed,
+                batch_offset=n0,
+            )
         return self.proj_drop(self.out_proj(out.reshape(n, length, c)))
 
 

@@ -36,12 +36,12 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 #: C signature of each source's entry point (all return a cudaError_t as int).
 _ARGTYPES = {
     # q, k, v, o, lse, n, l, m, heads, e, dtype, row_warps, ksplit, scale, rate,
-    # out_scale, lm, seed (device pointer), stream
-    "pooled_attention_fwd": [_P] * 5 + [_I] * 8 + [_F] * 3 + [_U] + [_P] * 2,
+    # out_scale, lm, seed (device pointer), pid0, stream
+    "pooled_attention_fwd": [_P] * 5 + [_I] * 8 + [_F] * 3 + [_U, _P, _U, _P],
     # q, k, v, g, o, lse, dq, dk, dv, dq_part, dk_part, dv_part, n, l, m, heads,
     # e, dtype, splits, rows_per_split, scale, rate, out_scale, lm, seed (device
-    # pointer), stream
-    "pooled_attention_bwd": [_P] * 12 + [_I] * 8 + [_F] * 3 + [_U] + [_P] * 2,
+    # pointer), pid0, stream
+    "pooled_attention_bwd": [_P] * 12 + [_I] * 8 + [_F] * 3 + [_U, _P, _U, _P],
     # seed, epoch, idx, batch, slot tags (host), slot positions (host),
     # n_slots, tag0, tag1, n_fields, field_len, uniforms, fields, stream
     "aug_draws": [_U, _P, _P, _I, _P, _P] + [_I] * 5 + [_P] * 3,
@@ -247,12 +247,15 @@ def pooled_attention_fwd(
     scale: float,
     rate: float,
     seed: torch.Tensor,
+    pid0: int = 0,
 ) -> None:
     """Launch K1 on the current stream: q/o (N, L, H, E), k/v (N, M, H, E),
     checked by the caller (ops/pooled_attention.py); ``lse`` fp32 (N, H, L)
     receives the row statistics, or is None. ``seed`` is the int32 dropout
     seed on q's device: the kernel reads it there, so a captured launch
-    takes whatever seed is written into it before each replay."""
+    takes whatever seed is written into it before each replay. ``pid0`` is
+    the dropout counter's first batch-head slice (``n0 * H`` for rows that
+    start at global batch row ``n0``)."""
     lib = build("pooled_attention_fwd")
     n, l, h, e = q.shape
     m = k.shape[1]
@@ -263,7 +266,7 @@ def pooled_attention_fwd(
         None if lse is None else lse.data_ptr(),
         n, l, m, h, e, _DTYPES[q.dtype], row_warps, ksplit,
         float(scale), float(rate), _out_scale(rate),
-        (l * m) & 0xFFFFFFFF, _seed_ptr(seed, q.device), stream,
+        (l * m) & 0xFFFFFFFF, _seed_ptr(seed, q.device), int(pid0) & 0xFFFFFFFF, stream,
     )
     if err != 0:
         raise RuntimeError(
@@ -285,10 +288,11 @@ def pooled_attention_bwd(
     scale: float,
     rate: float,
     seed: torch.Tensor,
+    pid0: int = 0,
 ) -> None:
     """Launch K2 on the current stream: q/g/o/dq (N, L, H, E), k/v/dk/dv
-    (N, M, H, E), lse fp32 (N, H, L), checked by the caller; ``seed`` as
-    K1's. Allocates the fp32 scratch that :func:`bwd_scratch` sizes (none on
+    (N, M, H, E), lse fp32 (N, H, L), checked by the caller; ``seed`` and
+    ``pid0`` as K1's. Allocates the fp32 scratch that :func:`bwd_scratch` sizes (none on
     the main path; under graph capture it comes from, and stays in, the
     graph's private pool)."""
     lib = build("pooled_attention_bwd")
@@ -306,7 +310,7 @@ def pooled_attention_bwd(
         _ptr(dq_part), _ptr(dk_part), _ptr(dv_part),
         n, l, m, h, e, _DTYPES[q.dtype], splits, rows,
         float(scale), float(rate), _out_scale(rate),
-        (l * m) & 0xFFFFFFFF, _seed_ptr(seed, q.device), stream,
+        (l * m) & 0xFFFFFFFF, _seed_ptr(seed, q.device), int(pid0) & 0xFFFFFFFF, stream,
     )
     if err != 0:
         raise RuntimeError(

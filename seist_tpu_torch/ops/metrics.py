@@ -272,6 +272,30 @@ class Metrics:
         c.add(other)
         return c
 
+    def synchronize_between_processes(self, group=None) -> None:
+        """Sum the counters over ``group``'s ranks (every rank, or the data
+        group: seq ranks score the same rows) and gather the R2 targets in
+        rank order (``seist_tpu/ops/metrics.py:303``): each rank's rows are
+        padded to the largest count, gathered, and trimmed by each rank's
+        count. One rank: nothing."""
+        from seist_tpu_torch.parallel import comm
+
+        if comm.group_size(group) <= 1:
+            return
+        if self._counters is not None:
+            self._counters = {k: comm.all_reduce(v, "sum", group)
+                              for k, v in self._counters.items()}
+        if "r2" in self._metric_names:
+            local = np.concatenate(self._tgts, axis=0) if self._tgts else np.zeros((0, 1))
+            counts = comm.all_gather(torch.tensor([local.shape[0]], dtype=torch.int64),
+                                     0, group).tolist()
+            padded = np.zeros((max(counts),) + local.shape[1:], dtype=local.dtype)
+            padded[: local.shape[0]] = local
+            gathered = comm.all_gather(torch.from_numpy(padded)[None], 0, group).numpy()
+            self._tgts = [np.concatenate([gathered[r, :c] for r, c in enumerate(counts)],
+                                         axis=0)]
+        self._results = None
+
     def _all(self) -> Dict[str, float]:
         if self._results is None:
             tgts = np.concatenate(self._tgts, axis=0) if self._tgts else None

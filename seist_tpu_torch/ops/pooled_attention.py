@@ -24,8 +24,11 @@ value (``.item()``, no device sync there).
 
 Post-softmax dropout draws its uniforms from the counter hash of the JAX
 package (``_mix_to_uniform`` / ``_uniform01``): murmur3's finalizer over
-the element index ``pid*(L*M) + row*M + col`` with ``pid = b*H + h``. The
-plain version computes it in int64, masked to 32 bits after every
+the element index ``pid*(L*M) + row*M + col`` with ``pid = pid0 + b*H +
+h``. ``pid0`` is 0 on one rank; a data-parallel rank whose rows start at
+global batch row ``n0`` passes ``n0*H``, so its mask is its rows of the
+global batch's, as the JAX package's step over the global batch draws it.
+The plain version computes it in int64, masked to 32 bits after every
 multiply and add and shifted only while non-negative (so each shift is
 logical); the kernel computes it in uint32. Both reproduce JAX's bits.
 """
@@ -63,9 +66,14 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
-def _mix_to_uniform(x: torch.Tensor, seed: int) -> torch.Tensor:
-    """murmur3-finalizer hash of a uint32 counter (held in int64) -> U[0,1)."""
-    x = x ^ ((int(seed) * 0x9E3779B9) & _M32)
+def _mix_to_uniform(x: torch.Tensor, seed) -> torch.Tensor:
+    """murmur3-finalizer hash of a uint32 counter (held in int64) -> U[0,1).
+    ``seed`` is an int, or an int32 tensor on x's device (read there, with
+    no host sync: what a captured step's ring passes)."""
+    if torch.is_tensor(seed):
+        x = x ^ _mul32(seed.reshape(()).to(torch.int64) & _M32, 0x9E3779B9)
+    else:
+        x = x ^ ((int(seed) * 0x9E3779B9) & _M32)
     x = x ^ (x >> 16)
     x = _mul32(x, 0x85EBCA6B)
     x = x ^ (x >> 13)
@@ -86,18 +94,20 @@ def _uniform01(
     return _mix_to_uniform(x, seed)
 
 
-def _keep_mask(seed: int, n: int, h: int, l: int, m: int, rate: float, device) -> torch.Tensor:
-    """(N, H, L, M) dropout keep mask: the counter hash's u >= rate."""
-    pid = torch.arange(n * h, device=device)
+def _keep_mask(seed: int, n: int, h: int, l: int, m: int, rate: float, device,
+               pid0: int = 0) -> torch.Tensor:
+    """(N, H, L, M) dropout keep mask: the counter hash's u >= rate, batch-head
+    slices numbered from ``pid0``."""
+    pid = torch.arange(n * h, device=device) + int(pid0)
     u = _uniform01(seed, pid, l, m, device=device)
     return u.reshape(n, h, l, m) >= torch.tensor(rate, dtype=torch.float32)
 
 
-def _drop_both(p: torch.Tensor, dpd: torch.Tensor, rate: float, seed: int):
+def _drop_both(p: torch.Tensor, dpd: torch.Tensor, rate: float, seed: int, pid0: int = 0):
     """The forward's dropout applied to P (for dV) and to dPd = g v^T."""
     if rate <= 0.0:
         return p, dpd
-    keep = _keep_mask(seed, *p.shape, rate, p.device)
+    keep = _keep_mask(seed, *p.shape, rate, p.device, pid0)
     inv_keep = 1.0 / (1.0 - rate)
     return torch.where(keep, p * inv_keep, 0.0), torch.where(keep, dpd * inv_keep, 0.0)
 
@@ -110,18 +120,21 @@ def pooled_attention_plain(
     dropout_rate: float = 0.0,
     dropout_seed: int = 0,
     return_lse: bool = False,
+    pid0: int = 0,
 ):
     """The math of ``_einsum_attention``: q (N, L, H, E), k/v (N, M, H, E).
 
     Computes in fp32 and returns the input dtype, as the kernel does. With
     ``return_lse`` also the fp32 (N, H, L) log-sum-exp of the scaled scores
-    (K1's row statistics, which the backward reads)."""
+    (K1's row statistics, which the backward reads). ``pid0`` numbers the
+    dropout counter's batch-head slices from ``n0 * H``: the rows of a
+    data-parallel rank whose batch starts at global row ``n0``."""
     dtype = q.dtype
     q, k, v = q.float(), k.float(), v.float()
     s = torch.einsum("nlhe,nmhe->nhlm", q * scale, k)
     p = torch.softmax(s, dim=-1)
     if dropout_rate > 0.0:
-        keep = _keep_mask(dropout_seed, *p.shape, dropout_rate, q.device)
+        keep = _keep_mask(dropout_seed, *p.shape, dropout_rate, q.device, pid0)
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
     o = torch.einsum("nhlm,nmhe->nlhe", p, v).to(dtype)
     return (o, torch.logsumexp(s, dim=-1)) if return_lse else o
@@ -137,6 +150,7 @@ def pooled_attention_bwd_plain(
     scale: float,
     dropout_rate: float = 0.0,
     dropout_seed: int = 0,
+    pid0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2's function: (dq, dk, dv) for the upstream gradient ``g``
     (N, L, H, E) of the forward's output ``o``, from its row statistics
@@ -152,7 +166,7 @@ def pooled_attention_bwd_plain(
     s = torch.einsum("nlhe,nmhe->nhlm", q * scale, k)
     p = torch.exp(s - lse.float().unsqueeze(-1))
     dpd = torch.einsum("nlhe,nmhe->nhlm", g, v)
-    pd, dp = _drop_both(p, dpd, dropout_rate, dropout_seed)
+    pd, dp = _drop_both(p, dpd, dropout_rate, dropout_seed, pid0)
     d = (g * o).sum(dim=-1).permute(0, 2, 1).unsqueeze(-1)  # (N, H, L, 1)
     dv = torch.einsum("nhlm,nlhe->nmhe", pd, g)
     ds = p * (dp - d)
@@ -237,34 +251,35 @@ def set_counts(values: Tuple[int, int, int, int]) -> None:
     launches, bwd_launches, bf16_launches, bf16_bwd_launches = values
 
 
-def _forward(q, k, v, scale, rate, seed, with_lse: bool):
+def _forward(q, k, v, scale, rate, seed, with_lse: bool, pid0: int = 0):
     """K1 on CUDA tensors, the plain version on CPU tensors: o, and the
     fp32 (N, H, L) row statistics when ``with_lse`` (else None). ``seed``
-    is an int or the int32 seed tensor on q's device."""
+    is an int or the int32 seed tensor on q's device; ``pid0`` the dropout
+    counter's first batch-head slice."""
     if q.device.type == "cpu":
         seed = _seed_int(seed)
         if with_lse:
-            return pooled_attention_plain(q, k, v, scale, rate, seed, return_lse=True)
-        return pooled_attention_plain(q, k, v, scale, rate, seed), None
+            return pooled_attention_plain(q, k, v, scale, rate, seed, return_lse=True, pid0=pid0)
+        return pooled_attention_plain(q, k, v, scale, rate, seed, pid0=pid0), None
     _check_kernel_inputs(q, k, v)
     from seist_tpu_torch.ops import _kernels
 
     o = torch.empty_like(q)
     n, l, h, _ = q.shape
     lse = torch.empty(n, h, l, dtype=torch.float32, device=q.device) if with_lse else None
-    _kernels.pooled_attention_fwd(q, k, v, o, lse, scale, rate, seed_tensor(seed, q.device))
+    _kernels.pooled_attention_fwd(q, k, v, o, lse, scale, rate, seed_tensor(seed, q.device), pid0)
     launch_counts.bump(__name__, q.device, *(("launches", "bf16_launches")
                                              if q.dtype == torch.bfloat16 else ("launches",)))
     return o, lse
 
 
-def _backward(q, k, v, g, o, lse, scale, rate, seed):
+def _backward(q, k, v, g, o, lse, scale, rate, seed, pid0: int = 0):
     """K2 on CUDA tensors, the plain version on CPU tensors. The upstream
     gradient arrives strided from the reshape and ``out_proj`` backward:
     it is made contiguous here, since the kernel reads the (N, L, H*E)
     layout."""
     if q.device.type == "cpu":
-        return pooled_attention_bwd_plain(q, k, v, g, o, lse, scale, rate, _seed_int(seed))
+        return pooled_attention_bwd_plain(q, k, v, g, o, lse, scale, rate, _seed_int(seed), pid0)
     g = g.to(q.dtype).contiguous()
     _check_kernel_inputs(q, k, v)
     n, l, h, _ = q.shape
@@ -280,7 +295,7 @@ def _backward(q, k, v, g, o, lse, scale, rate, seed):
 
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _kernels.pooled_attention_bwd(q, k, v, g, o, lse, dq, dk, dv, scale, rate,
-                                  seed_tensor(seed, q.device))
+                                  seed_tensor(seed, q.device), pid0)
     launch_counts.bump(__name__, q.device, *(("bwd_launches", "bf16_bwd_launches")
                                              if q.dtype == torch.bfloat16 else ("bwd_launches",)))
     return dq, dk, dv
@@ -293,17 +308,17 @@ class _PooledAttention(torch.autograd.Function):
     ``out_proj`` already saves a view of the same storage."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float, rate: float, seed: torch.Tensor):
-        o, lse = _forward(q, k, v, scale, rate, seed, any(ctx.needs_input_grad[:3]))
+    def forward(ctx, q, k, v, scale: float, rate: float, seed: torch.Tensor, pid0: int):
+        o, lse = _forward(q, k, v, scale, rate, seed, any(ctx.needs_input_grad[:3]), pid0)
         ctx.save_for_backward(q, k, v, o, lse, seed)
-        ctx.scale, ctx.rate = scale, rate
+        ctx.scale, ctx.rate, ctx.pid0 = scale, rate, pid0
         return o
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, lse, seed = ctx.saved_tensors
-        dq, dk, dv = _backward(q, k, v, g, o, lse, ctx.scale, ctx.rate, seed)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = _backward(q, k, v, g, o, lse, ctx.scale, ctx.rate, seed, ctx.pid0)
+        return dq, dk, dv, None, None, None, None
 
 
 def fused_pooled_attention(
@@ -314,6 +329,7 @@ def fused_pooled_attention(
     *,
     dropout_rate: float = 0.0,
     dropout_seed=0,
+    batch_offset: int = 0,
 ) -> torch.Tensor:
     """Attention for ``q (N, L, H, E)``, ``k/v (N, M, H, E)``, differentiable
     in q, k and v.
@@ -323,9 +339,13 @@ def fused_pooled_attention(
     versions. ``dropout_rate`` > 0 applies post-softmax probability
     dropout from the counter hash seeded by ``dropout_seed``: an int32
     scalar tensor on q's device (what a captured step passes), or an int.
+    ``batch_offset`` is the global index of q's first batch row (a
+    data-parallel rank's ``n0``): the mask is then that rank's rows of the
+    global batch's mask (the kernels' ``pid0 = n0 * H``).
     """
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
     return _PooledAttention.apply(q, k, v, float(scale), float(dropout_rate),
-                                  seed_tensor(dropout_seed, q.device))
+                                  seed_tensor(dropout_seed, q.device),
+                                  int(batch_offset) * q.shape[2])

@@ -22,6 +22,12 @@ A capture (:class:`Captured`):
    so the loader threads may pin memory meanwhile). Any failure raises:
    there is no fallback to the eager step.
 
+Several ranks: under NCCL the step's collectives (``parallel/comm.py``)
+run inside the graph, on the capturing stream; the warm-up runs have made
+them once on every rank before. gloo stages CUDA tensors through the host,
+which a capture cannot hold, so a capture under gloo raises: the capture
+wrappers run the eager step there, and only there.
+
 A replay copies the call's inputs into the static buffers (non-blocking
 from pinned host memory), writes the step's attention seeds into the
 graph's seed buffer (drawn on the host from the step's
@@ -59,6 +65,7 @@ from seist_tpu_torch.models.common import RandomSource
 from seist_tpu_torch.ops import launch_counts
 from seist_tpu_torch.ops import pooled_attention as pa
 from seist_tpu_torch.ops import threefry
+from seist_tpu_torch.parallel import dist
 from seist_tpu_torch.train import step as step_lib
 from seist_tpu_torch.train.precision import resolve_dtype
 from seist_tpu_torch.train.step import TrainState
@@ -126,6 +133,11 @@ class Captured:
     def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor], device: torch.device,
                  mutable: Sequence[torch.Tensor] = (), random: bool = False,
                  pool: Optional[Tuple[int, int]] = None, shared_inputs: bool = False):
+        if dist.backend() == "gloo":
+            raise RuntimeError(
+                "a step under the gloo backend cannot be captured as a CUDA graph (its "
+                "collectives copy through host memory); the train worker runs eager steps "
+                "under DIST_BACKEND=gloo")
         self.device = device
         self.random = random
         self.generator = torch.cuda.default_generators[device.index or 0]
@@ -215,10 +227,33 @@ def _staged(model: torch.nn.Module, inputs):
     return inputs if stage is None else stage(inputs)
 
 
+_EAGER_LOGGED = []
+
+
 def _on_cuda(state: TrainState) -> Optional[torch.device]:
-    """The model's CUDA device, or None when it lies on the CPU."""
+    """The model's CUDA device, or None when the step runs eagerly: on the
+    CPU, and under the gloo backend (module docstring)."""
     dev = step_lib._device_of(state.model)
-    return dev if dev.type == "cuda" else None
+    if dev.type != "cuda":
+        return None
+    if dist.backend() == "gloo":
+        if not _EAGER_LOGGED:
+            from seist_tpu_torch.utils.logger import logger
+
+            logger.info("gloo backend on cuda: the steps run eagerly (no CUDA graphs)")
+            _EAGER_LOGGED.append(True)
+        return None
+    return dev
+
+
+def _on_model(state: TrainState, tree):
+    """``tree``'s tensors on the model's device: the eager step under gloo
+    on a card gets the host batch that a replay would copy in."""
+    dev = step_lib._device_of(state.model)
+    if dev.type == "cpu":
+        return tree
+    return _unflat(tree, [t.to(dev, non_blocking=True) if torch.is_tensor(t) else t
+                          for t in _flat(tree)])
 
 
 def capture_train_step(step: Callable) -> Callable:
@@ -228,13 +263,14 @@ def capture_train_step(step: Callable) -> Callable:
     outputs when ``keep_outputs`` (else None; the train worker asks on its
     log-step calls only). The graph keeps its outputs alive in its pool,
     which holds them through the step anyway, so a copy made before the
-    next replay is the step's own. On the CPU, the step itself."""
+    next replay is the step's own. On the CPU, and under gloo, the step
+    itself."""
     graphs = _Graphs()
 
     def run(state: TrainState, inputs, targets, rng: RandomSource, keep_outputs: bool = False):
         dev = _on_cuda(state)
         if dev is None:
-            return step(state, inputs, targets, rng)
+            return step(state, *_on_model(state, (inputs, targets)), rng)
         inputs = _staged(state.model, inputs)
         flat_in = _flat(inputs) + _flat(targets)
         n_in = len(_flat(inputs))
@@ -264,7 +300,8 @@ def capture_accum_step(loss_fn: Callable, accum_steps: int, guard: bool = True,
                        compute_dtype: Optional[str] = None) -> Callable:
     """:func:`~seist_tpu_torch.train.step.make_accum_train_step` run as
     three graphs on CUDA (begin, one micro-batch, the update), replayed
-    begin, k x micro-batch, update; the eager step on the CPU."""
+    begin, k x micro-batch, update; the eager step on the CPU and under
+    gloo."""
     eager = step_lib.make_accum_train_step(loss_fn, accum_steps, guard, compute_dtype)
     if accum_steps <= 1:
         return capture_train_step(eager)
@@ -274,7 +311,7 @@ def capture_accum_step(loss_fn: Callable, accum_steps: int, guard: bool = True,
     def run(state: TrainState, inputs_k, targets_k, rngs: Sequence[RandomSource]):
         dev = _on_cuda(state)
         if dev is None:
-            return eager(state, inputs_k, targets_k, rngs)
+            return eager(state, *_on_model(state, (inputs_k, targets_k)), rngs)
         micro_inputs = [_staged(state.model, step_lib._index(inputs_k, i))
                         for i in range(accum_steps)]
         xs, ys = micro_inputs[0], step_lib._index(targets_k, 0)
@@ -293,8 +330,9 @@ def capture_accum_step(loss_fn: Callable, accum_steps: int, guard: bool = True,
             mutable = state.tensors()
             return (Captured(lambda: step_lib.begin_step(state, guard), [], dev, mutable),
                     Captured(micro, flat_in, dev, mutable, random=True),
-                    Captured(lambda: step_lib.finish_step(state, guard, accum_steps),
-                             [], dev, mutable))
+                    Captured(lambda: step_lib.finish_step(
+                        state, guard, accum_steps, getattr(loss_fn, "reduction", "mean")),
+                        [], dev, mutable))
 
         begin, one, finish = graphs.get(("accum", id(state)) + _geometry(flat_in), make)
         begin.replay([])
@@ -341,7 +379,8 @@ def capture_processor(process: Callable, device: torch.device, resident: int = 0
 def capture_eval_step(step: Callable) -> Callable:
     """``step(state, inputs, targets, mask) -> (loss, outputs)`` (a
     :func:`~seist_tpu_torch.train.step.make_eval_step` step) run as a
-    graph on CUDA, returning copies; the step itself on the CPU."""
+    graph on CUDA, returning copies; the step itself on the CPU and under
+    gloo."""
     graphs = _Graphs()
 
     def run(state: TrainState, inputs, targets, mask):

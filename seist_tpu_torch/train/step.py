@@ -32,6 +32,11 @@ and :func:`make_cached_train_call` augment raw rows on the device first
 each micro-batch, is a :class:`RandomSource` that the caller builds from
 (seed, epoch, update count[, micro-batch]) with :func:`step_random_source`.
 
+Several ranks (``parallel/``): a rank's batch is its rows of the global
+batch, and before the guard :func:`reduce_over_ranks` all-reduces the
+gradients and the loss in one flat bucket, so the verdict, the update and
+the parameters are the same on every rank.
+
 ``compute_dtype="bf16"`` runs the forward and backward in bfloat16
 (``train/precision.py``): the parameters are cast inside the step through
 ``torch.func.functional_call``, so gradients flow back through the cast to
@@ -48,6 +53,8 @@ import numpy as np
 import torch
 
 from seist_tpu_torch.models.common import RandomSource, set_random_source
+from seist_tpu_torch.parallel import comm
+from seist_tpu_torch.parallel import mesh as mesh_lib
 from seist_tpu_torch.train import optim
 from seist_tpu_torch.train.precision import (
     cast_floating,
@@ -184,16 +191,38 @@ def accumulate(state: TrainState, inputs, targets, rng: RandomSource, loss_fn: C
     return loss, outputs.detach()
 
 
-def finish_step(state: TrainState, guard: bool, micro_batches: int = 1
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def reduce_over_ranks(grads: List[torch.Tensor], loss: torch.Tensor,
+                      reduction: str = "mean") -> torch.Tensor:
+    """Under a mesh with a process group (``parallel/mesh.py``): replace
+    each rank's gradients by their global value and return the global loss,
+    in one all-reduce of one flat bucket over every rank. A mean-reduced
+    loss's global value is the mean over the data ranks, a sum-reduced
+    one's the sum. The ranks of a seq group hold the same values, so the
+    sum over every rank divides by the seq size too; reducing over every
+    rank, not the data group alone, keeps the parameters byte-identical on
+    the seq ranks even where a backward kernel is not deterministic.
+    Without a process group: ``loss``, nothing moved."""
+    mesh = mesh_lib.active_mesh()
+    if mesh is None or not mesh.distributed:
+        return loss
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1).to(grads[0].dtype)])
+    flat = comm.all_reduce(flat, "sum") / (mesh.seq if reduction == "sum" else mesh.world)
+    parts = flat[:-1].split([g.numel() for g in grads])
+    torch._foreach_copy_(grads, [x.view_as(g) for x, g in zip(parts, grads)])
+    return flat[-1].to(loss.dtype)
+
+
+def finish_step(state: TrainState, guard: bool, micro_batches: int = 1,
+                reduction: str = "mean") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The update from the gradients summed over ``micro_batches``: their
-    mean, and the mean loss, decide the verdict (:func:`_guarded_update`).
+    mean, and the mean loss, taken over the ranks (:func:`reduce_over_ranks`,
+    ``reduction`` the loss's), decide the verdict (:func:`_guarded_update`).
     Returns (mean loss, diag)."""
     with torch.no_grad():
         grads = [p.grad for p in _params(state)]
         if micro_batches > 1:
             torch._foreach_div_(grads, float(micro_batches))
-        loss = state.loss_sum / micro_batches
+        loss = reduce_over_ranks(grads, state.loss_sum / micro_batches, reduction)
         return loss, _guarded_update(state, grads, loss, guard)
 
 
@@ -240,11 +269,12 @@ def make_train_step(
     ``compute_dtype`` 'bf16' computes the forward and backward in bfloat16
     (module docstring)."""
     cdtype = resolve_dtype(compute_dtype)
+    reduction = getattr(loss_fn, "reduction", "mean")
 
     def train_step(state: TrainState, inputs, targets, rng: RandomSource):
         begin_step(state, guard)
         _, outputs = accumulate(state, inputs, targets, rng, loss_fn, cdtype)
-        loss, diag = finish_step(state, guard)
+        loss, diag = finish_step(state, guard, reduction=reduction)
         return loss, outputs, diag
 
     return train_step
@@ -333,7 +363,8 @@ def make_accum_train_step(
         begin_step(state, guard)
         for i in range(accum_steps):
             accumulate(state, _index(inputs_k, i), _index(targets_k, i), rngs[i], loss_fn, cdtype)
-        loss, diag = finish_step(state, guard, accum_steps)
+        loss, diag = finish_step(state, guard, accum_steps,
+                                 getattr(loss_fn, "reduction", "mean"))
         return loss, None, diag
 
     return accum_step

@@ -1,6 +1,19 @@
-"""The training and test runs on one card (counterpart of the
-single-device paths of ``seist_tpu/train/worker.py::train_worker`` and
-``test_worker``).
+"""The training and test runs (counterpart of
+``seist_tpu/train/worker.py::train_worker`` and ``test_worker``).
+
+Several ranks (``parallel/``, one process each): the mesh is ``(data,
+1, seq)`` with ``seq = --seq-shards`` (``seist_tpu/train/worker.py:430``);
+each data rank loads its shard of every epoch (the ranks of a seq group
+the same rows), the step reduces its gradients and loss over the ranks,
+BatchNorm its statistics over the data group, and the val and test
+losses and metrics are the global ones. Rank 0 alone writes checkpoints,
+the loss arrays, result files, events, TensorBoard and the metrics port;
+the others wait for a save at a barrier, and every rank resumes from
+the same file. At the end the ranks compare a checksum of their
+parameters, which must be byte-identical. Under ``DIST_BACKEND=gloo`` on
+a card the steps run eagerly (gloo's collectives copy through the host,
+which a CUDA graph cannot hold). ``--device-aug step|cached`` is one
+rank's only.
 
 Per epoch: the seeded train loader feeds the guarded train step, then
 :func:`validate` runs the masked
@@ -117,6 +130,9 @@ from seist_tpu_torch.models import api
 from seist_tpu_torch.ops.metrics import Metrics
 from seist_tpu_torch.ops.postprocess import process_outputs
 from seist_tpu_torch.ops.results import ResultSaver
+from seist_tpu_torch.parallel import comm
+from seist_tpu_torch.parallel import dist as dist_lib
+from seist_tpu_torch.parallel import mesh as mesh_lib
 from seist_tpu_torch.serve.pool import resolve_device
 from seist_tpu_torch.train.checkpoint import (
     PREEMPT_EXIT_CODE,
@@ -257,7 +273,8 @@ def _start_watchdog(args: Any) -> Optional[io_guard.StallWatchdog]:
     return io_guard.StallWatchdog(timeout).start() if timeout > 0 else None
 
 
-def _build_loader(args: Any, spec: taskspec.TaskSpec, mode: str) -> pipeline.Loader:
+def _build_loader(args: Any, spec: taskspec.TaskSpec, mode: str,
+                  mesh: Optional[mesh_lib.Mesh] = None) -> pipeline.Loader:
     sds = pipeline.from_task_spec(
         spec,
         args.dataset_name,
@@ -304,6 +321,8 @@ def _build_loader(args: Any, spec: taskspec.TaskSpec, mode: str) -> pipeline.Loa
         worker_processes=int(args.loader_processes or 0) if mode == "train" else 0,
         seed=args.seed,
         mixture_temperature=_mixture_temperature(args, mode),
+        num_shards=mesh.data if mesh is not None else 1,
+        shard_index=mesh.data_index if mesh is not None else 0,
     )
 
 
@@ -433,24 +452,27 @@ def validate(
     testing: bool = False,
     save_results: bool = False,
     watchdog: Optional[io_guard.StallWatchdog] = None,
+    mesh: Optional[mesh_lib.Mesh] = None,
 ) -> Tuple[float, Dict[str, Metrics]]:
     """Mean loss over the real (unpadded) samples and the per-task metrics
     of the decoded outputs, trimmed to those samples; at test time,
     optionally the results CSV in ``args.log_dir``. ``watchdog`` is armed
-    while the loop waits for a batch."""
+    while the loop waits for a batch. Over several data ranks (``mesh``)
+    the loss and the metrics are the global ones (summed over the data
+    group), and rank 0 writes this rank's rows of the CSV, as the JAX
+    worker's process 0 writes its own."""
     tasks = list(spec.eval)
     fs = loader.dataset.sampling_rate()
     metrics = _make_metrics(args, tasks, fs)
-    saver = ResultSaver(item_names=tasks) if save_results else None
-    total, count = 0.0, 0
+    saver = ResultSaver(item_names=tasks) if save_results and dist_lib.is_main_process() else None
+    per_batch = []  # (loss, valid rows)
     for batch in io_guard.watch(_prefetch(loader), watchdog):
         mask = torch.from_numpy(batch.mask).to(device)
         loss, outputs = eval_step(
             state, move_batch(batch.inputs, device), move_batch(batch.loss_targets, device), mask
         )
         valid = int(batch.mask.sum())
-        total += float(loss) * max(valid, 1)  # one host read per batch, as the JAX package
-        count += max(valid, 1)
+        per_batch.append((float(loss), valid))  # one host read per batch, as the JAX package
         results = _postprocess_batch(args, spec, outputs, fs)
         for task, m in metrics.items():
             prd = results[task][:valid]
@@ -463,6 +485,18 @@ def validate(
                 {t: batch.metrics_targets[t][:valid] for t in tasks},
                 {t: results[t][:valid] for t in tasks},
             )
+    losses, valids = torch.tensor(per_batch, dtype=torch.float64).reshape(-1, 2).unbind(1)
+    group = mesh.data_group if mesh_lib.data_parallel(mesh) else None
+    if group is not None:
+        # Each batch's global loss (the JAX package's step over the global
+        # batch): the ranks' sums, or their means weighted by valid rows.
+        parts = comm.all_reduce(torch.stack([losses * valids, losses, valids]), "sum", group)
+        valids = parts[2]
+        sum_reduced = getattr(spec.make_loss(), "reduction", "mean") == "sum"
+        losses = parts[1] if sum_reduced else parts[0] / valids.clamp(min=1)
+        for m in metrics.values():
+            m.synchronize_between_processes(group)
+    weights = valids.clamp(min=1)
     if saver is not None:
         out_csv = get_safe_path(
             os.path.join(args.log_dir, f"test_results_{loader.dataset.name()}.csv")
@@ -472,7 +506,7 @@ def validate(
     phase = "test" if testing else "val"
     for task, m in metrics.items():
         logger.info(f"[{phase}] {args.model_name} {task}: {m}")
-    return total / max(count, 1), metrics
+    return float((losses * weights).sum() / weights.sum().clamp(min=1)), metrics
 
 
 def _first(tree):
@@ -576,18 +610,56 @@ def _resolve_device_aug(args: Any, sds: pipeline.SeismicDataset, device: torch.d
     return mode, (store if mode != "off" else None), spc
 
 
+def _make_mesh(args: Any) -> mesh_lib.Mesh:
+    """The run's ``(data, 1, seq)`` mesh over the process group's ranks
+    (one rank without a group), ``seq = --seq-shards``, which must divide
+    the ranks (``seist_tpu/train/worker.py:430-447``). Each data rank loads
+    ``--batch-size`` rows, so the global batch is ``--batch-size`` times the
+    data axis and always divides over it."""
+    seq = int(getattr(args, "seq_shards", 1) or 1)
+    mesh = mesh_lib.make_mesh(seq=seq)
+    world = dist_lib.process_count()
+    if mesh.distributed:
+        logger.info(f"mesh: {mesh.shape}, rank {mesh.rank}/{world} (data {mesh.data_index}, "
+                    f"seq {mesh.seq_index}), backend {dist_lib.backend()}, global batch "
+                    f"{args.batch_size * mesh.data}")
+    if seq > 1:
+        logger.info(f"Sequence parallelism: ring attention over {seq} ranks")
+    if world > 1 and args.device_aug != "off":
+        raise NotImplementedError(
+            f"--device-aug {args.device_aug} runs on one rank: its draws and epoch cache are "
+            "not sharded over ranks yet (queued in ROADMAP.md)")
+    return mesh
+
+
+def _check_ranks_agree(model: torch.nn.Module) -> None:
+    """Raise unless every rank's parameters are byte-identical."""
+    sums = dist_lib.all_gather_object(dist_lib.checksum(model))
+    if len(set(sums)) != 1:
+        raise RuntimeError(f"the ranks' parameters differ after training: {sums}")
+    logger.info(f"[dist] parameters byte-identical over {len(sums)} ranks "
+                f"(sha256 {sums[0][:16]})")
+
+
 @_dump_flight_on_exception
 def train_worker(args: Any) -> str:
     """The full run; returns the best checkpoint's weights path."""
+    mesh = _make_mesh(args)
+    with mesh_lib.use_mesh(mesh):
+        return _train(args, mesh)
+
+
+def _train(args: Any, mesh: mesh_lib.Mesh) -> str:
     logger_mod.set_logdir(args.log_dir)
-    device = resolve_device(args.device)
+    device = dist_lib.rank_device(resolve_device(args.device))
     _disable_tf32(device)
     spec = taskspec.get_task_spec(args.model_name)
     loss_fn = spec.make_loss()
     l1 = _l1_terms(args)
+    main = dist_lib.is_main_process()
 
-    train_loader = _build_loader(args, spec, "train")
-    val_loader = _build_loader(args, spec, "val")
+    train_loader = _build_loader(args, spec, "train", mesh)
+    val_loader = _build_loader(args, spec, "val", mesh)
     steps_per_epoch = len(train_loader)
     if steps_per_epoch == 0:
         raise ValueError("Train split is empty — check data_dir / split sizes")
@@ -648,8 +720,8 @@ def train_worker(args: Any) -> str:
     )
     state = TrainState(model, optimizer, schedule, l1=l1)
     guard = bool(args.bad_step_guard)
-    # On CUDA each step is a captured graph (train/graph.py); on the CPU
-    # the same functions run eagerly.
+    # On CUDA each step is a captured graph (train/graph.py); on the CPU,
+    # and under gloo, the same functions run eagerly.
     if gas > 1:
         if steps_per_epoch % gas:
             logger.warning(f"grad_accum_steps={gas} drops {steps_per_epoch % gas} trailing "
@@ -695,6 +767,7 @@ def train_worker(args: Any) -> str:
     best_loss, best_path, patience = float("inf"), "", 0
     start_epoch, start_batch = args.start_epoch, 0
     if args.checkpoint:
+        dist_lib.barrier("resume")  # every rank reads the same file
         record = load_checkpoint(args.checkpoint, state)
         meta = record["meta"]
         if record["weights_only"]:
@@ -755,15 +828,15 @@ def train_worker(args: Any) -> str:
     recorder = obs.FlightRecorder(capacity=fsteps if fsteps > 0 else 256)
     obs.flight.install(recorder)
     obs.register_default_collectors()
-    events = obs.EventLog(os.path.join(args.log_dir, "events.jsonl"))
+    events = obs.EventLog(os.path.join(args.log_dir, "events.jsonl")) if main else None
     writer = (ScalarWriter(os.path.join(args.log_dir, "tensorboard"))
-              if getattr(args, "use_tensorboard", False) else None)
+              if getattr(args, "use_tensorboard", False) and main else None)
     # --metrics-port: > 0 binds that loopback port, -1 an ephemeral one
     # (logged), 0 none.
     profile_trigger = obs.ProfileTrigger()
     mport = int(getattr(args, "metrics_port", 0) or 0)
     metrics_server = (obs.start_metrics_server(mport, profile_trigger=profile_trigger)
-                      if mport else None)
+                      if mport and main else None)
     prev_usr2 = None
     if threading.current_thread() is threading.main_thread() and hasattr(signal, "SIGUSR2"):
         def _on_usr2(signum, frame):
@@ -786,7 +859,8 @@ def train_worker(args: Any) -> str:
         if profiling.active():
             profiling.trace_stop()
         obs.flight.install(None)
-        events.close()
+        if events is not None:
+            events.close()
         if writer is not None:
             writer.close()
         if metrics_server is not None:
@@ -802,22 +876,28 @@ def train_worker(args: Any) -> str:
 
     def emit_event(kind: str, **fields) -> None:
         recorder.record_event(kind, **fields)
-        events.emit(kind, **fields)
+        if events is not None:
+            events.emit(kind, **fields)
 
     def save(gstep: int, epoch: int, batches_done: int, val_loss: Optional[float] = None) -> str:
         """Checkpoint at global batch ``gstep``; the data position saved is
-        the NEXT batch to consume."""
+        the NEXT batch to consume. Rank 0 writes; every rank waits for it
+        (a rollback or the test run reads the file next)."""
         if batches_done >= steps_per_epoch:
             d_epoch, d_off = epoch + 1, 0
         else:
             d_epoch, d_off = epoch, batches_done
         with obs.BUS.span("checkpoint_save"):
-            return ckpt_mgr.save(
-                gstep, state, epoch=epoch, data_epoch=d_epoch, data_batch_offset=d_off,
-                seed=args.seed, steps_per_epoch=steps_per_epoch,
-                batch_size=int(args.batch_size), val_loss=val_loss, best_loss=best_loss,
-                patience=patience,
-            )
+            path = ckpt_mgr.step_path(gstep)
+            if main:
+                path = ckpt_mgr.save(
+                    gstep, state, epoch=epoch, data_epoch=d_epoch, data_batch_offset=d_off,
+                    seed=args.seed, steps_per_epoch=steps_per_epoch,
+                    batch_size=int(args.batch_size), val_loss=val_loss, best_loss=best_loss,
+                    patience=patience,
+                )
+            dist_lib.barrier("checkpoint_save")
+            return path
 
     def preempt_exit(epoch: int, batches_done: int, hard: bool = False) -> None:
         """Make the checkpoint of the position reached durable, then exit
@@ -1099,7 +1179,7 @@ def train_worker(args: Any) -> str:
             try:
                 with obs.BUS.span("validate"):
                     val_loss, val_metrics = validate(args, state, eval_step, spec, val_loader,
-                                                     device, watchdog=watchdog)
+                                                     device, watchdog=watchdog, mesh=mesh)
             except io_guard.LoaderDeathError as e:
                 loader_death_exit(e, epoch, steps_per_epoch)
             obs.BUS.gauge("val_loss").set(val_loss)
@@ -1148,8 +1228,11 @@ def train_worker(args: Any) -> str:
     if monitor.total_skipped:
         logger.warning(f"Bad-update guard skipped {monitor.total_skipped} non-finite "
                        "update(s) this run")
-    np.save(os.path.join(args.log_dir, "train_losses.npy"), np.asarray(train_losses))
-    np.save(os.path.join(args.log_dir, "val_losses.npy"), np.asarray(val_losses))
+    if main:
+        np.save(os.path.join(args.log_dir, "train_losses.npy"), np.asarray(train_losses))
+        np.save(os.path.join(args.log_dir, "val_losses.npy"), np.asarray(val_losses))
+    if mesh.distributed:
+        _check_ranks_agree(state.model)
     emit_event("train_done", best_loss=round(float(best_loss), 6))
     obs_close()
     return best_path
@@ -1162,11 +1245,17 @@ def test_worker(args: Any) -> float:
     returns the test loss."""
     if not args.checkpoint:
         raise ValueError("test mode requires --checkpoint")
-    device = resolve_device(args.device)
+    mesh = _make_mesh(args)
+    with mesh_lib.use_mesh(mesh):
+        return _test(args, mesh)
+
+
+def _test(args: Any, mesh: mesh_lib.Mesh) -> float:
+    device = dist_lib.rank_device(resolve_device(args.device))
     _disable_tf32(device)
     spec = taskspec.get_task_spec(args.model_name)
     loss_fn = spec.make_loss()
-    test_loader = _build_loader(args, spec, "test")
+    test_loader = _build_loader(args, spec, "test", mesh)
     in_channels = taskspec.get_num_inchannels(args.model_name)
     model = api.create_model(args.model_name, in_channels=in_channels,
                              in_samples=args.in_samples, seed=args.seed)
@@ -1181,7 +1270,7 @@ def test_worker(args: Any) -> float:
     try:
         loss, metrics = validate(args, state, eval_step, spec, test_loader, device,
                                  testing=True, save_results=args.save_test_results,
-                                 watchdog=watchdog)
+                                 watchdog=watchdog, mesh=mesh)
     finally:
         if watchdog is not None:
             watchdog.stop()
@@ -1197,9 +1286,11 @@ def test_worker(args: Any) -> float:
             "quarantine": test_loader.dataset.quarantine_report(),
         },
     }
-    out_json = get_safe_path(os.path.join(args.log_dir, f"test_metrics_{args.dataset_name}.json"))
-    with open(out_json, "w") as f:
-        json.dump(payload, f, indent=1)
-    logger.info(f"Test metrics saved: {out_json}")
+    if dist_lib.is_main_process():
+        out_json = get_safe_path(os.path.join(args.log_dir,
+                                              f"test_metrics_{args.dataset_name}.json"))
+        with open(out_json, "w") as f:
+            json.dump(payload, f, indent=1)
+        logger.info(f"Test metrics saved: {out_json}")
     test_loader.close()
     return loss

@@ -239,3 +239,14 @@ def test_the_offline_tools_are_covered_and_load_no_pandas_or_matplotlib():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_the_parallel_layer_is_covered():
+    """The process group, the mesh, the collectives, the step check and the
+    ring are among the modules checked above, each the port's own (the JAX
+    package's HLO report ``collectives`` stays there)."""
+    mods = set(_modules())
+    assert {"seist_tpu_torch.parallel", "seist_tpu_torch.parallel.dist",
+            "seist_tpu_torch.parallel.mesh", "seist_tpu_torch.parallel.comm",
+            "seist_tpu_torch.parallel.check", "seist_tpu_torch.ops.ring_attention"} <= mods
+    assert "seist_tpu_torch.parallel.collectives" not in mods

@@ -241,8 +241,9 @@ def test_use_checkpoint_and_unported_flags_raise():
     # Ported (tests/test_torch_remat.py): a model config field, as in the JAX package.
     assert tapi.create_model(MODEL, in_samples=WINDOW, use_checkpoint=True).cfg.use_checkpoint
     base = ["--dataset-name", "synthetic"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.get_args(base + ["--seq-shards", "2"])
+    # Ported in the slice of several ranks (tests/test_torch_parallel.py):
+    # accepted as given, the mesh checks it against the ranks at run time.
+    assert cli.get_args(base + ["--seq-shards", "2"]).seq_shards == 2
     # Ported in the slice of device augmentation: the JAX CLI's flags,
     # names, choices and defaults.
     args = cli.get_args(base)
