@@ -303,6 +303,30 @@ non-zero before the last line):
     ring's P2P and gathers inside the train and eval graphs). Prints which
     of (c) and (d) ran. Each child has a timeout whose expiry kills every
     rank and fails the phase.
+18. device augmentation over several data ranks: the train entry with
+    ``--device-aug`` through the env contract, against one rank at the
+    global batch in this process (captured; each global batch ordered as
+    the ranks' rows side by side, ``parallel/check.py::ranks_order``,
+    since each dropout mask is positional): (a) one NCCL rank (world 1) in
+    this process, ``--device-aug cached --steps-per-call 4`` at b16,
+    captured, the row
+    exchange (a copy at world 1) inside the processor's graph, against the
+    same run without a group: losses within RESUME_RTOL, the first call's
+    processed rows bitwise (or within DA_ROWS_TOL, printed); (b) two gloo
+    ranks on this card in two child processes (plain versions patched to
+    raise), b8 a rank over 40 synthetic events, ``--device-aug step`` and
+    ``cached`` (the cache sharded, ``ceil(n/2)`` rows a rank, one
+    ``all_to_all`` a step); (c) the same step run with ``--ingest direct``
+    on phase 6's float32 pack at b32 a rank. In (b)-(c): rank 0's losses
+    within RESUME_RTOL of one rank's, each rank's first processed rows
+    against its rows of the one-rank batch, K3 one launch per step per
+    rank, K1 and K2 as the steps and the val batch need, eager (no graph),
+    one run directory and the byte-identical-parameters line per run; (d)
+    with two cards or more, (b)'s two runs over NCCL on cuda:0-1, captured
+    (the row exchange and the all-reduces inside the graphs), against the
+    same references. The children start first and train while (a) and the
+    references run here; each launch has one timeout. Prints which of (a)-(d)
+    ran and the phase's seconds.
 
 Each phase's wall seconds are printed as a ``[phase-time]`` line.
 
@@ -310,6 +334,10 @@ It prints one ``{"kernels": [...]}`` line (the fp32 K1 and K2, their bf16
 kernels, K3; launches over every phase's main path) and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits 1 and prints no result.
+
+``python3 chip_smoke.py --loss-gap`` runs no phase and checks nothing: it
+builds the kernels and measures where phase 18 (b)'s step-mode loss gap
+comes from (``loss_gap_reading``).
 """
 
 from __future__ import annotations
@@ -5117,22 +5145,27 @@ def pid0_check(shapes, dev) -> Dict[str, float]:
     return worst
 
 
-def dist_children(args_per_rank: List[List[str]], env_per_rank: List[dict],
-                  work: str) -> Tuple[List[str], List[dict]]:
-    """Start one child per rank (DIST_WRAPPER), wait for all within
-    DIST_CHILD_TIMEOUT_S (killing every one on expiry or on a failure),
-    and return their stdouts and launch records."""
+def start_children(wrapper: str, args_per_rank: List[List[str]], env_per_rank: List[dict],
+                   work: str, tag: str = "rank") -> Tuple[list, List[str]]:
+    """Start one child per rank running ``wrapper`` (``python -c``) on its
+    arguments, each with its log ``<tag><r>.log`` in ``work``; returns
+    (processes, logs)."""
     root = str(Path(__file__).resolve().parent)
-    procs, logs, counts = [], [], []
+    procs, logs = [], []
     for r, (argv, env) in enumerate(zip(args_per_rank, env_per_rank)):
-        counts.append(os.path.join(work, f"counts_{r}.json"))
-        logs.append(os.path.join(work, f"rank{r}.log"))
+        logs.append(os.path.join(work, f"{tag}{r}.log"))
         env = dict(env, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
         with open(logs[-1], "w") as out:
-            procs.append(subprocess.Popen([sys.executable, "-c", DIST_WRAPPER, counts[-1]] + argv,
-                                          cwd=root, env=env, stdout=out,
-                                          stderr=subprocess.STDOUT, text=True))
-    deadline = time.monotonic() + DIST_CHILD_TIMEOUT_S
+            procs.append(subprocess.Popen([sys.executable, "-c", wrapper] + argv, cwd=root,
+                                          env=env, stdout=out, stderr=subprocess.STDOUT,
+                                          text=True))
+    return procs, logs
+
+
+def wait_children(procs: list, logs: List[str], deadline: float) -> List[str]:
+    """Wait for every child until ``deadline`` (monotonic), killing all on
+    expiry or on a failure (which fails the phase, with the port's frames
+    of the failing rank); returns their logs."""
     try:
         for r, p in enumerate(procs):
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -5143,7 +5176,7 @@ def dist_children(args_per_rank: List[List[str]], env_per_rank: List[dict],
                 fail(f"rank {r} exited {p.returncode}; the port's frames:\n"
                      + "\n".join(frames[-40:]) + f"\n{text[-3000:]}")
     except subprocess.TimeoutExpired:
-        fail(f"the ranks did not finish within {DIST_CHILD_TIMEOUT_S} s")
+        fail("the ranks did not finish by their deadline")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -5153,6 +5186,18 @@ def dist_children(args_per_rank: List[List[str]], env_per_rank: List[dict],
     for log in logs:
         with open(log) as f:
             outs.append(f.read())
+    return outs
+
+
+def dist_children(args_per_rank: List[List[str]], env_per_rank: List[dict],
+                  work: str) -> Tuple[List[str], List[dict]]:
+    """Start one child per rank (DIST_WRAPPER), wait for all within
+    DIST_CHILD_TIMEOUT_S (killing every one on expiry or on a failure),
+    and return their stdouts and launch records."""
+    counts = [os.path.join(work, f"counts_{r}.json") for r in range(len(args_per_rank))]
+    procs, logs = start_children(DIST_WRAPPER, [[c] + argv for c, argv in
+                                                zip(counts, args_per_rank)], env_per_rank, work)
+    outs = wait_children(procs, logs, time.monotonic() + DIST_CHILD_TIMEOUT_S)
     records = []
     for path in counts:
         with open(path) as f:
@@ -5349,6 +5394,338 @@ def dist_phase(run: dict, n_shapes: int, shapes, dev) -> dict:
     return {"counts": total, "errs": errs}
 
 
+# ------------------------------------------------------------------ phase 18
+DA_EVENTS = 40  # 32 train events (DA_RAW), x2 by augmentation: 64 samples
+DA_RAW = DA_EVENTS * 8 // 10
+DA_BATCH = 8  # (b): a data rank's batch, 4 steps; (a) and one rank: the global 16
+DA_SPC = 4  # the cached runs' steps per call: one call
+DA_DIRECT_BATCH = 32  # (c): a rank's batch on phase 6's pack: 6 steps
+DA_PACK_SAMPLES = 408  # phase 6's float32 pack: 204 train events, x2 by augmentation
+DA_ARGS = TRAIN_ARGS + ["--mode", "train", "--synthetic-events", str(DA_EVENTS),
+                        "--use-tensorboard", "false"]
+DA_CHILD_TIMEOUT_S = 300  # both children of (b)-(c); expiry kills them and fails
+# A rank's processed rows against its rows of the one-rank batch: bitwise
+# expected (the draws are keyed by sample, the ops are per row); where a
+# reduction's kernel splits its rows otherwise at another batch size, phase
+# 11's window limit.
+DA_ROWS_TOL = 1e-5
+# A child of phase 18: the plain versions patched to raise; for each run of
+# the JSON list argv[1] (its env contract's address, argv, a file for the
+# rows), cli.main with every count set to 0 first, the first processed
+# batch's tensors (``check.first_processed_batch``), the cache's rows a
+# rank, the graph captures and the launches recorded; the records written
+# to argv[2] after each run.
+DA_WRAPPER = """\
+import json, os, sys
+import torch
+from seist_tpu_torch import cli
+from seist_tpu_torch.data import pipeline
+from seist_tpu_torch.ops import pooled_attention as pa
+from seist_tpu_torch.ops import threefry as tf
+from seist_tpu_torch.parallel import check
+from seist_tpu_torch.train import graph
+
+def _off_path(*a, **k):
+    raise AssertionError("a plain kernel version was reached on the multi-rank path")
+
+pa.pooled_attention_plain = pa.pooled_attention_bwd_plain = tf.aug_draws_plain = _off_path
+rows, captures = [], [0]
+_cache = pipeline.DeviceEpochCache.__init__
+
+def _noted(self, *a, **k):
+    _cache(self, *a, **k)
+    rows.append(self.rows)
+
+pipeline.DeviceEpochCache.__init__ = _noted
+_init = graph.Captured.__init__
+
+def _counted(self, *a, **k):
+    _init(self, *a, **k)
+    captures[0] += 1
+
+graph.Captured.__init__ = _counted
+records = []
+with open(sys.argv[1]) as f:
+    runs = json.load(f)
+for run in runs:
+    os.environ["COORDINATOR_ADDRESS"] = run["address"]
+    rows.clear()
+    captures[0] = 0
+    pa.launches = pa.bwd_launches = pa.bf16_launches = pa.bf16_bwd_launches = tf.launches = 0
+    with check.first_processed_batch() as kept:
+        best = cli.main(run["argv"])
+    torch.save(kept[0], run["kept"])
+    records.append({"label": run["label"], "best": best, "K1": pa.launches,
+                    "K2": pa.bwd_launches, "K1_bf16": pa.bf16_launches,
+                    "K2_bf16": pa.bf16_bwd_launches, "K3": tf.launches, "cache_rows": list(rows),
+                    "captures": captures[0]})
+    with open(sys.argv[2], "w") as f:
+        json.dump(records, f)
+"""
+
+
+@contextlib.contextmanager
+def one_rank_as_ranks(ranks: int, batch: int):
+    """The train entry in this process under ``check.ranks_order``, its
+    first processed batch kept (the list yielded: one list of CPU
+    tensors)."""
+    from seist_tpu_torch.parallel import check as pcheck
+
+    real_order = pipeline._epoch_order
+    pipeline._epoch_order = pcheck.ranks_order(ranks, batch)
+    try:
+        with pcheck.first_processed_batch() as kept:
+            yield kept
+    finally:
+        pipeline._epoch_order = real_order
+
+
+def da_reference(argv: List[str], label: str, n_shapes: int, steps: int, forwards: int,
+                 ranks: int, batch: int, env: Optional[dict] = None) -> dict:
+    """One run of the train entry in this process at the global batch (the
+    ranks' rows side by side), captured; ``env`` (the env contract of one
+    NCCL rank) is set around it. Its losses, first processed batch,
+    launches (K3 one per step) and log."""
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        with one_rank_as_ranks(ranks, batch) as kept:
+            best, counts, wall, lines = run_entry(argv)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    losses = np.load(os.path.join(os.path.dirname(os.path.dirname(best)), "train_losses.npy"))
+    check_launches(counts, n_shapes, forwards, steps, k3=steps)
+    print(f"[dist18] {label}: {len(losses)} losses {[round(float(x), 6) for x in losses]}; K1 "
+          f"{counts['K1']}, K2 {counts['K2']}, K3 {counts['K3']}; {wall:.1f} s", flush=True)
+    return {"losses": losses, "kept": kept[0], "counts": counts, "lines": lines}
+
+
+def rows_gap(got: List[torch.Tensor], whole: List[torch.Tensor], lo: int, hi: int
+             ) -> Tuple[bool, float]:
+    """(bitwise, largest difference) of a rank's processed tensors against
+    rows [lo, hi) of the one-rank batch's."""
+    if len(got) != len(whole):
+        return False, float("inf")
+    same, gap = True, 0.0
+    for g, w in zip(got, whole):
+        w = w[lo:hi]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return False, float("inf")
+        same = same and torch.equal(g, w)
+        if g.is_floating_point():
+            gap = max(gap, float((g.double() - w.double()).abs().max()))
+        elif not torch.equal(g, w):
+            gap = float("inf")
+    return same, gap
+
+
+def start_ranks(runs: Dict[str, tuple], backend: Optional[str], work: str, tag: str):
+    """Two children of DA_WRAPPER, each running ``runs`` in order on one
+    rank (each run on a port of its own, ``--batch-size`` a rank); returns
+    (processes, logs, the records' files)."""
+    port = free_ports(len(runs))
+    per_rank = []
+    for r in range(2):
+        listed = [{"label": label, "address": f"127.0.0.1:{port + i}",
+                   "kept": os.path.join(work, f"kept_{tag}_{label}_{r}.pt"),
+                   "argv": argv + ["--batch-size", str(b), "--log-base",
+                                   os.path.join(work, f"{tag}_{label}")]}
+                  for i, (label, (argv, b, _)) in enumerate(runs.items())]
+        with open(os.path.join(work, f"runs_{tag}_{r}.json"), "w") as f:
+            json.dump(listed, f)
+        per_rank.append([os.path.join(work, f"runs_{tag}_{r}.json"),
+                         os.path.join(work, f"records_{tag}_{r}.json")])
+    envs = [rank_env(2, r, port, backend) for r in range(2)]
+    for env in envs:
+        env.pop("COORDINATOR_ADDRESS")  # each run sets its own
+    procs, logs = start_children(DA_WRAPPER, per_rank, envs, work, tag=f"rank18{tag}_")
+    return procs, logs, [x[1] for x in per_rank]
+
+
+def check_ranks(runs: Dict[str, tuple], refs: Dict[str, dict], outs: List[str],
+                records_files: List[str], backend: Optional[str], work: str, tag: str,
+                n_shapes: int, val: int, name_power: str) -> List[dict]:
+    """(b)-(d)'s checks of two ranks' runs against the one-rank references:
+    one run directory, rank 0's losses within RESUME_RTOL, each rank's
+    first processed rows within DA_ROWS_TOL (bitwise printed), K3 one per
+    step a rank, K1 and K2 as the steps and the val batch need, graphs
+    under NCCL and none under gloo, the cache's rows a rank, the
+    byte-identical-parameters line. Returns the ranks' launch records."""
+    records = []
+    for path in records_files:
+        with open(path) as f:
+            records.append({x["label"]: x for x in json.load(f)})
+    shas = re.findall(r"parameters byte-identical over 2 ranks \(sha256 (\w+)\)", outs[0])
+    epochs = re.findall(r"Epoch 0: [^\n]*", outs[0])  # rank 0's, one a run, in order
+    counts = []
+    for i, (label, (argv, b, n)) in enumerate(runs.items()):
+        recs = [records[r][label] for r in range(2)]
+        run_dirs = sorted(os.listdir(os.path.join(work, f"{tag}_{label}")))
+        losses = np.load(os.path.join(work, f"{tag}_{label}", run_dirs[-1], "train_losses.npy"))
+        rel = max_rel(losses, refs[label]["losses"])
+        rows = [rows_gap(torch.load(os.path.join(work, f"kept_{tag}_{label}_{r}.pt")),
+                         refs[label]["kept"], r * b, (r + 1) * b) for r in range(2)]
+        k3 = [x["K3"] for x in recs]
+        cache = [x["cache_rows"] for x in recs]
+        captures = [x["captures"] for x in recs]
+        part = {"gloo": "(c)" if label == "direct" else "(b)"}.get(backend or "", "(d)")
+        where = "two gloo ranks on this card" if backend else "two NCCL ranks on cuda:0-1"
+        print(f"[dist18] {part} {name_power} | {where}, --device-aug {label}, b{b} a rank: "
+              f"{n} steps ({len(losses)} losses), rank 0's losses vs one rank's at b{2 * b} max "
+              f"rel {rel:.2e} (limit {RESUME_RTOL:.0e}); each rank's first processed rows vs its "
+              f"rows of the one-rank batch: bitwise {[x[0] for x in rows]}, max difference "
+              f"{max(x[1] for x in rows):.2e}; K3 per rank {k3} ({n} steps each); cache rows per "
+              f"rank {cache}; graph captures {captures}; K1 {[x['K1'] for x in recs]}, K2 "
+              f"{[x['K2'] for x in recs]}; rank 0: {epochs[i] if i < len(epochs) else None}",
+              flush=True)
+        if (len(run_dirs) != 1 or not rel <= RESUME_RTOL
+                or not max(x[1] for x in rows) <= DA_ROWS_TOL):
+            fail(f"{part} {label}: two ranks differ from one rank ({run_dirs})")
+        if k3 != [n, n] or (any(captures) if backend else min(captures) < 2):
+            fail(f"{part} {label}: K3 launches {k3} (want {n} a rank) or graph captures "
+                 f"{captures} under {backend or 'nccl'}")
+        for x in recs:
+            check_launches(x, n_shapes, n + val, n, k3=n)
+        want_rows = [[-(-DA_RAW // 2)]] * 2 if label == "cached" else [[], []]
+        if cache != want_rows:
+            fail(f"{part} {label}: cache rows per rank {cache}, want {want_rows}")
+        counts += recs
+    if len(shas) != len(runs):
+        fail(f"{len(shas)} byte-identical-parameters lines for {len(runs)} runs")
+    return counts
+
+
+def device_aug_ranks_phase(n_shapes: int, f32_pack: str, name_power: str) -> dict:
+    """Phase 18 (module docstring): (b) and (c)'s two gloo ranks start
+    first, then (a) and the one-rank references run in this process while
+    they train; (d) follows with two cards or more."""
+    t0 = time.perf_counter()
+    work = os.path.join(str(_kernels.BUILD_DIR), "dist18")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    steps, val = 2 * DA_RAW // (2 * DA_BATCH), 1  # one padded val batch a rank
+    pack_steps = DA_PACK_SAMPLES // (2 * DA_DIRECT_BATCH)
+    direct = packed_args(f32_pack) + ["--mode", "train", "--use-tensorboard", "false",
+                                      "--device-aug", "step", "--ingest", "direct"]
+    runs = {
+        "step": (DA_ARGS + ["--device-aug", "step"], DA_BATCH, steps),
+        "cached": (DA_ARGS + ["--device-aug", "cached", "--steps-per-call", str(DA_SPC)],
+                   DA_BATCH, steps),
+        "direct": (direct, DA_DIRECT_BATCH, pack_steps),
+    }
+    procs, logs, records = start_ranks(runs, "gloo", work, "gloo")
+    deadline = time.monotonic() + DA_CHILD_TIMEOUT_S
+    try:
+        refs = {}
+        for label, (argv, b, n) in runs.items():
+            refs[label] = da_reference(
+                argv + ["--batch-size", str(2 * b), "--log-base", os.path.join(work, f"one_{label}")],
+                f"one rank, {label}, b{2 * b} (the ranks' rows side by side)", n_shapes, n,
+                n + val, 2, b)
+        nccl = da_reference(
+            runs["cached"][0] + ["--batch-size", str(2 * DA_BATCH), "--log-base",
+                                 os.path.join(work, "a_cached")],
+            "(a) one NCCL rank, cached, the exchange in the captured call", n_shapes, steps,
+            steps + val, 2, DA_BATCH,
+            env={"COORDINATOR_ADDRESS": f"127.0.0.1:{free_ports(1)}", "NUM_PROCESSES": "1",
+                 "PROCESS_ID": "0", "LOCAL_RANK": "0"})
+        a_wall = time.perf_counter() - t0
+    finally:
+        outs = wait_children(procs, logs, deadline)
+    counts = [refs[k]["counts"] for k in refs] + [nccl["counts"]]
+    # (a): one NCCL rank against the same run without a group.
+    a_log = nccl["lines"]
+    rel = max_rel(nccl["losses"], refs["cached"]["losses"])
+    same, gap = rows_gap(nccl["kept"], refs["cached"]["kept"], 0, 2 * DA_BATCH)
+    group = next((x for x in a_log if x.startswith("mesh:")), "")
+    print(f"[dist18] (a) {name_power} | one NCCL rank (world 1), --device-aug cached "
+          f"--steps-per-call {DA_SPC}, b{2 * DA_BATCH}: {group}; losses vs the same run without "
+          f"a group max rel {rel:.2e} (limit {RESUME_RTOL:.0e}); the first call's processed rows "
+          f"bitwise {same} (max difference {gap:.2e}, limit {DA_ROWS_TOL:.0e})", flush=True)
+    if "backend nccl" not in group or any("run eagerly" in x for x in a_log):
+        fail("(a) did not run one NCCL rank with captured steps")
+    if not rel <= RESUME_RTOL or not gap <= DA_ROWS_TOL:
+        fail("(a) the NCCL rank's cached run differs from the run without a group")
+    counts += check_ranks(runs, refs, outs, records, "gloo", work, "gloo", n_shapes, val,
+                          name_power)
+    if "packed direct ingest:" not in outs[0]:
+        fail("(c) rank 0 did not ingest the pack directly")
+    ran = "(a), (b) and (c)"
+    if torch.cuda.device_count() >= 2:
+        both = {k: runs[k] for k in ("step", "cached")}
+        procs, logs, records = start_ranks(both, None, work, "nccl")
+        outs = wait_children(procs, logs, time.monotonic() + DA_CHILD_TIMEOUT_S)
+        counts += check_ranks(both, refs, outs, records, None, work, "nccl", n_shapes, val,
+                              name_power)
+        ran = "(a), (b), (c) and (d)"
+    wall = time.perf_counter() - t0
+    print(f"[dist18] {name_power} | phase 18 ran {ran} ({torch.cuda.device_count()} card(s) "
+          f"visible): {wall:.1f} s ((a) and the references in this process {a_wall:.1f} s, "
+          f"beside the two gloo ranks)", flush=True)
+    total = {k: sum(c[k] for c in counts) for k in ("K1", "K2", "K1_bf16", "K2_bf16", "K3")}
+    return {"counts": total}
+
+
+def loss_gap_reading(n_shapes: int, name_power: str) -> None:
+    """``chip_smoke.py --loss-gap``, a measurement outside the checks:
+    phase 18 (b)'s ``--device-aug step`` run (two gloo ranks on this card
+    against one rank at the global batch, the ranks' rows side by side)
+    with its Adam, with SGD at the same learning rate and with SGD at a
+    constant 0.05. For each, every step's relative loss gap (step 0's loss
+    comes before any update: the forward alone, its BatchNorm sums taken
+    per rank and then over the ranks), and, after the last step, the
+    largest difference and the share of elements that differ, for the
+    parameters and for BatchNorm's running statistics apart."""
+    t0 = time.perf_counter()
+    work = os.path.join(str(_kernels.BUILD_DIR), "loss_gap")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    steps = 2 * DA_RAW // (2 * DA_BATCH)
+    step = DA_ARGS + ["--device-aug", "step"]
+    runs = {"adam": (step, DA_BATCH, steps),
+            "sgd": (step + ["--optim", "SGD"], DA_BATCH, steps),
+            "sgd_lr0.05": (step + ["--optim", "SGD", "--use-lr-scheduler", "false",
+                                   "--max-lr", "0.05"], DA_BATCH, steps)}
+    procs, logs, _ = start_ranks(runs, "gloo", work, "gap")
+    try:
+        refs = {label: da_reference(
+            argv + ["--batch-size", str(2 * b), "--log-base", os.path.join(work, f"one_{label}")],
+            f"one rank, {label}, b{2 * b}", n_shapes, n, n + 1, 2, b)
+            for label, (argv, b, n) in runs.items()}
+    finally:
+        wait_children(procs, logs, time.monotonic() + DA_CHILD_TIMEOUT_S)
+    for label, (_, b, n) in runs.items():
+        dirs = {}
+        for who, base in (("one", f"one_{label}"), ("two", f"gap_{label}")):
+            (run,) = os.listdir(os.path.join(work, base))
+            dirs[who] = os.path.join(work, base, run)
+        two = np.load(os.path.join(dirs["two"], "train_losses.npy")).astype(np.float64)
+        one = refs[label]["losses"].astype(np.float64)
+        gaps = np.abs(two - one) / np.abs(one)
+        params = [torch.load(os.path.join(d, "checkpoints", f"model_{n}.pt"), map_location="cpu")
+                  for d in (dirs["one"], dirs["two"])]
+        seen = {kind: [0, 0, 0.0] for kind in ("parameters", "running statistics")}
+        for k, v in params[0].items():
+            if not v.is_floating_point():
+                continue
+            d = (v.double() - params[1][k].double()).abs()
+            row = seen["running statistics" if ".running_" in k else "parameters"]
+            row[0] += int((d > 0).sum())
+            row[1] += d.numel()
+            row[2] = max(row[2], float(d.max()))
+        after = "; ".join(f"{kind}: largest difference {big:.6e}, {n} of {total} elements differ"
+                          for kind, (n, total, big) in seen.items())
+        print(f"[loss-gap] {name_power} | --device-aug step, {label}, two gloo ranks at b{b} "
+              f"against one rank at b{2 * b}: losses one {one.tolist()}, two {two.tolist()}; "
+              f"relative gap per step {gaps.tolist()} (loss moved {one[0] - one[-1]:.6e}); "
+              f"after the last step, {after}", flush=True)
+    print(f"[loss-gap] {name_power} | {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this drives the "
@@ -5379,6 +5756,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     shapes = api.create_model(MODEL, in_samples=WINDOW).attention_shapes(WINDOW)
+    if sys.argv[1:] == ["--loss-gap"]:
+        loss_gap_reading(len(shapes), name_power)
+        return 0
     print(f"[shapes] {MODEL} window {WINDOW}: (L, M, H, E) per launch {shapes}", flush=True)
     errs = check_kernel(shapes, dev)
     bwd_abs = check_kernel_bwd(shapes, dev)
@@ -5527,6 +5907,11 @@ def main() -> int:
     dist = dist_phase(trained, len(shapes), shapes, dev)
     path_counts.append(dist["counts"])
     lap("phase 17")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks18 = device_aug_ranks_phase(len(shapes), packed["f32"], name_power)
+    path_counts.append(ranks18["counts"])
+    lap("phase 18")
 
     fp32 = [r for r in rows if r["dtype"] == "fp32"]  # the serving path is fp32
     bf16_rows = [r for r in rows if r["dtype"] == "bf16"]
@@ -5554,7 +5939,9 @@ def main() -> int:
           f"{repicked['counts']['K1']}; offline prediction, fine-tuning and remat (phase 16): "
           f"K1 {offline['counts']['K1']} (predict's process {offline['predict_K1']}), K2 "
           f"{offline['counts']['K2']}; several ranks (phase 17, (b)-(d) in their processes): "
-          f"K1 {dist['counts']['K1']}, K2 {dist['counts']['K2']}; all paths: K1 "
+          f"K1 {dist['counts']['K1']}, K2 {dist['counts']['K2']}; device augmentation on several "
+          f"ranks (phase 18, this process and (b)-(c)'s): K1 {ranks18['counts']['K1']}, K2 "
+          f"{ranks18['counts']['K2']}, K3 {ranks18['counts']['K3']}; all paths: K1 "
           f"{launches['K1']} (bf16 "
           f"{launches['K1_bf16']}), K2 {launches['K2']} (bf16 {launches['K2_bf16']}), K3 "
           f"{launches['K3']}", flush=True)

@@ -33,11 +33,12 @@ Two stores implement the same primitives (``try_acquire`` / ``renew`` /
 over a shared directory (the compare-and-swap is an exclusive
 ``os.link``), and :class:`KVLeaseStore` over any key-value object with
 ``put_new``, ``put``, ``get`` and ``keys``. The JAX package builds the
-latter over its coordination service (``KVLeaseStore.from_runtime``,
-``JaxCoordinationKV``); the port has no multi-process runtime yet, so
-``repick --lease-store kv`` refuses and ``auto`` takes the directory
-store (``ROADMAP.md`` §1, queue 4). Neither store holds a Python lock
-across store I/O.
+latter over the coordination service that ``jax.distributed.initialize``
+starts in process 0 (``JaxCoordinationKV``); the port builds it over the
+TCP store that process 0 of the process group serves
+(``parallel/dist.py``, :class:`TorchStoreKV`), both through
+``KVLeaseStore.from_runtime``. Neither store holds a Python lock across
+store I/O.
 
 Tuning: ``SEIST_LEASE_TTL_S``, ``SEIST_LEASE_HEARTBEAT_S``,
 ``SEIST_LEASE_GRACE_S``, ``SEIST_LEASE_RETRIES``,
@@ -316,9 +317,10 @@ class DirLeaseStore:
 # ------------------------------------------------------------ KV lease store
 class KVLeaseStore:
     """The same lease algorithm over a key-value coordination service.
-    ``kv`` is any object with the four-primitive protocol below (the
-    JAX package adapts its coordination service to it; tests drive it
-    with an in-memory fake).
+    ``kv`` is any object with the four-primitive protocol below:
+    :class:`TorchStoreKV` adapts the process group's TCP store to it (the
+    JAX package adapts its coordination service); tests also drive it
+    with an in-memory fake.
 
     Protocol: ``put_new(key, value) -> bool`` (exclusive create; False
     when the key exists — the CAS), ``put(key, value)`` (overwrite),
@@ -328,6 +330,21 @@ class KVLeaseStore:
     def __init__(self, kv: Any, prefix: str = "seist_tpu/fleet"):
         self.kv = kv
         self.prefix = prefix.rstrip("/")
+
+    @classmethod
+    def from_runtime(cls, prefix: str = "seist_tpu/fleet") -> "KVLeaseStore":
+        """Build over the live process group's TCP store, which process 0
+        serves as the JAX package's coordination service lives in process
+        0. Raises :class:`LeaseStoreError` outside an initialised group
+        (callers fall back to :class:`DirLeaseStore`)."""
+        from seist_tpu_torch.parallel import dist
+
+        store = dist.group_store()
+        if store is None:
+            raise LeaseStoreError(
+                "no process group in this run (launch under COORDINATOR_ADDRESS/NUM_PROCESSES/"
+                "PROCESS_ID or torchrun, or use a --lease-dir store)")
+        return cls(TorchStoreKV(store), prefix=prefix)
 
     # -------------------------------------------------------------- keys
     def _unit_prefix(self, unit_id: int) -> str:
@@ -416,6 +433,77 @@ class KVLeaseStore:
             if fence is not None:
                 out[int(uid)] = fence
         return out
+
+
+class TorchStoreKV:
+    """Adapter: a ``torch.distributed`` store (the process group's
+    ``TCPStore``, or torchrun's ``PrefixStore`` over its agent's) -> the KV
+    protocol :class:`KVLeaseStore` speaks. Every store error surfaces as
+    :class:`LeaseStoreError`, so the guarded wrapper's retry and backoff
+    apply as to the JAX package's ``JaxCoordinationKV``; losing
+    ``put_new``'s race is the one outcome that is not an error.
+
+    * ``put_new`` is the store's ``compare_set`` against an absent key
+      (an expected value of ``""`` creates the key only where none
+      exists). Each stored value carries a fresh random stamp in front,
+      so the value ``compare_set`` returns equals the caller's only when
+      the caller's write made the key, even when a peer wrote the same
+      text; ``get`` strips the stamp.
+    * ``keys(prefix)`` lists one directory, as ``JaxCoordinationKV.keys``
+      does (``key_value_dir_get``): each created key is appended to the
+      index of every directory above it (the store's atomic ``append``),
+      and ``keys`` reads the index of the prefix's directory alone. A
+      loser of ``put_new`` appends the key too, so a winner that died
+      between its create and its append cannot hide a fence.
+    """
+
+    _STAMP = 16  # hex characters in front of every stored value
+    _INDEX = "seist_tpu_torch/kv_index"
+
+    def __init__(self, store: Any):
+        self._store = store
+
+    def _call(self, op: str, key: str, fn: Callable[[], Any]) -> Any:
+        try:
+            return fn()
+        except Exception as e:  # the store's error types vary by torch version
+            raise LeaseStoreError(f"store {op}({key}): {e}") from e
+
+    def _stamped(self, value: str) -> str:
+        return os.urandom(self._STAMP // 2).hex() + value
+
+    def _note(self, key: str) -> None:
+        """Append ``key`` to the index of every directory above it."""
+        cut = len(key)
+        while cut >= 0:
+            cut = key.rfind("/", 0, cut)
+            directory = key[:cut + 1]
+            self._call("append", key, lambda d=directory: self._store.append(
+                f"{self._INDEX}/{d}", key + "\n"))
+
+    def put_new(self, key: str, value: str) -> bool:
+        blob = self._stamped(value)
+        got = self._call("put_new", key, lambda: self._store.compare_set(key, "", blob))
+        self._note(key)
+        return bytes(got) == blob.encode()
+
+    def put(self, key: str, value: str) -> None:
+        existed = self._call("put", key, lambda: self._store.check([key]))
+        self._call("put", key, lambda: self._store.set(key, self._stamped(value)))
+        if not existed:
+            self._note(key)
+
+    def get(self, key: str) -> Optional[str]:
+        if not self._call("get", key, lambda: self._store.check([key])):
+            return None
+        return bytes(self._call("get", key, lambda: self._store.get(key)))[self._STAMP:].decode()
+
+    def keys(self, prefix: str) -> List[str]:
+        index = f"{self._INDEX}/{prefix[:prefix.rfind('/') + 1]}"
+        if not self._call("keys", prefix, lambda: self._store.check([index])):
+            return []
+        names = bytes(self._call("keys", prefix, lambda: self._store.get(index))).decode()
+        return sorted({k for k in names.split("\n") if k and k.startswith(prefix)})
 
 
 # ----------------------------------------------------------- guarded wrapper

@@ -669,21 +669,33 @@ def make_row_processor(cfg: AugConfig, input_names, label_names):
 
 
 def make_cache_processor(cfg: AugConfig, input_names, label_names, n_raw: int,
-                         augmentation: bool):
+                         augmentation: bool, mesh=None):
     """``process(cache, idx, epoch)``: the raw rows gathered from the
     resident cache by ``idx % n_raw`` (the 2x-epoch rule maps ``idx >=
     n_raw`` to the augmented copy), then the row processor. The draws
     are keyed by the global epoch index, so a sample's raw and augmented
-    copies draw from different streams."""
+    copies draw from different streams, and a row draws the same on
+    whichever rank trains on it.
+
+    ``idx`` of shape (B,): the cache holds every row. Under a mesh with a
+    process group (``mesh``), ``idx`` is (D, B), every data rank's slots of
+    the step (``pipeline.DeviceEpochCache.exchange_index_chunks``), the
+    cache holds this rank's shard, and the rank's rows come from their
+    owners through ``pipeline.exchange_rows`` (one ``all_to_all`` over the
+    data group); the rank then processes its own B rows."""
     row_proc = make_row_processor(cfg, input_names, label_names)
+    me = mesh.data_index if mesh is not None else 0
+    group = mesh.data_group if mesh is not None else None
 
     def process(cache, idx, epoch):
-        if augmentation:
-            raw_idx, aug = torch.remainder(idx, n_raw), idx >= n_raw
+        raw_all = torch.remainder(idx, n_raw) if augmentation else idx
+        raw_all = raw_all.to(torch.int64)
+        if idx.dim() == 2:
+            rows = pipeline.exchange_rows(cache, raw_all, me, group)
+            idx = idx[me]
         else:
-            raw_idx, aug = idx, torch.zeros_like(idx, dtype=torch.bool)
-        raw_idx = raw_idx.to(torch.int64)
-        rows = pipeline._tree_map(lambda a: a.index_select(0, raw_idx), cache)
+            rows = pipeline._tree_map(lambda a: a.index_select(0, raw_all), cache)
+        aug = idx >= n_raw if augmentation else torch.zeros_like(idx, dtype=torch.bool)
         return row_proc(rows, idx, aug, epoch)
 
     return process
@@ -715,9 +727,12 @@ def unsupported_reasons(pre: DataPreprocessor, input_names, label_names) -> List
 
 
 def hbm_budget_bytes(explicit_gb: float = 0.0, device=None) -> int:
-    """The device memory budget of the resident epoch cache: an explicit
-    ``--device-aug-hbm-gb`` wins; otherwise half the card's total memory
-    (``torch.cuda.mem_get_info``); 4 GiB for the CPU."""
+    """The device memory budget of the resident epoch cache on one card: an
+    explicit ``--device-aug-hbm-gb`` wins; otherwise half the card's total
+    memory (``torch.cuda.mem_get_info``); 4 GiB for the CPU. Several data
+    ranks compare it with their own share of the cache, as the JAX package
+    compares per-device bytes (``seist_tpu/train/worker.py``'s ``est //
+    data_axis``): a dataset too large for one card may fit on several."""
     if explicit_gb and explicit_gb > 0:
         return int(explicit_gb * (1 << 30))
     device = torch.device(device) if device is not None else None

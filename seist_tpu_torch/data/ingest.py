@@ -25,7 +25,10 @@ feeds it straight from the shards:
   an int8 poison byte or an injected ``SEIST_FAULT_IO_*`` fault
   quarantines the sample, replaced by the fallback keyed ``(seed, epoch,
   logical idx)`` of the dataset's :class:`~io_guard.Quarantine`, so a
-  resumed run reads what the first one read;
+  resumed run reads what the first one read. Over several data ranks each
+  rank's store fills only its shard's rows (``pipeline.iter_raw_batches``),
+  and the key stays the sample's global epoch index: a rank reads what one
+  rank would read for the same sample;
 * **telemetry**: the metrics bus's ``data_ingest_batches``, ``_samples``,
   ``_bytes`` and ``_int8_rows`` counters and the ``data_ingest_fill`` span
   of each batch's row fills (``obs/bus.py``), as in the JAX package.

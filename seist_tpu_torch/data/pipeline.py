@@ -30,9 +30,10 @@ The port's copy of the host path of ``seist_tpu/data/pipeline.py``:
 
 * The device-augmentation feeds (``--device-aug``): :class:`RawStore`
   (raw rows decoded once, the draw-free preprocessing done),
-  :class:`DeviceEpochCache` (those rows resident on the card, one card),
-  :func:`iter_raw_batches` (step mode's raw batches in the Loader's order)
-  and :func:`raw_batch_tensors` (a batch copied into pinned memory by the
+  :class:`DeviceEpochCache` (those rows resident on the card, sharded
+  over the data ranks) with :func:`exchange_rows` (a step's rows from
+  their owners), :func:`iter_raw_batches` (step mode's raw batches in the
+  Loader's order, a data rank's shard of it) and :func:`raw_batch_tensors` (a batch copied into pinned memory by the
   worker's feed thread).
 
 * :func:`_double_buffer` — a bounded producer thread that applies a
@@ -832,25 +833,45 @@ class RawStore:
 class DeviceEpochCache:
     """The raw epoch resident on the card (``--device-aug cached``): the
     :class:`RawStore` arrays uploaded once, so a call of k steps receives
-    only a (k, B) int32 index array. One card: no mesh, no host sharding
-    (multi-GPU training is in ROADMAP.md)."""
+    only its indices. Under a mesh the sample axis is sharded over the data
+    ranks, as the JAX package shards it over its mesh's ``data`` axis
+    (``seist_tpu/data/pipeline.py::DeviceEpochCache``): the sample count is
+    padded with zero rows to ``rows * data`` (pad rows are never named) and
+    data rank ``d`` uploads rows ``[d * rows, (d + 1) * rows)`` only,
+    ``rows = ceil(n_raw / data)``; the ranks of one seq group hold the same
+    shard. A step's rows then reach the rank that trains on them through
+    :func:`exchange_rows`."""
 
-    def __init__(self, store: RawStore, device) -> None:
+    def __init__(self, store: RawStore, device, mesh=None) -> None:
         import torch
 
         self.store = store
-        self.arrays = _tree_map(lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device),
-                                store.arrays)
+        self.shards = mesh.data if mesh is not None else 1
+        self.shard_index = mesh.data_index if mesh is not None else 0
+        self.rows = -(-store.n_raw // self.shards)
+        lo = self.shard_index * self.rows
+        hi = min(lo + self.rows, store.n_raw)
+
+        def upload(a: np.ndarray):
+            part = a[lo:hi]
+            if len(part) < self.rows:
+                part = np.concatenate([part, np.zeros((self.rows - len(part),) + a.shape[1:],
+                                                      a.dtype)])
+            return torch.from_numpy(np.ascontiguousarray(part)).to(device)
+
+        self.arrays = _tree_map(upload, store.arrays)
         self.nbytes = int(sum(t.numel() * t.element_size() for t in _tree_leaves(self.arrays)))
 
     def epoch_index_chunks(self, epoch: int, *, seed: int, shuffle: bool, batch_size: int,
-                           steps_per_call: int, start_batch: int = 0,
-                           source_ids: Optional[np.ndarray] = None,
+                           steps_per_call: int, start_batch: int = 0, num_shards: int = 1,
+                           shard_index: int = 0, source_ids: Optional[np.ndarray] = None,
                            mixture_temperature: float = 0.0) -> Iterator[np.ndarray]:
         """(k, B) int32 index arrays of one epoch: the sample sequence the
-        host Loader would produce (:func:`_epoch_order`), in calls of k;
-        a trailing part-call is dropped (drop-last, fixed shapes)."""
+        host Loader would produce (:func:`_epoch_order`), data rank
+        ``shard_index``'s shard of it, in calls of k; a trailing part-call
+        is dropped (drop-last, fixed shapes)."""
         order = _epoch_order(len(self.store), seed=seed, epoch=epoch, shuffle=shuffle,
+                             num_shards=num_shards, shard_index=shard_index,
                              source_ids=source_ids, mixture_temperature=mixture_temperature)
         nb = len(order) // batch_size
         calls = nb // steps_per_call
@@ -859,18 +880,66 @@ class DeviceEpochCache:
             flat = order[c * per_call:(c + 1) * per_call]
             yield np.asarray(flat.reshape(steps_per_call, batch_size), np.int32)
 
+    def exchange_index_chunks(self, epoch: int, **kw) -> Iterator[np.ndarray]:
+        """(k, D, B) int32 index arrays: every data rank's
+        :meth:`epoch_index_chunks` of each call side by side, ``[:, d]``
+        rank d's. The order is a pure function of (seed, epoch), so each
+        rank computes all D shards itself and no index crosses the wire;
+        :func:`exchange_rows` reads which rank owns each row from them."""
+        shards = [self.epoch_index_chunks(epoch, num_shards=self.shards, shard_index=d, **kw)
+                  for d in range(self.shards)]
+        for parts in zip(*shards):
+            yield np.stack(parts, axis=1)
+
+
+def exchange_rows(cache, raw_idx, shard_index: int, group=None):
+    """This data rank's raw rows of a step from a sharded cache
+    (:class:`DeviceEpochCache`: each leaf holds the rank's ``rows`` rows).
+    ``raw_idx`` is the (D, B) int64 raw row of every data rank's batch
+    slot; row ``r`` lives on rank ``r // rows``.
+    Each rank fills a (D, B, bytes) send buffer with the bytes of every
+    leaf of the rows it names for each rank, where it owns them (the other
+    slots hold whatever row the clamped local index names: nobody reads
+    them), and one fixed-shape ``all_to_all`` over the data group
+    (``parallel/comm.py``) swaps the buffers. The receiver selects slot i
+    from the buffer of row i's owner: a selection, not a sum of zeros, so
+    the rows arrive bitwise (a sum would turn ``-0.0`` into ``0.0``). One
+    rank: the exchange is a copy."""
+    import torch
+
+    from seist_tpu_torch.parallel import comm
+
+    leaves = _tree_leaves(cache)
+    d, b = raw_idx.shape
+    rows = leaves[0].shape[0]
+    owner = torch.div(raw_idx[shard_index], rows, rounding_mode="floor")
+    local = torch.clamp(raw_idx - shard_index * rows, 0, rows - 1).reshape(-1)
+    parts = [leaf.index_select(0, local).reshape(d, b, -1).view(torch.uint8) for leaf in leaves]
+    recv = comm.all_to_all(torch.cat(parts, dim=2), group)
+    mine = recv[owner, torch.arange(b, device=recv.device)]
+    out, start = [], 0
+    for leaf, part in zip(leaves, parts):
+        width = part.shape[-1]
+        out.append(mine[:, start:start + width].contiguous().view(leaf.dtype)
+                   .reshape((b,) + tuple(leaf.shape[1:])))
+        start += width
+    return _tree_map(lambda _: out.pop(0), cache)
+
 
 def iter_raw_batches(store: RawStore, epoch: int, *, seed: int, shuffle: bool, batch_size: int,
-                     start_batch: int = 0, source_ids: Optional[np.ndarray] = None,
-                     mixture_temperature: float = 0.0):
+                     num_shards: int = 1, shard_index: int = 0, start_batch: int = 0,
+                     source_ids: Optional[np.ndarray] = None, mixture_temperature: float = 0.0):
     """Step mode's feed (``--device-aug step``): per batch, the raw rows
     gathered on the host (no augmentation, labels or stacking) as ``(rows,
     idx, aug)`` for the augmenting train step. The order is the host
-    Loader's (:func:`_epoch_order`, drop-last). A store with
-    ``row_batch_at`` (packed direct ingest) gets the (epoch, logical idx)
-    its guarded reads key quarantine fallbacks on."""
+    Loader's (:func:`_epoch_order`, drop-last), data rank ``shard_index``'s
+    shard of it: a rank gathers its own rows only, and ``idx`` keeps their
+    global epoch indices. A store with ``row_batch_at`` (packed direct
+    ingest) gets the (epoch, logical idx) its guarded reads key quarantine
+    fallbacks on."""
     order = _epoch_order(len(store), seed=seed, epoch=epoch, shuffle=shuffle,
-                         source_ids=source_ids, mixture_temperature=mixture_temperature)
+                         num_shards=num_shards, shard_index=shard_index, source_ids=source_ids,
+                         mixture_temperature=mixture_temperature)
     nb = len(order) // batch_size
     n_raw = store.n_raw
     row_batch_at = getattr(store, "row_batch_at", None)

@@ -33,7 +33,8 @@ from __future__ import annotations
 import json
 import os
 import sys
-from typing import Any, Dict, Optional
+import contextlib
+from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -107,6 +108,64 @@ def run_steps(spec: Dict[str, Any], run: Dict[str, Any], device) -> Dict[str, An
         "outputs": outputs.detach().cpu() if torch.is_tensor(outputs) else outputs,
         "state": {k: v.detach().cpu() for k, v in model.state_dict().items()},
     }
+
+
+def flat_tensors(x) -> List[torch.Tensor]:
+    """The tensors of nested tuples and lists, in order."""
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in flat_tensors(y)]
+    return [x]
+
+
+def ranks_order(ranks: int, batch: int):
+    """A stand-in for ``pipeline._epoch_order`` in a one-rank reference of
+    a ``data=ranks`` train run: each train batch of ``ranks * batch`` rows
+    is the data ranks' batches of ``batch`` side by side (the shards of
+    ``_shard_order``), so one rank's global batch holds the rows the ranks
+    train on together, in the ranks' order, and each dropout mask's rows
+    fall where the ranks' do. Unshuffled (eval) orders pass through."""
+    from seist_tpu_torch.data import pipeline
+
+    real = pipeline._epoch_order
+
+    def order(n, *, shuffle, num_shards=1, shard_index=0, **kw):
+        if not shuffle or num_shards != 1:
+            return real(n, shuffle=shuffle, num_shards=num_shards, shard_index=shard_index, **kw)
+        full = real(n, shuffle=shuffle, **kw)
+        shards = [pipeline._shard_order(full, ranks, r) for r in range(ranks)]
+        steps = len(shards[0]) // batch
+        return np.concatenate([shards[r][b * batch:(b + 1) * batch]
+                               for b in range(steps) for r in range(ranks)])
+
+    return order
+
+
+@contextlib.contextmanager
+def first_processed_batch() -> Iterator[list]:
+    """The train worker's device-augmentation processor wrapped so that
+    its first call's outputs are kept (the list yielded gets one list of
+    CPU tensors, :func:`flat_tensors` order)."""
+    from seist_tpu_torch.train import worker
+
+    kept: list = []
+    real = worker.capture_processor
+
+    def keeping(process, device, resident=0):
+        run = real(process, device, resident)
+
+        def first(*args):
+            out = run(*args)
+            if not kept:
+                kept.append([t.detach().cpu().clone() for t in flat_tensors(out)])
+            return out
+
+        return first
+
+    worker.capture_processor = keeping
+    try:
+        yield kept
+    finally:
+        worker.capture_processor = real
 
 
 def main(argv: Optional[list] = None) -> int:

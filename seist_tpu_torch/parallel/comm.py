@@ -1,6 +1,6 @@
 """The collectives of multi-rank training: a sum or mean all-reduce, an
-all-gather along an axis and a ring rotation, plus the autograd functions
-built on them.
+all-gather along an axis, an all-to-all and a ring rotation, plus the
+autograd functions built on them.
 
 Under NCCL a collective runs on the tensor where it lies, on the current
 stream, so it can sit inside a captured CUDA graph. gloo moves host
@@ -82,6 +82,22 @@ def all_gather(t: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
     parts = [torch.empty_like(w) for _ in range(size)]
     tdist.all_gather(parts, w, group=group)
     return _back(torch.cat(parts, dim=dim), t)
+
+
+def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Slice ``t[j]`` of the leading axis (one per rank of ``group``) sent
+    to rank j; returns the slices received, ``out[i]`` from rank i (the
+    device-aug cache's row exchange, ``data/pipeline.py::exchange_rows``).
+    One rank: its copy."""
+    size = group_size(group)
+    if t.shape[0] != size:
+        raise ValueError(f"leading axis {t.shape[0]} != {size} ranks")
+    if not dist.is_dist_avail_and_initialized():
+        return t.clone()
+    w = _wire(t)
+    out = torch.empty_like(w)
+    tdist.all_to_all_single(out, w, group=group)
+    return _back(out, t)
 
 
 def rotate(t: torch.Tensor, group=None, step: int = 1) -> torch.Tensor:

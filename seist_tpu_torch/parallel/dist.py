@@ -171,6 +171,13 @@ def _store():
     return _STATE["store"]
 
 
+def group_store():
+    """The group's store (process 0 serves it), or None without a group:
+    host-side coordination beyond these exchanges, such as the re-picking
+    fleet's leases (``batch/fleet.py::TorchStoreKV``)."""
+    return _store() if is_dist_avail_and_initialized() else None
+
+
 #: Call ordinals of the store exchanges: every rank makes them in the same
 #: program order (they are collective), so a per-process counter yields
 #: matching keys without coordination.

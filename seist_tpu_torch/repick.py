@@ -13,13 +13,31 @@ and verdict lines).
   the advisory progress record); SIGTERM drains the current segment and
   exits 75;
 * **fleet** (``--fleet``): workers take work-unit leases with heartbeat
-  and fencing tokens from a shared directory (``batch/fleet.py``), so any
-  number of them, joining and dying at any time, converge on one catalog;
+  and fencing tokens (``batch/fleet.py``) from a shared directory, or from
+  the process group's TCP store, so any number of them, joining and dying
+  at any time, converge on one catalog;
 * **reduce**: ``--merge-only`` (or the driver, once its workers are done)
   concatenates the segments in (unit, segment) order into
   ``catalog.jsonl`` and ``catalog_meta.json`` (written last). The merged
   catalog is byte-identical across worker counts and kill/resume
   histories.
+
+Under the env contract of a multi-process launch (``COORDINATOR_ADDRESS``
+/ ``NUM_PROCESSES`` / ``PROCESS_ID``, or torchrun's), each process joins
+the process group (``parallel/dist.py::init_distributed_mode``, gloo: the
+group carries no device collective, so its workers may share a card), as
+the JAX tool's processes join the runtime ``jax.distributed.initialize``
+starts from the same variables. Its worker index and count are the
+process's. A ``--workers`` driver and its ``--worker-index`` children
+(and ``supervise-repick``'s) never join: the children inherit the
+driver's environment, not a rank of their own. ``--lease-store kv`` (and ``auto``, which prefers it) then
+keeps the leases in the TCP store that process 0 serves, as the JAX
+package's coordination service lives in process 0. The group is a fixed
+set: a member that dies is not relaunched into it, and process 0 must
+outlive the others' store calls, so every member waits for all at the
+end; process 0 then merges the catalog if every member succeeded. ``kv``
+without a group raises; ``auto`` without one takes ``--lease-dir``
+(``tools/repick_archive.py::_lease_store``).
 
 On the card unless ``--device cpu``; without a GPU the default raises::
 
@@ -90,9 +108,9 @@ def get_args(argv=None) -> argparse.Namespace:
                     help="fleet mode: this worker's lease owner id (default "
                     "worker<index>@<pid>)")
     ap.add_argument("--lease-store", default="auto", choices=("auto", "dir", "kv"),
-                    help="fleet lease store: 'dir' = shared directory; 'kv' = a "
-                    "multi-process coordination service (refused: not ported yet); "
-                    "'auto' = dir")
+                    help="fleet lease store: 'dir' = shared directory (--lease-dir), 'kv' = "
+                    "the process group's TCP store (a multi-process launch), 'auto' = kv "
+                    "inside a process group, else dir")
     ap.add_argument("--no-merge", action="store_true", help="skip the reduce step")
     ap.add_argument("--merge-only", action="store_true",
                     help="reduce only: merge committed segments into catalog.jsonl "
@@ -117,7 +135,7 @@ def get_args(argv=None) -> argparse.Namespace:
     elif bool(args.model) == bool(args.model_group):
         ap.error("exactly one of --model / --model-group is required")
     if args.fleet and args.lease_store != "kv" and not args.lease_dir:
-        ap.error("--fleet needs --lease-dir")
+        ap.error("--fleet needs --lease-dir (or --lease-store kv in a process group)")
     return args
 
 
@@ -183,7 +201,7 @@ def _plan_dict(args, meta, n_rows: int, n_units: int) -> Dict[str, Any]:
     }
 
 
-def _merge(args, meta, units, print_verdict: bool = True) -> Dict[str, Any]:
+def _merge(args, meta, units, print_verdict: bool = True, lease_store=None) -> Dict[str, Any]:
     from seist_tpu_torch.batch import catalog
 
     # Segment geometry and model identity come from the RECORDED plan,
@@ -194,7 +212,9 @@ def _merge(args, meta, units, print_verdict: bool = True) -> Dict[str, Any]:
     # A fleet merge audits every segment's fence sidecar against the lease
     # store's done ledger; catalog.jsonl's bytes are the same either way.
     fences = None
-    if args.lease_dir and os.path.isdir(args.lease_dir):
+    if lease_store is not None:
+        fences = lease_store.done_fences([u.unit_id for u in units])
+    elif args.lease_dir and os.path.isdir(args.lease_dir):
         from seist_tpu_torch.batch import fleet
 
         fences = fleet.DirLeaseStore(args.lease_dir).done_fences([u.unit_id for u in units])
@@ -329,20 +349,18 @@ def run_worker(args, worker_index: int, num_workers: int) -> int:
 
 
 def _lease_store(args):
-    """The configured lease store. The port has no multi-process
-    coordination service yet, so 'kv' refuses and 'auto' is the
-    directory store."""
+    """The configured lease store (``tools/repick_archive.py:358-370``):
+    'auto' prefers the KV store over the process group's TCP store and
+    falls back to the directory store outside a group; 'kv' raises
+    :class:`~seist_tpu_torch.batch.fleet.LeaseStoreError` there."""
     from seist_tpu_torch.batch import fleet
-    from seist_tpu_torch.utils.logger import logger
 
-    if args.lease_store == "kv":
-        raise SystemExit(
-            "--lease-store kv needs a multi-process coordination service, which the port "
-            "does not have yet (ROADMAP.md section 1, queue 4: multi-GPU); use --lease-dir "
-            "with --lease-store dir or auto")
-    if args.lease_store == "auto":
-        logger.info(f"[fleet] lease store auto -> dir {args.lease_dir} (no coordination "
-                    "service in the port)")
+    if args.lease_store in ("auto", "kv"):
+        try:
+            return fleet.KVLeaseStore.from_runtime()
+        except fleet.LeaseStoreError:
+            if args.lease_store == "kv":
+                raise
     return fleet.DirLeaseStore(args.lease_dir)
 
 
@@ -478,16 +496,45 @@ def main(argv=None) -> int:
         meta, cols = _archive_index(args.archive)
         _merge(args, meta, _units_from_cols(cols))
         return 0
-    if args.worker_index >= 0:
-        return run_worker(args, args.worker_index, args.num_workers)
     if args.workers > 0:
         return run_driver(args)
+    if args.worker_index >= 0:
+        # A driver's or a supervisor's child: it inherits their env, but
+        # its index and count are its own, so it never joins a group.
+        return run_worker(args, args.worker_index, args.num_workers)
+    from seist_tpu_torch.parallel import dist
+
+    if dist.init_distributed_mode(device="cpu"):
+        return _run_group_member(args)
     # Inline: one process maps every unit, then reduces.
     rc = run_worker(args, 0, 1)
     if rc == 0 and not args.no_merge:
         meta, cols = _archive_index(args.archive)
         _merge(args, meta, _units_from_cols(cols))
     return rc
+
+
+def _run_group_member(args) -> int:
+    """One process of a multi-process launch (module docstring): its
+    worker (index and count the group's), then every member's exit code
+    gathered, then process 0's merge, audited against the KV store's done
+    ledger when the fleet kept its leases there."""
+    from seist_tpu_torch.parallel import dist
+
+    try:
+        rc = run_worker(args, dist.process_index(), dist.process_count())
+        codes = dist.all_gather_object(rc)  # every member waits for all
+        if dist.is_main_process() and not args.no_merge and not any(codes):
+            meta, cols = _archive_index(args.archive)
+            kv = None
+            if args.fleet and args.lease_store != "dir":  # the fleet's leases are in the group
+                from seist_tpu_torch.batch import fleet
+
+                kv = fleet.KVLeaseStore.from_runtime()
+            _merge(args, meta, _units_from_cols(cols), lease_store=kv)
+        return rc
+    finally:
+        dist.shutdown()
 
 
 if __name__ == "__main__":

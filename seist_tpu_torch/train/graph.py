@@ -24,9 +24,10 @@ A capture (:class:`Captured`):
 
 Several ranks: under NCCL the step's collectives (``parallel/comm.py``)
 run inside the graph, on the capturing stream; the warm-up runs have made
-them once on every rank before. gloo stages CUDA tensors through the host,
-which a capture cannot hold, so a capture under gloo raises: the capture
-wrappers run the eager step there, and only there.
+them once on every rank before; so does the device-aug cache's row
+exchange in the processor's graph. gloo stages CUDA tensors through the
+host, which a capture cannot hold, so a capture under gloo raises: the
+capture wrappers run the eager step (and processor) there, and only there.
 
 A replay copies the call's inputs into the static buffers (non-blocking
 from pinned host memory), writes the step's attention seeds into the
@@ -233,7 +234,11 @@ _EAGER_LOGGED = []
 def _on_cuda(state: TrainState) -> Optional[torch.device]:
     """The model's CUDA device, or None when the step runs eagerly: on the
     CPU, and under the gloo backend (module docstring)."""
-    dev = step_lib._device_of(state.model)
+    return _captured_on(step_lib._device_of(state.model))
+
+
+def _captured_on(dev: torch.device) -> Optional[torch.device]:
+    """``dev`` when what runs there is captured, else None (:func:`_on_cuda`)."""
     if dev.type != "cuda":
         return None
     if dist.backend() == "gloo":
@@ -249,7 +254,10 @@ def _on_cuda(state: TrainState) -> Optional[torch.device]:
 def _on_model(state: TrainState, tree):
     """``tree``'s tensors on the model's device: the eager step under gloo
     on a card gets the host batch that a replay would copy in."""
-    dev = step_lib._device_of(state.model)
+    return _on_device(step_lib._device_of(state.model), tree)
+
+
+def _on_device(dev: torch.device, tree):
     if dev.type == "cpu":
         return tree
     return _unflat(tree, [t.to(dev, non_blocking=True) if torch.is_tensor(t) else t
@@ -355,8 +363,11 @@ def capture_processor(process: Callable, device: torch.device, resident: int = 0
     the train step copies them into its own buffers at once. The first
     ``resident`` arguments are device tensors the graph reads where they
     lie (the resident cache: the same tensors at every call, keyed by
-    address). K3's launch inside it is counted at each replay. On the CPU,
-    the processor itself."""
+    address). K3's launch inside it is counted at each replay. Under NCCL
+    the sharded cache's row exchange (``pipeline.exchange_rows``) is
+    captured with the rest; under gloo the processor runs eagerly on the
+    card, as the step does, its host arguments copied there first. On the
+    CPU, the processor itself."""
     device = torch.device(device)
     if device.type != "cuda":
         return process
@@ -364,6 +375,8 @@ def capture_processor(process: Callable, device: torch.device, resident: int = 0
 
     def run(*args):
         kept, copied = args[:resident], args[resident:]
+        if _captured_on(device) is None:
+            return process(*kept, *_on_device(device, copied))
         flat_in = _flat(copied)
 
         def fn(*tensors):

@@ -412,7 +412,11 @@ def make_cached_train_call(
     the train step ``step`` updates with randomness ``rngs[j]`` (``rngs``
     one source when k = 1). The loss and ``diag["applied"]`` are those of
     :func:`make_multi_train_step`: the only host-to-device traffic of a
-    call is the (k, B) indices and the epoch."""
+    call is the (k, B) indices and the epoch. Under a process group the
+    cache is this data rank's shard and ``idx_k`` is (k, D, B), every data
+    rank's indices, from which the processor exchanges the rank's rows
+    (``data/device_aug.make_cache_processor``); the step then trains on
+    the rank's B rows as any data-parallel step does."""
     base = step or make_train_step(loss_fn, guard=guard, compute_dtype=compute_dtype)
 
     def call(state: TrainState, cache, idx_k, epoch, rngs):

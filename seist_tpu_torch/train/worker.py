@@ -80,7 +80,15 @@ steps per epoch)). On CUDA the processor (``data/device_aug.py``, whose
 draws are the kernel K3) runs as its own captured graph, then the train
 step's graph (``train/graph.py``); the randomness of the augmentation is
 keyed by (seed, epoch, sample index), that of the step as on the host path.
-Saves, preemption and mid-epoch resume work as on the host path.
+Saves, preemption and mid-epoch resume work as on the host path. Over
+several data ranks (as ``seist_tpu/train/worker.py`` runs both modes on a
+data mesh): each rank feeds its shard of the epoch order, ``--batch-size``
+rows a step, and augments them by their global epoch indices, so its rows
+equal those of the same samples in a one-rank batch; the cache holds
+``ceil(n / data)`` rows a rank (the memory budget is compared with that
+share) and each step's rows reach their rank through one ``all_to_all``
+(``pipeline.exchange_rows``), every rank computing every rank's indices.
+Under ``--seq-shards`` the ranks of a seq group augment the same rows.
 
 Telemetry (``obs/``, as ``seist_tpu/train/worker.py:874-912`` sets it
 up): a flight recorder of the last ``--flight-steps`` steps, dumped to
@@ -543,13 +551,15 @@ def _l1_terms(args: Any) -> List[Tuple[float, Any]]:
 
 
 def _resolve_device_aug(args: Any, sds: pipeline.SeismicDataset, device: torch.device,
-                        gas: int, spc: int) -> Tuple[str, Optional[pipeline.RawStore], int]:
+                        gas: int, spc: int,
+                        data_ranks: int = 1) -> Tuple[str, Optional[pipeline.RawStore], int]:
     """``--device-aug`` and ``--ingest`` resolved as the JAX worker resolves
     them (``seist_tpu/train/worker.py:589-715``): an unsupported
-    configuration falls back to the host path ('off'), a 'cached' epoch over
-    the memory budget to 'step', and ``--ingest auto`` on a pack takes the
-    direct shard feed; each fallback logs one warning. Returns (mode, the
-    raw store or None, steps per call)."""
+    configuration falls back to the host path ('off'), a 'cached' epoch
+    whose share on one of the ``data_ranks`` cards is over the memory budget
+    to 'step', and ``--ingest auto`` on a pack takes the direct shard feed;
+    each fallback logs one warning. Returns (mode, the raw store or None,
+    steps per call)."""
     device_req, ingest_req = args.device_aug, args.ingest
     if ingest_req == "direct" and device_req == "off":
         raise ValueError("--ingest direct feeds the device-aug step path; run with "
@@ -564,7 +574,7 @@ def _resolve_device_aug(args: Any, sds: pipeline.SeismicDataset, device: torch.d
     est = 0
     if not reasons:
         try:
-            est = pipeline.RawStore.estimate_bytes(sds)
+            est = pipeline.RawStore.estimate_bytes(sds) // max(data_ranks, 1)  # a rank's share
         except ValueError as e:  # a corrupt probe sample: the host path quarantines it
             reasons = [str(e)]
     mode, why = da.select_device_aug_mode(device_req, est, budget, reasons)
@@ -625,10 +635,6 @@ def _make_mesh(args: Any) -> mesh_lib.Mesh:
                     f"{args.batch_size * mesh.data}")
     if seq > 1:
         logger.info(f"Sequence parallelism: ring attention over {seq} ranks")
-    if world > 1 and args.device_aug != "off":
-        raise NotImplementedError(
-            f"--device-aug {args.device_aug} runs on one rank: its draws and epoch cache are "
-            "not sharded over ranks yet (queued in ROADMAP.md)")
     return mesh
 
 
@@ -680,7 +686,8 @@ def _train(args: Any, mesh: mesh_lib.Mesh) -> str:
             "consume stacked micro-batches, with different update semantics)"
         )
     sds_train = train_loader.dataset
-    device_mode, dev_store, spc = _resolve_device_aug(args, sds_train, device, gas, spc)
+    device_mode, dev_store, spc = _resolve_device_aug(args, sds_train, device, gas, spc,
+                                                      mesh.data)
     if device_mode == "cached" and spc_auto:
         spc = max(1, min(32, steps_per_epoch))
     if gas > 1:
@@ -746,12 +753,15 @@ def _train(args: Any, mesh: mesh_lib.Mesh) -> str:
                                                  phase_slots=dev_store.phase_slots)
             names = (cfg, sds_train.input_names, sds_train.label_names)
         if device_mode == "cached":
-            dev_cache = pipeline.DeviceEpochCache(dev_store, device)
+            sharded = mesh if mesh.distributed else None
+            dev_cache = pipeline.DeviceEpochCache(dev_store, device, sharded)
             logger.info(f"device-aug cached: {len(dev_store)} epoch samples resident "
-                        f"({dev_cache.nbytes / 2**20:.1f} MiB on {device}), steps_per_call={spc}")
+                        f"({dev_cache.nbytes / 2**20:.1f} MiB on {device}), steps_per_call={spc}"
+                        + (f"; {dev_cache.rows} of {dev_store.n_raw} raw rows on this rank "
+                           f"(data rank {mesh.data_index} of {mesh.data})" if sharded else ""))
             process = capture_processor(
                 da.make_cache_processor(*names, n_raw=dev_store.n_raw,
-                                        augmentation=dev_store.augmentation),
+                                        augmentation=dev_store.augmentation, mesh=sharded),
                 device, resident=1)
             train_call = make_cached_train_call(loss_fn, process, spc, guard=guard, step=single)
         elif device_mode == "step":
@@ -990,18 +1000,22 @@ def _train(args: Any, mesh: mesh_lib.Mesh) -> str:
         Host path: stacked loader batches (the NaN injector corrupts them)
         with the metrics targets of each. Step mode: raw rows gathered by a
         thread, copied to pinned memory, two batches ahead. Cached mode:
-        (k, B) index arrays."""
+        (k, B) index arrays, (k, D, B) under a process group."""
         epoch_t = torch.tensor(epoch, dtype=torch.int32)
         order = dict(seed=args.seed, shuffle=args.shuffle, batch_size=args.batch_size,
                      start_batch=skip, source_ids=src_ids, mixture_temperature=mixture_t)
         if device_mode == "cached":
-            chunks = dev_cache.epoch_index_chunks(epoch, steps_per_call=kpack, **order)
+            if mesh.distributed:  # (k, D, B): every data rank's indices, for the exchange
+                chunks = dev_cache.exchange_index_chunks(epoch, steps_per_call=kpack, **order)
+            else:
+                chunks = dev_cache.epoch_index_chunks(epoch, steps_per_call=kpack, **order)
             items = (torch.from_numpy(c).pin_memory() if pin else torch.from_numpy(c)
                      for c in chunks)
             return items, lambda idx_k, gstep, rngs, keep: train_call(
                 state, dev_cache.arrays, idx_k, epoch_t, rngs)
         if device_mode == "step":
-            raw = pipeline.iter_raw_batches(dev_store, epoch, **order)
+            raw = pipeline.iter_raw_batches(dev_store, epoch, num_shards=mesh.data,
+                                            shard_index=mesh.data_index, **order)
             items = _prefetch(pipeline.raw_batch_tensors(item, pin) for item in raw)
             return io_guard.watch(items, watchdog), lambda item, gstep, rngs, keep: train_call(
                 state, *item, epoch_t, rngs)

@@ -1,8 +1,9 @@
-"""One rank of the gloo launches of tests/test_torch_parallel.py and
-tests/test_torch_ring_attention.py, on the CPU:
+"""One rank of the gloo launches of tests/test_torch_parallel.py,
+tests/test_torch_ring_attention.py and tests/test_torch_device_aug_ranks.py,
+on the CPU:
 
     COORDINATOR_ADDRESS=127.0.0.1:P NUM_PROCESSES=W PROCESS_ID=i \\
-        python tests/_torch_dist_worker.py ring|parallel SPEC.json
+        python tests/_torch_dist_worker.py ring|parallel|device_aug SPEC.json
 
 The rank starts the process group through the port's env contract, runs
 every check of its file in this one start and writes what the test holds
@@ -102,6 +103,127 @@ def parallel(spec: dict) -> None:
     torch.save({"best": best}, os.path.join(spec["out"], f"cli_rank{rank}.pt"))
 
 
+def device_aug(spec: dict) -> None:
+    """The device-augmentation checks under a data-2 mesh, from the JAX
+    package's seeded variables (every drop rate 0 but attention's, whose
+    seeds are the spec's): one augmenting Adam step on this rank's rows of
+    the global batch, and a k = 2 cached SGD call over this rank's shard of
+    the cache, each step exchanging its rows; the processors' outputs, the
+    rank's cache and the rows its first exchange delivered are kept. Then
+    the train entry runs (``--device-aug step`` and ``cached`` under
+    ``data=2``, ``step`` under ``--seq-shards 2``) in these same processes,
+    each through the env contract on a port of its own; last, without a
+    group, each rank runs one of the one-rank references (``spec["one"]``,
+    rank r the r-th: its train entry, under ``parallel/check.py::ranks_order``
+    where it names more than one rank)."""
+    from seist_tpu_torch import cli, taskspec
+    from seist_tpu_torch.data import device_aug as da
+    from seist_tpu_torch.data import pipeline
+    from seist_tpu_torch.models import api
+    from seist_tpu_torch.models.common import RandomSource
+    from seist_tpu_torch.train import optim, schedule
+    from seist_tpu_torch.train.step import (TrainState, make_cached_train_call,
+                                            make_device_aug_train_step, step_random_source)
+
+    s = spec["device_aug"]
+    name = s["model"]
+    mesh = mesh_lib.make_mesh(data=2)
+    sds = pipeline.from_task_spec(taskspec.get_task_spec(name), "synthetic", "train",
+                                  **s["dataset"])
+    store = pipeline.RawStore.build(sds)
+    cfg = da.AugConfig.from_preprocessor(sds.preprocessor, seed=0, raw_len=store.raw_len,
+                                         phase_slots=store.phase_slots)
+    names = (cfg, sds.input_names, sds.label_names)
+    seeds = torch.as_tensor(np.load(s["seeds"]), dtype=torch.int32)
+    loss_fn = taskspec.make_loss(name)
+
+    def state(opt: str):
+        model = api.create_model(name, in_samples=s["window"], **s["drop"])
+        model.load_state_dict(torch.load(s["weights"]), strict=True)
+        return TrainState(model, optim.build_optimizer(opt, model.parameters()),
+                          schedule.constant(s["lr"][opt]))
+
+    def rng(epoch: int, step: int) -> RandomSource:
+        src = step_random_source(0, epoch, step, "cpu")
+        src = RandomSource(src.generator, src.seed_generator)
+        src.attention_seeds = seeds.clone()
+        return src
+
+    processed: list = []
+
+    def kept(process):
+        def run(*args):
+            out = process(*args)
+            processed.append(out)
+            return out
+
+        return run
+
+    def record(st, loss, diag) -> dict:
+        model = st.model
+        return {"loss": loss, "applied": diag["applied"],
+                "grads": {k: p.grad.detach().clone() for k, p in model.named_parameters()},
+                "state": {k: v.detach().clone() for k, v in model.state_dict().items()},
+                "processed": list(processed)}
+
+    result = {}
+    with mesh_lib.use_mesh(mesh):
+        sel = mesh_lib.shard_batch(mesh, np.asarray(s["sel"], np.int64))
+        raw, aug = sel % store.n_raw, sel >= store.n_raw
+        st = state("adam")
+        step = make_device_aug_train_step(loss_fn, kept(da.make_row_processor(*names)))
+        loss, _, diag = step(st, pipeline._tree_map(torch.from_numpy, store.row_batch(raw)),
+                             torch.from_numpy(sel.astype(np.int32)), torch.from_numpy(aug),
+                             torch.tensor(1, dtype=torch.int32), rng(1, 0))
+        result["step"] = record(st, loss, diag)
+        processed.clear()
+        cache = pipeline.DeviceEpochCache(store, "cpu", mesh)
+        idx = np.asarray(s["idx_k"], np.int32)
+        k = idx.shape[0]
+        exchanged: list = []
+        real = pipeline.exchange_rows
+
+        def keep_rows(*args):
+            exchanged.append(real(*args))
+            return exchanged[-1]
+
+        pipeline.exchange_rows = keep_rows
+        try:
+            call = make_cached_train_call(
+                loss_fn, kept(da.make_cache_processor(*names, n_raw=store.n_raw,
+                                                      augmentation=store.augmentation,
+                                                      mesh=mesh)), steps_per_call=k)
+            st = state("sgd")
+            loss, _, diag = call(st, cache.arrays, torch.from_numpy(idx.reshape(k, 2, -1)),
+                                 torch.tensor(2, dtype=torch.int32), [rng(2, j) for j in range(k)])
+        finally:
+            pipeline.exchange_rows = real
+        result["cached"] = dict(record(st, loss, diag), cache=cache.arrays, rows=cache.rows,
+                                exchanged=exchanged)
+    _save(spec["out"], "device_aug", result)
+    rank = dist.process_index()
+    dist.shutdown()
+    runs = {}
+    for label, run in spec["cli"].items():
+        os.environ["COORDINATOR_ADDRESS"] = run["address"]
+        runs[label] = cli.main(run["argv"])  # its group is gone when it returns
+    torch.save(runs, os.path.join(spec["out"], f"cli_rank{rank}.pt"))
+    for var in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID"):
+        os.environ.pop(var, None)
+    label, one = sorted(spec["one"].items())[rank]
+    if one["ranks"] > 1:
+        from unittest import mock
+
+        from seist_tpu_torch.parallel import check
+
+        order = check.ranks_order(one["ranks"], one["batch"])
+        with mock.patch.object(pipeline, "_epoch_order", order):
+            best = cli.main(one["argv"])
+    else:
+        best = cli.main(one["argv"])
+    torch.save({"label": label, "best": best}, os.path.join(spec["out"], f"one_rank{rank}.pt"))
+
+
 def free_port() -> int:
     import socket
 
@@ -173,7 +295,7 @@ def main() -> None:
 
     seist_tpu_torch.load_all()
     try:
-        {"ring": ring, "parallel": parallel}[task](spec)
+        {"ring": ring, "parallel": parallel, "device_aug": device_aug}[task](spec)
     finally:
         dist.shutdown()
 

@@ -450,19 +450,6 @@ def test_capture_refuses_the_gloo_backend(monkeypatch):
     assert seen == [(torch.device("meta"), torch.device("meta"))]
 
 
-def test_device_aug_refuses_several_ranks(monkeypatch):
-    from seist_tpu_torch import cli
-    from seist_tpu_torch.train import worker
-
-    monkeypatch.setattr(tdist, "process_count", lambda: 2)
-    args = cli.get_args(["--device", "cpu", "--dataset-name", "synthetic", "--device-aug",
-                         "step", "--batch-size", "4"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        worker._make_mesh(args)
-    args.device_aug = "off"
-    assert worker._make_mesh(args).data == 2
-
-
 def test_torchrun_launches_the_train_entry(tmp_path):
     """``torchrun --nproc-per-node 2 -m seist_tpu_torch train``: the ranks
     join the store torchrun's agent serves and train as the env contract's

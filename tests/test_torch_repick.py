@@ -393,10 +393,14 @@ def test_lease_fleet_is_byte_identical_with_fence_audit(archive, runs, tmp_path,
     assert _read(out) == _read(runs["torch"])
 
 
-def test_kv_lease_store_refuses_naming_the_roadmap(archive, tmp_path):
+def test_kv_lease_store_raises_outside_a_group(archive, tmp_path):
+    """``--lease-store kv`` outside a process group raises, naming the
+    launch it needs (``tools/repick_archive.py::_lease_store`` raises
+    there too); within a group it is tests/test_torch_lease_kv.py's."""
+    from seist_tpu_torch.batch.fleet import LeaseStoreError
     from seist_tpu_torch.repick import main
 
-    with pytest.raises(SystemExit, match="ROADMAP.md section 1, queue 4"):
+    with pytest.raises(LeaseStoreError, match="COORDINATOR_ADDRESS"):
         main(["--archive", archive, "--out", str(tmp_path), "--model", "phasenet",
               "--device", "cpu", "--fleet", "--lease-store", "kv", *_geometry()])
 
