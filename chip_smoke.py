@@ -327,6 +327,21 @@ non-zero before the last line):
     same references. The children start first and train while (a) and the
     references run here; each launch has one timeout. Prints which of (a)-(d)
     ran and the phase's seconds.
+19. where the time goes (``obs/attribution.py``): (a) the b64 fp32 train
+    step of seist_l_dpk (drop rates 0.3, Adam, the guard) recorded on the
+    card, and the same step at b2 on the card and on the CPU: the matmul
+    class at b2 equal on both, at b64 exactly 32 times b2's, K1 and K2
+    charged 5 times each; prints flops_total, the class decomposition and
+    the top 8 ops at the H100 basis; (b) ``measured_kernels`` over 3
+    profiled replays of the captured b64 step: K1's and K2's kernels 5
+    launches each per step, ``mfu_model`` (the recording's FLOPs over that
+    wall at 67 TFLOP/s) in (0, 1], the class time shares summing to 1
+    within 1e-3; (c) ``python -m seist_tpu_torch profile-step --batch 64
+    --steps 3`` (its entry, in this process), its trace listing K1 and K2 5
+    times per step; (d) in phase 14, while the fleet is up, one ``/predict`` through
+    the router stitched (``trace-report``'s functions) from the router's
+    and both replicas' ``/traces``: one tree, the replica's
+    ``server:/predict`` root a child of a router attempt, no flags.
 
 Each phase's wall seconds are printed as a ``[phase-time]`` line.
 
@@ -336,8 +351,10 @@ kernels, K3; launches over every phase's main path) and, last,
 Without a CUDA device it exits 1 and prints no result.
 
 ``python3 chip_smoke.py --loss-gap`` runs no phase and checks nothing: it
-builds the kernels and measures where phase 18 (b)'s step-mode loss gap
-comes from (``loss_gap_reading``).
+builds the kernels, reads whether one rank's captured Adam run repeats
+bitwise with cuDNN's deterministic flag off and on, and what the flag
+costs (``repeat_reading``), and measures where phase 18 (b)'s step-mode
+loss gap comes from (``loss_gap_reading``).
 """
 
 from __future__ import annotations
@@ -369,7 +386,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from seist_tpu_torch import cli, taskspec
+from seist_tpu_torch import cli, taskspec, trace_report
 from seist_tpu_torch import pack as pack_cli
 from seist_tpu_torch.data import pipeline
 from seist_tpu_torch.data.preprocess import normalize
@@ -400,6 +417,7 @@ from seist_tpu_torch.train.step import (
     move_batch,
     step_random_source,
 )
+from seist_tpu_torch.obs import attribution
 from seist_tpu_torch.obs import trace as obs_trace
 from seist_tpu_torch.obs.bus import BUS
 from seist_tpu_torch.utils import logger as logger_mod
@@ -1114,16 +1132,15 @@ class SpanLog:
 
 def profile_trace(log_dir: str) -> dict:
     """The ``--profile-steps`` capture of a train run: its file's size, and
-    the device kernels it lists (all, K1's, K2's)."""
+    the device kernels it lists (all, K1's, K2's;
+    ``obs/attribution.py::kernels_in_trace``)."""
     paths = sorted(glob.glob(os.path.join(log_dir, "profile", "*", "trace.json")))
     if len(paths) != 1:
         fail(f"expected one profiler trace under {log_dir}/profile, found {paths}")
-    with open(paths[0]) as f:
-        events = json.load(f)["traceEvents"]
-    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
-    return {"path": paths[0], "bytes": os.path.getsize(paths[0]), "kernels": len(kernels),
-            "K1": sum("fwd_kernel" in k for k in kernels),
-            "K2": sum("bwd_kernel" in k for k in kernels)}
+    table = attribution.kernels_in_trace(paths[0])
+    return {"path": paths[0], "bytes": table["bytes"], "kernels": int(table["kernels"]),
+            "K1": int(attribution.launches_of(table, "fwd_kernel")),
+            "K2": int(attribution.launches_of(table, "bwd_kernel"))}
 
 
 def read_scalars(tb_dir: str) -> Tuple[List[dict], str]:
@@ -1541,7 +1558,7 @@ def device_ms(fn, iters: int = 20, attempts: int = 5) -> float:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        events = device_kernels(prof)
+        events = attribution.device_kernels(prof)
         return sum(e.count for e in events), sum(e.self_device_time_total for e in events)
 
     fn()
@@ -1699,29 +1716,15 @@ def time_train_step(weights: str, batch: int, steps: int = 5, dtype: str = "fp32
 
 
 def profile_train_step(run: dict, iters: int = 3) -> dict:
-    """torch.profiler over ``iters`` train steps of a :func:`time_train_step`
-    run: device idle share, kernels per step, the kernels that take most."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """``obs/attribution.py::measured_kernels`` over ``iters`` train steps of
+    a :func:`time_train_step` run (its steps were the warm-up): wall and
+    device-busy ms per step, idle share, kernels per step, the kernels that
+    take most."""
     state, step, x, y = run["state"], run["step"], run["x"], run["y"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(iters):
-            step(state, x, y, RandomSource.from_seed(100 + i, "cuda"))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_events = device_kernels(prof)
-    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
-    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
-    return {
-        "wall_ms_per_step": wall_ms / iters,
-        "device_busy_ms_per_step": busy_ms / iters,
-        "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "kernels_per_step": sum(e.count for e in dev_events) / iters,
-        "top": [(e.key[:60], e.self_device_time_total / 1e3 / iters, e.count // iters)
-                for e in top],
-    }
+    seeds = iter(range(100, 100 + iters))
+    return attribution.measured_kernels(
+        lambda: step(state, x, y, RandomSource.from_seed(next(seeds), "cuda")), iters=iters,
+        warmup=0)
 
 
 def time_forward(entry) -> Dict[int, float]:
@@ -1732,41 +1735,12 @@ def time_forward(entry) -> Dict[int, float]:
     return out
 
 
-def device_kernels(prof) -> list:
-    """The device events of a profile, without user-annotation ranges (such
-    as ``Optimizer.step``), which span other kernels and would count their
-    time twice."""
-    from torch.autograd import DeviceType
-
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-
-
 def profile_forward(entry, iters: int = 5) -> dict:
-    """torch.profiler over ``iters`` batch-8 forwards: device busy share of
-    the wall time, kernels per forward, and the kernels that take most."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """``measured_kernels`` over ``iters`` batch-8 forwards: wall and
+    device-busy ms, idle share, kernels per forward, the kernels that take
+    most."""
     x = np.random.default_rng(0).standard_normal((BATCH, WINDOW, 3)).astype(np.float32)
-    entry.run(x)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            entry.run(x)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_events = device_kernels(prof)
-    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
-    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:6]
-    return {
-        "wall_ms_per_forward": wall_ms / iters,
-        "device_busy_ms_per_forward": busy_ms / iters,
-        "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "kernels_per_forward": sum(e.count for e in dev_events) / iters,
-        "top": [(e.key[:60], e.self_device_time_total / 1e3 / iters, e.count // iters)
-                for e in top],
-    }
+    return attribution.measured_kernels(lambda: entry.run(x), iters=iters, top_k=6)
 
 
 LOADER_EVENTS = 2048  # 295 MB of float32 waveforms at trace 12000, 74 MB as int8
@@ -1969,18 +1943,12 @@ def captured_vs_eager(weights: str, dev) -> dict:
 
 
 def profile_replay(state, step, x, y) -> dict:
-    """torch.profiler over one replay: does the trace show the kernels
-    inside a graph, and K1 and K2 five times each?"""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step(state, x, y, step_random_source(SEED, 0, 99, x.device))
-        torch.cuda.synchronize()
-    events = device_kernels(prof)
-    k1 = sum(e.count for e in events if "fwd_kernel" in e.key)
-    k2 = sum(e.count for e in events if "bwd_kernel" in e.key)
-    total = sum(e.count for e in events)
+    """torch.profiler over one replay (``measured_kernels``): does the trace
+    show the kernels inside a graph, and K1 and K2 five times each?"""
+    m = attribution.measured_kernels(
+        lambda: step(state, x, y, step_random_source(SEED, 0, 99, x.device)), iters=1, warmup=0)
+    k1, k2 = (int(attribution.launches_of(m, n)) for n in ("fwd_kernel", "bwd_kernel"))
+    total = int(m["kernels"])
     print(f"[capture] torch.profiler over one replay: {total} kernels traced, K1 {k1}, K2 "
           f"{k2}", flush=True)
     if total and (k1, k2) != (5, 5):
@@ -2201,12 +2169,12 @@ def baseline_steps(name: str, dev, name_power: str) -> None:
           f"{cap['step'].graphs.capture_seconds[0]:.2f} s", flush=True)
     print(f"[baseline-time] {name_power} | {name} window {BASELINES[name]}: forward b{BATCH} "
           f"{fwd_ms:.3f} ms; train step b{TRAIN_BATCH} captured {cap['ms']:.2f} ms, eager "
-          f"{eag['ms']:.2f} ms; captured step: device busy {prof['device_busy_ms_per_step']:.2f} "
-          f"ms, {prof['kernels_per_step']:.0f} kernels, idle share {prof['device_idle_share']:.3f} "
-          f"(profiled wall {prof['wall_ms_per_step']:.2f} ms); peak memory captured "
+          f"{eag['ms']:.2f} ms; captured step: device busy {prof['busy_ms']:.2f} "
+          f"ms, {prof['kernels']:.0f} kernels, idle share {prof['idle_share']:.3f} "
+          f"(profiled wall {prof['wall_ms']:.2f} ms); peak memory captured "
           f"{cap['peak_gib']:.3f} GiB, eager {eag['peak_gib']:.3f} GiB", flush=True)
-    for key, ms, count in prof["top"][:4]:
-        print(f"[baseline-time]   {ms:.3f} ms/step in {count} launches: {key}", flush=True)
+    for line in attribution.kernel_lines(prof, "step")[:4]:
+        print(f"[baseline-time]   {line}", flush=True)
     if not rel <= RESUME_RTOL or any(cap["launches"]) or any(eag["launches"]):
         fail(f"{name}: the captured step does not reproduce the eager one")
     del runs, cap, eag, model
@@ -2905,26 +2873,6 @@ def picks_agree(a: dict, b: dict, probs: np.ndarray, tol: float) -> Tuple[bool, 
     return True, ties
 
 
-def profile_calls(fn, iters: int = 5) -> dict:
-    """torch.profiler over ``iters`` calls: wall and device-busy ms per call,
-    the idle share of the wall time, and kernels per call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = device_kernels(prof)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    return {"wall_ms": wall_ms / iters, "busy_ms": busy_ms / iters,
-            "idle_share": 1.0 - busy_ms / wall_ms,
-            "kernels": sum(e.count for e in events) / iters}
-
-
 def program_calls(service) -> Dict[str, int]:
     return {p.key: p.calls for e in service.entries.values() for p in e.all_programs()}
 
@@ -3174,8 +3122,8 @@ def programs_phase(name_power: str, weights: str, n_shapes: int) -> dict:
                 (b, WINDOW, 3)).astype(np.float32)).cuda()
             prog = single.programs[variant][b]
             with torch.inference_mode():
-                replay = profile_calls(lambda: prog(xb))
-                eager = profile_calls(lambda: prog.fn(xb))
+                replay = attribution.measured_kernels(lambda: prog(xb), iters=5)
+                eager = attribution.measured_kernels(lambda: prog.fn(xb), iters=5)
             rows.append((variant, b, replay, eager))
             print(f"[time] {name_power} | {MODEL} window {WINDOW} b{b} {variant} forward: "
                   f"replayed wall {replay['wall_ms']:.3f} ms, device busy "
@@ -3295,7 +3243,7 @@ def flops_check(service, weights: str) -> None:
     cpu = load_model_entry(MODEL, weights, window=WINDOW, device="cpu")
     x = torch.zeros(1, WINDOW, 3)
     with torch.inference_mode():
-        want = aot.program_flops(cpu._fn("fp32"), [x])
+        want = attribution.matmul_flops(cpu._fn("fp32"), [x])
     print(f"[programs] {MODEL}/full/b1/fp32 FLOPs on the card {row['flops']:.9g}, on the CPU "
           f"{want:.9g}", flush=True)
     if abs(row["flops"] - want) > 1e-9 * want or want <= 0:
@@ -3864,6 +3812,34 @@ def timed_requests(url: str, body: bytes, n: int, n_threads: int) -> np.ndarray:
     return np.array(run_clients([one] * n, n_threads))
 
 
+def stitch_check(url: str, body: dict) -> None:
+    """Phase 19 (d), while phase 14's fleet is up: one ``/predict`` through
+    the router under a ``traceparent`` of this script's, its spans fetched
+    from the router's and both replicas' ``/traces`` and stitched by
+    ``python -m seist_tpu_torch trace-report``'s functions: one tree, the
+    replica's ``server:/predict`` root a child of a router attempt, no
+    flags."""
+    tid = obs_trace._new_trace_id()
+    req = urllib.request.Request(url + "/predict", data=json.dumps(body).encode(), headers={
+        "Content-Type": "application/json",
+        obs_trace.TRACEPARENT_HEADER: obs_trace.format_traceparent(tid, obs_trace._new_span_id())})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        status = r.status
+    endpoints = [url] + trace_report.replica_endpoints(url)
+    st = trace_report.stitch_from_endpoints(tid, endpoints)
+    served = st.find("server:/predict")
+    by_id = {s["span_id"]: s for s in st.spans}
+    print(f"[fleet] phase 19 (d): one /predict through the router ({status}), stitched from "
+          f"{len(endpoints)} endpoints' /traces: {len(st.spans)} spans in {len(st.roots)} "
+          f"tree(s), processes {st.processes()}, flags {st.flags}", flush=True)
+    for line in st.format().splitlines():
+        print(f"[fleet]   {line}", flush=True)
+    if (status != 200 or len(endpoints) != 1 + FLEET_REPLICAS or len(st.roots) != 1
+            or st.roots[0].get("name") != "router:/predict" or len(served) != 1
+            or by_id.get(served[0].get("parent_id"), {}).get("name") != "attempt" or st.flags):
+        fail("the stitched trace is not one tree with the replica's root under a router attempt")
+
+
 def fleet_phase(name_power: str, weights: str, served: dict) -> dict:
     """Phase 14 (module docstring)."""
     t_phase = time.perf_counter()
@@ -4063,6 +4039,7 @@ def fleet_phase(name_power: str, weights: str, served: dict) -> dict:
         if (len(per) != FLEET_REPLICAS or summed != sum(per.values()) or router_req != sent_router
                 or not after_kill <= summed <= attempts + direct):
             fail("the fleet pane does not add up to the requests the phase sent")
+        stitch_check(url, json.loads(body))
 
         # (c) A rolling restart to a second weights file, under load.
         with open(spec, "w") as f:
@@ -4530,7 +4507,7 @@ def repick_phase(name_power: str, weights: str) -> dict:
         first = store.row_batch_at(np.arange(REPICK_ROWS_PER_CALL), epoch=0,
                                    idx=np.arange(REPICK_ROWS_PER_CALL))["data"]
         args = engine._call_args(first.reshape(REPICK_BPC, REPICK_BATCH, 3, WINDOW), None)
-        prof = profile_calls(lambda: engine._program(*args), iters=3)
+        prof = attribution.measured_kernels(lambda: engine._program(*args), iters=3)
         print(f"[repick] {name_power} | one replay of {REPICK_ROWS_PER_CALL} rows (profiled): wall "
               f"{prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms, idle share "
               f"{prof['idle_share']:.3f}, {prof['kernels']:.0f} kernels", flush=True)
@@ -5726,6 +5703,289 @@ def loss_gap_reading(n_shapes: int, name_power: str) -> None:
     print(f"[loss-gap] {name_power} | {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ------------------------------------------------------------- phase 19
+ATTRIB_SMALL = 2  # (a): the step at b2, on the card and on the CPU
+ATTRIB_REPLAYS = 3  # (b): profiled replays of the captured b64 step
+PROFILE_STEP_STEPS = 3  # (c): `profile-step --steps`
+ATTRIB_TOP = 8
+
+
+def matmul_of(ops: List[dict]) -> int:
+    return sum(r["flops"] for r in ops if r["class"] == "matmul")
+
+
+def attribution_phase(weights: str, name_power: str, n_shapes: int, dev) -> dict:
+    """Phase 19 (a)-(c): the b64 fp32 train step of seist_l_dpk (its drop
+    rates 0.3, Adam, the guard) recorded by ``obs/attribution.py`` on the
+    card, the same step at b2 on the card and on the CPU; ``python -m
+    seist_tpu_torch profile-step`` (its entry, in this process: a child
+    would spend its start) and its trace; the captured b64 step's kernels
+    over ``ATTRIB_REPLAYS`` profiled replays and its attribution against
+    that wall time."""
+    from seist_tpu_torch.__main__ import main as port_main
+
+    t0 = time.perf_counter()
+    step = make_train_step(taskspec.make_loss(MODEL))
+
+    def record(batch: int, device) -> List[dict]:
+        state = _train_model(weights, device)
+        x, y = (t.to(device) for t in make_batch(batch))
+        return attribution.op_costs(
+            lambda *a: step(*a, RandomSource.from_seed(batch, device)), (state, x, y))
+
+    # (a) the analytic half.
+    ops64, ops2, ops2_cpu = (record(TRAIN_BATCH, dev), record(ATTRIB_SMALL, dev),
+                             record(ATTRIB_SMALL, "cpu"))
+    mm64, mm2, mm2_cpu = matmul_of(ops64), matmul_of(ops2), matmul_of(ops2_cpu)
+    basis = attribution.roofline("fp32")
+    analytic = attribution.summarize(ops64, top_k=ATTRIB_TOP, **basis)
+    kernels = {r["op"]: r["count"] for r in ops64 if r["op"].startswith("pooled_attention")}
+    print(f"[attrib] {name_power} | {MODEL} window {WINDOW} train step b{TRAIN_BATCH} fp32 on "
+          f"the card, recorded: flops_total {analytic['flops_total']}, bytes_total "
+          f"{analytic['bytes_total']}, {analytic['n_op_kinds']} op kinds, arithmetic intensity "
+          f"{analytic['arithmetic_intensity']}; kernels charged {kernels}; matmul FLOPs "
+          f"b{TRAIN_BATCH} {mm64}, b{ATTRIB_SMALL} on the card {mm2}, on the CPU {mm2_cpu} "
+          f"(b{TRAIN_BATCH} / b{ATTRIB_SMALL}: {mm64 / max(mm2, 1):.6f})", flush=True)
+    for cname, c in analytic["mfu_decomposition"].items():
+        print(f"[attrib]   class {cname}: flops {c['flops']} ({c['flops_frac']:.4f} of all), "
+              f"modelled time share {c['time_frac']:.4f}", flush=True)
+    print(f"[attrib]   top {ATTRIB_TOP} ops by modelled time (H100 basis: "
+          f"{basis['hbm_bw'] / 1e12:.2f} TB/s, fp32 {basis['peak_flops'] / 1e12:.0f} TFLOP/s "
+          f"on the CUDA cores; {name_power}):", flush=True)
+    for r in analytic["top_ops"]:
+        print(f"[attrib]     {r['op']} ({r['class']}, {r['bound']}): {r['count']} calls, "
+              f"{r['flops']} flops, {r['bytes_accessed']} bytes, time share "
+              f"{r['time_frac']:.4f}; e.g. {r['example']}", flush=True)
+    if (mm2 != mm2_cpu or mm64 != TRAIN_BATCH // ATTRIB_SMALL * mm2
+            or kernels != {"pooled_attention_fwd": n_shapes, "pooled_attention_bwd": n_shapes}):
+        fail(f"the recorded matmul FLOPs are not the CPU's at b{ATTRIB_SMALL} ({mm2} against "
+             f"{mm2_cpu}), or not linear in the batch ({mm64} at b{TRAIN_BATCH}), or K1/K2 were "
+             f"not charged {n_shapes} times each ({kernels})")
+    del ops2, ops2_cpu
+    t_a = time.perf_counter() - t0
+
+    # (c) profile-step, and the trace it wrote.
+    trace_dir = os.path.join(str(_kernels.BUILD_DIR), "profile_step")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        port_main(["profile-step", "--batch", str(TRAIN_BATCH), "--steps",
+                   str(PROFILE_STEP_STEPS), "--device", dev.type, "--out", trace_dir])
+    table = attribution.kernels_in_trace(os.path.join(trace_dir, "trace.json"),
+                                         calls=PROFILE_STEP_STEPS)
+    t1, t2 = (attribution.launches_of(table, n) for n in ("fwd_kernel", "bwd_kernel"))
+    t_c = time.perf_counter() - t0 - t_a
+    print(f"[attrib] {name_power} | python -m seist_tpu_torch profile-step --batch {TRAIN_BATCH} "
+          f"--steps {PROFILE_STEP_STEPS}: {t_c:.1f} s; its trace {table['bytes']} bytes, "
+          f"{table['kernels']:g} kernels/step, K1 {t1:g} and K2 {t2:g} per step; its output:",
+          flush=True)
+    for line in out.getvalue().splitlines():
+        print(f"[attrib]   | {line}", flush=True)
+    if (t1, t2) != (n_shapes, n_shapes):
+        fail(f"profile-step's trace lists K1 {t1} and K2 {t2} per step, not {n_shapes}")
+
+    # (b) the measured half: the captured step (what the train worker runs).
+    state = _train_model(weights, dev)
+    x, y = (t.to(dev) for t in make_batch(TRAIN_BATCH))
+    captured = capture_train_step(step)
+    seeds = iter(range(1000, 1000 + ATTRIB_REPLAYS + 2))
+
+    def replay() -> None:
+        captured(state, x, y, RandomSource.from_seed(next(seeds), dev))
+
+    replay()  # the capture
+    measured = attribution.measured_kernels(replay, iters=ATTRIB_REPLAYS, top_k=ATTRIB_TOP)
+    k1, k2, k2r = (attribution.launches_of(measured, n)
+                   for n in ("fwd_kernel", "bwd_kernel", "reduce_slabs"))
+    out = attribution.summarize(ops64, top_k=ATTRIB_TOP, measured_step_ms=measured["wall_ms"],
+                                **basis)
+    frac_sum = sum(c["time_frac"] for c in out["mfu_decomposition"].values())
+    print(f"[attrib] {name_power} | the captured b{TRAIN_BATCH} step over {ATTRIB_REPLAYS} "
+          f"profiled replays: wall {measured['wall_ms']:.3f} ms/step, device busy "
+          f"{measured['busy_ms']:.3f} ms, idle share {measured['idle_share']:.3f}, "
+          f"{measured['kernels']:g} kernels/step; K1 {k1:g} and K2 {k2:g} launches/step (K2's "
+          f"row-split reduce {k2r:g}); mfu_model {out['mfu_model']} (flops_total at "
+          f"{basis['peak_flops'] / 1e12:.0f} TFLOP/s fp32 over the wall), mfu_matmul_attributed "
+          f"{out.get('mfu_matmul_attributed')}; est_ms per class "
+          f"{ {c: d['est_ms'] for c, d in out['mfu_decomposition'].items()} } (time shares sum "
+          f"{frac_sum:.4f})", flush=True)
+    for line in attribution.kernel_lines(measured, "step"):
+        print(f"[attrib]   {line}", flush=True)
+    if (k1, k2) != (n_shapes, n_shapes) or not 0.0 < out["mfu_model"] <= 1.0 or abs(
+            frac_sum - 1.0) > 1e-3:
+        fail(f"the profiled replays list K1 {k1} and K2 {k2} launches per step (want "
+             f"{n_shapes}), or mfu_model {out['mfu_model']} lies outside (0, 1], or the class "
+             f"time shares sum to {frac_sum}")
+    del state, captured, x, y, ops64
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[attrib] phase 19: (a) {t_a:.1f} s, (c) {t_c:.1f} s, (b) "
+          f"{time.perf_counter() - t0 - t_a - t_c:.1f} s", flush=True)
+    return {"analytic": analytic, "measured": measured}
+
+
+def make_batch(batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A seeded random batch (x, y) for ``batch`` traces on the CPU."""
+    g = torch.Generator().manual_seed(batch)
+    return torch.randn(batch, WINDOW, 3, generator=g), torch.rand(batch, WINDOW, 3, generator=g)
+
+
+REPEAT_BATCH = 16  # the repeat reading's eager gradient pairs
+#: The convolutions whose weight gradients the repeat reading recomputes
+#: twice from one step's saved operands: the head's last two and a trunk one.
+REPEAT_CONVS = ("out_head.conv5", "out_head.conv4", "stage3_block0.conv3.conv")
+
+
+def wgrad_repeats(weights: str, step, x, y) -> Dict[str, Tuple[bool, List[str]]]:
+    """For each of ``REPEAT_CONVS``: its weight gradient computed twice by
+    ``aten.convolution_backward`` from the input and output gradient one
+    eager step gave it (bitwise equal?), and the kernels one call launches."""
+    state = _train_model(weights, x.device)
+    mods = dict(state.model.named_modules())
+    saved: Dict[str, dict] = {n: {} for n in REPEAT_CONVS}
+    hooks = []
+    for n in REPEAT_CONVS:
+        hooks.append(mods[n].register_forward_hook(
+            lambda mod, inp, out, n=n: saved[n].update(x=inp[0].detach())))
+        hooks.append(mods[n].register_full_backward_hook(
+            lambda mod, gin, gout, n=n: saved[n].update(g=gout[0].detach())))
+    step(state, x, y, RandomSource.from_seed(7, x.device))
+    for h in hooks:
+        h.remove()
+    out = {}
+    for n in REPEAT_CONVS:
+        m, xi, g = mods[n], saved[n]["x"], saved[n]["g"]
+
+        def wgrad(m=m, xi=xi, g=g):
+            return torch.ops.aten.convolution_backward(
+                g.transpose(1, 2), xi.transpose(1, 2), m.weight, None, [m.stride], [0],
+                [m.dilation], False, [0], m.groups, [False, True, False])[1]
+
+        out[n] = _repeats(wgrad)
+    # interpolate_linear's backward (index_select's: an index_add), at the
+    # head's first upsampling of b16 at 8192.
+    g = torch.Generator(device=x.device).manual_seed(0)
+    a = torch.randn(REPEAT_BATCH, 1365, 64, device=x.device, generator=g, requires_grad=True)
+    up = torch.randn(REPEAT_BATCH, 1820, 64, device=x.device, generator=g)
+    from seist_tpu_torch.models import common
+
+    out["interpolate_linear backward"] = _repeats(
+        lambda: torch.autograd.grad(common.interpolate_linear(a, 1820), a, up)[0])
+    return out
+
+
+def eager_grads_twice(weights: str, step, x, y) -> Tuple[Dict[str, torch.Tensor], ...]:
+    """The parameter gradients of one eager step from phase 5's weights,
+    made twice with the same batch and draws."""
+    grads = []
+    for _ in range(2):
+        state = _train_model(weights, x.device)
+        step(state, x, y, RandomSource.from_seed(7, x.device))
+        grads.append({n: p.grad.detach().clone()
+                      for n, p in state.model.named_parameters() if p.grad is not None})
+    return tuple(grads)
+
+
+def _repeats(fn) -> Tuple[bool, List[str]]:
+    """Whether two calls of ``fn`` give the same bits, and the kernels one
+    call launches."""
+    same = torch.equal(fn(), fn())
+    table = attribution.measured_kernels(fn, iters=1, warmup=0)
+    return same, [r["kernel"][:90] for r in table["top"]]
+
+
+def repeat_reading(weights: str, name_power: str) -> None:
+    """``chip_smoke.py --loss-gap``, part 1 (ROADMAP.md §3, open fault 2),
+    a measurement outside the checks: does one rank's captured Adam run
+    repeat bitwise, with ``torch.backends.cudnn.deterministic`` off and on?
+    Under each setting: phase 18 (b)'s one-rank run (``--device-aug step``
+    at b16) twice in this process, losses and the best checkpoint
+    compared; one eager b16 step twice from one state, the parameters
+    whose gradients differ; ``wgrad_repeats``. Then the captured b64
+    step's time under each (off, on, on, off), and, as diagnostics, the
+    ops ``torch.use_deterministic_algorithms(True, warn_only=True)`` warns
+    of in one eager step and whether two eager steps repeat under
+    ``use_deterministic_algorithms(True)`` (or what it refuses)."""
+    import warnings
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    work = os.path.join(str(_kernels.BUILD_DIR), "repeat")
+    shutil.rmtree(work, ignore_errors=True)
+    argv = DA_ARGS + ["--device-aug", "step", "--batch-size", str(2 * DA_BATCH)]
+    step = make_train_step(taskspec.make_loss(MODEL))
+    x, y = (t.to(dev) for t in make_batch(REPEAT_BATCH))
+    try:
+        for det in (False, True):
+            torch.backends.cudnn.deterministic = det
+            runs = []
+            for i in range(2):
+                best, _, wall, _ = run_entry(argv + ["--log-base", os.path.join(
+                    work, f"det{int(det)}_{i}")])
+                run_dir = os.path.dirname(os.path.dirname(best))
+                runs.append((np.load(os.path.join(run_dir, "train_losses.npy")),
+                             torch.load(best, map_location="cpu", weights_only=True), wall))
+            (l0, p0, w0), (l1, p1, w1) = runs
+            differ = sorted(k for k in p0 if not torch.equal(p0[k], p1[k]))
+            grads = eager_grads_twice(weights, step, x, y)
+            gdiff = {n: int((g != grads[1][n]).sum()) for n, g in grads[0].items()
+                     if not torch.equal(g, grads[1][n])}
+            worst = sorted(gdiff.items(), key=lambda kv: -kv[1])[:12]
+            same = [n for n in grads[0] if n not in gdiff]
+            print(f"[repeat] {name_power} | cudnn.deterministic {det}: the one-rank Adam run "
+                  f"twice ({w0:.1f} s, {w1:.1f} s): losses {l0.tolist()} and {l1.tolist()}, "
+                  f"bitwise equal {np.array_equal(l0, l1)}, largest gap "
+                  f"{float(np.abs(l0.astype(np.float64) - l1).max()):.3e}; best checkpoints: "
+                  f"{len(differ)} of {len(p0)} tensors differ; one eager b{REPEAT_BATCH} step "
+                  f"twice: {len(gdiff)} of {len(grads[0])} gradient leaves differ, the most "
+                  f"elements in {worst}; bitwise equal ({len(same)}): {same[:24]}", flush=True)
+            del grads
+            for n, (same_w, names) in wgrad_repeats(weights, step, x, y).items():
+                print(f"[repeat]   cudnn.deterministic {det}: {n} twice from the same operands "
+                      f"(a convolution's weight gradient from one step's): bitwise equal "
+                      f"{same_w}; its kernels {names}", flush=True)
+        times = []
+        for det in (False, True, True, False):
+            torch.backends.cudnn.deterministic = det
+            run = time_train_step(weights, TRAIN_BATCH, steps=20, captured=True)
+            times.append((det, run["ms"]))
+            del run
+            torch.cuda.empty_cache()
+        off = np.mean([ms for d, ms in times if not d])
+        on = np.mean([ms for d, ms in times if d])
+        print(f"[repeat] {name_power} | the captured b{TRAIN_BATCH} step (20 steps a run, "
+              f"host wall): {[(d, round(ms, 3)) for d, ms in times]}; deterministic off "
+              f"{off:.3f} ms, on {on:.3f} ms ({(on / off - 1) * 100:+.2f}%)", flush=True)
+        torch.backends.cudnn.deterministic = False
+        state = _train_model(weights, dev)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step(state, x, y, RandomSource.from_seed(7, dev))
+            torch.cuda.synchronize()
+        said = collections.Counter(str(w.message).split("\n")[0][:200] for w in caught)
+        print(f"[repeat] use_deterministic_algorithms(True, warn_only=True), one eager "
+              f"b{REPEAT_BATCH} step: {len(said)} distinct warnings", flush=True)
+        for msg, n in said.most_common():
+            print(f"[repeat]   {n}x {msg}", flush=True)
+        # The same flag without warn_only: what refuses, or whether two
+        # eager steps then give the same gradients.
+        torch.use_deterministic_algorithms(True)
+        try:
+            grads = eager_grads_twice(weights, step, x, y)
+            differ = [n for n, g in grads[0].items() if not torch.equal(g, grads[1][n])]
+            print(f"[repeat] use_deterministic_algorithms(True): two eager b{REPEAT_BATCH} steps, "
+                  f"{len(differ)} of {len(grads[0])} gradient leaves differ {differ[:12]}",
+                  flush=True)
+        except RuntimeError as e:  # a refusal, read as a diagnostic
+            print(f"[repeat] use_deterministic_algorithms(True) refused: "
+                  f"{str(e).splitlines()[0][:300]}", flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    print(f"[repeat] {name_power} | {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this drives the "
@@ -5757,6 +6017,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     shapes = api.create_model(MODEL, in_samples=WINDOW).attention_shapes(WINDOW)
     if sys.argv[1:] == ["--loss-gap"]:
+        weights = os.path.join(str(_kernels.BUILD_DIR), f"{MODEL}_seed{SEED}.pt")
+        seeded_weights(weights)
+        repeat_reading(weights, name_power)
         loss_gap_reading(len(shapes), name_power)
         return 0
     print(f"[shapes] {MODEL} window {WINDOW}: (L, M, H, E) per launch {shapes}", flush=True)
@@ -5831,12 +6094,10 @@ def main() -> int:
               f"program): {ms:.3f} ms", flush=True)
     prof = profile_forward(served["entry"])
     print(f"[profile] {name_power} | {MODEL} window {WINDOW} b{BATCH} (its captured program): wall "
-          f"{prof['wall_ms_per_forward']:.3f} ms/forward, device busy "
-          f"{prof['device_busy_ms_per_forward']:.3f} ms, idle share "
-          f"{prof['device_idle_share']:.3f}, {prof['kernels_per_forward']:.0f} "
-          f"kernels/forward", flush=True)
-    for key, ms, count in prof["top"]:
-        print(f"[profile]   {ms:.3f} ms/forward in {count} launches: {key}", flush=True)
+          f"{prof['wall_ms']:.3f} ms/forward, device busy {prof['busy_ms']:.3f} ms, idle share "
+          f"{prof['idle_share']:.3f}, {prof['kernels']:.0f} kernels/forward", flush=True)
+    for line in attribution.kernel_lines(prof, "forward"):
+        print(f"[profile]   {line}", flush=True)
     lat = served["server_latency_ms"]
     print(f"[time] {name_power} | /predict x{N_REQUESTS} concurrent: client p50 "
           f"{served['client_p50_ms']:.1f} ms p99 {served['client_p99_ms']:.1f} ms; "
@@ -5862,13 +6123,11 @@ def main() -> int:
                 if batch == TRAIN_BATCH and mode == "captured":
                     tp = profile_train_step(run)
                     print(f"[profile] {name_power} | {MODEL} train step b{batch} {dtype} {mode}: "
-                          f"wall {tp['wall_ms_per_step']:.2f} ms/step, device busy "
-                          f"{tp['device_busy_ms_per_step']:.2f} ms, idle share "
-                          f"{tp['device_idle_share']:.3f}, {tp['kernels_per_step']:.0f} "
+                          f"wall {tp['wall_ms']:.2f} ms/step, device busy {tp['busy_ms']:.2f} "
+                          f"ms, idle share {tp['idle_share']:.3f}, {tp['kernels']:.0f} "
                           f"kernels/step", flush=True)
-                    for key, ms, count in tp["top"]:
-                        print(f"[profile]   {ms:.3f} ms/step in {count} launches: {key}",
-                              flush=True)
+                    for line in attribution.kernel_lines(tp, "step"):
+                        print(f"[profile]   {line}", flush=True)
                 del run
                 torch.cuda.empty_cache()
 
@@ -5912,6 +6171,20 @@ def main() -> int:
     ranks18 = device_aug_ranks_phase(len(shapes), packed["f32"], name_power)
     path_counts.append(ranks18["counts"])
     lap("phase 18")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pa.set_counts((0, 0, 0, 0))
+    attribution_phase(weights, name_power, len(shapes), dev)
+    # (a)'s two recorded steps on the card, profile-step's capture, 3 warm
+    # and 3 traced steps, and (b)'s capture, warm replay and profiled ones.
+    attrib_counts = {"K1": pa.launches, "K2": pa.bwd_launches, "K3": 0, "K1_bf16": 0,
+                     "K2_bf16": 0}
+    want = len(shapes) * (2 + 1 + 3 + PROFILE_STEP_STEPS + 2 + ATTRIB_REPLAYS)
+    if (attrib_counts["K1"], attrib_counts["K2"]) != (want, want):
+        fail(f"phase 19 launched K1 {attrib_counts['K1']} and K2 {attrib_counts['K2']} times, "
+             f"not {want}")
+    path_counts.append(attrib_counts)
+    lap("phase 19")
 
     fp32 = [r for r in rows if r["dtype"] == "fp32"]  # the serving path is fp32
     bf16_rows = [r for r in rows if r["dtype"] == "bf16"]

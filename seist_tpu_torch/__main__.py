@@ -1,11 +1,13 @@
 """``python -m seist_tpu_torch serve|train|pack|supervise|router|supervise-fleet|repick|
-supervise-repick|import-pretrained|predict|demo ...``: the port's command
-line. ``router``, ``supervise-fleet`` and ``supervise-repick`` are
-model-free host processes: they take no device and import neither torch
-nor numpy. ``import-pretrained`` converts the reference's published
-``.pth`` weights into the port's weights file on the host; ``predict``
-picks a continuous record into a CSV and ``demo`` plots one trace, on the
-card unless ``--device cpu`` is passed."""
+supervise-repick|import-pretrained|predict|demo|profile-step|trace-report ...``: the
+port's command line. ``router``, ``supervise-fleet``, ``supervise-repick`` and
+``trace-report`` are model-free host processes: they take no device and import
+neither torch nor numpy. ``import-pretrained`` converts the reference's
+published ``.pth`` weights into the port's weights file on the host;
+``predict`` picks a continuous record into a CSV and ``demo`` plots one
+trace; ``profile-step`` traces the captured train step; these three run on
+the card unless ``--device cpu`` is passed. ``trace-report`` stitches one
+request's spans from the fleet's ``/traces`` endpoints."""
 
 from __future__ import annotations
 
@@ -28,7 +30,11 @@ _USAGE = (
     "       python -m seist_tpu_torch predict --model-name NAME --checkpoint W.pt --input REC.npz "
     "[--output picks.csv] ...\n"
     "       python -m seist_tpu_torch demo --model-name NAME [--checkpoint W.pt] [--input T.npz] "
-    "[--output-dir D] ..."
+    "[--output-dir D] ...\n"
+    "       python -m seist_tpu_torch profile-step [--model-name NAME] [--batch N] [--steps N] "
+    "[--dtype fp32|bf16] [--out DIR] ...\n"
+    "       python -m seist_tpu_torch trace-report --trace ID [--endpoint URL ...] [--router URL] "
+    "[--from-bench F] [--json]"
 )
 
 
@@ -78,6 +84,14 @@ def main(argv=None) -> None:
         from seist_tpu_torch.demo import main as demo_main
 
         demo_main(argv[1:])
+    elif argv and argv[0] == "profile-step":
+        from seist_tpu_torch.profile_step import main as profile_main
+
+        profile_main(argv[1:])
+    elif argv and argv[0] == "trace-report":
+        from seist_tpu_torch.trace_report import main as report_main
+
+        sys.exit(report_main(argv[1:]))
     else:
         raise SystemExit(_USAGE)
 

@@ -229,16 +229,11 @@ class RepickEngine:
             return [((b, c, n), torch.int8), ((b, c), torch.float32)]
         return [((b, c, n), torch.float32)]
 
-    def _attention_flops(self) -> float:
-        model = self.entry.trunk_model if self.entry.is_group else self.entry.model
-        return aot.attention_flops(model, self.batch_size, self.entry.window)
-
     def _compile(self, variant: str) -> aot.Program:
         key = (f"repick/{self.entry.name}/b{self.batch_size}x{self.batches_per_call}/{variant}"
                + ("+i8shards" if self.stage_raw else ""))
         return aot.aot_compile_multi(key, self._step_fn(variant), self._arg_shapes(),
-                                     steps=self.batches_per_call, device=self.device,
-                                     attention=self._attention_flops())
+                                     steps=self.batches_per_call, device=self.device)
 
     def _call_args(self, raw: np.ndarray, scale: Optional[np.ndarray]) -> List[torch.Tensor]:
         args = [torch.from_numpy(raw).to(self.device)]

@@ -14,9 +14,15 @@
   supervisor's merge of every replica's bus snapshot and the router's,
   ``GET /fleet/metrics[.json]``.
 
-The JAX package's per-op attribution (``attribute_step``,
-``jaxpr_op_costs``) has no counterpart here yet (``ROADMAP.md``). Metric names, span names, header
-formats and JSON shapes are the JAX package's, so one scraper reads both.
+* **Step attribution** (:mod:`~seist_tpu_torch.obs.attribution`, imported
+  on its own: it needs torch, which this package's front-tier users do
+  not load): ``attribute_step`` and ``op_costs``, the JAX walk's FLOP and
+  byte rules over a recording of the ATen ops of one call, the kernels'
+  launches charged by their wrappers; ``measured_kernels`` and
+  ``kernels_in_trace``, the profiler's kernel table.
+
+Metric names, span names, header formats and JSON shapes are the JAX
+package's, so one scraper reads both.
 """
 
 from seist_tpu_torch.obs import flight, trace

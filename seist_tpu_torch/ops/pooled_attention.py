@@ -40,6 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from seist_tpu_torch.obs import attribution
 from seist_tpu_torch.ops import launch_counts
 
 #: Launches of the forward kernel since import (or since a caller reset
@@ -251,6 +252,24 @@ def set_counts(values: Tuple[int, int, int, int]) -> None:
     launches, bwd_launches, bf16_launches, bf16_bwd_launches = values
 
 
+def kernel_costs(q: torch.Tensor, k: torch.Tensor) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """(FLOPs, bytes) of one K1 and one K2 launch at q (N, L, H, E) and k
+    (N, M, H, E), the bound formulas of ``PERF.md`` §6: K1 ``4·N·H·L·M·E``
+    (two products) over q, k, v read and o written once; K2
+    ``10·N·H·L·M·E`` (the scores' recompute, dP, dV, dQ, dK) over q, k,
+    v, g, o read and dq, dk, dv written once, and the fp32 lse."""
+    n, l, h, e = q.shape
+    m, s = k.shape[1], q.element_size()
+    return ((4 * n * h * l * m * e, s * n * h * e * (2 * l + 2 * m)),
+            (10 * n * h * l * m * e, s * n * h * e * (4 * l + 4 * m) + 4 * n * h * l))
+
+
+def _charge(name: str, cost: Tuple[int, int], q: torch.Tensor, k: torch.Tensor) -> None:
+    """A launch's cost to an active step recording (``obs/attribution.py``)."""
+    attribution.charge(name, *cost, f"{attribution.shape_str(q)} {attribution.shape_str(k)} "
+                                    f"-> {attribution.shape_str(q)}")
+
+
 def _forward(q, k, v, scale, rate, seed, with_lse: bool, pid0: int = 0):
     """K1 on CUDA tensors, the plain version on CPU tensors: o, and the
     fp32 (N, H, L) row statistics when ``with_lse`` (else None). ``seed``
@@ -270,6 +289,7 @@ def _forward(q, k, v, scale, rate, seed, with_lse: bool, pid0: int = 0):
     _kernels.pooled_attention_fwd(q, k, v, o, lse, scale, rate, seed_tensor(seed, q.device), pid0)
     launch_counts.bump(__name__, q.device, *(("launches", "bf16_launches")
                                              if q.dtype == torch.bfloat16 else ("launches",)))
+    _charge("pooled_attention_fwd", kernel_costs(q, k)[0], q, k)
     return o, lse
 
 
@@ -298,6 +318,7 @@ def _backward(q, k, v, g, o, lse, scale, rate, seed, pid0: int = 0):
                                   seed_tensor(seed, q.device), pid0)
     launch_counts.bump(__name__, q.device, *(("bwd_launches", "bf16_bwd_launches")
                                              if q.dtype == torch.bfloat16 else ("bwd_launches",)))
+    _charge("pooled_attention_bwd", kernel_costs(q, k)[1], q, k)
     return dq, dk, dv
 
 

@@ -44,6 +44,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from seist_tpu_torch.obs import attribution
 from seist_tpu_torch.ops import launch_counts
 
 #: Launches of K3 since import (or since a caller reset it), incremented in
@@ -219,4 +220,7 @@ def aug_draws(
 
     _kernels.aug_draws(seed, epoch, idx, slots, field_tags, field_len, *out)
     launch_counts.bump(__name__, idx.device, "launches")
+    elements = sum(o.numel() for o in out)
+    attribution.charge("aug_draws", elements, 4 * elements + 4 * (b + 1),
+                       f"{attribution.shape_str(idx)} -> {attribution.shape_str(out[1])}")
     return out

@@ -49,11 +49,12 @@ A non-fp32 variant is parity-gated at load against fp32
 (:func:`variant_parity`): one that diverges beyond decision-level
 tolerance is disabled rather than served wrong.
 
-FLOPs (:func:`program_flops`): ``torch.utils.flop_counter`` over one eager
-run of the program's function. On the CPU it counts the plain attention's
-two products, which are exactly K1's ``4 N L M H E``; on the card K1 is a
-ctypes call it does not see, so those are added from the model's attention
-shapes, and the count is the same on both.
+FLOPs (``Program.flops``): the matmul class of ``obs/attribution.py``'s
+recording of one eager run of the program's function, the JAX package's
+dot, convolution and LSTM rules. On the CPU it records the plain
+attention's two products, which are exactly K1's ``4 N L M H E``; on the
+card K1 charges the recording the same from its wrapper, so the count is
+the same on both.
 """
 
 from __future__ import annotations
@@ -68,6 +69,7 @@ from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Sequence, T
 import numpy as np
 import torch
 
+from seist_tpu_torch.obs import attribution
 from seist_tpu_torch.obs.bus import BUS
 from seist_tpu_torch.ops import launch_counts
 from seist_tpu_torch.serve.protocol import VARIANTS
@@ -105,27 +107,6 @@ def _copy(tree: Any) -> Any:
     return tree.clone()
 
 
-def attention_flops(model: torch.nn.Module, batch: int, window: int) -> float:
-    """K1's operations in one forward of ``model`` at ``batch`` x ``window``:
-    ``4 N L M H E`` per attention launch (two products), 0 for a model
-    without attention."""
-    shapes = getattr(model, "attention_shapes", None)
-    if shapes is None:
-        return 0.0
-    return float(sum(4 * batch * l * m * h * e for l, m, h, e in shapes(window)))
-
-
-def program_flops(fn: Callable, inputs: Sequence[torch.Tensor], attention: float = 0.0) -> float:
-    """The FLOPs of one call of ``fn(*inputs)`` (module docstring);
-    ``attention`` is K1's share, added on the card."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    with FlopCounterMode(display=False) as counter:
-        fn(*inputs)
-    on_card = any(t.device.type == "cuda" for t in inputs)
-    return float(counter.get_total_flops()) + (attention if on_card else 0.0)
-
-
 class Program:
     """One serving program (the counterpart of ``AotProgram``): ``fn``
     captured as a CUDA graph from ``inputs`` on the card, or ``fn`` itself
@@ -142,7 +123,7 @@ class Program:
 
     def __init__(self, key: str, fn: Callable, inputs: Sequence[torch.Tensor], *,
                  pool: Optional[Tuple[int, int]] = None, shared_inputs: bool = False,
-                 copy_outputs: bool = True, attention: float = 0.0):
+                 copy_outputs: bool = True):
         with _BUILT_LOCK:
             _BUILT[0] += 1
         self.key = key
@@ -154,14 +135,14 @@ class Program:
         with torch.inference_mode():
             self.graph: Optional[Captured] = None
             if device.type != "cuda":
-                self.flops = program_flops(fn, inputs, attention)
+                self.flops = float(attribution.matmul_flops(fn, inputs))
             else:
                 # The FLOP count's eager run: on the capture's side stream,
                 # whose launches are counted nowhere.
                 side = _warmup_stream(device)
                 side.wait_stream(torch.cuda.current_stream(device))
                 with launch_counts.diverted(side), torch.cuda.stream(side):
-                    self.flops = program_flops(fn, inputs, attention)
+                    self.flops = float(attribution.matmul_flops(fn, inputs))
                 torch.cuda.current_stream(device).wait_stream(side)
                 self.graph = Captured(fn, inputs, device, pool=pool,
                                       shared_inputs=shared_inputs)
@@ -213,19 +194,17 @@ def multi_step(fn: Callable, steps: int) -> Callable:
 
 def aot_compile_multi(key: str, fn: Callable, arg_shapes: Sequence[Tuple[Tuple[int, ...], Any]],
                       *, steps: int, device: torch.device,
-                      pool: Optional[Tuple[int, int]] = None,
-                      attention: float = 0.0) -> Program:
+                      pool: Optional[Tuple[int, int]] = None) -> Program:
     """One :class:`Program` running ``fn`` ``steps`` times (``seist_tpu/
     serve/aot.py::aot_compile_multi``): it takes arguments with a leading
     ``steps`` axis, so one replay feeds ``steps`` full batches and host
     Python touches the critical path once per call. ``arg_shapes`` are
-    the PER-STEP (shape, torch dtype) pairs; ``attention`` is K1's FLOPs
-    per step (:func:`attention_flops`)."""
+    the PER-STEP (shape, torch dtype) pairs."""
     inputs = [torch.zeros((steps,) + tuple(shape), dtype=dtype, device=device)
               for shape, dtype in arg_shapes]
     if pool is None and device.type == "cuda":
         pool = torch.cuda.graph_pool_handle()
-    return Program(key, multi_step(fn, steps), inputs, pool=pool, attention=attention * steps)
+    return Program(key, multi_step(fn, steps), inputs, pool=pool)
 
 
 # ------------------------------------------------------------------ variants

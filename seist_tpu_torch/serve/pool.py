@@ -286,8 +286,7 @@ class ModelEntry:
                 with torch.inference_mode():
                     x = _to_device(_probe_input(b, self.window, self.in_channels), self.device)
                     inputs = _flat(self._stage(x))
-                prog = aot.Program(f"{self.name}/full/b{b}/{variant}", fn, inputs, pool=pool,
-                                   attention=aot.attention_flops(self.model, b, self.window))
+                prog = aot.Program(f"{self.name}/full/b{b}/{variant}", fn, inputs, pool=pool)
                 progs[b] = prog
                 report.append(_program_row(self.name, b, variant, prog))
                 logger.info(f"[serve] program {prog.key}: {prog.capture_s:.2f} s, "
@@ -501,8 +500,7 @@ class MultiTaskEntry:
                     x = _to_device(_probe_input(b, self.window, self.in_channels), self.device)
                 trunk = aot.Program(
                     f"{self.name}/trunk/b{b}/{variant}", self._fn("trunk", variant), [x],
-                    pool=pool, copy_outputs=False,
-                    attention=aot.attention_flops(self.trunk_model, b, self.window))
+                    pool=pool, copy_outputs=False)
                 progs[(variant, "trunk", b)] = trunk
                 report.append(_program_row(self.name, b, variant, trunk))
                 if trunk.outputs is not None:

@@ -4,6 +4,9 @@ window 256) behind the port's fleet supervisor and router.
 
 * ``/predict`` through the router equals a direct in-process port
   service's answer on the same weights;
+* one request's spans, fetched from the router's and both replicas'
+  ``/traces``, stitch into one tree (``trace-report``): the replica's
+  ``server:/predict`` root is a child of a router attempt, with no flags;
 * a SIGTERM'd replica exits 75 and is relaunched at once, its crash
   budget untouched;
 * a SIGHUP roll to a second weights file brings every response to
@@ -21,7 +24,9 @@ import sys
 import numpy as np
 import torch
 
+from seist_tpu_torch import trace_report
 from seist_tpu_torch.models import api
+from seist_tpu_torch.obs import trace as obs_trace
 from seist_tpu_torch.serve import server as tserver
 
 from test_torch_fleet import _get, _pid_of, _replicas, _start_fleet, _stop, _wait
@@ -30,13 +35,13 @@ NAME = "seist_s_dpk"
 WINDOW = 256
 
 
-def _post(host, port, body):
+def _post(host, port, body, headers=None):
     import http.client
 
     conn = http.client.HTTPConnection(host, port, timeout=60.0)
     try:
         conn.request("POST", "/predict", json.dumps(body).encode(),
-                     {"Content-Type": "application/json"})
+                     {"Content-Type": "application/json", **(headers or {})})
         resp = conn.getresponse()
         return resp.status, json.loads(resp.read())
     finally:
@@ -76,6 +81,17 @@ def test_two_replicas_answer_like_one_service_preempt_and_roll(tmp_path):
         for _ in range(2):  # one answer from each replica (round robin)
             status, got = _post(host, port, body)
             assert status == 200 and got == want[0], (got, want[0])
+        tid = obs_trace._new_trace_id()
+        parent = obs_trace.format_traceparent(tid, obs_trace._new_span_id())
+        assert _post(host, port, body, {obs_trace.TRACEPARENT_HEADER: parent})[0] == 200
+        router = f"http://{host}:{port}"
+        st = trace_report.stitch_from_endpoints(
+            tid, [router] + trace_report.replica_endpoints(router))
+        (root,) = st.roots
+        (served,) = st.find("server:/predict")
+        by_id = {s["span_id"]: s for s in st.spans}
+        assert root["name"] == "router:/predict" and st.flags == [], st.format()
+        assert by_id[served["parent_id"]]["name"] == "attempt", st.format()
         # A managed preemption: exit 75, relaunched at once, no budget spent.
         os.kill(_pid_of(proc.err, 1), signal.SIGTERM)
         _wait(lambda: "replica 1 clean preempt (rc=75)" in "".join(proc.err), timeout_s=60,
