@@ -342,8 +342,30 @@ non-zero before the last line):
     the router stitched (``trace-report``'s functions) from the router's
     and both replicas' ``/traces``: one tree, the replica's
     ``server:/predict`` root a child of a router attempt, no flags.
+20. repeatability and the streaming plane's acceptance: (a) the captured
+    b64 fp32 step as three graphs from one state (the port; the step
+    before the fixed-order backwards; that one under cuDNN's global
+    deterministic flag), their replays interleaved and timed by CUDA
+    events: the repair costs at most 3%; one eager b16 step twice from one
+    state under default settings: every gradient leaf bitwise equal;
+    ``/annotate``'s mean stitch of an hour twice: bitwise equal; phase 18
+    (b)'s one-rank ``--device-aug step`` Adam run twice: equal losses and a
+    byte-identical best checkpoint; (b) ``twin`` (200 stations, 60 s, one
+    driving worker) with twinpick on the card: every gate, and its alerts
+    (ids and pick samples) equal to the same scenario on the CPU in a
+    child process, but for picks on a near-tie of the CPU's |z|; (c) the
+    stream chaos lane's SIGKILL run (``stream_chaos.sigkill_run``: three
+    twin replicas on the card behind ``supervise-fleet``), with its gates;
+    (b)'s two twins and (c) run in child processes started before phase
+    19.
 
-Each phase's wall seconds are printed as a ``[phase-time]`` line.
+Each phase's wall seconds are printed as a ``[phase-time]`` line. To keep
+the script inside its time, the packs are made by child processes from the
+start (``PackQueue``), phase 17's five rank processes start together and
+phase 18's two start beside them, phase 15 (d)'s workers start with the
+phase, phase 16's parts run while ``predict``'s process does, phase 16
+runs while phase 15 (e)'s chaos fleet does, and phase 20's children work
+beside phases 19-20.
 
 It prints one ``{"kernels": [...]}`` line (the fp32 K1 and K2, their bf16
 kernels, K3; launches over every phase's main path) and, last,
@@ -351,14 +373,13 @@ kernels, K3; launches over every phase's main path) and, last,
 Without a CUDA device it exits 1 and prints no result.
 
 ``python3 chip_smoke.py --loss-gap`` runs no phase and checks nothing: it
-builds the kernels, reads whether one rank's captured Adam run repeats
-bitwise with cuDNN's deterministic flag off and on, and what the flag
-costs (``repeat_reading``), and measures where phase 18 (b)'s step-mode
-loss gap comes from (``loss_gap_reading``).
+builds the kernels and measures where phase 18 (b)'s step-mode loss gap
+comes from (``loss_gap_reading``).
 """
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import csv
@@ -387,7 +408,6 @@ import torch
 import torch.nn.functional as F
 
 from seist_tpu_torch import cli, taskspec, trace_report
-from seist_tpu_torch import pack as pack_cli
 from seist_tpu_torch.data import pipeline
 from seist_tpu_torch.data.preprocess import normalize
 from seist_tpu_torch.models import api
@@ -532,7 +552,10 @@ def allocated_gib() -> float:
 
 
 def fail(msg: str) -> None:
+    """Fails the run; the reason goes to both streams, so that a caller
+    that keeps only the end of one of them still sees it."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
 
 
@@ -1339,20 +1362,108 @@ def bf16_phase(log_base: str, n_shapes: int, fp32_best: str, dev) -> dict:
 
 
 # ------------------------------------------------------------- phases 6d, 6e
-def pack_entry(out: str, dtype: str, events: int = 256, shard_mb: float = 8.0,
-               workers: int = 4) -> dict:
-    """``python -m seist_tpu_torch pack`` of the synthetic dataset (trace
-    12000, the size phase 6 trains on) into ``out``: its JSON verdict."""
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = pack_cli.main(["--dataset", "synthetic", "--dataset-kwargs",
-                            json.dumps({"num_events": events}), "--out", out, "--dtype", dtype,
-                            "--shard-mb", str(shard_mb), "--workers", str(workers),
-                            "--no-resume"])
-    verdict = json.loads(buf.getvalue().strip().splitlines()[-1])
+class PackQueue:
+    """The synthetic packs the run trains and re-picks on, made one after
+    another by ``python -m seist_tpu_torch pack`` child processes on a
+    thread of this process from the script's start, while the card works;
+    each phase waits for its own (``verdict``). Jobs: (out, the pack's
+    arguments, its processes)."""
+
+    def __init__(self, jobs: List[Tuple[str, List[str], int]]):
+        self.jobs = jobs
+        self.results: Dict[str, Tuple[int, str]] = {}
+        self.done = {out: threading.Event() for out, _, _ in jobs}
+        self.proc: Optional[subprocess.Popen] = None
+        self._stopped = False
+        atexit.register(self.stop)  # an exit on a failure stops the pack at work
+        self._thread = threading.Thread(target=self._run, name="packs", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        root = str(Path(__file__).resolve().parent)
+        env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        for out, argv, workers in self.jobs:
+            try:
+                if self._stopped:
+                    raise RuntimeError("stopped")
+                self.proc = subprocess.Popen(
+                    [sys.executable, "-m", "seist_tpu_torch", "pack", "--out", out,
+                     "--workers", str(workers), "--no-resume", *argv],
+                    cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True, start_new_session=True)
+                stdout, stderr = self.proc.communicate(timeout=600)
+                self.results[out] = (self.proc.returncode, stdout + stderr[-3000:])
+            except Exception as e:  # noqa: BLE001 - the phase that waits fails on it
+                self.results[out] = (-1, repr(e))
+            self.done[out].set()
+
+    def stop(self) -> None:
+        self._stopped = True
+        proc = self.proc
+        if proc is not None and proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+    def verdict(self, out: str) -> Tuple[int, dict]:
+        """Wait for ``out``'s pack: its exit code and its JSON verdict."""
+        if not self.done[out].wait(timeout=900):
+            fail(f"the pack {out} was not made")
+        rc, text = self.results[out]
+        lines = [x for x in text.splitlines() if x.startswith("{")]
+        if rc != 0 or not lines:
+            fail(f"pack {out}: rc {rc}\n{text[-2000:]}")
+        return rc, json.loads(lines[-1])
+
+
+PACKS_DIR = "packs"  # under the build directory
+
+
+def pack_args(dtype: str, events: int = 256, shard_mb: float = 8.0) -> List[str]:
+    """``pack``'s arguments for the synthetic dataset at trace 12000 (the
+    size phase 6 trains on)."""
+    return ["--dataset", "synthetic", "--dataset-kwargs", json.dumps({"num_events": events}),
+            "--dtype", dtype, "--shard-mb", str(shard_mb)]
+
+
+def repick_pack_args(dtype: str) -> List[str]:
+    """``pack``'s arguments for phase 15's archive at trace WINDOW."""
+    return ["--dataset", "synthetic", "--dataset-kwargs",
+            json.dumps({"num_events": REPICK_EVENTS, "trace_samples": WINDOW}), "--dtype", dtype,
+            "--samples-per-shard", str(REPICK_SHARD)]
+
+
+def pack_jobs() -> List[Tuple[str, List[str], int]]:
+    """Every pack of the run, in the order the phases need them: phase 6d's
+    two, phase 8's 2,048 events (phase 11 trains on them too), phase 15's
+    archives."""
+    pack_dir = os.path.join(str(_kernels.BUILD_DIR), PACKS_DIR)
+    return [(os.path.join(pack_dir, "f32_256"), pack_args("float32"), 4),
+            (os.path.join(pack_dir, "i8_256"), pack_args("int8"), 4),
+            (os.path.join(pack_dir, f"float32_{LOADER_EVENTS}"),
+             pack_args("float32", LOADER_EVENTS, 512), 4),
+            (os.path.join(pack_dir, "repick_float32"), repick_pack_args("float32"), 1),
+            (os.path.join(pack_dir, "repick_int8"), repick_pack_args("int8"), 1)]
+
+
+_PACKS: Optional[PackQueue] = None
+
+
+def packs() -> PackQueue:
+    """The run's PackQueue, started at its first use (main() starts it once
+    the kernels are built)."""
+    global _PACKS
+    if _PACKS is None:
+        _PACKS = PackQueue(pack_jobs())
+    return _PACKS
+
+
+def pack_entry(out: str, dtype: str, events: int = 256) -> dict:
+    """The JSON verdict of ``out``'s pack of the synthetic dataset (trace
+    12000, the size phase 6 trains on), made by ``packs()``."""
+    rc, verdict = packs().verdict(out)
     print(f"[pack] {dtype}: {events} events -> {verdict['shards']} shards, "
           f"{verdict['on_disk_bytes']} bytes ({verdict['bytes_vs_fp32']} of float32), "
-          f"{verdict['wall_s']} s with {workers} pack processes", flush=True)
+          f"{verdict['wall_s']} s with {verdict['workers']} pack processes", flush=True)
     if rc != 0 or verdict["samples"] != events or verdict["dtype"] != dtype:
         fail(f"pack {dtype}: rc {rc}, {verdict}")
     return verdict
@@ -1375,8 +1486,8 @@ def max_rel(got: np.ndarray, want: np.ndarray) -> float:
 
 def packed_phase(log_base: str, n_shapes: int, run: dict) -> dict:
     """Pack phase 6's events and train on the packs (phase 6d)."""
-    packs = os.path.join(str(_kernels.BUILD_DIR), "packs")
-    f32, i8 = os.path.join(packs, "f32_256"), os.path.join(packs, "i8_256")
+    pack_dir = os.path.join(str(_kernels.BUILD_DIR), PACKS_DIR)
+    f32, i8 = os.path.join(pack_dir, "f32_256"), os.path.join(pack_dir, "i8_256")
     if pack_entry(f32, "float32")["shards"] < 2:
         fail("the float32 pack has one shard: --shard-mb 8 must give more")
     pack_entry(i8, "int8")
@@ -1776,11 +1887,11 @@ def loader_phase(name_power: str, step_ms: Dict[int, float]) -> List[dict]:
     """The train Loader's throughput on the float32 pack of the synthetic
     dataset (which phase 11 trains on), at batch 500, with 4 processes,
     beside the fp32 train step's consumption."""
-    packs = os.path.join(str(_kernels.BUILD_DIR), "packs")
+    pack_dir = os.path.join(str(_kernels.BUILD_DIR), PACKS_DIR)
     sources = []
     for dtype in ("float32",):
-        out = os.path.join(packs, f"{dtype}_{LOADER_EVENTS}")
-        pack_entry(out, dtype, events=LOADER_EVENTS, shard_mb=512, workers=os.cpu_count() or 4)
+        out = os.path.join(pack_dir, f"{dtype}_{LOADER_EVENTS}")
+        pack_entry(out, dtype, events=LOADER_EVENTS)
         sources.append(("packed", out, dtype))
     consume = {b: b * 1e3 / ms for b, ms in step_ms.items()}
     rows = []
@@ -3930,6 +4041,21 @@ def fleet_phase(name_power: str, weights: str, served: dict) -> dict:
         wait(warming, 120, "replica 0's relaunch warming up")
         t_warm = time.monotonic()
         print(f"[fleet] replica 0 warming {t_warm - t_kill:.1f} s after its SIGKILL", flush=True)
+        # (b)'s breaker states of replica 0, watched from here on: the black
+        # hole can open and close it before replica 0 is seen back in
+        # rotation below.
+        seen: List[str] = []
+        watching = threading.Event()
+
+        def watch_breaker() -> None:
+            while not watching.wait(0.05):
+                reps = {r["url"]: r for r in replicas()}
+                state = reps.get(f"127.0.0.1:{base}", {}).get("breaker", {}).get("state")
+                if state and (not seen or seen[-1] != state):
+                    seen.append(state)
+
+        watcher = threading.Thread(target=watch_breaker, daemon=True)
+        watcher.start()
         record = long_record(SEED, 2 * WINDOW)
         station = {"id": "FL01", "network": "XX", "lat": 35.0, "lon": -117.0}
         # They pay the process's first forward (the card's libraries
@@ -3960,17 +4086,19 @@ def fleet_phase(name_power: str, weights: str, served: dict) -> dict:
 
         # (b) The black hole (replica 0's second life): its breaker opens,
         # then closes, while every client request succeeds.
-        seen: List[str] = []
-
         def breaker_cycle() -> bool:
-            reps = {r["url"]: r for r in replicas()}
-            state = reps.get(f"127.0.0.1:{base}", {}).get("breaker", {}).get("state")
-            if state and (not seen or seen[-1] != state):
-                seen.append(state)
             return "open" in seen and seen[-1] == "closed" and in_rotation()
 
-        t_hole = time.monotonic()
-        wait(breaker_cycle, 120, "replica 0's breaker to open and close again")
+        t_hole, cycled = time.monotonic(), False
+        try:
+            wait(breaker_cycle, 120, "replica 0's breaker to open and close again")
+            cycled = True
+        finally:
+            watching.set()
+            watcher.join(timeout=5)
+            if not cycled:
+                print(f"[fleet] replica 0's breaker states since its relaunch warmed: {seen}",
+                      flush=True)
         hole_s = time.monotonic() - t_hole
         load.stop()
         records = load.since(0.0)
@@ -4305,18 +4433,52 @@ def check_kept(what: str, kept: Dict[int, np.ndarray], want: np.ndarray) -> Tupl
 
 
 def repick_pack(out: str, dtype: str) -> None:
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = pack_cli.main(["--dataset", "synthetic", "--dataset-kwargs",
-                            json.dumps({"num_events": REPICK_EVENTS, "trace_samples": WINDOW}),
-                            "--out", out, "--dtype", dtype, "--samples-per-shard",
-                            str(REPICK_SHARD), "--workers", "1",
-                            "--no-resume"])
-    v = json.loads(buf.getvalue().strip().splitlines()[-1])
+    rc, v = packs().verdict(out)
     if rc != 0 or v["samples"] != REPICK_EVENTS or v["shards"] != REPICK_EVENTS // REPICK_SHARD:
         fail(f"repick archive {dtype}: rc {rc}, {v}")
     print(f"[repick] archive {dtype}: {v['samples']} events at trace {WINDOW} in {v['shards']} "
           f"shards, {v['on_disk_bytes']} bytes, {v['wall_s']} s", flush=True)
+
+
+def start_mapreduce(out_d: str, archive: str, geometry: List[str]) -> dict:
+    """Phase 15 (d)'s two workers over ``archive`` into ``out_d``, worker 0
+    slowed so that a thread of this process SIGKILLs it after its first
+    commit and relaunches it, while the phase goes on: a handle with the
+    processes, the thread and its ``error``."""
+    os.makedirs(out_d)
+    base = [sys.executable, "-c", REPICK_WRAPPER, out_d, "--archive", archive, "--out", out_d,
+            "--compile-gate", "--no-merge", "--num-workers", "2", *geometry]
+    run = {"t0": time.perf_counter(), "launched": time.time(), "error": None}
+    slow = dict(os.environ, SEIST_FAULT_REPICK_SLOW_MS=REPICK_SLOW_MS)
+    run["w0"] = child(base + ["--worker-index", "0"], os.path.join(out_d, "w0.1.log"), slow)
+    run["w1"] = child(base + ["--worker-index", "1"], os.path.join(out_d, "w1.log"))
+
+    def kill_and_relaunch() -> None:
+        first = os.path.join(out_d, "unit_00000.seg_0000.jsonl")
+        while not os.path.exists(first):
+            if run["w0"].poll() is not None or time.perf_counter() - run["t0"] > REPICK_TIMEOUT_S:
+                run["error"] = (f"(d): worker 0 ended ({run['w0'].poll()}) or timed out before "
+                                f"its first commit")
+                return
+            time.sleep(0.05)
+        run["w0"].send_signal(signal.SIGKILL)
+        rc = run["w0"].wait()
+        if rc != -signal.SIGKILL:
+            run["error"] = f"(d) worker 0, SIGKILLed: exit {rc}"
+            return
+        run["segs_at_kill"] = len(glob.glob(os.path.join(out_d, "unit_*.seg_*.jsonl")))
+        run["w0b"] = child(base + ["--worker-index", "0"], os.path.join(out_d, "w0.2.log"))
+
+    def stop() -> None:  # a failure before (d)'s checks: stop its workers
+        for key in ("w0", "w1", "w0b"):
+            if key in run and run[key].poll() is None:
+                run[key].kill()
+                run[key].wait()
+
+    atexit.register(stop)
+    run["thread"] = threading.Thread(target=kill_and_relaunch, daemon=True)
+    run["thread"].start()
+    return run
 
 
 def repick_in_process(argv: List[str]) -> dict:
@@ -4371,15 +4533,26 @@ def child(cmd: List[str], log: str, env: Optional[dict] = None) -> subprocess.Po
                             env=env, cwd=str(Path(__file__).resolve().parent))
 
 
-def wait_child(proc: subprocess.Popen, what: str, expect: Tuple[int, ...] = (0,)) -> int:
+def wait_child(proc: subprocess.Popen, what: str, expect: Tuple[int, ...] = (0,),
+               log: Optional[str] = None, note=None) -> int:
+    """Waits for a child; on a failure the end of its ``log`` is shown,
+    and what ``note()`` returns."""
+
+    def tail() -> str:
+        text = note() if note is not None else ""
+        if log is None or not os.path.exists(log):
+            return text
+        with open(log, errors="replace") as f:
+            return f"{text}\n[the end of {log}]\n{f.read()[-4000:]}"
+
     try:
         rc = proc.wait(timeout=REPICK_TIMEOUT_S)
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.wait()
-        fail(f"{what}: no exit within {REPICK_TIMEOUT_S:.0f} s")
+        fail(f"{what}: no exit within {REPICK_TIMEOUT_S:.0f} s{tail()}")
     if rc not in expect:
-        fail(f"{what}: exit {rc}, expected {expect}")
+        fail(f"{what}: exit {rc}, expected {expect}{tail()}")
     return rc
 
 
@@ -4411,7 +4584,8 @@ def repick_phase(name_power: str, weights: str) -> dict:
     root = os.path.join(str(_kernels.BUILD_DIR), "repick")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    arch = {d: os.path.join(root, f"archive_{d}") for d in ("float32", "int8")}
+    arch = {d: os.path.join(str(_kernels.BUILD_DIR), PACKS_DIR, f"repick_{d}")
+            for d in ("float32", "int8")}
     for dtype, path in arch.items():
         repick_pack(path, dtype)
     keys = np.load(os.path.join(arch["float32"], "index.npz"))["key"]
@@ -4440,6 +4614,9 @@ def repick_phase(name_power: str, weights: str) -> dict:
     del flat
     geometry = list(REPICK_GEOMETRY)
     geometry[1] = f"{MODEL}={rp_weights}"
+    # (d)'s two workers start now, beside the CPU references and (a)-(c).
+    out_d = os.path.join(root, "mapreduce")
+    d_run = start_mapreduce(out_d, arch["float32"], geometry)
     cpu = load_model_entry(MODEL, rp_weights, window=WINDOW, device="cpu")
     ids = REPICK_CPU_ROWS
     rows_i8 = raw_store(arch["int8"], stage_raw=True).row_batch_at(ids, epoch=0, idx=ids)
@@ -4593,27 +4770,14 @@ def repick_phase(name_power: str, weights: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-        # (d) two worker processes, worker 0 SIGKILLed after its first commit
-        # and relaunched, then the merge.
-        out_d = os.path.join(root, "mapreduce")
-        os.makedirs(out_d)
-        base = [sys.executable, "-c", REPICK_WRAPPER, out_d, "--archive", arch["float32"],
-                "--out", out_d, "--compile-gate", "--no-merge", "--num-workers", "2", *geometry]
-        t0, launched = time.perf_counter(), time.time()
-        slow = dict(os.environ, SEIST_FAULT_REPICK_SLOW_MS=REPICK_SLOW_MS)
-        w0 = child(base + ["--worker-index", "0"], os.path.join(out_d, "w0.1.log"), slow)
-        w1 = child(base + ["--worker-index", "1"], os.path.join(out_d, "w1.log"))
-        first = os.path.join(out_d, "unit_00000.seg_0000.jsonl")
-        while not os.path.exists(first):
-            if w0.poll() is not None or time.perf_counter() - t0 > REPICK_TIMEOUT_S:
-                fail(f"(d): worker 0 ended ({w0.poll()}) or timed out before its first commit")
-            time.sleep(0.05)
-        w0.send_signal(signal.SIGKILL)
-        wait_child(w0, "(d) worker 0, SIGKILLed", (-signal.SIGKILL,))
-        segs_at_kill = len(glob.glob(os.path.join(out_d, "unit_*.seg_*.jsonl")))
-        w0b = child(base + ["--worker-index", "0"], os.path.join(out_d, "w0.2.log"))
-        wait_child(w1, "(d) worker 1")
-        wait_child(w0b, "(d) worker 0, relaunched")
+        # (d) two worker processes (started with the phase), worker 0
+        # SIGKILLed after its first commit and relaunched, then the merge.
+        d_run["thread"].join(REPICK_TIMEOUT_S)
+        if d_run["error"] or "w0b" not in d_run:
+            fail(d_run["error"] or "(d): worker 0 was not killed and relaunched in time")
+        t0, launched, segs_at_kill = d_run["t0"], d_run["launched"], d_run["segs_at_kill"]
+        wait_child(d_run["w1"], "(d) worker 1", log=os.path.join(out_d, "w1.log"))
+        wait_child(d_run["w0b"], "(d) worker 0, relaunched", log=os.path.join(out_d, "w0.2.log"))
         d = repick_in_process(["--archive", arch["float32"], "--out", out_d, "--merge-only"])
         wall_d = time.perf_counter() - t0
         worker_start = os.path.getmtime(os.path.join(out_d, "unit_00001.seg_0000.jsonl")) - launched
@@ -4651,49 +4815,59 @@ def repick_phase(name_power: str, weights: str) -> dict:
                "--fault-env", "2:SEIST_FAULT_BATCH_PREEMPT_UNIT=1"]
         t0 = time.perf_counter()
         sup = child(cmd, os.path.join(root, "supervisor.log"), env)
-        wait_child(sup, "(e) supervise-repick")
-        wall_e = time.perf_counter() - t0
-        v = [x for x in log_verdicts(os.path.join(root, "supervisor.log"))
-             if x.get("role") == "supervisor"][-1]
-        fleet_workers = [x for f in sorted(glob.glob(os.path.join(out_e, "logs", "w*.log")))
-                         for x in log_verdicts(f) if x.get("role") == "fleet-worker"]
-        dumps = k1_dumps(out_e)
-        same = sha256(os.path.join(out_e, "catalog.jsonl")) == sha256(
-            os.path.join(out_a, "catalog.jsonl"))
-        # The zombie's window: worker 0's first park against its unit's done
-        # marker (a peer's reclaim), seconds after the supervisor's start.
-        wall0 = time.time() - wall_e
-        done0 = os.path.getmtime(os.path.join(out_e, "leases", "unit_00000.done.json")) - wall0
-        parks = [line[:23] for line in open(os.path.join(out_e, "logs", "w0.01.log"))
-                 if "parked" in line]
-        park0 = (time.mktime(time.strptime(parks[0][:19], "%Y-%m-%d %H:%M:%S"))
-                 + float("0." + parks[0][20:23]) - wall0) if parks else float("nan")
-        print(f"[repick] (e) worker 0 first parked at {park0:.1f} s, its unit's done marker "
-              f"(a peer's reclaim) at {done0:.1f} s, the partition {partition:.1f} s",
-              flush=True)
-        print(f"[repick] {name_power} | (e) chaos fleet, 3 workers (worker 0 partitioned "
-              f"{partition:.1f} s, worker 1 SIGKILLed and worker 2 SIGTERMed at their "
-              f"first lease): supervisor {v['ok']}, relaunches {v['relaunches']} (preempts "
-              f"{v['preempts']}, crashes {v['crashes']}), lease {v['lease']}, fence audit "
-              f"{v['fence_audit']}; sha256 equal to (a)'s: {same}; fleet wall {wall_e:.1f} s "
-              f"(supervisor's {v['wall_s']} s); K1 per surviving worker process "
-              f"{[x['K1'] for x in dumps]}", flush=True)
-        if not (v["ok"] and same and v["lease"]["double_commits"] == 0
-                and v["lease"]["fence_rejects"] >= 1 and v["crashes"] >= 1
-                and v["preempts"] >= 1 and v.get("compiles_after_warmup") == 0):
-            fail(f"(e): supervisor verdict {v}, catalog equal {same}")
-        if any(x["K1"] % (5 * REPICK_BPC) or x["K1_bf16"] for x in dumps) or sorted(
-                x["K1"] for x in dumps) != sorted(5 * REPICK_BPC * x["program_calls"]
-                                                  for x in fleet_workers):
-            fail(f"(e): K1 launches {dumps} against the workers' replays")
     finally:
         pa.pooled_attention_plain = real_plain
     k1 = a["counts"]["K1"] + c["counts"]["K1"]
-    print(f"[repick] main path: K1 {k1} launches in this process ((a) and (c)), "
-          f"{sum(x['K1'] for x in k1_dumps(out_d) + dumps)} in the surviving worker processes "
-          f"of (d) and (e); phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {"counts": {"K1": k1, "K2": 0, "K3": 0, "K1_bf16": 0, "K2_bf16": 0},
-            "wall_s": time.perf_counter() - t_phase}
+
+    def finish() -> dict:
+        """(e)'s end and checks, after phase 16 ran beside it."""
+        try:
+            wait_child(sup, "(e) supervise-repick", log=os.path.join(root, "supervisor.log"))
+            wall_e = time.perf_counter() - t0
+            v = [x for x in log_verdicts(os.path.join(root, "supervisor.log"))
+                 if x.get("role") == "supervisor"][-1]
+            fleet_workers = [x for f in sorted(glob.glob(os.path.join(out_e, "logs", "w*.log")))
+                             for x in log_verdicts(f) if x.get("role") == "fleet-worker"]
+            dumps = k1_dumps(out_e)
+            same = sha256(os.path.join(out_e, "catalog.jsonl")) == sha256(
+                os.path.join(out_a, "catalog.jsonl"))
+            # The zombie's window: worker 0's first park against its unit's done
+            # marker (a peer's reclaim), seconds after the supervisor's start.
+            wall0 = time.time() - wall_e
+            done0 = os.path.getmtime(os.path.join(out_e, "leases", "unit_00000.done.json")) - wall0
+            parks = [line[:23] for line in open(os.path.join(out_e, "logs", "w0.01.log"))
+                     if "parked" in line]
+            park0 = (time.mktime(time.strptime(parks[0][:19], "%Y-%m-%d %H:%M:%S"))
+                     + float("0." + parks[0][20:23]) - wall0) if parks else float("nan")
+            print(f"[repick] (e) worker 0 first parked at {park0:.1f} s, its unit's done marker "
+                  f"(a peer's reclaim) at {done0:.1f} s, the partition {partition:.1f} s",
+                  flush=True)
+            print(f"[repick] {name_power} | (e) chaos fleet, 3 workers (worker 0 partitioned "
+                  f"{partition:.1f} s, worker 1 SIGKILLed and worker 2 SIGTERMed at their "
+                  f"first lease): supervisor {v['ok']}, relaunches {v['relaunches']} (preempts "
+                  f"{v['preempts']}, crashes {v['crashes']}), lease {v['lease']}, fence audit "
+                  f"{v['fence_audit']}; sha256 equal to (a)'s: {same}; fleet wall {wall_e:.1f} s "
+                  f"(supervisor's {v['wall_s']} s); K1 per surviving worker process "
+                  f"{[x['K1'] for x in dumps]}", flush=True)
+            if not (v["ok"] and same and v["lease"]["double_commits"] == 0
+                    and v["lease"]["fence_rejects"] >= 1 and v["crashes"] >= 1
+                    and v["preempts"] >= 1 and v.get("compiles_after_warmup") == 0):
+                fail(f"(e): supervisor verdict {v}, catalog equal {same}")
+            if any(x["K1"] % (5 * REPICK_BPC) or x["K1_bf16"] for x in dumps) or sorted(
+                    x["K1"] for x in dumps) != sorted(5 * REPICK_BPC * x["program_calls"]
+                                                      for x in fleet_workers):
+                fail(f"(e): K1 launches {dumps} against the workers' replays")
+        finally:
+            if sup.poll() is None:
+                sup.kill()
+                sup.wait()
+        print(f"[repick] main path: K1 {k1} launches in this process ((a) and (c)), "
+              f"{sum(x['K1'] for x in k1_dumps(out_d) + dumps)} in the surviving worker "
+              f"processes of (d) and (e); phase {time.perf_counter() - t_phase:.1f} s (with "
+              f"phase 16 beside (e))", flush=True)
+        return {"K1": k1, "K2": 0, "K3": 0, "K1_bf16": 0, "K2_bf16": 0}
+
+    return {"finish": finish, "wall_s": time.perf_counter() - t_phase}
 
 
 # ------------------------------------------------------------- phase 16
@@ -4769,10 +4943,11 @@ def offline_picks_agree(card: Dict[str, List[int]], cpu: Dict[str, List[int]],
     return True, ties, worst
 
 
-def predict_check(work: str, weights: str, options: dict, n_shapes: int) -> dict:
+def predict_check(work: str, weights: str, options: dict, n_shapes: int, meanwhile) -> dict:
     """(b): ``predict`` of phase 13's 10-minute record on the card (a child
     process under PREDICT_WRAPPER) and, meanwhile, on the CPU in this
-    process; phase 13's thresholds (the CPU curve's PICK_QUANTILE)."""
+    process, then ``meanwhile()`` (the phase's other parts) while the child
+    runs; phase 13's thresholds (the CPU curve's PICK_QUANTILE)."""
     from seist_tpu_torch import predict
 
     rec = long_record(SEED)
@@ -4795,6 +4970,7 @@ def predict_check(work: str, weights: str, options: dict, n_shapes: int) -> dict
     try:
         cpu = predict.main(flags + ["--output", cpu_csv, "--device", "cpu"])
         cpu_s = time.perf_counter() - t0
+        meanwhile()
         out, err = proc.communicate(timeout=300)
     finally:
         if proc.poll() is None:
@@ -4812,7 +4988,8 @@ def predict_check(work: str, weights: str, options: dict, n_shapes: int) -> dict
     windows = len(stream_ops.window_offsets(RECORD, WINDOW, WINDOW // 2))
     replays = -(-windows // BATCH)
     print(f"[offline] (b) predict {MODEL}, {RECORD} samples ({windows} windows, --batch-size "
-          f"{BATCH}): card {out.strip().splitlines()[-1]!r} in {card_s:.1f} s (a process), CPU "
+          f"{BATCH}): card {out.strip().splitlines()[-1]!r} within {card_s:.1f} s (a process, "
+          f"beside (c)-(e)), CPU "
           f"in this process {cpu_s:.1f} s; P/S/detection rows card "
           f"{[len(card[k]) for k in ('ppk', 'spk', 'det')]} CPU "
           f"{[len(want[k]) for k in ('ppk', 'spk', 'det')]}, agree within {PICK_TOL_S} s or a "
@@ -5009,10 +5186,14 @@ def offline_phase(weights: str, flat: str, options: dict, n_shapes: int, dev) ->
     work = os.path.join(str(_kernels.BUILD_DIR), "offline")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    predicted = predict_check(work, weights, options, n_shapes)
-    demoed = demo_check(work, weights, n_shapes)
-    tuned = finetune_check(weights, n_shapes)
-    remat = remat_check(flat, dev, n_shapes)
+    rest = {}
+
+    def meanwhile() -> None:  # (c)-(e) while predict's process runs
+        rest.update(demo=demo_check(work, weights, n_shapes), tune=finetune_check(weights, n_shapes),
+                    remat=remat_check(flat, dev, n_shapes))
+
+    predicted = predict_check(work, weights, options, n_shapes, meanwhile)
+    demoed, tuned, remat = rest["demo"], rest["tune"], rest["remat"]
     return {"counts": {"K1": predicted["K1"] + demoed["K1"] + tuned["K1"] + remat["K1"],
                        "K2": tuned["K2"] + remat["K2"], "K3": 0, "K1_bf16": 0, "K2_bf16": 0},
             "predict_K1": predicted["K1"]}
@@ -5166,20 +5347,28 @@ def wait_children(procs: list, logs: List[str], deadline: float) -> List[str]:
     return outs
 
 
-def dist_children(args_per_rank: List[List[str]], env_per_rank: List[dict],
-                  work: str) -> Tuple[List[str], List[dict]]:
-    """Start one child per rank (DIST_WRAPPER), wait for all within
-    DIST_CHILD_TIMEOUT_S (killing every one on expiry or on a failure),
-    and return their stdouts and launch records."""
-    counts = [os.path.join(work, f"counts_{r}.json") for r in range(len(args_per_rank))]
+def start_dist(args_per_rank: List[List[str]], env_per_rank: List[dict], work: str,
+               tag: str) -> dict:
+    """Start one child per rank (DIST_WRAPPER), its log and launch record
+    named by ``tag``: a handle for :func:`finish_dist`."""
+    counts = [os.path.join(work, f"counts_{tag}{r}.json") for r in range(len(args_per_rank))]
     procs, logs = start_children(DIST_WRAPPER, [[c] + argv for c, argv in
-                                                zip(counts, args_per_rank)], env_per_rank, work)
-    outs = wait_children(procs, logs, time.monotonic() + DIST_CHILD_TIMEOUT_S)
+                                                zip(counts, args_per_rank)], env_per_rank, work,
+                                 tag=f"{tag}_rank")
+    return {"procs": procs, "logs": logs, "counts": counts, "t0": time.perf_counter()}
+
+
+def finish_dist(handle: dict) -> Tuple[List[str], List[dict], float]:
+    """Wait for a :func:`start_dist` group within DIST_CHILD_TIMEOUT_S
+    (killing every one on expiry or on a failure): the ranks' stdouts,
+    their launch records and the group's wall seconds."""
+    outs = wait_children(handle["procs"], handle["logs"],
+                         time.monotonic() + DIST_CHILD_TIMEOUT_S)
     records = []
-    for path in counts:
+    for path in handle["counts"]:
         with open(path) as f:
             records.append(json.load(f))
-    return outs, records
+    return outs, records, time.perf_counter() - handle["t0"]
 
 
 def rank_env(world: int, rank: int, port: int, backend: Optional[str]) -> dict:
@@ -5191,17 +5380,19 @@ def rank_env(world: int, rank: int, port: int, backend: Optional[str]) -> dict:
     return env
 
 
-def nccl_one_rank(run: dict, n_shapes: int, work: str) -> dict:
+def start_nccl_one_rank(work: str) -> dict:
     """(b) phase 6's train run (``--mode train``) as one rank over NCCL,
-    launched through the env contract: captured steps, its losses within
-    RESUME_RTOL of phase 6's, K1 5 per step and val batch, K2 5 per step."""
-    logs = os.path.join(work, "b_logs")
-    t0 = time.perf_counter()
-    outs, recs = dist_children(
-        [["train"] + TRAIN_ARGS + ["--mode", "train", "--log-base", logs,
-                                   "--use-tensorboard", "false"]],
-        [rank_env(1, 0, free_ports(1), None)], os.path.join(work))
-    wall = time.perf_counter() - t0
+    launched through the env contract."""
+    return start_dist([["train"] + TRAIN_ARGS + ["--mode", "train", "--log-base",
+                                                 os.path.join(work, "b_logs"),
+                                                 "--use-tensorboard", "false"]],
+                      [rank_env(1, 0, free_ports(1), None)], work, "b")
+
+
+def check_nccl_one_rank(handle: dict, run: dict, n_shapes: int) -> dict:
+    """(b): captured steps, its losses within RESUME_RTOL of phase 6's, K1 5
+    per step and val batch, K2 5 per step."""
+    outs, recs, wall = finish_dist(handle)
     m = re.search(r"log dir: (\S+)", outs[0])
     if m is None or "backend nccl" not in outs[0] or "run eagerly" in outs[0]:
         fail("(b) the one-rank run did not start an NCCL group with captured steps:\n"
@@ -5236,22 +5427,26 @@ def train_one_rank(n_shapes: int, work: str) -> dict:
     return {"losses": losses, "test_loss": test_loss, "counts": counts}
 
 
-def train_two_ranks(ref: dict, backend: Optional[str], work: str, label: str) -> dict:
+def start_train_two_ranks(backend: Optional[str], work: str, label: str) -> dict:
     """(c) or (d): the train entry itself on two ranks through the env
     contract, DIST_TRAIN_ARGS with ``--seq-shards 2`` (both ranks hold the
-    same rows, every attention a ring): rank 0's step losses and the global
-    test loss within RESUME_RTOL of one rank's, one run directory (rank
-    0's, broadcast) holding the test metrics file, the worker's
-    byte-identical-parameters line, the steps captured under NCCL and
-    eager under gloo, and no K1 or K2 launch (the ring's blocks are
-    einsums)."""
-    logs = os.path.join(work, f"train_{label}")
+    same rows, every attention a ring)."""
     port = free_ports(1)
-    t0 = time.perf_counter()
-    outs, recs = dist_children(
+    logs = os.path.join(work, f"train_{label}")
+    handle = start_dist(
         [["train"] + DIST_TRAIN_ARGS + ["--seq-shards", "2", "--log-base", logs]] * 2,
-        [rank_env(2, r, port, backend) for r in range(2)], work)
-    wall = time.perf_counter() - t0
+        [rank_env(2, r, port, backend) for r in range(2)], work, f"train_{label}")
+    return dict(handle, logs_dir=logs)
+
+
+def check_train_two_ranks(handle: dict, ref: dict, backend: Optional[str], label: str) -> dict:
+    """(c) or (d): rank 0's step losses and the global test loss within
+    RESUME_RTOL of one rank's, one run directory (rank 0's, broadcast)
+    holding the test metrics file, the worker's byte-identical-parameters
+    line, the steps captured under NCCL and eager under gloo, and no K1 or
+    K2 launch (the ring's blocks are einsums)."""
+    logs = handle["logs_dir"]
+    outs, recs, wall = finish_dist(handle)
     runs = sorted(os.listdir(logs)) if os.path.isdir(logs) else []
     m = re.search(r"log dir: (\S+)", outs[0])
     if len(runs) != 1 or m is None or os.path.basename(m.group(1).rstrip("/")) != runs[0]:
@@ -5297,18 +5492,21 @@ def dist_spec(work: str, backend_tag: str) -> str:
     return path
 
 
-def two_ranks(spec_path: str, refs: List[dict], backend: Optional[str], n_shapes: int,
-              work: str, label: str) -> dict:
+def start_two_ranks(spec_path: str, backend: Optional[str], work: str, label: str) -> dict:
     """(c) or (d): the spec's two runs (data 2 at b8 a rank, then seq 2 at
-    b8) on two ranks, against ``refs`` (one rank at b16 and at b8 on the
-    same rows): losses within RESUME_RTOL, every rank's parameters
+    b8) on two ranks."""
+    port = free_ports(1)
+    return start_dist([["check", spec_path]] * 2,
+                      [rank_env(2, r, port, backend) for r in range(2)], work, f"check_{label}")
+
+
+def check_two_ranks(handle: dict, refs: List[dict], backend: Optional[str], n_shapes: int,
+                    label: str) -> dict:
+    """(c) or (d) against ``refs`` (one rank at b16 and at b8 on the same
+    rows): losses within RESUME_RTOL, every rank's parameters
     byte-identical after the last step, K1 and K2 on the data-parallel run
     only (the ring's blocks are einsums)."""
-    port = free_ports(1)
-    t0 = time.perf_counter()
-    outs, recs = dist_children([["check", spec_path]] * 2,
-                               [rank_env(2, r, port, backend) for r in range(2)], work)
-    wall = time.perf_counter() - t0
+    outs, recs, wall = finish_dist(handle)
     lines = [json.loads(x) for x in outs[0].splitlines() if x.startswith('{"run"')]
     if len(lines) != 2:
         fail(f"({label}) rank 0 printed {len(lines)} run records:\n{outs[0][-2000:]}")
@@ -5343,28 +5541,43 @@ def dist_phase(run: dict, n_shapes: int, shapes, dev) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     errs = pid0_check(shapes, dev)
-    b = nccl_one_rank(run, n_shapes, work)
     spec_path = dist_spec(work, "ref")
     with open(spec_path) as f:
         spec = json.load(f)
-    refs = []
-    for one in spec["runs"]:
-        one = dict(one, seq=1)
-        ref = pcheck.run_steps(spec, one, dev)
-        refs.append({"losses": ref["losses"]})
-        del ref
-        torch.cuda.empty_cache()
-    print(f"[dist] one rank (this process, captured): b{2 * DIST_BATCH} losses "
-          f"{[round(x, 6) for x in refs[0]['losses']]}, b{DIST_BATCH} "
-          f"{[round(x, 6) for x in refs[1]['losses']]}", flush=True)
-    tref = train_one_rank(n_shapes, work)
-    counts = [b, tref["counts"], two_ranks(spec_path, refs, "gloo", n_shapes, work, "c"),
-              train_two_ranks(tref, "gloo", work, "c")]
-    ran = "(a), (b) and (c)"
-    if torch.cuda.device_count() >= 2:
-        counts += [two_ranks(spec_path, refs, None, n_shapes, work, "d"),
-                   train_two_ranks(tref, None, work, "d")]
-        ran = "(a), (b), (c) and (d)"
+    # (b) and (c)'s five children start together, beside this process's
+    # one-rank references.
+    groups = []
+    try:
+        groups.append(start_nccl_one_rank(work))
+        groups.append(start_two_ranks(spec_path, "gloo", work, "c"))
+        groups.append(start_train_two_ranks("gloo", work, "c"))
+        refs = []
+        for one in spec["runs"]:
+            one = dict(one, seq=1)
+            ref = pcheck.run_steps(spec, one, dev)
+            refs.append({"losses": ref["losses"]})
+            del ref
+            torch.cuda.empty_cache()
+        print(f"[dist] one rank (this process, captured): b{2 * DIST_BATCH} losses "
+              f"{[round(x, 6) for x in refs[0]['losses']]}, b{DIST_BATCH} "
+              f"{[round(x, 6) for x in refs[1]['losses']]}", flush=True)
+        tref = train_one_rank(n_shapes, work)
+        counts = [check_nccl_one_rank(groups[0], run, n_shapes), tref["counts"],
+                  check_two_ranks(groups[1], refs, "gloo", n_shapes, "c"),
+                  check_train_two_ranks(groups[2], tref, "gloo", "c")]
+        ran = "(a), (b) and (c)"
+        if torch.cuda.device_count() >= 2:
+            groups.append(start_two_ranks(spec_path, None, work, "d"))
+            counts.append(check_two_ranks(groups[-1], refs, None, n_shapes, "d"))
+            groups.append(start_train_two_ranks(None, work, "d"))
+            counts.append(check_train_two_ranks(groups[-1], tref, None, "d"))
+            ran = "(a), (b), (c) and (d)"
+    finally:
+        for g in groups:
+            for p in g["procs"]:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
     print(f"[dist] phase 17 ran {ran} ({torch.cuda.device_count()} card(s) visible)",
           flush=True)
     total = {k: sum(c[k] for c in counts) for k in ("K1", "K2", "K1_bf16", "K2_bf16", "K3")}
@@ -5576,15 +5789,13 @@ def check_ranks(runs: Dict[str, tuple], refs: Dict[str, dict], outs: List[str],
     return counts
 
 
-def device_aug_ranks_phase(n_shapes: int, f32_pack: str, name_power: str) -> dict:
-    """Phase 18 (module docstring): (b) and (c)'s two gloo ranks start
-    first, then (a) and the one-rank references run in this process while
-    they train; (d) follows with two cards or more."""
-    t0 = time.perf_counter()
+def start_device_aug_ranks(f32_pack: str) -> dict:
+    """Phase 18's (b) and (c): two gloo ranks on this card, started during
+    phase 17 (beside its own rank processes)."""
     work = os.path.join(str(_kernels.BUILD_DIR), "dist18")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    steps, val = 2 * DA_RAW // (2 * DA_BATCH), 1  # one padded val batch a rank
+    steps = 2 * DA_RAW // (2 * DA_BATCH)
     pack_steps = DA_PACK_SAMPLES // (2 * DA_DIRECT_BATCH)
     direct = packed_args(f32_pack) + ["--mode", "train", "--use-tensorboard", "false",
                                       "--device-aug", "step", "--ingest", "direct"]
@@ -5595,7 +5806,21 @@ def device_aug_ranks_phase(n_shapes: int, f32_pack: str, name_power: str) -> dic
         "direct": (direct, DA_DIRECT_BATCH, pack_steps),
     }
     procs, logs, records = start_ranks(runs, "gloo", work, "gloo")
-    deadline = time.monotonic() + DA_CHILD_TIMEOUT_S
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])  # a failure before 18
+    return {"work": work, "runs": runs, "procs": procs, "logs": logs, "records": records,
+            "deadline": time.monotonic() + DA_CHILD_TIMEOUT_S, "t0": time.perf_counter()}
+
+
+def device_aug_ranks_phase(started: dict, n_shapes: int, name_power: str) -> dict:
+    """Phase 18 (module docstring): (b) and (c)'s two gloo ranks started
+    during phase 17 (``start_device_aug_ranks``); (a) and the one-rank
+    references run in this process while they train; (d) follows with two
+    cards or more."""
+    t0 = time.perf_counter()
+    work, runs = started["work"], started["runs"]
+    procs, logs, records = started["procs"], started["logs"], started["records"]
+    steps, val = 2 * DA_RAW // (2 * DA_BATCH), 1  # one padded val batch a rank
+    deadline = started["deadline"]
     try:
         refs = {}
         for label, (argv, b, n) in runs.items():
@@ -5641,8 +5866,9 @@ def device_aug_ranks_phase(n_shapes: int, f32_pack: str, name_power: str) -> dic
         ran = "(a), (b), (c) and (d)"
     wall = time.perf_counter() - t0
     print(f"[dist18] {name_power} | phase 18 ran {ran} ({torch.cuda.device_count()} card(s) "
-          f"visible): {wall:.1f} s ((a) and the references in this process {a_wall:.1f} s, "
-          f"beside the two gloo ranks)", flush=True)
+          f"visible): {wall:.1f} s in this process ((a) and the references {a_wall:.1f} s, "
+          f"beside the two gloo ranks, which started {t0 - started['t0']:.1f} s earlier, "
+          f"during phase 17)", flush=True)
     total = {k: sum(c[k] for c in counts) for k in ("K1", "K2", "K1_bf16", "K2_bf16", "K3")}
     return {"counts": total}
 
@@ -5824,54 +6050,53 @@ def attribution_phase(weights: str, name_power: str, n_shapes: int, dev) -> dict
     return {"analytic": analytic, "measured": measured}
 
 
+# ------------------------------------------------------------- phase 20
+REPEAT_BATCH = 16  # (a): the eager step made twice from one state
+REPAIR_COST_LIMIT = 0.03  # (a): the repair's share of the captured b64 step, at most
+REPAIR_ROUNDS = 8  # (a): rounds of none, repair, flag, flag, repair, none replays
+STITCH_STRIDE = WINDOW // 2  # (a): /annotate's default stride
+#: (b): the tool's default network at the smoke run's 60 s (its default is
+#: 240 s), one driving worker: the associator then sees the picks in one
+#: order, so two runs, on the card and on the CPU, give the same alerts.
+TWIN_ARGS = ["--stations", "200", "--duration-s", "60", "--workers", "1"]
+TWIN_TIE = 1e-4  # (b): a pick may differ only where the CPU's |z| lies this close to 4.5
+TWIN_TIMEOUT_S = 300.0
+# (b): the scenario through twinpick on the device argv[2], in a child
+# process (one on the card, one on the CPU, beside each other); its alerts,
+# gates, detail and counters to argv[1].
+TWIN_CHILD = """\
+import json, sys
+from seist_tpu_torch import twin
+args = twin.get_args(sys.argv[3:] + ["--device", sys.argv[2]])
+stations, events, waves, expected = twin.build_scenario(args)
+rounds = twin.make_schedule(args, stations)
+service = twin._make_service(args)
+try:
+    run = twin.drive(args, service, stations, waves, rounds)
+    stats = service.metrics()["stream"].get("twinpick", {})
+finally:
+    service.shutdown()
+gates, detail = twin.evaluate(args, events, expected, run, stats)
+with open(sys.argv[1], "w") as f:
+    json.dump({"alerts": run["alerts"], "gates": gates, "detail": detail, "stats": stats,
+               "run": {k: run[k] for k in ("packets", "windows", "wall_s")}}, f)
+"""
+# (c): the stream chaos lane's SIGKILL run with its replicas on the card;
+# its gates and detail to argv[1].
+CHAOS_CHILD = """\
+import json, sys
+from seist_tpu_torch import stream_chaos
+gates, detail = stream_chaos.sigkill_run(sys.argv[2], "cuda")
+print(stream_chaos.verdict_line("sigkill_station_heavy", gates, detail), flush=True)
+with open(sys.argv[1], "w") as f:
+    json.dump({"gates": gates, "detail": detail}, f)
+"""
+
+
 def make_batch(batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """A seeded random batch (x, y) for ``batch`` traces on the CPU."""
     g = torch.Generator().manual_seed(batch)
     return torch.randn(batch, WINDOW, 3, generator=g), torch.rand(batch, WINDOW, 3, generator=g)
-
-
-REPEAT_BATCH = 16  # the repeat reading's eager gradient pairs
-#: The convolutions whose weight gradients the repeat reading recomputes
-#: twice from one step's saved operands: the head's last two and a trunk one.
-REPEAT_CONVS = ("out_head.conv5", "out_head.conv4", "stage3_block0.conv3.conv")
-
-
-def wgrad_repeats(weights: str, step, x, y) -> Dict[str, Tuple[bool, List[str]]]:
-    """For each of ``REPEAT_CONVS``: its weight gradient computed twice by
-    ``aten.convolution_backward`` from the input and output gradient one
-    eager step gave it (bitwise equal?), and the kernels one call launches."""
-    state = _train_model(weights, x.device)
-    mods = dict(state.model.named_modules())
-    saved: Dict[str, dict] = {n: {} for n in REPEAT_CONVS}
-    hooks = []
-    for n in REPEAT_CONVS:
-        hooks.append(mods[n].register_forward_hook(
-            lambda mod, inp, out, n=n: saved[n].update(x=inp[0].detach())))
-        hooks.append(mods[n].register_full_backward_hook(
-            lambda mod, gin, gout, n=n: saved[n].update(g=gout[0].detach())))
-    step(state, x, y, RandomSource.from_seed(7, x.device))
-    for h in hooks:
-        h.remove()
-    out = {}
-    for n in REPEAT_CONVS:
-        m, xi, g = mods[n], saved[n]["x"], saved[n]["g"]
-
-        def wgrad(m=m, xi=xi, g=g):
-            return torch.ops.aten.convolution_backward(
-                g.transpose(1, 2), xi.transpose(1, 2), m.weight, None, [m.stride], [0],
-                [m.dilation], False, [0], m.groups, [False, True, False])[1]
-
-        out[n] = _repeats(wgrad)
-    # interpolate_linear's backward (index_select's: an index_add), at the
-    # head's first upsampling of b16 at 8192.
-    g = torch.Generator(device=x.device).manual_seed(0)
-    a = torch.randn(REPEAT_BATCH, 1365, 64, device=x.device, generator=g, requires_grad=True)
-    up = torch.randn(REPEAT_BATCH, 1820, 64, device=x.device, generator=g)
-    from seist_tpu_torch.models import common
-
-    out["interpolate_linear backward"] = _repeats(
-        lambda: torch.autograd.grad(common.interpolate_linear(a, 1820), a, up)[0])
-    return out
 
 
 def eager_grads_twice(weights: str, step, x, y) -> Tuple[Dict[str, torch.Tensor], ...]:
@@ -5886,104 +6111,346 @@ def eager_grads_twice(weights: str, step, x, y) -> Tuple[Dict[str, torch.Tensor]
     return tuple(grads)
 
 
-def _repeats(fn) -> Tuple[bool, List[str]]:
-    """Whether two calls of ``fn`` give the same bits, and the kernels one
-    call launches."""
-    same = torch.equal(fn(), fn())
-    table = attribution.measured_kernels(fn, iters=1, warmup=0)
-    return same, [r["kernel"][:90] for r in table["top"]]
+def _linear_index_select(x: torch.Tensor, out_size: int) -> torch.Tensor:
+    """``interpolate_linear`` before the repair: its backward is
+    ``index_select``'s atomic ``index_add``."""
+    from seist_tpu_torch.models import common
+
+    l_in = x.shape[-2]
+    if l_in == out_size:
+        return x
+    lo, hi, w = common._linear_taps(l_in, out_size, x.device, x.dtype)
+    w = w[None, :, None]
+    return x.index_select(1, lo) * (1.0 - w) + x.index_select(1, hi) * w
 
 
-def repeat_reading(weights: str, name_power: str) -> None:
-    """``chip_smoke.py --loss-gap``, part 1 (ROADMAP.md §3, open fault 2),
-    a measurement outside the checks: does one rank's captured Adam run
-    repeat bitwise, with ``torch.backends.cudnn.deterministic`` off and on?
-    Under each setting: phase 18 (b)'s one-rank run (``--device-aug step``
-    at b16) twice in this process, losses and the best checkpoint
-    compared; one eager b16 step twice from one state, the parameters
-    whose gradients differ; ``wgrad_repeats``. Then the captured b64
-    step's time under each (off, on, on, off), and, as diagnostics, the
-    ops ``torch.use_deterministic_algorithms(True, warn_only=True)`` warns
-    of in one eager step and whether two eager steps repeat under
-    ``use_deterministic_algorithms(True)`` (or what it refuses)."""
-    import warnings
+def _conv_autograd(self, x: torch.Tensor) -> torch.Tensor:
+    """``Conv1d.forward`` before the repair: cuDNN's backward."""
+    return F.conv1d(x.transpose(1, 2), self.weight, self.bias, self.stride, 0, self.dilation,
+                    self.groups).transpose(1, 2)
 
-    t0 = time.perf_counter()
-    dev = torch.device("cuda", 0)
-    work = os.path.join(str(_kernels.BUILD_DIR), "repeat")
-    shutil.rmtree(work, ignore_errors=True)
-    argv = DA_ARGS + ["--device-aug", "step", "--batch-size", str(2 * DA_BATCH)]
-    step = make_train_step(taskspec.make_loss(MODEL))
-    x, y = (t.to(dev) for t in make_batch(REPEAT_BATCH))
+
+@contextlib.contextmanager
+def unrepaired(flag: bool = False):
+    """The step as it was before the repair (the atomic ``index_add`` of
+    ``interpolate_linear``'s backward and cuDNN's convolution backward),
+    with ``torch.backends.cudnn.deterministic`` set to ``flag``: cuDNN's
+    global flag, a diagnostic the port does not use."""
+    from seist_tpu_torch.models import common
+
+    real = common.interpolate_linear, common.Conv1d.forward
+    common.interpolate_linear, common.Conv1d.forward = _linear_index_select, _conv_autograd
+    torch.backends.cudnn.deterministic = flag
     try:
-        for det in (False, True):
-            torch.backends.cudnn.deterministic = det
-            runs = []
-            for i in range(2):
-                best, _, wall, _ = run_entry(argv + ["--log-base", os.path.join(
-                    work, f"det{int(det)}_{i}")])
-                run_dir = os.path.dirname(os.path.dirname(best))
-                runs.append((np.load(os.path.join(run_dir, "train_losses.npy")),
-                             torch.load(best, map_location="cpu", weights_only=True), wall))
-            (l0, p0, w0), (l1, p1, w1) = runs
-            differ = sorted(k for k in p0 if not torch.equal(p0[k], p1[k]))
-            grads = eager_grads_twice(weights, step, x, y)
-            gdiff = {n: int((g != grads[1][n]).sum()) for n, g in grads[0].items()
-                     if not torch.equal(g, grads[1][n])}
-            worst = sorted(gdiff.items(), key=lambda kv: -kv[1])[:12]
-            same = [n for n in grads[0] if n not in gdiff]
-            print(f"[repeat] {name_power} | cudnn.deterministic {det}: the one-rank Adam run "
-                  f"twice ({w0:.1f} s, {w1:.1f} s): losses {l0.tolist()} and {l1.tolist()}, "
-                  f"bitwise equal {np.array_equal(l0, l1)}, largest gap "
-                  f"{float(np.abs(l0.astype(np.float64) - l1).max()):.3e}; best checkpoints: "
-                  f"{len(differ)} of {len(p0)} tensors differ; one eager b{REPEAT_BATCH} step "
-                  f"twice: {len(gdiff)} of {len(grads[0])} gradient leaves differ, the most "
-                  f"elements in {worst}; bitwise equal ({len(same)}): {same[:24]}", flush=True)
-            del grads
-            for n, (same_w, names) in wgrad_repeats(weights, step, x, y).items():
-                print(f"[repeat]   cudnn.deterministic {det}: {n} twice from the same operands "
-                      f"(a convolution's weight gradient from one step's): bitwise equal "
-                      f"{same_w}; its kernels {names}", flush=True)
-        times = []
-        for det in (False, True, True, False):
-            torch.backends.cudnn.deterministic = det
-            run = time_train_step(weights, TRAIN_BATCH, steps=20, captured=True)
-            times.append((det, run["ms"]))
-            del run
-            torch.cuda.empty_cache()
-        off = np.mean([ms for d, ms in times if not d])
-        on = np.mean([ms for d, ms in times if d])
-        print(f"[repeat] {name_power} | the captured b{TRAIN_BATCH} step (20 steps a run, "
-              f"host wall): {[(d, round(ms, 3)) for d, ms in times]}; deterministic off "
-              f"{off:.3f} ms, on {on:.3f} ms ({(on / off - 1) * 100:+.2f}%)", flush=True)
-        torch.backends.cudnn.deterministic = False
-        state = _train_model(weights, dev)
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            step(state, x, y, RandomSource.from_seed(7, dev))
-            torch.cuda.synchronize()
-        said = collections.Counter(str(w.message).split("\n")[0][:200] for w in caught)
-        print(f"[repeat] use_deterministic_algorithms(True, warn_only=True), one eager "
-              f"b{REPEAT_BATCH} step: {len(said)} distinct warnings", flush=True)
-        for msg, n in said.most_common():
-            print(f"[repeat]   {n}x {msg}", flush=True)
-        # The same flag without warn_only: what refuses, or whether two
-        # eager steps then give the same gradients.
-        torch.use_deterministic_algorithms(True)
-        try:
-            grads = eager_grads_twice(weights, step, x, y)
-            differ = [n for n, g in grads[0].items() if not torch.equal(g, grads[1][n])]
-            print(f"[repeat] use_deterministic_algorithms(True): two eager b{REPEAT_BATCH} steps, "
-                  f"{len(differ)} of {len(grads[0])} gradient leaves differ {differ[:12]}",
-                  flush=True)
-        except RuntimeError as e:  # a refusal, read as a diagnostic
-            print(f"[repeat] use_deterministic_algorithms(True) refused: "
-                  f"{str(e).splitlines()[0][:300]}", flush=True)
+        yield
     finally:
-        torch.use_deterministic_algorithms(False)
+        common.interpolate_linear, common.Conv1d.forward = real
         torch.backends.cudnn.deterministic = False
-    print(f"[repeat] {name_power} | {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def repair_cost(weights: str, name_power: str) -> dict:
+    """(a) The captured b64 fp32 step (drop rates 0.3, Adam, the guard) as
+    three graphs from one state: the repair (the port as it is), no repair,
+    and no repair under cuDNN's global deterministic flag. Their replays
+    interleave, REPAIR_ROUNDS rounds of none, repair, flag, flag, repair,
+    none (drift over the run cancels), each timed by CUDA events; the
+    repair's median may exceed no repair's by REPAIR_COST_LIMIT at most."""
+    dev = torch.device("cuda", 0)
+    state = _train_model(weights, dev)
+    x, y = (t.to(dev) for t in make_batch(TRAIN_BATCH))
+    plain = make_train_step(taskspec.make_loss(MODEL))
+    pa.set_counts((0, 0, 0, 0))
+    steps = {}
+    for name in ("none", "repair", "flag"):
+        steps[name] = capture_train_step(plain)
+        with (contextlib.nullcontext() if name == "repair" else unrepaired(name == "flag")):
+            steps[name](state, x, y, RandomSource.from_seed(0, dev))  # captures
+    torch.cuda.synchronize()
+    ms = {name: [] for name in steps}
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(6 * REPAIR_ROUNDS)]
+    order = ("none", "repair", "flag", "flag", "repair", "none") * REPAIR_ROUNDS
+    for i, (name, (e0, e1)) in enumerate(zip(order, events)):
+        e0.record()
+        steps[name](state, x, y, RandomSource.from_seed(100 + i, dev))
+        e1.record()
+    torch.cuda.synchronize()
+    for name, (e0, e1) in zip(order, events):
+        ms[name].append(e0.elapsed_time(e1))
+    # The median of each graph's replays: phase 20's children share the card
+    # (their small kernels may delay one replay now and then).
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    mean = {k: float(np.mean(v)) for k, v in ms.items()}
+    cost = med["repair"] / med["none"] - 1.0
+    flag = med["flag"] / med["none"] - 1.0
+    print(f"[repeat] {name_power} | (a) the captured b{TRAIN_BATCH} fp32 step, three graphs from "
+          f"one state, {REPAIR_ROUNDS} rounds of none-repair-flag-flag-repair-none replays "
+          f"(CUDA events), median (mean): none {med['none']:.3f} ({mean['none']:.3f}) ms, "
+          f"repair {med['repair']:.3f} ({mean['repair']:.3f}) ms ({cost * 100:+.2f}%, limit "
+          f"+{REPAIR_COST_LIMIT * 100:.0f}%), cuDNN's global deterministic flag without the "
+          f"repair {med['flag']:.3f} ({mean['flag']:.3f}) ms ({flag * 100:+.2f}%); per replay "
+          f"min/max none {min(ms['none']):.3f}/{max(ms['none']):.3f}, repair "
+          f"{min(ms['repair']):.3f}/{max(ms['repair']):.3f}", flush=True)
+    if cost > REPAIR_COST_LIMIT:
+        fail(f"(a) the repair costs {cost * 100:.2f}% of the captured step")
+    launches = (pa.launches, pa.bwd_launches)
+    del steps, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": med, "cost": cost, "flag": flag, "launches": launches}
+
+
+def stitch_twice(name_power: str) -> None:
+    """(a) ``/annotate``'s path (``ops/stream.annotate``, combine 'mean')
+    over phase 13's hour-long record on the card, twice: the stitched
+    curves bitwise equal. The windows' probabilities come from a fixed
+    elementwise picker on the card (the model's forward is not the
+    question here); the same windows through the ``index_add_`` stitch it
+    replaces are shown beside it."""
+    dev = torch.device("cuda", 0)
+    rec = long_record(13, HOUR)
+
+    def apply_fn(x):
+        z = torch.as_tensor(np.asarray(x), device=dev)
+        p = torch.sigmoid(z[..., 0].abs() - 3.0)
+        return torch.stack([1.0 - p, p, torch.sigmoid(z[..., 1].abs() - 3.0)], dim=-1)
+
+    outs = [stream_ops.annotate(apply_fn, rec, window=WINDOW, stride=STITCH_STRIDE,
+                                batch_size=BATCH, channel0="non", combine="mean")
+            for _ in range(2)]
+    same = np.array_equal(outs[0]["prob"], outs[1]["prob"])
+    offsets = stream_ops.window_offsets(rec.shape[0], WINDOW, STITCH_STRIDE)
+    windows = normalize(np.stack([rec[o:o + WINDOW] for o in offsets]), "std", axis=1)
+    probs = apply_fn(windows.astype(np.float32))
+    old = []
+    for _ in range(2):
+        pos = (torch.as_tensor(offsets, device=dev)[:, None]
+               + torch.arange(WINDOW, device=dev)[None, :]).reshape(-1)
+        acc = torch.zeros((rec.shape[0], 3), device=dev).index_add_(0, pos, probs.reshape(-1, 3))
+        hits = torch.zeros((rec.shape[0],), device=dev).index_add_(
+            0, pos, torch.ones_like(pos, dtype=torch.float32))
+        old.append((acc / hits.clamp(min=1.0)[:, None]).cpu())
+    print(f"[repeat] {name_power} | (a) /annotate's mean stitch of an hour ({HOUR} samples, "
+          f"{len(offsets)} windows of {WINDOW}, stride {STITCH_STRIDE}) twice on the card: "
+          f"bitwise equal {same}; the index_add_ stitch it replaces, twice on the same "
+          f"windows: bitwise equal {torch.equal(old[0], old[1])}", flush=True)
+    if not same:
+        fail("(a) the mean stitch gave other bits on a second call")
+
+
+def adam_run_twice(n_shapes: int, name_power: str, work: str) -> List[dict]:
+    """(a) phase 18 (b)'s one-rank ``--device-aug step`` Adam run (b16,
+    4 steps, K1 and K2 5 a step, K3 once) twice in this process: equal
+    losses and equal bytes in the best checkpoint."""
+    argv = DA_ARGS + ["--device-aug", "step", "--batch-size", str(2 * DA_BATCH)]
+    runs, counts = [], []
+    for i in range(2):
+        best, c, wall, _ = run_entry(argv + ["--log-base", os.path.join(work, f"adam{i}")])
+        run_dir = os.path.dirname(os.path.dirname(best))
+        with open(best, "rb") as f:
+            runs.append((np.load(os.path.join(run_dir, "train_losses.npy")), f.read(), wall))
+        counts.append(c)
+    (l0, b0, w0), (l1, b1, w1) = runs
+    print(f"[repeat] {name_power} | (a) the one-rank --device-aug step Adam run twice "
+          f"({w0:.1f} s, {w1:.1f} s): losses {l0.tolist()} and {l1.tolist()}, bitwise equal "
+          f"{np.array_equal(l0, l1)}; best checkpoints ({len(b0)} bytes) byte-identical "
+          f"{b0 == b1}; launches {counts[0]}", flush=True)
+    if not (np.array_equal(l0, l1) and b0 == b1):
+        fail("(a) one rank's captured Adam run did not repeat bit for bit")
+    steps = 2 * DA_RAW // (2 * DA_BATCH)
+    for c in counts:
+        check_launches(c, n_shapes, steps + 1, steps, k3=steps)
+    return counts
+
+
+def twin_near_ties(waves: Dict[str, np.ndarray], window: int, stride: int
+                   ) -> Dict[str, set]:
+    """Per station, the samples where a window's z-score of channel 0 or 1
+    lies within TWIN_TIE of twinpick's threshold 4.5 (on the station's
+    whole waveform: what every station without dropped packets sees)."""
+    out = {}
+    for sid, w in waves.items():
+        near = set()
+        for o in stream_ops.window_offsets(w.shape[0], window, stride):
+            z = np.abs(normalize(w[o:o + window][None], "std", axis=1)[0][:, :2])
+            near.update(int(o + i) for i in np.nonzero((np.abs(z - 4.5) < TWIN_TIE).any(1))[0])
+        out[sid] = near
+    return out
+
+
+def twin_alert_key(alert: dict) -> Tuple[str, tuple]:
+    return alert["alert_id"], tuple((p["station"], p["t_s"]) for p in alert["picks"])
+
+
+def twin_card_vs_cpu(name_power: str, card: dict, cpu: dict) -> dict:
+    """(b) the twin with twinpick on the card (TWIN_ARGS): every gate; its
+    alerts against the CPU's, the same ids and pick samples unless a pick
+    sits on a near-tie of the CPU's |z| (printed)."""
+    from seist_tpu_torch import twin
+
+    args = twin.get_args(TWIN_ARGS)
+    detail, run = card["detail"], card["run"]
+    print(f"[twin] {name_power} | (b) twin, {args.stations} stations, {args.duration_s:.0f} s "
+          f"at {args.fs} Hz, {args.workers} worker, twinpick on the card (a child process): "
+          f"{run['packets']} packets, {run['windows']} windows, {len(card['alerts'])} alerts in "
+          f"{run['wall_s']:.1f} s; gates {card['gates']}; p99 sample->alert "
+          f"{detail['p99_sample_to_alert_ms']} ms (budget {args.p99_budget_ms:.0f} ms); "
+          f"stages (p50/p99 ms) {detail['latency_stages_ms']}; mainshock covered "
+          f"{detail['mainshock_stations_covered']}/{detail['mainshock_expected_stations']}; "
+          f"stream counters {card['stats']}", flush=True)
+    if not all(card["gates"].values()):
+        fail(f"(b) the twin's gates on the card: {card['gates']}")
+    got = [twin_alert_key(a) for a in card["alerts"]]
+    want = [twin_alert_key(a) for a in cpu["alerts"]]
+    diffs = sorted(set(got) ^ set(want))
+    ties = {}
+    if diffs:
+        _, _, waves, _ = twin.build_scenario(args)
+        ties = twin_near_ties(waves, args.window, args.window // 2)
+    shared = {p for key in set(got) & set(want) for p in key[1]}
+
+    def on_tie(key) -> bool:  # every pick of the alert the other run lacks sits on a near-tie
+        return all(any(abs(round(t * args.fs) - s) <= 2 for s in ties.get(sid, ()))
+                   for sid, t in set(key[1]) - shared)
+
+    unexplained = [d for d in diffs if not on_tie(d)]
+    print(f"[twin] (b) card vs the port on the CPU (a child, the same scenario): alerts "
+          f"{len(got)} vs {len(want)}, the same ids and pick samples {got == want}; CPU gates "
+          f"{all(cpu['gates'].values())}; differing alerts {len(diffs)} {diffs[:4]}, on a "
+          f"near-tie (|z| within {TWIN_TIE} of 4.5) {len(diffs) - len(unexplained)}", flush=True)
+    if unexplained or (not diffs and got != want):
+        fail(f"(b) the card's alerts differ from the CPU's off a near-tie: {unexplained[:4]}")
+    return {"p99": detail["p99_sample_to_alert_ms"], "stages": detail["latency_stages_ms"],
+            "windows": run["windows"], "wall_s": run["wall_s"]}
+
+
+def start_phase20_children() -> dict:
+    """Phase 20's child processes, started before phase 19 and working
+    beside phases 19-20: (b) the twin on the card and on the CPU, (c) the
+    stream chaos lane. Each runs in a session of its own; whatever is still
+    running when the script exits (a failure) is killed with all it
+    started."""
+    work = os.path.join(str(_kernels.BUILD_DIR), "phase20")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs, outs = {}, {}
+    for name, code, argv in (("twin_cuda", TWIN_CHILD, ["cuda"] + TWIN_ARGS),
+                             ("twin_cpu", TWIN_CHILD, ["cpu"] + TWIN_ARGS),
+                             ("chaos", CHAOS_CHILD, [os.path.join(work, "chaos")])):
+        outs[name] = os.path.join(work, f"{name}.json")
+        with open(os.path.join(work, f"{name}.log"), "w") as f:
+            procs[name] = subprocess.Popen([sys.executable, "-c", code, outs[name]] + argv,
+                                           cwd=root, env=env, stdout=f,
+                                           stderr=subprocess.STDOUT, start_new_session=True)
+
+    def stop() -> None:
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+
+    atexit.register(stop)
+    return {"work": work, "procs": procs, "outs": outs, "stop": stop, "t0": time.perf_counter()}
+
+
+def processes() -> str:
+    """The machine's processes as /proc shows them (pid, state, threads,
+    resident MiB, command), for a failure's report."""
+    rows = []
+    for d in sorted(glob.glob("/proc/[0-9]*"), key=lambda p: int(p.rsplit("/", 1)[1])):
+        try:
+            with open(os.path.join(d, "status")) as f:
+                kv = dict(x.split(":", 1) for x in f.read().splitlines() if ":" in x)
+            with open(os.path.join(d, "cmdline"), "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")[:160]
+        except OSError:
+            continue
+        if not cmd:  # a kernel thread
+            continue
+        rss = int(kv.get("VmRSS", "0 kB").split()[0]) // 1024
+        rows.append(f"{d.rsplit('/', 1)[1]} {kv.get('State', '?').strip()[:1]} "
+                    f"{kv.get('Threads', '?').strip()} {rss} {cmd}")
+    listening = []
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            with open(table) as f:
+                listening += [int(x.split()[1].rsplit(":", 1)[1], 16)
+                              for x in f.read().splitlines()[1:] if x.split()[3] == "0A"]
+        except OSError:
+            continue
+    return ("\n[processes: pid state threads MiB command]\n" + "\n".join(rows)
+            + f"\n[TCP ports listening] {sorted(set(listening))}")
+
+
+def child_result(started: dict, name: str, what: str) -> dict:
+    wait_child(started["procs"][name], what,
+               log=os.path.join(started["work"], f"{name}.log"), note=processes)
+    with open(started["outs"][name]) as f:
+        return json.load(f)
+
+
+def repeat_twin_phase(weights: str, name_power: str, n_shapes: int, started: dict) -> dict:
+    """Phase 20: (a) bitwise repeatability of the train and stitch paths
+    and the repair's cost in this process; (b) the twin on the card against
+    the CPU and (c) the stream chaos lane's SIGKILL run, from the children
+    ``start_phase20_children`` started before phase 19."""
+    t0 = time.perf_counter()
+    try:
+        cost = repair_cost(weights, name_power)
+        t_cost = time.perf_counter() - t0
+        dev = torch.device("cuda", 0)
+        step = make_train_step(taskspec.make_loss(MODEL))
+        x, y = (t.to(dev) for t in make_batch(REPEAT_BATCH))
+        pa.set_counts((0, 0, 0, 0))
+        g0, g1 = eager_grads_twice(weights, step, x, y)
+        eager = (pa.launches, pa.bwd_launches)
+        n_params = len(list(api.create_model(MODEL, in_samples=WINDOW).parameters()))
+        differ = [n for n in g0 if not torch.equal(g0[n], g1[n])]
+        print(f"[repeat] {name_power} | (a) one eager b{REPEAT_BATCH} step twice from one "
+              f"state, default settings (cuDNN's deterministic flag off, deterministic "
+              f"algorithms off): {len(g0) - len(differ)} of {len(g0)} gradient leaves bitwise "
+              f"equal ({n_params} parameters); differing {differ[:8]}", flush=True)
+        if differ or len(g0) != n_params:
+            fail(f"(a) {len(differ)} gradient leaves differ between two eager steps")
+        del g0, g1
+        if eager != (2 * n_shapes, 2 * n_shapes):
+            fail(f"(a) two eager steps launched K1 and K2 {eager} times")
+        replays = n_shapes * (3 + 6 * REPAIR_ROUNDS)  # each graph's capturing call replays once
+        if cost["launches"] != (replays, replays):
+            fail(f"(a) the timed graphs launched K1 and K2 {cost['launches']} times, not "
+                 f"{replays}")
+        counts = {"K1": eager[0] + replays, "K2": eager[1] + replays, "K3": 0, "K1_bf16": 0,
+                  "K2_bf16": 0}
+        stitch_twice(name_power)
+        for c in adam_run_twice(n_shapes, name_power, started["work"]):
+            for k in counts:
+                counts[k] += c[k]
+        t_a = time.perf_counter() - t0
+        twin_res = twin_card_vs_cpu(name_power,
+                                    child_result(started, "twin_cuda", "(b) the twin on the card"),
+                                    child_result(started, "twin_cpu", "(b) the twin on the CPU"))
+        chaos = child_result(started, "chaos", "(c) the stream chaos lane")
+    finally:
+        started["stop"]()
+    det = chaos["detail"]
+    print(f"[chaos] {name_power} | (c) the stream chaos lane on the card (three twin replicas "
+          f"behind supervise-fleet, SIGKILL of replica {det['target_replica']} homing "
+          f"{det['stations_on_target']} stations at its packet {det['kill_packet']}): gates "
+          f"{chaos['gates']}; seist_stream_rehome_total {det['seist_stream_rehome_total']}, "
+          f"re-homes {det['rehomes']}; SIGKILL to the relaunched replica probed ready "
+          f"{det['relaunch_s']} s; mainshock alert ids {det['mainshock_ids']}; worst emissions "
+          f"of one id {det['worst_emissions_per_id']}; fleet ready {det['fleet_ready_s']} s, "
+          f"drive {det['drive_s']} s, lane {det['wall_s']} s", flush=True)
+    if not all(chaos["gates"].values()):
+        fail(f"(c) the chaos lane's gates: {chaos['gates']}; replicas at the end "
+             f"{det.get('replicas_after')}\n[the fleet's stdout]\n{det.get('stdout_tail', '')}"
+             f"\n[the fleet's stderr]\n{det.get('stderr_tail', '')}{processes()}")
+    print(f"[repeat] phase 20: (a) {t_a:.1f} s in this process (the step's timing "
+          f"{t_cost:.1f} s); (b) and (c) in children started {t0 - started['t0']:.1f} s "
+          f"earlier, before phase 19; phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"counts": counts, "cost": cost, "twin": twin_res, "chaos": det}
 
 
 def main() -> int:
@@ -6012,14 +6479,13 @@ def main() -> int:
               f"({_kernels.library_path(name).name})", flush=True)
         check_spills(name, _kernels.BUILD_LOGS.get(name, ""))
     print(f"[build] all three, in parallel: {time.perf_counter() - t0:.2f} s", flush=True)
+    if sys.argv[1:] != ["--loss-gap"]:
+        packs()  # the run's packs, made beside phases 3-8
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     shapes = api.create_model(MODEL, in_samples=WINDOW).attention_shapes(WINDOW)
     if sys.argv[1:] == ["--loss-gap"]:
-        weights = os.path.join(str(_kernels.BUILD_DIR), f"{MODEL}_seed{SEED}.pt")
-        seeded_weights(weights)
-        repeat_reading(weights, name_power)
         loss_gap_reading(len(shapes), name_power)
         return 0
     print(f"[shapes] {MODEL} window {WINDOW}: (L, M, H, E) per launch {shapes}", flush=True)
@@ -6154,25 +6620,29 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     repicked = repick_phase(name_power, weights)
-    path_counts.append(repicked["counts"])
-    lap("phase 15")
+    lap("phase 15 (a)-(d), and (e)'s fleet started")
     gc.collect()
     torch.cuda.empty_cache()
     offline = offline_phase(served_weights, weights, streams["record_options"], len(shapes), dev)
     path_counts.append(offline["counts"])
-    lap("phase 16")
+    lap("phase 16, beside phase 15 (e)")
+    repick_counts = repicked["finish"]()
+    path_counts.append(repick_counts)
+    lap("phase 15 (e), what was left of it")
     gc.collect()
     torch.cuda.empty_cache()
+    da_ranks = start_device_aug_ranks(packed["f32"])  # phase 18's two ranks, beside phase 17
     dist = dist_phase(trained, len(shapes), shapes, dev)
     path_counts.append(dist["counts"])
-    lap("phase 17")
+    lap("phase 17, and phase 18's two ranks started")
     gc.collect()
     torch.cuda.empty_cache()
-    ranks18 = device_aug_ranks_phase(len(shapes), packed["f32"], name_power)
+    ranks18 = device_aug_ranks_phase(da_ranks, len(shapes), name_power)
     path_counts.append(ranks18["counts"])
     lap("phase 18")
     gc.collect()
     torch.cuda.empty_cache()
+    children20 = start_phase20_children()  # phase 20's (b) and (c), beside phases 19-20
     pa.set_counts((0, 0, 0, 0))
     attribution_phase(weights, name_power, len(shapes), dev)
     # (a)'s two recorded steps on the card, profile-step's capture, 3 warm
@@ -6185,6 +6655,11 @@ def main() -> int:
              f"not {want}")
     path_counts.append(attrib_counts)
     lap("phase 19")
+    gc.collect()
+    torch.cuda.empty_cache()
+    repeated = repeat_twin_phase(weights, name_power, len(shapes), children20)
+    path_counts.append(repeated["counts"])
+    lap("phase 20")
 
     fp32 = [r for r in rows if r["dtype"] == "fp32"]  # the serving path is fp32
     bf16_rows = [r for r in rows if r["dtype"] == "bf16"]
@@ -6209,12 +6684,15 @@ def main() -> int:
           f"{programs['counts']['K1']} (bf16 {programs['counts']['K1_bf16']}); long-record and "
           f"stream planes (phase 13): K1 {streams['counts']['K1']}; fleet (phase 14): K1 "
           f"{fleet['counts']['K1']} or more; re-picking (phase 15, this process): K1 "
-          f"{repicked['counts']['K1']}; offline prediction, fine-tuning and remat (phase 16): "
+          f"{repick_counts['K1']}; offline prediction, fine-tuning and remat (phase 16): "
           f"K1 {offline['counts']['K1']} (predict's process {offline['predict_K1']}), K2 "
           f"{offline['counts']['K2']}; several ranks (phase 17, (b)-(d) in their processes): "
           f"K1 {dist['counts']['K1']}, K2 {dist['counts']['K2']}; device augmentation on several "
           f"ranks (phase 18, this process and (b)-(c)'s): K1 {ranks18['counts']['K1']}, K2 "
-          f"{ranks18['counts']['K2']}, K3 {ranks18['counts']['K3']}; all paths: K1 "
+          f"{ranks18['counts']['K2']}, K3 {ranks18['counts']['K3']}; where the time goes "
+          f"(phase 19): K1 {attrib_counts['K1']}, K2 {attrib_counts['K2']}; repeatability "
+          f"(phase 20): K1 {repeated['counts']['K1']}, K2 {repeated['counts']['K2']}, K3 "
+          f"{repeated['counts']['K3']}; all paths: K1 "
           f"{launches['K1']} (bf16 "
           f"{launches['K1_bf16']}), K2 {launches['K2']} (bf16 {launches['K2_bf16']}), K3 "
           f"{launches['K3']}", flush=True)

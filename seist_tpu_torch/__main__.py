@@ -1,5 +1,6 @@
 """``python -m seist_tpu_torch serve|train|pack|supervise|router|supervise-fleet|repick|
-supervise-repick|import-pretrained|predict|demo|profile-step|trace-report ...``: the
+supervise-repick|import-pretrained|predict|demo|profile-step|trace-report|twin|
+twin-replica ...``: the
 port's command line. ``router``, ``supervise-fleet``, ``supervise-repick`` and
 ``trace-report`` are model-free host processes: they take no device and import
 neither torch nor numpy. ``import-pretrained`` converts the reference's
@@ -7,7 +8,9 @@ published ``.pth`` weights into the port's weights file on the host;
 ``predict`` picks a continuous record into a CSV and ``demo`` plots one
 trace; ``profile-step`` traces the captured train step; these three run on
 the card unless ``--device cpu`` is passed. ``trace-report`` stitches one
-request's spans from the fleet's ``/traces`` endpoints."""
+request's spans from the fleet's ``/traces`` endpoints. ``twin`` drives the
+streaming plane's digital twin in process and ``twin-replica`` serves its
+picker over HTTP for a fleet (both on the card unless ``--device cpu``)."""
 
 from __future__ import annotations
 
@@ -34,7 +37,10 @@ _USAGE = (
     "       python -m seist_tpu_torch profile-step [--model-name NAME] [--batch N] [--steps N] "
     "[--dtype fp32|bf16] [--out DIR] ...\n"
     "       python -m seist_tpu_torch trace-report --trace ID [--endpoint URL ...] [--router URL] "
-    "[--from-bench F] [--json]"
+    "[--from-bench F] [--json]\n"
+    "       python -m seist_tpu_torch twin [--stations N] [--duration-s S] [--smoke] "
+    "[--device cpu] [--output F] [--export-schedule F] ...\n"
+    "       python -m seist_tpu_torch twin-replica [--journal-dir D] [--device cpu] ..."
 )
 
 
@@ -92,6 +98,15 @@ def main(argv=None) -> None:
         from seist_tpu_torch.trace_report import main as report_main
 
         sys.exit(report_main(argv[1:]))
+    elif argv and argv[0] == "twin":
+        from seist_tpu_torch.twin import main as twin_main
+
+        sys.exit(twin_main(argv[1:]))
+    elif argv and argv[0] == "twin-replica":
+        from seist_tpu_torch.serve.server import exit_process
+        from seist_tpu_torch.twin_replica import main as replica_main
+
+        exit_process(replica_main(argv[1:]))
     else:
         raise SystemExit(_USAGE)
 

@@ -128,6 +128,103 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- interpolate
+#: (l_in, out_size, kind, dtype, device) -> the fixed-order gather table of
+#: a resampling's backward (:func:`_gather_table`), filled by eager calls.
+_GATHER_TABLES: dict = {}
+
+
+def _linear_taps(l_in: int, out_size: int, device, dtype):
+    """The two source samples and the blend weight of each output sample."""
+    dst = torch.arange(out_size, dtype=torch.float32, device=device)
+    src = ((dst + 0.5) * (l_in / out_size) - 0.5).clamp(0.0, l_in - 1)
+    lo = torch.floor(src).long()
+    hi = torch.clamp(lo + 1, max=l_in - 1)
+    return lo, hi, (src - lo.float()).to(dtype)
+
+
+def _nearest_taps(l_in: int, out_size: int, device):
+    src = torch.arange(out_size, dtype=torch.float32, device=device) * (l_in / out_size)
+    return torch.floor(src).long()
+
+
+def _gather_table(l_in: int, out_size: int, kind: str, dtype, device):
+    """For each source sample, the output samples it fed, in ascending
+    order (the linear kind's ``lo`` taps before its ``hi`` taps), and the
+    weight of each: ``(dst, coef)``, both ``(l_in, K)``. Empty slots point
+    at output ``out_size`` (a zero row the backward appends) with weight 0.
+    ``coef`` is None for the nearest kind (every weight 1).
+
+    The contributions are sorted by source (a stable sort), so every
+    source's lie in one run; ``K`` is the longest run, read once on the
+    host in an eager call and cached, and inside a graph capture the bound
+    ``2·(ceil(1.5·out/l_in) + 2)`` (nothing is cached there: a tensor made
+    during a capture holds its values only once the graph replays)."""
+    key = (l_in, out_size, kind, dtype, str(device))
+    hit = _GATHER_TABLES.get(key)
+    if hit is not None:
+        return hit
+    dest = torch.arange(out_size, device=device)
+    if kind == "linear":
+        lo, hi, w = _linear_taps(l_in, out_size, device, dtype)
+        keys, dest, coefs = torch.cat([lo, hi]), torch.cat([dest, dest]), torch.cat([1.0 - w, w])
+    else:
+        keys, coefs = _nearest_taps(l_in, out_size, device), None
+    order = torch.sort(keys, stable=True)[1]
+    sorted_keys = keys[order]
+    sources = torch.arange(l_in, device=device)
+    start = torch.searchsorted(sorted_keys, sources)
+    stop = torch.searchsorted(sorted_keys, sources, right=True)
+    capturing = device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    if capturing:
+        k = (2 if kind == "linear" else 1) * (math.ceil(1.5 * out_size / l_in) + 2)
+    else:
+        k = max(1, int((stop - start).max()))
+    slot = start[:, None] + torch.arange(k, device=device)[None, :]
+    valid = slot < stop[:, None]
+    taken = order[slot.clamp(max=keys.numel() - 1)]
+    table = (torch.where(valid, dest[taken], out_size),
+             None if coefs is None else torch.where(valid, coefs[taken], 0.0))
+    if not capturing:
+        _GATHER_TABLES[key] = table
+    return table
+
+
+def _fixed_order_backward(g: torch.Tensor, l_in: int, kind: str) -> torch.Tensor:
+    """The input gradient of a resampling along axis 1: each source sums
+    what its outputs send back in one fixed order (a gather and a sum over
+    the table's slots), where autograd's ``index_select`` backward adds
+    them with atomics in whatever order the card's threads arrive."""
+    dst, coef = _gather_table(l_in, g.shape[1], kind, g.dtype, g.device)
+    taps = F.pad(g, (0, 0, 0, 1))[:, dst]  # (N, l_in, K, C)
+    if coef is not None:
+        taps = taps * coef[None, :, :, None]
+    return taps.sum(dim=2)
+
+
+class _LinearResample(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lo, hi, w):
+        ctx.l_in = x.shape[1]
+        return x.index_select(1, lo) * (1.0 - w) + x.index_select(1, hi) * w
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return _fixed_order_backward(g, ctx.l_in, "linear"), None, None, None
+
+
+class _NearestResample(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.l_in = x.shape[1]
+        return x.index_select(1, idx)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return _fixed_order_backward(g, ctx.l_in, "nearest"), None
+
+
 def interpolate_linear(x: torch.Tensor, out_size: int) -> torch.Tensor:
     """F.interpolate(mode='linear', align_corners=False) on (N, L, C).
 
@@ -136,29 +233,27 @@ def interpolate_linear(x: torch.Tensor, out_size: int) -> torch.Tensor:
     package computes it (``F.interpolate`` rounds the source index
     differently, by up to 4e-6 at L_in = 64). The JAX package's
     gather-free path for integer factors is a TPU lowering of the same
-    formula."""
+    formula. The backward sums each source's contributions in a fixed
+    order (:func:`_fixed_order_backward`), so a train step repeats bit
+    for bit on the card."""
     l_in = x.shape[-2]
     if l_in == out_size:
         return x
-    dst = torch.arange(out_size, dtype=torch.float32, device=x.device)
-    src = ((dst + 0.5) * (l_in / out_size) - 0.5).clamp(0.0, l_in - 1)
-    lo = torch.floor(src).long()
-    hi = torch.clamp(lo + 1, max=l_in - 1)
-    w = (src - lo.float())[None, :, None].to(x.dtype)
-    return x.index_select(1, lo) * (1.0 - w) + x.index_select(1, hi) * w
+    lo, hi, w = _linear_taps(l_in, out_size, x.device, x.dtype)
+    return _LinearResample.apply(x, lo, hi, w[None, :, None])
 
 
 def interpolate_nearest(x: torch.Tensor, out_size: int) -> torch.Tensor:
     """F.interpolate(mode='nearest') on (N, L, C): source index
     ``floor(d * L_in/L_out)`` in float32, as the JAX package computes it
-    (``common.py:211``); an integer upscale repeats each sample."""
+    (``common.py:211``); an integer upscale repeats each sample. The
+    gather's backward sums in a fixed order, as ``interpolate_linear``'s."""
     l_in = x.shape[-2]
     if l_in == out_size:
         return x
     if out_size % l_in == 0:
         return x.repeat_interleave(out_size // l_in, dim=-2)
-    src = torch.arange(out_size, dtype=torch.float32, device=x.device) * (l_in / out_size)
-    return x.index_select(1, torch.floor(src).long())
+    return _NearestResample.apply(x, _nearest_taps(l_in, out_size, x.device))
 
 
 def upsample_x2(x: torch.Tensor) -> torch.Tensor:
@@ -185,7 +280,12 @@ class Conv1d(nn.Module):
     """Channels-last conv1d: (N, L, Cin) -> (N, L_out, Cout), VALID padding.
     ``groups`` > 1 covers the depthwise and grouped convs of the JAX
     package (their lowering choices are XLA's and are not ported);
-    ``dilation`` the causal TCN's."""
+    ``dilation`` the causal TCN's. The forward is ``F.conv1d``. A
+    one-group convolution's backward sums in a fixed order
+    (:func:`conv_input_grad`, :func:`conv_weight_grad`), so a train step
+    repeats bit for bit on the card, where cuDNN's default weight and input
+    gradients of these long, narrow convolutions add with atomics; a
+    depthwise one keeps torch's own kernels, which repeat."""
 
     def __init__(
         self,
@@ -213,11 +313,67 @@ class Conv1d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv1d(
-            x.transpose(1, 2), self.weight, self.bias, self.stride, 0, self.dilation,
-            self.groups,
-        )
+        if self.groups == 1:
+            return _FixedOrderConv.apply(x, self.weight, self.bias, self.stride, self.dilation)
+        y = F.conv1d(x.transpose(1, 2), self.weight, self.bias, self.stride, 0, self.dilation,
+                     self.groups)
         return y.transpose(1, 2)
+
+
+def conv_weight_grad(g: torch.Tensor, x: torch.Tensor, kernel_size: int, stride: int,
+                     dilation: int) -> torch.Tensor:
+    """The weight gradient of a channels-last one-group conv1d in a fixed
+    order: ``g`` (N, L_out, Cout), ``x`` the conv's input (N, L, Cin) ->
+    (Cout, Cin, K). The input's windows are unfolded into one (N·L_out,
+    Cin·K) matrix and multiplied by ``g``: one product, whose sums cuBLAS
+    orders the same way on every call."""
+    n, l_out, c_out = g.shape
+    cols = x.unfold(1, (kernel_size - 1) * dilation + 1, stride)[:, :l_out]
+    if dilation > 1:
+        cols = cols[..., ::dilation]
+    cols = cols.reshape(n * l_out, -1)  # (N·L_out, Cin·K), the weight's layout
+    return (g.reshape(n * l_out, c_out).t() @ cols).view(c_out, -1, kernel_size)
+
+
+def conv_input_grad(g: torch.Tensor, weight: torch.Tensor, l_in: int, stride: int,
+                    dilation: int) -> torch.Tensor:
+    """The input gradient of a channels-last one-group conv1d as a forward
+    convolution: ``g`` (N, L_out, Cout), spread over the stride and padded
+    by the kernel's reach, correlated with the flipped, transposed kernel
+    -> (N, l_in, Cin). A forward convolution adds no atomics on the card,
+    where cuDNN's input-gradient kernels may."""
+    n, l_out, c_out = g.shape
+    gt = g.transpose(1, 2)
+    if stride > 1:
+        spread = gt.new_zeros(n, c_out, (l_out - 1) * stride + 1)
+        spread[..., ::stride] = gt
+        gt = spread
+    reach = (weight.shape[2] - 1) * dilation
+    gx = F.conv1d(gt, weight.transpose(0, 1).flip(-1), None, 1, reach, dilation)
+    if gx.shape[-1] < l_in:  # input samples no window reached
+        gx = F.pad(gx, (0, l_in - gx.shape[-1]))
+    return gx.transpose(1, 2)
+
+
+class _FixedOrderConv(torch.autograd.Function):
+    """A one-group channels-last conv1d whose backward sums in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, dilation):
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (stride, dilation)
+        return F.conv1d(x.transpose(1, 2), weight, bias, stride, 0, dilation).transpose(1, 2)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        stride, dilation = ctx.conf
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        gx = conv_input_grad(g, weight, x.shape[1], stride, dilation) if need_x else None
+        gw = conv_weight_grad(g, x, weight.shape[2], stride, dilation) if need_w else None
+        gb = g.sum(dim=(0, 1)) if need_b else None
+        return gx, gw, gb, None, None
 
 
 class ConvTranspose1d(nn.Module):

@@ -10,8 +10,8 @@ stitching, in torch (the port's counterpart of ``seist_tpu/ops/stream.py``).
   the record is always covered. ``annotate`` cuts the windows one batch at
   a time, so the host holds O(batch) of them whatever the record's length.
 * Stitching combines overlapping windows on the device: the elementwise
-  maximum (``index_reduce_`` with ``amax``) or the mean (``index_add_`` of
-  values and of hit counts).
+  maximum (``index_reduce_`` with ``amax``) or the mean (the covering
+  windows added in ascending offset order, and counted).
 * ``annotate`` runs the whole path: it pads the last batch to the batch
   size by repeating its last window (so ONE program serves every record
   length), stitches on the device of the forward's outputs, picks with
@@ -54,24 +54,52 @@ def sliding_windows(record: np.ndarray, window: int, stride: int
 def stitch_probs(probs: torch.Tensor, offsets: Any, total_len: int,
                  combine: str = "mean") -> torch.Tensor:
     """Combine overlapping windows' probabilities back onto the record:
-    ``probs`` (n, window, C) and ``offsets`` (n,) -> (total_len, C), on
-    ``probs``' device. ``'mean'`` averages the k windows covering a sample;
-    ``'max'`` takes their maximum (a pick near one window's edge is never
-    attenuated by a neighbour that missed it)."""
+    ``probs`` (n, window, C) and ``offsets`` (n,, ascending) -> (total_len,
+    C), on ``probs``' device. ``'mean'`` averages the k windows covering a
+    sample; ``'max'`` takes their maximum (a pick near one window's edge is
+    never attenuated by a neighbour that missed it).
+
+    The mean adds the windows covering a sample in ascending offset order,
+    as ``stream/session.py`` does, by a fold over the covering rank
+    (:func:`_fold_windows`): no atomic sum, so the card gives the same bits
+    on every call."""
     n, window, c = probs.shape
-    offsets = torch.as_tensor(np.asarray(offsets), dtype=torch.long, device=probs.device)
-    flat_pos = (offsets[:, None]
-                + torch.arange(window, device=probs.device)[None, :]).reshape(-1)
-    flat = probs.reshape(-1, c)
-    out = torch.zeros((total_len, c), dtype=probs.dtype, device=probs.device)
+    host = np.asarray(offsets)
+    offsets = torch.as_tensor(host, dtype=torch.long, device=probs.device)
     if combine == "max":
-        return out.index_reduce_(0, flat_pos, flat, "amax", include_self=True)
+        flat_pos = (offsets[:, None]
+                    + torch.arange(window, device=probs.device)[None, :]).reshape(-1)
+        out = torch.zeros((total_len, c), dtype=probs.dtype, device=probs.device)
+        return out.index_reduce_(0, flat_pos, probs.reshape(-1, c), "amax", include_self=True)
     if combine != "mean":
         raise ValueError(f"unknown combine {combine!r}")
-    out.index_add_(0, flat_pos, flat)
-    hits = torch.zeros((total_len,), dtype=probs.dtype, device=probs.device)
-    hits.index_add_(0, flat_pos, torch.ones_like(flat_pos, dtype=probs.dtype))
-    return out / torch.clamp(hits, min=1.0)[:, None]
+    steps = np.diff(host)
+    stride = int(steps[steps > 0].min()) if (steps > 0).any() else window
+    acc, hits = _fold_windows(probs, offsets, total_len, min(n, -(-window // stride)))
+    return acc / torch.clamp(hits, min=1.0)[:, None]
+
+
+def _fold_windows(probs: torch.Tensor, offsets: torch.Tensor, total_len: int, depth: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per sample, the sum of the windows covering it, added one covering
+    rank at a time from the lowest offset up, and their count: ``(acc
+    (total_len, C), hits (total_len,))``. Sample t's first window is the
+    first whose end passes t; ``depth`` bounds the windows covering one
+    sample (``ceil(window / smallest stride)``)."""
+    n, window, _ = probs.shape
+    dev = probs.device
+    pos = torch.arange(total_len, device=dev)
+    first = torch.searchsorted(offsets + window, pos, right=True)
+    acc = torch.zeros((total_len, probs.shape[2]), dtype=probs.dtype, device=dev)
+    hits = torch.zeros((total_len,), dtype=probs.dtype, device=dev)
+    for k in range(depth):
+        idx = first + k
+        row = idx.clamp(max=n - 1)
+        col = (pos - offsets[row]).clamp(0, window - 1)
+        ok = (idx < n) & (offsets[row] <= pos)
+        acc = acc + torch.where(ok[:, None], probs[row, col], 0.0)
+        hits = hits + ok.to(probs.dtype)
+    return acc, hits
 
 
 def annotate(

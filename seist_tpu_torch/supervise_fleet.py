@@ -510,6 +510,10 @@ def _monitor(
     one state-machine tick per loop — crash handling for the REST of the
     fleet keeps running mid-roll."""
     rollout: Optional[FleetRollout] = None
+    #: Each replica's stream stations as last read while it was known
+    #: alive: the router re-homes a dead replica's stations at their next
+    #: packets, which can come before this loop polls the exit.
+    homed_alive: Dict[str, int] = {}
     while not stop.is_set():
         if hup is not None and hup["count"] > hup["seen"]:
             hup["seen"] = hup["count"]
@@ -533,6 +537,9 @@ def _monitor(
         if rollout is not None and not rollout.done:
             rollout.advance(router.registry, _probe_replica)
         active = 0
+        # Read before any exit is polled, so a replica polled alive below
+        # had these stations while it lived.
+        by_replica = router.affinity.snapshot()["by_replica"]
         for slot in slots:
             if slot.retired:
                 continue
@@ -553,6 +560,7 @@ def _monitor(
                 slot.failures = 0
             rc = slot.proc.poll()
             if rc is None:
+                homed_alive[slot.url] = by_replica.get(slot.url, 0)
                 continue
             slot.proc = None
             # Pull it from rotation NOW — the router should stop routing
@@ -562,8 +570,9 @@ def _monitor(
             # replica was home to. They re-home to survivors on their
             # next packet (journal restore / gap-stitch re-warm); the
             # chaos lane greps this line to time the re-home.
-            homed = router.affinity.snapshot()["by_replica"].get(
-                slot.url, 0
+            homed = max(
+                homed_alive.pop(slot.url, 0),
+                router.affinity.snapshot()["by_replica"].get(slot.url, 0),
             )
             if homed:
                 _log(

@@ -450,3 +450,47 @@ def test_supervisor_retires_a_crash_looping_slot_and_exits_1():
     proc.err_thread.join(timeout=10)
     err = "".join(proc.err)
     assert rc == 1 and "budget exhausted" in err and "slot retired" in err, err
+
+
+def test_crash_reports_the_stations_the_router_rehomed_before_the_poll(capsys):
+    """A replica's death is polled every 0.2 s, and the router may move all
+    of its stations to survivors at their next packets before that poll:
+    the supervisor still reports the stations it was home to."""
+    from types import SimpleNamespace
+
+    from seist_tpu_torch.serve.router import StationAffinity
+
+    dead, alive = "127.0.0.1:9100", "127.0.0.1:9101"
+    affinity = StationAffinity()
+    stations = [f"ST{i:02d}" for i in range(5)]
+    for st in stations:
+        affinity.note(st, dead)
+    stop = threading.Event()
+    marked = []
+
+    class Proc:
+        calls = 0
+
+        def poll(self):
+            Proc.calls += 1
+            if Proc.calls == 1:  # alive; then it dies and is re-homed
+                for st in stations:
+                    affinity.note(st, alive)
+                return None
+            return -9
+
+    slot = SimpleNamespace(index=0, url=dead, proc=Proc(), retired=False, failures=0,
+                           started_at=time.monotonic(), restart_at=None,
+                           spawn=stop.set)
+    registry = SimpleNamespace(mark_down=lambda url, reason="": marked.append(url),
+                               add=lambda url: None, remove=lambda url: None)
+    router = SimpleNamespace(registry=registry, affinity=affinity)
+    args = SimpleNamespace(retries=3, backoff=0.0, healthy_reset_s=60.0, rollout_file="")
+    thread = threading.Thread(target=tfleet._monitor, args=([slot], router, args, stop))
+    thread.start()
+    thread.join(timeout=30)
+    assert not thread.is_alive()
+    err = capsys.readouterr().err
+    assert marked == [dead] and affinity.snapshot()["by_replica"] == {alive: 5}
+    assert "replica 0 was stream home to 5 stations" in err, err
+    assert "replica 0 crashed rc=-9; relaunch" in err, err

@@ -250,3 +250,20 @@ def test_the_parallel_layer_is_covered():
             "seist_tpu_torch.parallel.mesh", "seist_tpu_torch.parallel.comm",
             "seist_tpu_torch.parallel.check", "seist_tpu_torch.ops.ring_attention"} <= mods
     assert "seist_tpu_torch.parallel.collectives" not in mods
+
+
+def test_the_twin_modules_are_covered_and_need_cuda_unless_cpu_is_asked_for():
+    """``twin``, ``twin_replica`` and ``stream_chaos`` are among the
+    modules checked above; the twin's picker runs on ``cuda`` unless the
+    caller asks for the CPU, and without a GPU it raises."""
+    from seist_tpu_torch import twin
+
+    modules = set(_modules())
+    assert {"seist_tpu_torch.twin", "seist_tpu_torch.twin_replica",
+            "seist_tpu_torch.stream_chaos"} <= modules
+    assert twin.get_args([]).device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        twin.TwinPickEntry(256, "cuda")
+    assert twin.TwinPickEntry(256, "cpu").device.type == "cpu"
