@@ -1,0 +1,35 @@
+"""attn_fwd_roofline.train: the pooled-attention forward kernel's share of
+its roofline in the train step.
+
+Work per attention call of (L, M, H, E) at batch N, 4-byte elements, each
+input read once and each output written once: q (L), k and v (M) read, o
+(L) and the log-sum-exp (N·H·L floats, kept for the backward) written;
+``4·N·L·M·H·E`` operations (the two products). The least time is the
+larger of the bytes over the card's HBM bandwidth and the operations over
+its TF32 tensor-core peak (the kernel computes fp32 products on the tensor
+cores). Summed over the configuration's attention calls, over the device
+seconds of the kernels named ``KERNELS`` in the traced steps. In %.
+"""
+
+KERNELS = r"seist::.*\bfwd_kernel<|5seist.*10fwd_kernelI"
+
+
+def work(n, length, m, heads, e):
+    """(operations, bytes) of one call."""
+    ops = 4 * n * length * m * heads * e
+    nbytes = 4 * n * heads * e * (2 * length + 2 * m) + 4 * n * heads * length
+    return ops, nbytes
+
+
+def read(run):
+    t = run.get("trace")
+    calls = run["config"].get("attention_calls") or []
+    if run.get("lane") != "train" or t is None or not calls:
+        return None
+    secs, launches = t.kernel_seconds(KERNELS)
+    if launches == 0:
+        return None
+    peak, bw = run["peaks"]["flops"]["tf32_tensor"], run["peaks"]["hbm_bytes_per_s"]
+    least = sum(max(o / peak, b / bw) for o, b in
+                (work(run["batch"], *c) for c in calls)) * t.calls
+    return 100.0 * least / secs
